@@ -1,0 +1,235 @@
+"""Training / evaluation CLI — PyTorch counterpart of `nngp_tpu/cli/train.py`.
+
+    python -m nngp_tpu_torch.cli.train --kernel_type nngp \
+        --query_path workloads/forest_data --device cuda
+
+Load the single-table workload -> seed-10 60/20/20 split -> fit the exact
+GP on the NNGP or NTK kernel -> report MSE, the partitioned q-error profile
+and the symmetric q-error line. Same flags and printed lines as the JAX
+CLI, plus --device (default cuda; no fallback to the CPU). fp32 by default,
+fp64 with --x64 on either device.
+
+Paths not ported yet stop with an error naming their ROADMAP item.
+"""
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from nngp_tpu.eval.qerror import (PredictionStatistics, qerror_profile,
+                                  symmetric_qerror)
+from nngp_tpu.eval.splits import train_test_val_split
+from nngp_tpu_torch.data.workload import load_single_table_workload
+from nngp_tpu_torch.gp import fit_gp
+from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
+from nngp_tpu_torch.utils.device import resolve_device, working_dtype
+from nngp_tpu_torch.utils.timing import Timer
+
+# flag -> ROADMAP item that ports its path; setting one to anything but its
+# default stops the CLI
+_NOT_PORTED = {
+    "nystrom_m": "Queue A #10 (gp/nystrom.py)",
+    "nystrom_moments": "Queue A #10 (gp/nystrom.py)",
+    "learn_hyper": "Queue A #9 (gp/hyperopt.py)",
+    "hyper_steps": "Queue A #9 (gp/hyperopt.py)",
+    "hyper_points": "Queue A #9 (gp/hyperopt.py)",
+    "ard": "Queue A #9 (gp/hyperopt.py)",
+    "hyper_objective": "Queue A #9 (gp/hyperopt.py)",
+    "select_kernel": "Queue A #9 (gp/hyperopt.py)",
+    "select_reg": "Queue A #3 (select_diag_reg)",
+    "hyper_file": "Queue A #9 (gp/hyperopt.py)",
+    "schema_name": "Queue A #7 (multi-join workloads, with the Estimator)",
+    "profile_dir": "Queue A #13 (utils/profiling.py)",
+    "config": "Queue A #13 (utils/config.py)",
+}
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        "nngp_tpu_torch trainer",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; cuda raises when no GPU is present")
+    p.add_argument("--kernel_type", type=str, default="nngp",
+                   choices=["nngp", "ntk", "gp"],
+                   help="posterior semantics ('gp' is not ported yet)")
+    p.add_argument("--chunk_norm", action="store_true",
+                   help="rescale packed categorical chunk slots onto the "
+                        "[0,1000] numeric scale")
+    p.add_argument("--chunk_size", type=int, default=64,
+                   help="factorized-encoding chunk width")
+    p.add_argument("--relations", type=str, default="forest")
+    p.add_argument("--names", type=str, default="forest")
+    p.add_argument("--schema_name", type=str, default=None,
+                   help="multi-join schema (not ported yet)")
+    p.add_argument("--query_path", type=str, default="workloads/forest_data")
+    p.add_argument("--data_path", type=str, default=None,
+                   help="raw CSV dir (not ported yet; stats come from the "
+                        "query scan / stats JSON)")
+    p.add_argument("--diag_reg", type=float, default=1e-3)
+    p.add_argument("--select_reg", type=str, default=None,
+                   help="not ported yet")
+    p.add_argument("--nystrom_m", type=int, default=None,
+                   help="not ported yet")
+    p.add_argument("--nystrom_moments", type=str, default="fp32",
+                   choices=("fp32", "df64"), help="not ported yet")
+    p.add_argument("--learn_hyper", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--hyper_file", type=str, default=None,
+                   help="not ported yet")
+    p.add_argument("--hyper_steps", type=int, default=100,
+                   help="not ported yet")
+    p.add_argument("--hyper_points", type=int, default=4096,
+                   help="not ported yet")
+    p.add_argument("--ard", action="store_true", help="not ported yet")
+    p.add_argument("--hyper_objective", type=str, default="auto",
+                   choices=["auto", "exact", "dtc"], help="not ported yet")
+    p.add_argument("--select_kernel", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--depth", type=int, default=1, help="hidden layers")
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--activation", type=str, default="relu",
+                   choices=["relu", "erf"])
+    p.add_argument("--w_std", type=float, default=1.0)
+    p.add_argument("--b_std", type=float, default=0.0)
+    p.add_argument("--x64", action="store_true", help="fp64")
+    p.add_argument("--train_frac", type=float, default=0.6)
+    p.add_argument("--test_frac", type=float, default=0.2)
+    p.add_argument("--max_num_train", type=int, default=None)
+    p.add_argument("--seed", type=int, default=10)
+    p.add_argument("--partition_keys", type=str, default=None,
+                   help="q-error partition attributes (default: "
+                        "num_predicates)")
+    p.add_argument("--calibration", action="store_true",
+                   help="print expected-vs-observed confidence levels")
+    p.add_argument("--uneven_split", type=str, default=None,
+                   help="skew train composition by these attributes "
+                        "(e.g. num_predicates)")
+    p.add_argument("--skew_ratio", type=float, default=0.5)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="not ported yet")
+    p.add_argument("--config", type=str, default=None,
+                   help="not ported yet")
+    return p
+
+
+def reject_unported(p, args):
+    if args.kernel_type == "gp":
+        p.error("--kernel_type gp is not ported yet (ROADMAP Queue A #11, "
+                "models/gp_rbf.py)")
+    if len(args.relations.split(",")) > 1:
+        p.error("binary-join workloads (a comma in --relations) are not "
+                "ported yet (ROADMAP Queue A #7)")
+    for flag, item in _NOT_PORTED.items():
+        if getattr(args, flag) != p.get_default(flag):
+            p.error(f"--{flag} is not ported yet (ROADMAP {item})")
+
+
+def _memory_usage_gb(device) -> dict:
+    """Host RSS (when psutil is installed) and, on CUDA, the device memory
+    held by tensors: the keys of `nngp_tpu.utils.memory.memory_usage_gb`."""
+    out = {}
+    try:
+        import psutil
+        out["host_rss_gb"] = psutil.Process().memory_info().rss / 1024 ** 3
+    except ImportError:
+        pass
+    if device.type == "cuda":
+        name = torch.cuda.get_device_name(device)
+        out[f"{name}:{device.index or 0}_gb"] = (
+            torch.cuda.memory_allocated(device) / 1024 ** 3)
+    return out
+
+
+def load_split(args):
+    """The workload of --query_path encoded and split as the flags say:
+    (x_tr, y_tr, infos_tr, x_te, y_te, infos_te), numpy, fp64 with --x64
+    and fp32 otherwise. Prints the query count and the split shapes."""
+    dtype = np.float64 if args.x64 else np.float32
+    x, y, infos, _enc = load_single_table_workload(
+        args.query_path, name=args.names.split(",")[0],
+        data_path=args.data_path, chunk_size=args.chunk_size, dtype=dtype,
+        chunk_norm=args.chunk_norm)
+    print(f"number of query: {x.shape[0]}  feature dim: {x.shape[1]}")
+
+    if args.uneven_split:
+        from nngp_tpu.eval.splits import uneven_train_test_split
+        (x_tr, y_tr, infos_tr, x_te, y_te, infos_te, *_rest) = \
+            uneven_train_test_split(
+                x, y, all_query_infos=infos,
+                skew_split_keys=args.uneven_split,
+                train_frac=args.train_frac, skew_ratio=args.skew_ratio,
+                seed=args.seed)
+    else:
+        (x_tr, y_tr, infos_tr, x_te, y_te, infos_te, *_rest) = \
+            train_test_val_split(
+                x, y, train_frac=args.train_frac, test_frac=args.test_frac,
+                seed=args.seed, all_query_infos=infos,
+                max_num_train=args.max_num_train)
+    print(f"train {x_tr.shape}  test {x_te.shape}")
+    return x_tr, y_tr, infos_tr, x_te, y_te, infos_te
+
+
+def spec_from_args(args) -> KernelSpec:
+    return KernelSpec(mlp(args.depth, args.width, args.activation,
+                          args.w_std, args.b_std))
+
+
+def main(argv=None):
+    p = build_parser()
+    args = p.parse_args(argv)
+    reject_unported(p, args)
+    device = resolve_device(args.device)
+    torch_dtype = working_dtype(args.x64)
+
+    x_tr, y_tr, _, x_te, y_te, infos_te = load_split(args)
+
+    timer = Timer(device)
+    spec = spec_from_args(args)
+    print("memory:", _memory_usage_gb(device))
+
+    def _fit():
+        # x_tr stays host numpy: the fp32 prescale probe is free there
+        return fit_gp(spec, x_tr, y_tr, diag_reg=args.diag_reg,
+                      get=args.kernel_type, device=device)
+
+    x_te_dev = torch.as_tensor(x_te, dtype=torch_dtype, device=device)
+    with timer.measure("kernel construction (fit: Gram + Cholesky, cold)"):
+        post = _fit()
+    with timer.measure("fit (warm)"):
+        post = _fit()
+    with timer.measure("inference (cold, incl. compile)"):
+        mean, std = post.predict_mean_std(x_te_dev)
+    with timer.measure("inference (warm)"):
+        mean, std = post.predict_mean_std(x_te_dev)
+    timer.report()
+    print("memory:", _memory_usage_gb(device))
+
+    mean = mean.cpu().numpy().ravel()
+    y_true = np.asarray(y_te).ravel()
+    mse = float(np.sum((mean - y_true) ** 2))
+    print(f"Mean Square Error: {mse}")
+
+    errors = mean - y_true
+    stat = PredictionStatistics()
+    stat.get_prediction_details(
+        errors, infos_te, partition_keys=args.partition_keys or "num_predicates")
+    q = symmetric_qerror(errors)
+    print(f"symmetric q-error: median={np.median(q):.4f} "
+          f"p95={np.quantile(q, 0.95):.4f} p99={np.quantile(q, 0.99):.4f} "
+          f"max={np.max(q):.4f}")
+    if args.calibration:
+        from nngp_tpu.eval.calibration import calibration_table
+        table = calibration_table(y_true, mean, std.cpu().numpy().ravel())
+        print("<" * 80)
+        print("Calibration Result:")
+        for level, observed in table.items():
+            print(f"Expected/Observed Confidence Level={level}/{observed}")
+        print(">" * 80)
+    return qerror_profile(errors)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

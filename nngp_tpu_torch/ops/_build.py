@@ -1,0 +1,112 @@
+"""Build and load the CUDA Gram kernels (`csrc/gram.cu`).
+
+The source is compiled with nvcc into a shared library with a plain C
+interface and loaded with ctypes: no PyTorch headers, so a build takes
+seconds. The library is cached under `.build/nngp_tpu_torch/` keyed by a
+hash of the source and the flags, so it is rebuilt whenever either
+changes. A build writes to a temporary path and renames it into place, so
+a killed nvcc never leaves a half-written library behind.
+
+There is no fallback: if nvcc is missing or the build fails, `load_library`
+raises with nvcc's stderr.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_REPO_ROOT = os.path.dirname(_PKG_DIR)
+SOURCE = os.path.join(_PKG_DIR, "csrc", "gram.cu")
+BUILD_DIR = os.path.join(_REPO_ROOT, ".build", "nngp_tpu_torch")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_SYM_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p,                 # x, dx
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,         # n, d, ldx
+    ctypes.c_void_p, ctypes.c_void_p,                 # diag0, diag1
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # out0, out1, ldo
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # kinds, w2, b2
+    ctypes.c_int, ctypes.c_int,                       # n_layers, want_ntk
+    ctypes.c_void_p,                                  # stream
+]
+_CROSS_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # x1, dx1, m, ld1
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # x2, dx2, n, ld2
+    ctypes.c_int,                                      # d
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,    # out0, out1, ldo
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # kinds, w2, b2
+    ctypes.c_int, ctypes.c_int,                        # n_layers, want_ntk
+    ctypes.c_void_p,                                   # stream
+]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin; the CUDA Gram "
+        "kernels need the CUDA toolkit to build")
+
+
+def library_path() -> str:
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libgram_{digest.hexdigest()[:16]}.so")
+
+
+def is_built() -> bool:
+    """Whether a library for the current source and flags is cached."""
+    return os.path.exists(library_path())
+
+
+def build() -> str:
+    """Compile the library if the cached one is missing; return its path."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp.{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name in ("gram_sym_f32", "gram_sym_f64"):
+                fn = getattr(lib, name)
+                fn.argtypes = _SYM_ARGTYPES
+                fn.restype = ctypes.c_int
+            for name in ("gram_cross_f32", "gram_cross_f64"):
+                fn = getattr(lib, name)
+                fn.argtypes = _CROSS_ARGTYPES
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

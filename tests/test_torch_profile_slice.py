@@ -1,0 +1,48 @@
+"""`nngp_tpu_torch.cli.profile_slice` on the CPU: the interval union that
+gives the device-busy time, and a small run of the whole script (on the
+CPU only the host-clock wall is measured; the device fields stay null)."""
+
+import os
+
+import pytest
+
+import tests.test_torch_common  # noqa: F401  (two torch threads)
+from nngp_tpu_torch.cli import profile_slice
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FOREST = os.path.join(REPO, "workloads", "forest_data")
+
+
+@pytest.mark.parametrize("intervals,want", [
+    ([], 0.0),
+    ([(0.0, 2.0)], 2.0),
+    ([(0.0, 2.0), (5.0, 6.5)], 3.5),              # disjoint
+    ([(0.0, 4.0), (1.0, 2.0)], 4.0),              # nested
+    ([(3.0, 6.0), (0.0, 4.0), (6.0, 7.0)], 7.0),  # overlapping, touching
+])
+def test_union_length(intervals, want):
+    assert profile_slice.union_length(intervals) == want
+
+
+@pytest.mark.parametrize("kernel_type", ["nngp", "ntk"])
+def test_profile_runs_on_the_cpu(kernel_type, capsys):
+    records = profile_slice.main([
+        "--device", "cpu", "--query_path", FOREST, "--max_num_train", "200",
+        "--kernel_type", kernel_type, "--reps", "1"])
+    out = capsys.readouterr().out
+    assert [r["phase"] for r in records] == ["fit", "predict"]
+    assert out.count('{"phase": ') == 2
+    for rec in records:
+        assert rec["kernel_type"] == kernel_type
+        assert rec["dtype"] == "float32"
+        assert (rec["n_train"], rec["n_test"]) == (200, 3600)
+        assert rec["wall_ms"] > 0
+        assert rec["busy_ms"] is None and rec["idle"] is None
+
+
+def test_profile_rejects_unported_flags_and_bad_reps(capsys):
+    for flags in (["--learn_hyper"], ["--reps", "0"]):
+        with pytest.raises(SystemExit) as exc:
+            profile_slice.main(["--device", "cpu", *flags])
+        assert exc.value.code == 2
+    capsys.readouterr()
