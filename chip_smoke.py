@@ -11,16 +11,26 @@ exits nonzero; nothing is caught and retried:
      `.build/` (reused when the source hash matches);
   3. kernels vs their plain PyTorch twins on the card: fp32 and fp64, nngp
      and ntk, relu/erf/abs/sin, depth 1 and 3, b_std 0 and 0.1, at ragged
-     sizes and at the forest shapes;
-  4. the slice: the training CLI on the full forest workload (fp32 nngp,
-     fp32 ntk, fp64 nngp) with the launch counters checked and the q-error
-     held against the fp64 anchors of `tests/test_parity_gate.py`;
+     sizes, at the forest shapes, and at the join widths d = 45, 61, 99;
+  4. the training slice: the training CLI on the full forest workload
+     (fp32 nngp, fp32 ntk, fp64 nngp) with the launch counters checked and
+     the q-error held against the fp64 anchors of
+     `tests/test_parity_gate.py`;
   5. times: warm fit and predict of the slice, the Cholesky and solves on
-     their own, and each kernel against its plain twin at the forest shapes.
+     their own, and each kernel against its plain twin at the forest shapes;
+  6. the serving slice on the 6-table synth6 join workload at full size
+     (10,800 train / 3,600 test / 3,600 validation lines, d = 61): the
+     Estimator in fp64 and fp32 against the synth6 fp64 anchor, launch
+     counts (a memo hit launches nothing), the kernels on the prescaled
+     real rows, an online extend against a refit, a checkpoint round
+     trip, 8 streaming clients, the TCP server with online feedback, and
+     uncertainty calibration, with times.
 
-The last three lines are the card line, one JSON object with a summary per
-kernel, and the result line `{"ok": true, "device": {...}}`. Without CUDA,
-or outside a checkout, the script fails before printing any result.
+Each path's launches are counted from 0 around it; the summary's
+`launches` are their sum over every path. The last three lines are the
+card line, one JSON object with a summary per kernel, and the result line
+`{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout, the
+script fails before printing any result.
 """
 
 import contextlib
@@ -55,31 +65,33 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def inputs(n, seed, dtype, device):
-    """(n, D) rows uniform in [0, 1000) from a seeded generator, with row 1
+def inputs(n, seed, dtype, device, d=D):
+    """(n, d) rows uniform in [0, 1000) from a seeded generator, with row 1
     zero and rows 2 and 3 one duplicated pair (rho = 1).
 
-    The duplicated rows are constant 512: with D = 20 their self-product
-    20 * 512^2 is exact in any summation order and K0 = 2^18 comes out
-    exactly under both division and multiplication by 1/D, in fp32 and
-    fp64. At rho = 1 the NTK and sin duals have unbounded slope, so a
-    one-ulp difference in K0 between two correct summation orders would
-    show there as ~1e-4 (fp32); an exact K0 lets the comparison see the
-    epilogue's own handling of rho = 1 (the clip, acos(1))."""
+    The duplicated rows are constant 512: their self-product d * 512^2 is
+    a multiple of 2^18 below 2^25, exact in any summation order, and
+    K0 = 2^18 comes out exactly under division by d, in fp32 and fp64
+    (both the kernels and their plain twins divide). At rho = 1 the NTK and
+    sin duals have unbounded slope, so a one-ulp difference in K0 between
+    two correct summation orders would show there as ~1e-4 (fp32); an
+    exact K0 lets the comparison see the epilogue's own handling of
+    rho = 1 (the clip, acos(1))."""
     rng = np.random.default_rng(seed)
-    x = rng.uniform(0.0, 1000.0, (n, D))
+    x = rng.uniform(0.0, 1000.0, (n, d))
     x[1] = 0.0
     x[2] = x[3] = 512.0
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
-def check_close(label, got, want, dtype, get):
-    """Elementwise bound: fp32 |k - plain| <= 2e-5 |plain| + 1e-3 (the
-    bound of tests/test_gram_pallas.py:23); fp64 rtol 1e-10 for nngp and
-    1e-7 for ntk (acos's slope at rho -> 1 turns a one-ulp difference in K0
-    into ~1e-8 in theta). Returns the largest absolute difference."""
+def check_close(label, got, want, dtype, get, atol=1e-3):
+    """Elementwise bound: fp32 |k - plain| <= 2e-5 |plain| + atol, atol
+    1e-3 for Grams of [0, 1000) features (the bound of
+    tests/test_gram_pallas.py:23); fp64 rtol 1e-10 for nngp and 1e-7 for
+    ntk (acos's slope at rho -> 1 turns a one-ulp difference in K0 into
+    ~1e-8 in theta). Returns the largest absolute difference."""
     if dtype == torch.float32:
-        bound = 2e-5 * want.abs() + 1e-3
+        bound = 2e-5 * want.abs() + atol
     else:
         bound = (1e-10 if get == "nngp" else 1e-7) * want.abs()
     if not bool(torch.isfinite(got).all()):
@@ -96,7 +108,7 @@ def check_close(label, got, want, dtype, get):
     return float(err.max())
 
 
-def compare_sym(spec, x, label):
+def compare_sym(spec, x, label, atol=1e-3):
     """gram_sym vs gram_sym_plain for nngp+ntk and nngp alone, called as
     the fit calls it (exact diagonals passed in, the fit's ridge fused);
     the diagonal must be the exact recursion bit for bit and the output
@@ -110,8 +122,8 @@ def compare_sym(spec, x, label):
     k, t = gram_sym(spec, x, ("nngp", "ntk"), diag_add=reg, diag=diag)
     torch.cuda.synchronize()
     pk, pt = gram_sym_plain(spec, x, ("nngp", "ntk"), diag_add=reg)
-    err = check_close(f"{label} nngp", k, pk, x.dtype, "nngp")
-    check_close(f"{label} ntk", t, pt, x.dtype, "ntk")
+    err = check_close(f"{label} nngp", k, pk, x.dtype, "nngp", atol)
+    check_close(f"{label} ntk", t, pt, x.dtype, "ntk", atol)
     if not (torch.equal(k.diagonal(), dn)
             and torch.equal(t.diagonal(), dt + reg)):
         raise AssertionError(f"{label}: diagonal is not the exact recursion")
@@ -121,24 +133,24 @@ def compare_sym(spec, x, label):
     torch.cuda.synchronize()
     pk1 = gram_sym_plain(spec, x, "nngp", diag_add=reg)
     err = max(err, check_close(f"{label} nngp-only", k1, pk1, x.dtype,
-                               "nngp"))
+                               "nngp", atol))
     if not torch.equal(k1.diagonal(), dn + reg):
         raise AssertionError(f"{label}: nngp-only diagonal is not exact")
     return err
 
 
-def compare_cross(spec, x1, x2, label):
+def compare_cross(spec, x1, x2, label, atol=1e-3):
     from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_cross_plain
 
     k, t = gram_cross(spec, x1, x2, ("nngp", "ntk"))
     torch.cuda.synchronize()
     pk, pt = gram_cross_plain(spec, x1, x2, ("nngp", "ntk"))
-    err = check_close(f"{label} nngp", k, pk, x1.dtype, "nngp")
-    check_close(f"{label} ntk", t, pt, x1.dtype, "ntk")
+    err = check_close(f"{label} nngp", k, pk, x1.dtype, "nngp", atol)
+    check_close(f"{label} ntk", t, pt, x1.dtype, "ntk", atol)
     k1 = gram_cross(spec, x1, x2, "nngp")
     torch.cuda.synchronize()
     return max(err, check_close(f"{label} nngp-only", k1, pk, x1.dtype,
-                                "nngp"))
+                                "nngp", atol))
 
 
 def check_ragged(device):
@@ -216,11 +228,12 @@ def run_slice(argv):
 
 
 def check_slice(device_name):
+    """The three forest CLI runs; returns their launches summed."""
     runs = [("fp32 nngp", ["--kernel_type", "nngp"], "nngp", 0.01, 0.03),
             ("fp32 ntk", ["--kernel_type", "ntk"], "ntk", 0.01, 0.03),
             ("fp64 nngp", ["--kernel_type", "nngp", "--x64"], "nngp",
              2e-3, 2e-3)]
-    first = None
+    total = {"sym": 0, "cross": 0}
     for label, extra, get, tol_med, tol_p95 in runs:
         print(f"slice {label}:")
         argv = ["--device", device_name, "--query_path", FOREST, *extra]
@@ -230,9 +243,9 @@ def check_slice(device_name):
             raise AssertionError(
                 f"slice {label}: median {med} / p95 {p95} outside rel "
                 f"{tol_med} / {tol_p95} of the fp64 anchors {a_med} / {a_p95}")
-        if first is None:
-            first = launches
-    return first
+        for key in total:
+            total[key] += launches[key]
+    return total
 
 
 def _event_ms(fn, reps):
@@ -308,17 +321,6 @@ def time_slice(device):
     def fit():
         return fit_gp(spec, x_tr, y_tr, get="nngp", device=device)
 
-    def host_ms(fn, reps=5):
-        fn()
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(out))
-
     post = fit()
     fit_ms = host_ms(fit)
     predict_ms = host_ms(lambda: post.predict_mean_std(x_te))
@@ -332,6 +334,489 @@ def time_slice(device):
           f"test: warm fit {fit_ms!r} ms, warm predict {predict_ms!r} ms; "
           f"inside the fit: cholesky {chol_ms!r} ms, alpha solves "
           f"{solve_ms!r} ms")
+
+
+# ------------------------------------------------- join widths and serving
+JOIN_WIDTHS = (45, 61, 99)   # synthtpch, synth6, synthtpcds feature widths
+SYNTH6 = "workloads/synth6_join_data"
+SYNTH6_STATS = "workloads/synth6_stats"
+# fp64 (median, p95) of the symmetric q-error on the synth6 raw encoding,
+# seed-10 60/20/20 split (tests/test_parity_gate.py:92-100)
+SYNTH6_ANCHOR = (9.776, 5504.05)
+N_TRAIN, N_TEST = 10800, 3600
+EXTEND_BATCHES = 4
+CHUNK = 8192                 # rows per predict chunk (predict_mean_std_chunked)
+
+
+def check_join_widths(device):
+    """Both kernels at the join workloads' feature widths, which take the
+    kernels' 32-feature staging loop through 2-4 passes: fp32 and fp64,
+    relu and erf, nngp and ntk, at ragged sizes."""
+    from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
+
+    n_cases = 0
+    for d in JOIN_WIDTHS:
+        for dtype in (torch.float32, torch.float64):
+            x = inputs(RAGGED_N, 4, dtype, device, d)
+            x1 = inputs(RAGGED_M, 5, dtype, device, d)
+            for act in ("relu", "erf"):
+                spec = KernelSpec(mlp(1, activation=act))
+                label = f"d={d} {str(dtype)[6:]} {act}"
+                compare_sym(spec, x, f"sym {label}")
+                compare_cross(spec, x1, x, f"cross {label}")
+                n_cases += 1
+    print(f"join-width kernel checks: {n_cases} (d, dtype, activation) "
+          f"cases at d={JOIN_WIDTHS}, sym n={RAGGED_N}, cross (m, n)="
+          f"({RAGGED_M}, {RAGGED_N}): all within tolerance")
+
+
+def check_prescaled_rows(spec, x_train, x_test):
+    """Both kernels, fp32, on synth6's real rows after the 2^64 prescale:
+    entries span 1e-34 .. 1e-2, so the bound is 2e-5 relative plus 1e-6 of
+    the largest entry. Prints the largest relative difference among
+    entries above that floor."""
+    from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_cross_plain
+
+    want = gram_cross_plain(spec, x_test, x_train, "nngp")
+    atol = 1e-6 * float(want.abs().max())
+    compare_sym(spec, x_train, "sym synth6 prescaled fp32", atol)
+    compare_cross(spec, x_test, x_train, "cross synth6 prescaled fp32", atol)
+    got = gram_cross(spec, x_test, x_train, "nngp")
+    big = want.abs() > atol
+    rel = float(((got - want).abs()[big] / want.abs()[big]).max())
+    print(f"synth6 prescaled fp32 kernel checks: sym {tuple(x_train.shape)},"
+          f" cross {tuple(x_test.shape)} x {tuple(x_train.shape)}: within "
+          f"tolerance, max rel diff {rel!r} above {atol!r}")
+
+
+def synth6_lines():
+    """(train, test_labeled, val) lines of the seed-10 60/20/20 split of
+    synth6, as `nngp_tpu/eval/splits.py:22-24` orders them: the files in
+    sorted order, blanks skipped, indices shuffled by random.seed(10)."""
+    import os
+    import random
+
+    lines = []
+    for fname in sorted(os.listdir(SYNTH6)):
+        with open(os.path.join(SYNTH6, fname)) as f:
+            lines.extend(l.strip() for l in f if l.strip())
+    idx = list(range(len(lines)))
+    random.seed(10)
+    random.shuffle(idx)
+    lines = [lines[i] for i in idx]
+    return (lines[:N_TRAIN], lines[N_TRAIN:N_TRAIN + N_TEST],
+            lines[N_TRAIN + N_TEST:])
+
+
+def qerror(mean, y):
+    """(median, p95) of the symmetric q-error max(pred/true, true/pred) =
+    2^|log2 pred - log2 true|."""
+    q = np.exp2(np.abs(np.asarray(mean, np.float64) - y))
+    if not np.all(np.isfinite(q)):
+        raise AssertionError("non-finite prediction")
+    return float(np.median(q)), float(np.quantile(q, 0.95))
+
+
+def reset_launches():
+    from nngp_tpu_torch.ops import gram_cuda
+
+    for key in gram_cuda.LAUNCHES:
+        gram_cuda.LAUNCHES[key] = 0
+
+
+def read_launches():
+    from nngp_tpu_torch.ops import gram_cuda
+
+    return dict(gram_cuda.LAUNCHES)
+
+
+def expect_launches(label, got, want, total):
+    """Fail unless the path launched exactly `want`; add to `total`."""
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    for key in total:
+        total[key] += got[key]
+    print(f"  {label}: launches {got}")
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of fn() between two device syncs, after one call."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def build_estimator(train_dir, dtype, device):
+    """The synth6 Estimator on `device`: (estimator, construction s)."""
+    from nngp_tpu_torch.serve import Estimator
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        est = Estimator("synth6", None, train_dir, stats_dir=SYNTH6_STATS,
+                        dtype=dtype, device=device)
+    torch.cuda.synchronize()
+    return est, time.perf_counter() - t0
+
+
+def serve_and_check(est, label, test, test_y, tol_med, tol_p95, total):
+    """Predict the test lines twice: the first predict launches one
+    gram_cross per 8,192-row chunk, the second is served from the memo and
+    launches nothing. Holds the q-error against the synth6 fp64 anchor."""
+    reset_launches()
+    mean, std = est.predict(test)
+    torch.cuda.synchronize()
+    chunks = -(-len(test) // CHUNK)
+    expect_launches(f"{label} predict", read_launches(),
+                    {"sym": 0, "cross": chunks}, total)
+    reset_launches()
+    mean2, std2 = est.predict(test)
+    if read_launches() != {"sym": 0, "cross": 0}:
+        raise AssertionError(f"{label}: a memo hit launched a kernel")
+    if not (np.array_equal(mean, mean2) and np.array_equal(std, std2)):
+        raise AssertionError(f"{label}: memo hit differs from the predict")
+    if not (np.all(np.isfinite(std)) and np.all(std >= 0)):
+        raise AssertionError(f"{label}: std not finite and >= 0")
+    med, p95 = qerror(mean, test_y)
+    a_med, a_p95 = SYNTH6_ANCHOR
+    print(f"  {label}: symmetric q-error median={med!r} p95={p95!r} "
+          f"(fp64 anchor {a_med} / {a_p95}); input_scale "
+          f"{est.posterior.input_scale!r}")
+    if abs(med / a_med - 1) > tol_med or abs(p95 / a_p95 - 1) > tol_p95:
+        raise AssertionError(
+            f"{label}: median {med} / p95 {p95} outside rel {tol_med} / "
+            f"{tol_p95} of the anchor {a_med} / {a_p95}")
+    return mean
+
+
+def check_extend(est, test, test_y, val, total):
+    """Fold the validation lines into the fp64 estimator in 4 batches and
+    hold the test predictions against a refit on train + validation with
+    the same absolute ridge (the same model): max |d mean| <= 1e-6 max
+    |mean|. Returns the ms of each extend."""
+    from nngp_tpu_torch.gp import fit_gp
+
+    n0 = est.posterior.num_train
+    step = len(val) // EXTEND_BATCHES
+    ms = []
+    reset_launches()
+    for b in range(EXTEND_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.extend_with_lines(val[b * step:(b + 1) * step])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    expect_launches("extend x4", read_launches(),
+                    {"sym": EXTEND_BATCHES, "cross": EXTEND_BATCHES}, total)
+    post = est.posterior
+    if post.num_train != n0 + EXTEND_BATCHES * step:
+        raise AssertionError(f"extend: {post.num_train} rows, expected "
+                             f"{n0 + EXTEND_BATCHES * step}")
+    refit = fit_gp(est.spec, post.x_train, post.y_train,
+                   diag_reg=float(post.reg), diag_reg_absolute_scale=True,
+                   input_scale=post.input_scale)
+    x_test = est.encode_lines(test)
+    m_ext, _ = post.predict_mean_std_chunked(x_test)
+    m_ref, _ = refit.predict_mean_std_chunked(x_test)
+    del refit
+    rel = float(np.max(np.abs(m_ext - m_ref)) / np.max(np.abs(m_ref)))
+    print(f"  extend: {EXTEND_BATCHES} x {step} validation rows, "
+          f"{post.num_train} train rows; max|mean_ext - mean_refit| / "
+          f"max|mean| = {rel!r} (bound 1e-6); q-error extend "
+          f"{qerror(m_ext, test_y)}, refit {qerror(m_ref, test_y)}; "
+          f"extend ms {ms}")
+    if not rel <= 1e-6:
+        raise AssertionError(f"extend vs refit: {rel} > 1e-6")
+    return ms
+
+
+def check_checkpoint(est, test, tmp):
+    """save, then restore on the card: identical predictions."""
+    from nngp_tpu_torch.serve import Estimator
+
+    want = est.predict(test)
+    est.save(tmp)
+    with contextlib.redirect_stdout(io.StringIO()):
+        back = Estimator.restore(tmp, device=est.device)
+    got = back.predict(test)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("restored checkpoint predicts differently")
+    print(f"  checkpoint: restored {back.posterior.num_train} rows on "
+          f"{back.device}, predictions identical")
+    return back
+
+
+def sum_scales(est, lines):
+    """Per line, the magnitude of what the predict sums: (|K_*t| |alpha|)
+    for the mean, and 2 k_** >= k_** + |L^-1 k_t*|^2 for the variance
+    (times the calibrated std scale squared, which `predict` applies).
+    On synth6 the mean's terms cancel to ~1e-6 of their magnitude and the
+    variance to ~3e-5 of the prior variance."""
+    from nngp_tpu_torch.models.kernel_spec import diag_eval
+    from nngp_tpu_torch.ops.gram_cuda import gram_cross_plain
+
+    p = est.posterior
+    x = torch.as_tensor(est.encode_lines(lines), device=p.device)
+    x = (x / p.input_scale).contiguous()
+    cross = gram_cross_plain(p.spec, x, p.x_train, "nngp")
+    mean_scale = (cross.abs() @ p.alpha.abs()).reshape(-1)
+    var_scale = (2.0 * diag_eval(p.spec.layers, x, "nngp")
+                 * (p.input_scale * est.std_scale) ** 2)
+    return mean_scale.cpu().numpy(), var_scale.cpu().numpy()
+
+
+def check_same_predictions(label, mean, std, want, scales):
+    """A predict of the same lines in another batch: the cross Gram rows
+    are the same, but cuBLAS may sum K_*t alpha, the triangular solve and
+    |v|^2 in another order for another batch size. The mean and the
+    variance must each agree within 1e-11 of the magnitude of the terms
+    they sum (`sum_scales`): a plain sum of n = 10,800 terms in two orders
+    differs by at most ~2 n eps = 2.4e-12 of it, and the solve adds its
+    own order. Returns the largest (|d mean| / scale, |d var| / scale)."""
+    mean, std = np.asarray(mean, np.float64), np.asarray(std, np.float64)
+    d_mean = float(np.max(np.abs(mean - want[0]) / scales[0]))
+    d_var = float(np.max(np.abs(std ** 2 - want[1] ** 2) / scales[1]))
+    if not (d_mean <= 1e-11 and d_var <= 1e-11):
+        raise AssertionError(f"{label}: |d mean| / scale {d_mean}, |d var| "
+                             f"/ scale {d_var}; bound 1e-11")
+    return d_mean, d_var
+
+
+def check_streaming(est, test, total):
+    """8 client threads each submit the test lines through
+    StreamingBatcher(est.predict), memo off so every batch reaches the
+    card; each result must equal the direct predict (within the summation
+    order, `check_same_predictions`)."""
+    from nngp_tpu_torch.cli.serve_demo import stream
+
+    want = est.predict(test)
+    scales = sum_scales(est, test)
+    est.predict_cache_size = 0
+    est.posterior = est.posterior          # empty the memo
+    reset_launches()
+    dt, st, results = stream(est, test, 8, 5.0)
+    got = read_launches()
+    worst = np.max([check_same_predictions("streaming", mean, std, want,
+                                           scales)
+                    for mean, std in results], axis=0)
+    rel = np.max([[np.max(np.abs(r - w) / np.abs(w))
+                   for r, w in zip(result, want)] for result in results],
+                 axis=0)
+    print(f"  streaming results vs the direct predict: max (|d mean|, "
+          f"|d var|) / scale {worst.tolist()!r}; max relative (mean, std) "
+          f"{rel.tolist()!r}")
+    if st["requests"] != 8 * len(test) or got["cross"] < 1 or got["sym"]:
+        raise AssertionError(f"streaming: stats {st}, launches {got}")
+    for key in total:
+        total[key] += got[key]
+    qps = st["requests"] / dt
+    print(f"  streaming: {st['requests']} requests from 8 clients in "
+          f"{dt!r} s = {qps!r} q/s over {st['batches']} batches (mean "
+          f"{st['mean_batch']!r}); latency p50 {st['p50_latency_ms']!r} ms, "
+          f"p95 {st['p95_latency_ms']!r} ms; launches {got}")
+    return st, qps
+
+
+def _socket_client(host, port, lines):
+    import socket
+
+    with socket.create_connection((host, port), timeout=120) as sk:
+        f = sk.makefile("rwb")
+        f.write("".join(l + "\n" for l in lines).encode())
+        f.flush()
+        sk.shutdown(socket.SHUT_WR)
+        return [json.loads(raw.decode()) for raw in f]
+
+
+def check_socket(est, test, labeled, total):
+    """EstimatorSocketServer with online feedback on the fp64 estimator:
+    256 test lines get the direct predict's answers (within the summation
+    order: the server may batch them differently), and 64 labeled lines
+    it has not seen grow the posterior by 64 rows."""
+    from nngp_tpu_torch.serve import EstimatorSocketServer
+
+    queries = test[:256]
+    want = est.predict(queries)
+    scales = sum_scales(est, queries)
+    est.posterior = est.posterior          # empty the memo
+    n0 = est.posterior.num_train
+    reset_launches()
+    with EstimatorSocketServer(est, port=0, feedback_mode="online",
+                               feedback_batch=64,
+                               feedback_flush_s=0.5) as srv:
+        replies = _socket_client(srv.host, srv.port, queries)
+        acks = _socket_client(srv.host, srv.port, labeled)
+        deadline = time.monotonic() + 120
+        while (srv.stats()["extends"] < 1 and time.monotonic() < deadline):
+            time.sleep(0.05)
+        st = srv.stats()
+    got = read_launches()
+    if len(replies) != len(queries) or any("error" in r for r in replies):
+        raise AssertionError(f"socket: bad replies {replies[:3]}")
+    worst = check_same_predictions(
+        "socket", [r["mean"] for r in replies], [r["std"] for r in replies],
+        want, scales)
+    if any(a.get("feedback") != "queued" for a in acks):
+        raise AssertionError(f"socket: bad feedback acks {acks[:3]}")
+    if (st["feedback_errors"] or st["feedback_lines"] != len(labeled)
+            or est.posterior.num_train != n0 + len(labeled)):
+        raise AssertionError(f"socket feedback: stats {st}, num_train "
+                             f"{est.posterior.num_train} from {n0}")
+    # the queries' predicts, record_feedback's predict, the extend
+    if got["sym"] != 1 or got["cross"] < 3:
+        raise AssertionError(f"socket: launches {got}")
+    for key in total:
+        total[key] += got[key]
+    print(f"  socket: {len(replies)} replies equal predict (max (|d mean|"
+          f", |d var|) / scale {worst!r}); "
+          f"{len(labeled)} feedback lines -> num_train {n0} -> "
+          f"{est.posterior.num_train}; feedback errors 0; launches {got}")
+
+
+def check_fp32_extend(est, val, test, test_y, total):
+    """An fp32 extend at the 2^64 prescale: the new rows must meet the
+    factor scaled as the fit's rows were, or their Gram overflows."""
+    n0 = est.posterior.num_train
+    reset_launches()
+    est.extend_with_lines(val)
+    expect_launches("fp32 extend", read_launches(), {"sym": 1, "cross": 1},
+                    total)
+    mean, _ = est.predict(test)
+    med, p95 = qerror(mean, test_y)
+    a_med, a_p95 = SYNTH6_ANCHOR
+    print(f"  fp32 extend: {n0} -> {est.posterior.num_train} rows at "
+          f"input_scale {est.posterior.input_scale!r}; q-error median="
+          f"{med!r} p95={p95!r}")
+    if (est.posterior.num_train != n0 + len(val)
+            or abs(med / a_med - 1) > 0.03 or abs(p95 / a_p95 - 1) > 0.01):
+        raise AssertionError(f"fp32 extend: {est.posterior.num_train} rows,"
+                             f" q-error {med} / {p95}")
+
+
+def check_calibration(label, est, test, test_y, cal_lines):
+    """calibrate_uncertainty on held-out validation lines, then the
+    coverage of the 90% conformal intervals on the test lines."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        scale = est.calibrate_uncertainty(cal_lines)
+    _, lo, hi = est.predict_interval(test, alpha=0.1)
+    cover = float(np.mean((test_y >= lo) & (test_y <= hi)))
+    if not (np.isfinite(scale) and scale > 0 and 0.0 < cover <= 1.0):
+        raise AssertionError(f"calibration: std_scale {scale}, cover {cover}")
+    print(f"  {label} calibration on {len(cal_lines)} held-out lines: "
+          f"std_scale "
+          f"{scale!r}; predict_interval(alpha=0.1) covers {cover!r} of "
+          "the test lines")
+
+
+def time_join_kernels(spec, x_train, x_test):
+    """Each kernel against its plain twin at synth6's d = 61 shapes (fp32,
+    prescaled rows, as the fp32 fit and predict call them)."""
+    from nngp_tpu_torch.gp.posterior import solve_ridge
+    from nngp_tpu_torch.models.kernel_spec import diag_eval
+    from nngp_tpu_torch.ops.gram_cuda import (gram_cross, gram_cross_plain,
+                                              gram_sym, gram_sym_plain)
+
+    diag = diag_eval(spec.layers, x_train, ("nngp", "ntk"))
+    reg = solve_ridge(diag)
+    times = {
+        "sym": paired_ms(
+            lambda: gram_sym(spec, x_train, "nngp", diag_add=reg, diag=diag),
+            lambda: gram_sym_plain(spec, x_train, "nngp", diag_add=reg,
+                                   diag=diag)),
+        "cross": paired_ms(
+            lambda: gram_cross(spec, x_test, x_train, "nngp"),
+            lambda: gram_cross_plain(spec, x_test, x_train, "nngp")),
+    }
+    for key, (k_ms, p_ms) in times.items():
+        print(f"time {KERNELS[key][0]} fp32 nngp d=61 synth6: kernel "
+              f"{k_ms!r} ms, plain {p_ms!r} ms")
+    return times
+
+
+def serve_slice(card, total, device):
+    """The serving slice on synth6 at full size: Estimator fit and predict
+    (fp64 and fp32), extend, checkpoint, streaming, socket, calibration.
+    Adds every phase's launches to `total`."""
+    import os
+    import tempfile
+
+    from nngp_tpu_torch.gp import fit_gp
+
+    train, test_labeled, val = synth6_lines()
+    test = [l.rsplit("@", 1)[0] for l in test_labeled]
+    test_y = np.log2([float(l.rsplit("@", 1)[1]) for l in test_labeled])
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir = os.path.join(tmp, "train")
+        os.makedirs(train_dir)
+        with open(os.path.join(train_dir, "join_query_train.txt"), "w") as f:
+            f.write("\n".join(train) + "\n")
+        print(f"serving slice synth6: {len(train)} train / {len(test)} test "
+              f"/ {len(val)} validation lines")
+
+        reset_launches()
+        est64, build64_s = build_estimator(train_dir, np.float64, device)
+        expect_launches("fp64 construction (fit)", read_launches(),
+                        {"sym": 1, "cross": 0}, total)
+        serve_and_check(est64, "fp64", test, test_y, 2e-3, 2e-3, total)
+        check_calibration("fp64", est64, test, test_y, val[len(val) // 2:])
+        reset_launches()
+        est32, build32_s = build_estimator(train_dir, np.float32, device)
+        expect_launches("fp32 construction (fit)", read_launches(),
+                        {"sym": 1, "cross": 0}, total)
+        serve_and_check(est32, "fp32", test, test_y, 0.03, 0.01, total)
+        print(f"  encoder: {est64.encoder_kind}; d = "
+              f"{est64.posterior.x_train.shape[1]}")
+
+        x_test32 = torch.as_tensor(est32.encode_lines(test), device=device)
+        x_test32 = (x_test32 / est32.posterior.input_scale).contiguous()
+        check_prescaled_rows(est32.spec, est32.posterior.x_train, x_test32)
+
+        # times, fp32 and fp64: warm fit on the device rows, warm predict
+        # of the test lines (encode + kernels + solves, memo bypassed)
+        times = {}
+        for label, est, build_s in (("fp64", est64, build64_s),
+                                    ("fp32", est32, build32_s)):
+            p = est.posterior
+            fit_ms = host_ms(lambda: fit_gp(est.spec, p.x_train, p.y_train,
+                                            input_scale=1.0), reps=3)
+
+            def cold_predict():
+                est.posterior = est.posterior    # empty the memo
+                return est.predict(test)
+
+            predict_ms = host_ms(cold_predict)
+            encode_ms = host_ms(lambda: est.encode_lines(test))
+            times[label] = (build_s, fit_ms, predict_ms)
+            print(f"  time {label}: construction {build_s!r} s (encode "
+                  f"{len(train)} lines + fit; the first construction also "
+                  f"builds the native encoder), warm fit {fit_ms!r} ms, warm "
+                  f"predict of {len(test)} lines {predict_ms!r} ms, of which "
+                  f"the native encode {encode_ms!r} ms")
+        time_join_kernels(est32.spec, est32.posterior.x_train, x_test32)
+        del x_test32
+
+        extend_ms = check_extend(est64, test, test_y, val, total)
+        back = check_checkpoint(est64, test, os.path.join(tmp, "ckpt"))
+        del est64
+        stream_st, qps = check_streaming(back, test, total)
+        check_socket(back, test, test_labeled[256:320], total)
+        del back
+        torch.cuda.empty_cache()
+        check_fp32_extend(est32, val[:64], test, test_y, total)
+        check_calibration("fp32", est32, test, test_y, val[len(val) // 2:])
+    print(f"serving times on {card}: construction fp64 "
+          f"{times['fp64'][0]!r} s / fp32 {times['fp32'][0]!r} s; warm "
+          f"predict of {N_TEST} lines fp64 {times['fp64'][2]!r} ms / fp32 "
+          f"{times['fp32'][2]!r} ms; extend of {len(val) // EXTEND_BATCHES} "
+          f"rows {extend_ms!r} ms; streaming p50 "
+          f"{stream_st['p50_latency_ms']!r} ms, p95 "
+          f"{stream_st['p95_latency_ms']!r} ms, {qps!r} q/s")
 
 
 def main():
@@ -358,10 +843,12 @@ def main():
 
     check_ragged(device)
     errs = check_forest_shapes(device)
+    check_join_widths(device)
     launches = check_slice("cuda")
     print(f"times on {card}:")
     times = time_kernels(device)
     time_slice(device)
+    serve_slice(card, launches, device)
 
     summary = {"kernels": [
         {"name": KERNELS[key][0], "route": "cuda", "source": SOURCE,

@@ -3,16 +3,22 @@
 A port of `nngp_tpu` (JAX/Pallas on a TPU) to PyTorch on an NVIDIA H100.
 The JAX package stays the reference; this package keeps its module names so
 each counterpart is easy to find, and imports its framework-free host
-modules (`nngp_tpu.featurize`, `nngp_tpu.eval`) instead of copying them.
+modules (`nngp_tpu.featurize`, `nngp_tpu.eval`, `nngp_tpu.native`) instead
+of copying them. `nngp_tpu.serve` cannot be imported without jax, so
+`serve/` carries its own copies of the front ends.
 
 Layer map:
   utils/      device and dtype policy (TF32 off), timing
   ops/        dual activations, input Gram, the hand-written CUDA Gram
-              kernels (`csrc/gram.cu`) with their plain PyTorch twins
+              kernels (`csrc/gram.cu`) with their plain PyTorch twins, the
+              Cholesky append
   models/     kernel specs (Dense/activation serial -> nngp/ntk recursion)
-  gp/         exact GP posterior fit/predict (nngp + ntk semantics)
-  data/       pandas-free single-table workload assembly
-  cli/        the training/evaluation entry point
+  gp/         exact GP posterior fit/predict/extend (nngp + ntk semantics),
+              ridge selection by evidence
+  data/       pandas-free single-table and multi-join workload assembly
+  serve/      the exact-tier Estimator, streaming batcher, TCP server,
+              drift monitor, aux-query feedback merge
+  cli/        training, serving demo and profiling entry points
   convert.py  layer specs and posterior state to and from the JAX package
 
 Importing this package imports nothing heavy; `torch` loads with the

@@ -3,7 +3,8 @@
     python -m nngp_tpu_torch.cli.train --kernel_type nngp \
         --query_path workloads/forest_data --device cuda
 
-Load the single-table workload -> seed-10 60/20/20 split -> fit the exact
+Load the single-table or multi-join (--schema_name) workload -> seed-10
+60/20/20 split -> [--select_reg ridge by evidence] -> fit the exact
 GP on the NNGP or NTK kernel -> report MSE, the partitioned q-error profile
 and the symmetric q-error line. Same flags and printed lines as the JAX
 CLI, plus --device (default cuda; no fallback to the CPU). fp32 by default,
@@ -21,8 +22,9 @@ import torch
 from nngp_tpu.eval.qerror import (PredictionStatistics, qerror_profile,
                                   symmetric_qerror)
 from nngp_tpu.eval.splits import train_test_val_split
-from nngp_tpu_torch.data.workload import load_single_table_workload
-from nngp_tpu_torch.gp import fit_gp
+from nngp_tpu_torch.data.workload import (load_multi_join_workload,
+                                          load_single_table_workload)
+from nngp_tpu_torch.gp import fit_gp, select_diag_reg
 from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
 from nngp_tpu_torch.utils.device import resolve_device, working_dtype
 from nngp_tpu_torch.utils.timing import Timer
@@ -38,9 +40,7 @@ _NOT_PORTED = {
     "ard": "Queue A #9 (gp/hyperopt.py)",
     "hyper_objective": "Queue A #9 (gp/hyperopt.py)",
     "select_kernel": "Queue A #9 (gp/hyperopt.py)",
-    "select_reg": "Queue A #3 (select_diag_reg)",
     "hyper_file": "Queue A #9 (gp/hyperopt.py)",
-    "schema_name": "Queue A #7 (multi-join workloads, with the Estimator)",
     "profile_dir": "Queue A #13 (utils/profiling.py)",
     "config": "Queue A #13 (utils/config.py)",
 }
@@ -63,14 +63,16 @@ def build_parser():
     p.add_argument("--relations", type=str, default="forest")
     p.add_argument("--names", type=str, default="forest")
     p.add_argument("--schema_name", type=str, default=None,
-                   help="multi-join schema (not ported yet)")
+                   help="multi-join schema; stats from "
+                        "<query_path>/../<schema_name>_stats/")
     p.add_argument("--query_path", type=str, default="workloads/forest_data")
     p.add_argument("--data_path", type=str, default=None,
                    help="raw CSV dir (not ported yet; stats come from the "
                         "query scan / stats JSON)")
     p.add_argument("--diag_reg", type=float, default=1e-3)
     p.add_argument("--select_reg", type=str, default=None,
-                   help="not ported yet")
+                   help="comma-separated diag_reg candidates: fit each, keep "
+                        "the one with the highest exact log evidence")
     p.add_argument("--nystrom_m", type=int, default=None,
                    help="not ported yet")
     p.add_argument("--nystrom_moments", type=str, default="fp32",
@@ -119,9 +121,9 @@ def reject_unported(p, args):
     if args.kernel_type == "gp":
         p.error("--kernel_type gp is not ported yet (ROADMAP Queue A #11, "
                 "models/gp_rbf.py)")
-    if len(args.relations.split(",")) > 1:
+    if not args.schema_name and len(args.relations.split(",")) > 1:
         p.error("binary-join workloads (a comma in --relations) are not "
-                "ported yet (ROADMAP Queue A #7)")
+                "ported yet (ROADMAP Queue A #7: they need the CSV loaders)")
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag) != p.get_default(flag):
             p.error(f"--{flag} is not ported yet (ROADMAP {item})")
@@ -148,10 +150,15 @@ def load_split(args):
     (x_tr, y_tr, infos_tr, x_te, y_te, infos_te), numpy, fp64 with --x64
     and fp32 otherwise. Prints the query count and the split shapes."""
     dtype = np.float64 if args.x64 else np.float32
-    x, y, infos, _enc = load_single_table_workload(
-        args.query_path, name=args.names.split(",")[0],
-        data_path=args.data_path, chunk_size=args.chunk_size, dtype=dtype,
-        chunk_norm=args.chunk_norm)
+    if args.schema_name:
+        x, y, infos, _enc = load_multi_join_workload(
+            args.query_path, schema_name=args.schema_name,
+            data_path=args.data_path, dtype=dtype, chunk_norm=args.chunk_norm)
+    else:
+        x, y, infos, _enc = load_single_table_workload(
+            args.query_path, name=args.names.split(",")[0],
+            data_path=args.data_path, chunk_size=args.chunk_size,
+            dtype=dtype, chunk_norm=args.chunk_norm)
     print(f"number of query: {x.shape[0]}  feature dim: {x.shape[1]}")
 
     if args.uneven_split:
@@ -195,8 +202,23 @@ def main(argv=None):
         return fit_gp(spec, x_tr, y_tr, diag_reg=args.diag_reg,
                       get=args.kernel_type, device=device)
 
+    if args.select_reg:
+        cands = [float(v) for v in args.select_reg.split(",")]
+        best, scores = select_diag_reg(spec, x_tr, y_tr, candidates=cands,
+                                       get=args.kernel_type, device=device)
+        for r, mll in sorted(scores.items()):
+            tag = "  <-- selected" if r == float(best.diag_reg) else ""
+            print(f"diag_reg={r:g}: log evidence {mll:.2f}{tag}")
+        args.diag_reg = float(best.diag_reg)
+        del best
+
     x_te_dev = torch.as_tensor(x_te, dtype=torch_dtype, device=device)
-    with timer.measure("kernel construction (fit: Gram + Cholesky, cold)"):
+    # after --select_reg the kernels are already built and warm
+    cold_label = ("kernel construction (fit: Gram + Cholesky, cold)"
+                  if not args.select_reg else
+                  "kernel construction (fit; warm — compiled during "
+                  "--select_reg sweep)")
+    with timer.measure(cold_label):
         post = _fit()
     with timer.measure("fit (warm)"):
         post = _fit()

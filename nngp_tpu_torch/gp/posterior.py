@@ -18,6 +18,8 @@ both triangles written), `torch.linalg.cholesky` factors it (cuSOLVER on
 CUDA) and two `torch.linalg.solve_triangular` calls give alpha. Predict:
 `gram_cross` gives K_*t; the solves are cuBLAS trsm. The 10.8k forest Gram
 is 467 MB in fp32, so the factor stays one dense tensor on an 80 GB card.
+Extend: `gram_cross` gives K21 and `gram_sym` K22, and
+`ops.linalg.cholesky_append_rows` appends them to the factor.
 """
 
 import dataclasses
@@ -30,6 +32,7 @@ import torch
 from nngp_tpu_torch.models.kernel_spec import (KernelSpec, diag_eval,
                                                is_scale_equivariant)
 from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
+from nngp_tpu_torch.ops.linalg import cholesky_append_rows
 from nngp_tpu_torch.utils.device import resolve_device
 
 
@@ -165,6 +168,49 @@ class GPPosterior:
             logdet += n * math.log(s2)
         return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
 
+    # --------------------------------------------------------------- extend
+    def extend(self, x_new, y_new) -> "GPPosterior":
+        """A new posterior with m labeled rows appended by an O(n^2 m)
+        block-Cholesky update instead of a refit (`_extend_dense` of the
+        JAX package). x_new is in raw input units, like a predict input.
+
+        The fit's ridge is kept: a relative ridge is defined by the
+        fit-time Gram, and deriving it again from the extended Gram would
+        change the model the factor represents. K22 gets the exact
+        diagonal from `gram_sym`, as the fit's Gram did. This posterior is
+        not modified."""
+        x_new = self._as_input(x_new)
+        if x_new.dim() != 2 or x_new.shape[0] < 1 \
+                or x_new.shape[1] != self.x_train.shape[1]:
+            raise ValueError(f"x_new must be (m >= 1, {self.x_train.shape[1]})"
+                             f", got {tuple(x_new.shape)}")
+        y_new = _as_tensor(y_new, self.device, self.x_train.dtype)
+        if y_new.dim() == 1:
+            y_new = y_new[:, None]
+        if y_new.shape != (x_new.shape[0], self.y_train.shape[1]):
+            raise ValueError(f"y_new has shape {tuple(y_new.shape)} for "
+                             f"{x_new.shape[0]} rows")
+        if self.input_scale != 1.0:
+            x_new = x_new * (1.0 / self.input_scale)
+        if self.get == "nngp":
+            k21 = gram_cross(self.spec, x_new, self.x_train, "nngp")
+            k22 = gram_sym(self.spec, x_new, "nngp", diag_add=self.reg)
+        else:
+            n21, k21 = gram_cross(self.spec, x_new, self.x_train,
+                                  ("nngp", "ntk"))
+            n22, k22 = gram_sym(self.spec, x_new, ("nngp", "ntk"),
+                                diag_add=self.reg)
+        l = cholesky_append_rows(self.l, k21, k22)
+        y = torch.cat([self.y_train, y_new])
+        alpha = _tri_solve(l, _tri_solve(l, y), transpose=True)
+        k_tt = None
+        if self.get == "ntk":
+            k_tt = torch.cat([torch.cat([self.k_tt_nngp, n21.mT], dim=1),
+                              torch.cat([n21, n22], dim=1)])
+        return dataclasses.replace(
+            self, x_train=torch.cat([self.x_train, x_new]), y_train=y, l=l,
+            alpha=alpha, k_tt_nngp=k_tt)
+
 
 # Features beyond this magnitude trigger the automatic input prescale in
 # fp32 fits (scale-equivariant specs only): squared Gram entries of
@@ -266,3 +312,46 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
         x_train=x, y_train=y, l=l, alpha=alpha, reg=reg,
         k_tt_nngp=k_tt_nngp, spec=spec, get=get, diag_reg=diag_reg,
         input_scale=float(input_scale))
+
+
+def select_diag_reg(spec: KernelSpec, x_train, y_train,
+                    candidates=(1e-4, 3e-4, 1e-3, 3e-3, 1e-2),
+                    get: str = "nngp", input_scale: Optional[float] = None,
+                    device=None):
+    """Ridge selection by exact GP evidence: refit per candidate and keep
+    the `diag_reg` with the highest `log_marginal_likelihood`. At most one
+    factor is alive at a time: each candidate is scored and dropped, and
+    the winner is fitted again at the end.
+
+    x_train, y_train and device as for `fit_gp`; the data go to the device
+    once and the input prescale is resolved once. Returns
+    (best_posterior, {diag_reg: log evidence})."""
+    if device is None:
+        if not isinstance(x_train, torch.Tensor):
+            raise ValueError("select_diag_reg needs device= for numpy input")
+        device = x_train.device
+    device = resolve_device(device)
+    if input_scale is None:
+        input_scale = _auto_input_scale(x_train, spec.layers)
+    x = _as_tensor(x_train, device)
+    y = _as_tensor(y_train, device, x.dtype)
+    scores = {}
+    for r in candidates:
+        try:
+            post = fit_gp(spec, x, y, diag_reg=float(r), get=get,
+                          input_scale=input_scale)
+        except torch.linalg.LinAlgError:
+            # not positive definite at this ridge: where the JAX factor
+            # comes out NaN, torch raises; either way no evidence
+            scores[float(r)] = math.nan
+            continue
+        scores[float(r)] = post.log_marginal_likelihood()
+        del post
+    finite = {r: v for r, v in scores.items() if math.isfinite(v)}
+    if not finite:
+        raise FloatingPointError(
+            "no candidate diag_reg produced a finite evidence; check the "
+            "feature scale and input_scale")
+    best_r = max(finite, key=finite.get)
+    return fit_gp(spec, x, y, diag_reg=best_r, get=get,
+                  input_scale=input_scale), scores

@@ -1,0 +1,666 @@
+"""Serving estimator, the exact tier: the PyTorch counterpart of
+`nngp_tpu/serve/estimator.py`.
+
+A DBMS hands over sub-query lines and gets back (mean, std) of the log2
+cardinality of each. The constructor loads the schema stats and the
+training queries, fits the exact posterior once on `device`, and
+`predict(query_lines)` encodes the lines (native C++ encoder when g++ is
+present) and runs the cross Gram kernel and the triangular solves there.
+The fitted state is a checkpoint (`save` / `Estimator.restore`) in the JAX
+package's single-chip format, so either package restores what the other
+wrote. Online learning (`extend_with_lines`), uncertainty calibration and
+drift monitoring work as in the JAX package.
+
+What differs from the JAX Estimator:
+  - only the exact single-device tier is ported; the Nystrom, distributed
+    and hyperparameter-learning paths raise `NotImplementedError` naming
+    their ROADMAP item;
+  - there are no serving buckets: a predict runs exactly the rows it was
+    given, in chunks of 8,192 (`GPPosterior.predict_mean_std_chunked`);
+    the buckets existed to bound XLA compiles;
+  - `learn_hyper` takes None as its unset sentinel, so an explicit False
+    survives `quality='best'` (the JAX package turns it into True);
+  - the encoder in use is named by `encoder_kind`, and a fall-back to the
+    Python encoder is printed.
+"""
+
+import collections
+import json
+import os
+import sys
+import time
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from nngp_tpu.featurize.join import MultiJoinEncoder
+from nngp_tpu.featurize.stats import TableStats
+from nngp_tpu_torch.convert import posterior_from_numpy, posterior_to_numpy
+from nngp_tpu_torch.data.workload import schema_stats
+from nngp_tpu_torch.gp.posterior import fit_gp
+from nngp_tpu_torch.models.kernel_spec import (Activation, Dense, KernelSpec,
+                                               reference_kernel)
+from nngp_tpu_torch.utils.device import resolve_device
+
+# Scaled-feature magnitude ceiling for incremental extends, mirroring the
+# fit-time prescale threshold (`gp.posterior._PRESCALE_MAX_ABS`): beyond it
+# squared fp32 Gram entries head toward overflow.
+_EXTEND_MAX_SCALED_ABS = 2.0 ** 20
+
+_HYPEROPT = "ROADMAP Queue A #9 (gp/hyperopt.py)"
+_NYSTROM = "ROADMAP Queue A #10 (gp/nystrom.py)"
+_PARALLEL = "ROADMAP Queue A #12 (parallel/)"
+
+# constructor argument -> (its default, what ports its path)
+_NOT_PORTED = {
+    "mesh": (None, _PARALLEL),
+    "dist_block_size": (None, _PARALLEL),
+    "nystrom_m": (None, _NYSTROM),
+    "nystrom_moments": (None, _NYSTROM),
+    "auto_nystrom_m": (None, _NYSTROM + ", tier='auto'"),
+    "exact_max_n": (None, _NYSTROM + ", tier='auto' (its bound is derived "
+                    "again for 80 GB)"),
+    "hyper_steps": (100, _HYPEROPT),
+    "hyper_points": (4096, _HYPEROPT),
+    "hyper_objective": ("auto", _HYPEROPT),
+    "pad_slots": (None, "ROADMAP 'Not to port' (shape buckets)"),
+}
+
+
+def _spec_to_json(spec: KernelSpec):
+    out = []
+    for layer in spec.layers:
+        if isinstance(layer, Dense):
+            out.append({"dense": [layer.width, layer.w_std, layer.b_std]})
+        else:
+            out.append({"activation": layer.name})
+    return out
+
+
+def _spec_from_json(items) -> KernelSpec:
+    layers = []
+    for it in items:
+        if "dense" in it:
+            w, ws, bs = it["dense"]
+            layers.append(Dense(int(w), float(ws), float(bs)))
+        else:
+            layers.append(Activation(it["activation"]))
+    return KernelSpec(tuple(layers))
+
+
+def _dense_factor(meta, arrs) -> np.ndarray:
+    """The factor of a JAX checkpoint as one dense array: a column-block
+    factor (`l_block_starts`, block k = L[s_k:, s_k:s_{k+1}]) is assembled."""
+    if "l_block_starts" not in meta:
+        return np.asarray(arrs["l"])
+    starts = [int(s) for s in meta["l_block_starts"]]
+    blocks = [np.asarray(arrs[f"l_block_{i}"]) for i in range(len(starts) - 1)]
+    l = np.zeros((starts[-1], starts[-1]), dtype=blocks[0].dtype)
+    for s, blk in zip(starts, blocks):
+        l[s:, s:s + blk.shape[1]] = blk
+    return l
+
+
+class Estimator:
+    # Cross-call prediction memo capacity (entries). A class attribute so
+    # restored instances (built via __new__) get it too; override per
+    # instance with the `predict_cache_size` constructor argument.
+    predict_cache_size = 4096
+    # Configuration-routing mode (restored instances report one too).
+    quality = "reference"
+
+    @property
+    def posterior(self):
+        return self._posterior
+
+    @posterior.setter
+    def posterior(self, value):
+        # EVERY posterior change (fit, extend, restore, rollback) drops the
+        # prediction memo: a stale entry would serve the old model's answer.
+        # The posterior is never mutated in place; a change installs a new
+        # object here.
+        self._posterior = value
+        self._pred_cache = collections.OrderedDict()
+
+    def __init__(self, schema_name: str, data_path: Optional[str],
+                 train_query_path: str, chunk_size: int = 64,
+                 use_aux: bool = False, q_error_threshold: float = 100.0,
+                 coef_var_threshold: float = 1.0, kernel_type: str = "nngp",
+                 diag_reg: float = 1e-3, spec: Optional[KernelSpec] = None,
+                 stats: Optional[Sequence[TableStats]] = None,
+                 stats_dir: Optional[str] = None, dtype=np.float32,
+                 verbose: bool = True, mesh=None,
+                 dist_block_size: Optional[int] = None,
+                 chunk_norm: Optional[bool] = None,
+                 nystrom_m: Optional[int] = None,
+                 nystrom_moments: Optional[str] = None,
+                 learn_hyper=None, hyper_steps: int = 100,
+                 hyper_points: int = 4096, hyper_ard: Optional[bool] = None,
+                 hyper_objective: str = "auto",
+                 predict_cache_size: int = 4096,
+                 pad_slots: Optional[int] = None,
+                 quality: str = "reference",
+                 calibrate_frac: Optional[float] = None,
+                 calibrate_seed: int = 7, tier: Optional[str] = None,
+                 auto_nystrom_m: Optional[int] = None,
+                 exact_max_n: Optional[int] = None, *, device):
+        """The arguments of the JAX Estimator, plus `device` (required;
+        'cuda' without a GPU raises). Those whose path is not ported raise
+        NotImplementedError naming their ROADMAP item when set off their
+        default: mesh, dist_block_size, nystrom_m, nystrom_moments,
+        auto_nystrom_m, exact_max_n, learn_hyper, hyper_*, pad_slots, and
+        tier other than None or 'exact'.
+
+        quality='best' fills the flags still unset: chunk_norm=True,
+        calibrate_frac=0.1 and learn_hyper=True. Hyperopt is not ported,
+        so pass learn_hyper=False to serve 'best' without it.
+
+        stats / stats_dir: the schema's TableStats, or a directory of
+        TableStats JSONs laid out in the schema's table order. The raw-CSV
+        path (data_path) needs pandas and is not ported.
+
+        calibrate_frac: hold out this seeded fraction of the training
+        queries and calibrate uncertainty on them after the fit (std
+        temperature + split-conformal scores), as `calibrate_uncertainty`
+        would on held-out lines.
+
+        predict_cache_size: capacity of the cross-call prediction memo
+        (query line -> raw mean/std); 0 keeps only within-batch dedup."""
+        (chunk_norm, learn_hyper, hyper_ard, nystrom_moments,
+         calibrate_frac) = self.resolve_quality_flags(
+            quality, chunk_norm=chunk_norm, learn_hyper=learn_hyper,
+            hyper_ard=hyper_ard, nystrom_m=nystrom_m,
+            nystrom_moments=nystrom_moments, dtype=dtype,
+            calibrate_frac=calibrate_frac)
+        given = dict(mesh=mesh, dist_block_size=dist_block_size,
+                     nystrom_m=nystrom_m, nystrom_moments=nystrom_moments,
+                     auto_nystrom_m=auto_nystrom_m, exact_max_n=exact_max_n,
+                     hyper_steps=hyper_steps, hyper_points=hyper_points,
+                     hyper_objective=hyper_objective, pad_slots=pad_slots)
+        for name, value in given.items():
+            default, item = _NOT_PORTED[name]
+            if value != default:
+                raise NotImplementedError(
+                    f"Estimator({name}=...) is not ported yet ({item})")
+        if learn_hyper or hyper_ard:
+            raise NotImplementedError(
+                "learn_hyper / hyper_ard (hyperparameter learning) is not "
+                f"ported yet ({_HYPEROPT}); with quality='best' pass "
+                "learn_hyper=False to serve without it")
+        if tier not in (None, "exact"):
+            if tier in ("nystrom", "auto"):
+                raise NotImplementedError(
+                    f"tier={tier!r} is not ported yet ({_NYSTROM})")
+            if tier == "distributed":
+                raise NotImplementedError(
+                    f"tier='distributed' is not ported yet ({_PARALLEL})")
+            raise ValueError("tier must be 'auto', 'exact', 'nystrom' or "
+                             f"'distributed'; got {tier!r}")
+        if kernel_type not in ("nngp", "ntk"):
+            raise ValueError(
+                f"kernel_type must be 'nngp' or 'ntk', got {kernel_type!r}")
+        calibrate_frac = float(calibrate_frac or 0.0)
+        if not 0.0 <= calibrate_frac < 1.0:
+            raise ValueError(
+                f"calibrate_frac must be in [0, 1), got {calibrate_frac}")
+        self.device = resolve_device(device)
+        self.quality = quality
+        self.schema_name = schema_name
+        self.chunk_size = chunk_size
+        self.predict_cache_size = int(predict_cache_size)
+        self.kernel_type = kernel_type
+        self.diag_reg = diag_reg
+        self.dtype = np.dtype(dtype).type
+        self.chunk_norm = bool(chunk_norm)
+        self.spec = spec if spec is not None else reference_kernel()
+        if stats is None:
+            if stats_dir is None:
+                raise NotImplementedError(
+                    "building stats from the raw CSVs (data_path) is not "
+                    "ported yet (ROADMAP Queue A #7, the pandas CSV "
+                    "loaders); pass stats= or stats_dir=")
+            stats = schema_stats(schema_name, stats_dir)
+        self.stats = list(stats)
+        self._init_encoders()
+
+        queries, cards, _infos = self.encoder.load_queries(
+            train_query_path, use_aux=use_aux,
+            q_error_threshold=q_error_threshold,
+            coef_var_threshold=coef_var_threshold)
+        x, y = self.encoder.transform_to_arrays(queries, cards,
+                                                dtype=self.dtype)
+        if verbose:
+            print(f"training queries: {x.shape[0]}  feature dim: {x.shape[1]}")
+        # the holdout is capped at half the rows so tiny train sets under
+        # quality='best' keep at least half for the fit
+        n_cal = 0
+        if calibrate_frac > 0.0 and x.shape[0] >= 20:
+            n_cal = min(max(10, int(round(calibrate_frac * x.shape[0]))),
+                        x.shape[0] // 2)
+        if tier is not None and verbose:
+            print(f"tier routing: n={x.shape[0] - n_cal} -> exact")
+        self.std_scale = 1.0            # post-hoc std recalibration (MLE)
+        self._conformal_scores = None   # sorted |y-mu|/std calibration set
+        self.drift_monitor = None       # created lazily by record_feedback
+        self.feature_scale = None       # an ARD scale, from a checkpoint
+        x_cal = y_cal = None
+        if n_cal > 0:
+            # seeded holdout before the fit: calibration rows must be held
+            # out or the coverage guarantee is void
+            perm = np.random.default_rng(calibrate_seed).permutation(
+                x.shape[0])
+            cal_idx, fit_idx = perm[:n_cal], perm[n_cal:]
+            x_cal, y_cal = x[cal_idx], y[cal_idx]
+            x, y = x[fit_idx], y[fit_idx]
+            if verbose:
+                print(f"calibration holdout: {n_cal} queries "
+                      f"(fit on {x.shape[0]})")
+        self.posterior = self._fit(x, y)
+        self._validate_fit()
+        if x_cal is not None:
+            self._calibrate_arrays(x_cal,
+                                   np.asarray(y_cal, np.float64).ravel(),
+                                   verbose, source="holdout")
+
+    @staticmethod
+    def resolve_quality_flags(quality, *, chunk_norm, learn_hyper, hyper_ard,
+                              nystrom_m, nystrom_moments, dtype,
+                              calibrate_frac):
+        """quality='best' routing into concrete flag values: the same
+        decision table as the JAX package (BASELINE.md), filling only flags
+        still at their unset None sentinel. learn_hyper's sentinel is None
+        here, so an explicit False is kept. Returns (chunk_norm,
+        learn_hyper, hyper_ard, nystrom_moments, calibrate_frac) with None
+        sentinels preserved."""
+        if quality not in ("reference", "best"):
+            raise ValueError(
+                f"quality must be 'reference' or 'best', got {quality!r}")
+        if quality == "best":
+            if chunk_norm is None:
+                chunk_norm = True
+            if learn_hyper is None:
+                learn_hyper = True
+            if hyper_ard is None:
+                # respect a scalar hyper artifact if one was passed
+                hyper_ard = (learn_hyper is True
+                             or getattr(learn_hyper, "feature_scale", None)
+                             is not None)
+            if (nystrom_moments is None and nystrom_m is not None
+                    and np.dtype(dtype) == np.float32):
+                nystrom_moments = "df64"
+            if calibrate_frac is None:
+                calibrate_frac = 0.1
+        return (chunk_norm, learn_hyper, hyper_ard, nystrom_moments,
+                calibrate_frac)
+
+    def _init_encoders(self):
+        """The Python encoder (training files, fall-back) and, when g++
+        can build it, the native line encoder for the serving hot path.
+        `encoder_kind` says which one encodes query lines."""
+        from nngp_tpu.native import FastEncoder, is_available
+
+        self.encoder = MultiJoinEncoder(self.stats, chunk_norm=self.chunk_norm)
+        if is_available():
+            self._fast = FastEncoder(self.stats)
+            self.encoder_kind = "native"
+        else:
+            self._fast = None
+            self.encoder_kind = "python"
+            print("Estimator: the native query encoder is unavailable (no "
+                  "g++?); encoding query lines with the Python encoder",
+                  file=sys.stderr)
+
+    def _fit(self, x, y):
+        # x/y are host numpy: the fp32 prescale probe (max|x|) is free there
+        return fit_gp(self.spec, x, y, diag_reg=self.diag_reg,
+                      get=self.kernel_type, device=self.device)
+
+    def _validate_fit(self):
+        """Fail loudly if the factorization degenerated: non-finite alpha
+        or factor diagonal (one device sync)."""
+        p = self.posterior
+        ok = torch.stack([torch.isfinite(p.alpha).all(),
+                          torch.isfinite(torch.diagonal(p.l)).all()]).cpu()
+        ok_alpha, ok_l = bool(ok[0]), bool(ok[1])
+        if not (ok_alpha and ok_l):
+            raise FloatingPointError(
+                "GP fit produced non-finite factors (alpha finite: "
+                f"{ok_alpha}, chol diag finite: {ok_l}). Check training "
+                "cards > 0 and feature encodings.")
+
+    # ------------------------------------------------------- checkpoints
+    @classmethod
+    def restore(cls, ckpt_dir: str, spec: Optional[KernelSpec] = None,
+                mesh=None, *, device):
+        """An Estimator from a checkpoint directory (`meta.json` +
+        `posterior.npz`) written by this package or by the JAX package's
+        single-chip exact tier, on `device`. A JAX column-block factor is
+        assembled into one dense factor and a padded posterior is cut to
+        its real rows; Nystrom and distributed checkpoints raise."""
+        if mesh is not None:
+            raise NotImplementedError(
+                f"restore(mesh=...) is not ported yet ({_PARALLEL})")
+        with open(os.path.join(ckpt_dir, "meta.json")) as f:
+            meta = json.load(f)
+        if "nystrom" in meta:
+            raise NotImplementedError(
+                f"a Nystrom checkpoint cannot be restored yet ({_NYSTROM})")
+        if "distributed" in meta:
+            raise NotImplementedError("a distributed checkpoint cannot be "
+                                      f"restored yet ({_PARALLEL})")
+        self = cls.__new__(cls)
+        self.device = resolve_device(device)
+        self.schema_name = meta["schema_name"]
+        self.chunk_size = meta["chunk_size"]
+        self.quality = meta.get("quality", "reference")
+        self.kernel_type = meta["kernel_type"]
+        self.diag_reg = meta["diag_reg"]
+        self.dtype = np.dtype(meta["dtype"]).type
+        if spec is not None:
+            self.spec = spec
+        elif "spec" in meta:
+            self.spec = _spec_from_json(meta["spec"])
+        else:
+            self.spec = reference_kernel()
+        self.stats = [TableStats.from_json(s) for s in meta["stats"]]
+        self.chunk_norm = bool(meta.get("chunk_norm", False))
+        self.feature_scale = (np.asarray(meta["feature_scale"], np.float64)
+                              if "feature_scale" in meta else None)
+        self.std_scale = float(meta.get("std_scale", 1.0))
+        self.drift_monitor = None
+        self._init_encoders()
+        with np.load(os.path.join(ckpt_dir, "posterior.npz")) as arrs:
+            self._conformal_scores = (np.asarray(arrs["conformal_scores"])
+                                      if "conformal_scores" in arrs
+                                      else None)
+            n = int(meta.get("n_real", arrs["x_train"].shape[0]))
+            k_tt = arrs["k_tt_nngp"] if "k_tt_nngp" in arrs else None
+            state = {
+                "x_train": arrs["x_train"][:n], "y_train": arrs["y_train"][:n],
+                "l": _dense_factor(meta, arrs)[:n, :n],
+                "alpha": arrs["alpha"][:n], "reg": arrs["reg"],
+                "k_tt_nngp": None if k_tt is None else k_tt[:n, :n],
+                "diag_reg": self.diag_reg,
+                "input_scale": float(meta.get("input_scale", 1.0)),
+            }
+        self.posterior = posterior_from_numpy(state, self.spec,
+                                              self.kernel_type, self.device)
+        return self
+
+    def save(self, ckpt_dir: str):
+        """Persist the posterior, the encoder stats and the calibration:
+        the JAX package's single-chip checkpoint format."""
+        os.makedirs(ckpt_dir, exist_ok=True)
+        p = self.posterior
+        meta = {
+            "schema_name": self.schema_name,
+            "chunk_size": self.chunk_size,
+            "kernel_type": self.kernel_type,
+            "diag_reg": self.diag_reg,
+            "dtype": np.dtype(self.dtype).name,
+            "spec": _spec_to_json(self.spec),
+            "stats": [s.to_json() for s in self.stats],
+            "chunk_norm": self.chunk_norm,
+            "quality": self.quality,
+            # x_train is stored divided by input_scale; the scale must ride
+            # along or a restored posterior would mis-scale every query
+            "input_scale": float(p.input_scale),
+        }
+        if self.feature_scale is not None:
+            meta["feature_scale"] = [float(v) for v in self.feature_scale]
+        if self.std_scale != 1.0:
+            meta["std_scale"] = float(self.std_scale)
+        state = posterior_to_numpy(p)
+        arrs = {k: state[k] for k in ("x_train", "y_train", "l", "alpha",
+                                      "reg")}
+        if state["k_tt_nngp"] is not None:
+            arrs["k_tt_nngp"] = state["k_tt_nngp"]
+        if self._conformal_scores is not None:
+            arrs["conformal_scores"] = np.asarray(self._conformal_scores)
+        with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        np.savez(os.path.join(ckpt_dir, "posterior.npz"), **arrs)
+
+    # --------------------------------------------------------- warm-up
+    def load_model(self, verbose: bool = True):
+        """Warm-up prediction on the training rows (the reference
+        estimator's `load_model`), chunked so the cross Gram stays
+        8,192 x n."""
+        p = self.posterior
+        mean, std = p.predict_mean_std_chunked(p.x_train * p.input_scale)
+        if verbose:
+            print(mean.shape, std.shape)
+            print("Model construction complete.")
+
+    def warmup(self, max_batch: int = 4096, verbose: bool = True) -> float:
+        """One predict of `max_batch` synthetic rows, so that the first
+        request pays neither the kernel library's build and load nor the
+        first allocations of a batch that size. The prediction memo, the
+        drift monitor and the posterior are untouched. Returns the seconds
+        it took."""
+        t0 = time.perf_counter()
+        self.posterior.predict_mean_std_chunked(
+            np.ones((max_batch, self._feature_dim()), dtype=self.dtype))
+        dt = time.perf_counter() - t0
+        if verbose:
+            print(f"warmup: {max_batch} rows in {dt:.2f} s")
+        return dt
+
+    def _feature_dim(self) -> int:
+        return int(self.posterior.x_train.shape[1])
+
+    # -------------------------------------------------------- encoding
+    def _apply_chunk_norm(self, x: np.ndarray) -> np.ndarray:
+        """The native encoder emits raw features; chunk_norm multiplies by
+        the encoder's per-slot scale vector (cached per dtype)."""
+        if self.chunk_norm:
+            scale = getattr(self, "_chunk_norm_scale", None)
+            if scale is None or scale.dtype != x.dtype:
+                scale = self.encoder.col_scale.astype(x.dtype)
+                self._chunk_norm_scale = scale
+            x = x * scale
+        return x
+
+    def _apply_feature_scale(self, x: np.ndarray) -> np.ndarray:
+        """ARD: a posterior fitted on x * feature_scale must see every
+        encoded query scaled the same way."""
+        if self.feature_scale is None:
+            return x
+        return x * self.feature_scale.astype(x.dtype)
+
+    def encode_lines(self, query_lines: Sequence[str]) -> np.ndarray:
+        if self._fast is not None:
+            x, *_ = self._fast.encode_multi("\n".join(query_lines),
+                                            with_card=False, dtype=self.dtype)
+            return self._apply_feature_scale(self._apply_chunk_norm(x))
+        parsed = [self.encoder.parse_line_without_card(l) for l in query_lines
+                  if l.strip()]
+        return self._apply_feature_scale(
+            self.encoder.encode_batch(parsed, dtype=self.dtype))
+
+    def _encode_labeled_lines(self, labeled_lines, op_name: str):
+        """Labeled `query@...@card` lines -> (x, cards), card >= 1
+        enforced."""
+        if self._fast is not None:
+            x, cards, *_ = self._fast.encode_multi("\n".join(labeled_lines),
+                                                   with_card=True,
+                                                   dtype=self.dtype)
+            x = self._apply_chunk_norm(x)
+        else:
+            parsed, cards = [], []
+            for line in labeled_lines:
+                if not line.strip():
+                    continue
+                tids, preds, joins, card = self.encoder.parse_line(line)
+                parsed.append((tids, preds, joins))
+                cards.append(card)
+            x = self.encoder.encode_batch(parsed, dtype=self.dtype)
+            cards = np.asarray(cards, dtype=np.float64)
+        if np.any(cards < 1):
+            raise ValueError(f"{op_name} requires card >= 1 on every "
+                             "labeled line (log2 of 0 is -inf)")
+        return self._apply_feature_scale(x), cards
+
+    def _guard_feature_magnitude(self, x: np.ndarray, op_name: str):
+        """Refuse fp32 features the posterior's input_scale does not cover
+        (their squared Gram entries would overflow into a NaN factor);
+        checked on host numpy, before any kernel runs."""
+        scale = float(self.posterior.input_scale)
+        if (x.dtype == np.float32 and x.size
+                and float(np.max(np.abs(x))) / max(scale, 1.0)
+                > _EXTEND_MAX_SCALED_ABS):
+            raise ValueError(
+                f"{op_name}: new features exceed the magnitude the "
+                f"posterior was fitted for (input_scale={scale:g}); the "
+                "factor cannot be rescaled in place — refit (a fresh "
+                "Estimator picks a covering scale from the data)")
+
+    # --------------------------------------------------- online learning
+    def _install_posterior(self, candidate):
+        """Validate BEFORE installing so a bad batch cannot corrupt a live
+        server: the old posterior stays authoritative on failure."""
+        old = self.posterior
+        try:
+            self.posterior = candidate
+            self._validate_fit()
+        except FloatingPointError:
+            self.posterior = old
+            raise
+
+    def extend_with_lines(self, labeled_lines: Sequence[str]) -> int:
+        """Online learning: fold freshly-labeled `query@...@card` lines into
+        the posterior with an O(n^2 k) block-Cholesky append, keeping the
+        fit's ridge. A new posterior is built and installed after
+        validation. Returns the number of rows added."""
+        x, cards = self._encode_labeled_lines(labeled_lines,
+                                              "extend_with_lines")
+        self._guard_feature_magnitude(x, "extend_with_lines")
+        y = np.log2(cards).reshape(-1, 1).astype(self.dtype)
+        self._install_posterior(self.posterior.extend(x, y))
+        return x.shape[0]
+
+    def forget_with_lines(self, labeled_lines: Sequence[str]):
+        """Online forgetting belongs to the streaming Nystrom tier; the
+        exact factor has no stable downdate, so refit instead."""
+        raise NotImplementedError(
+            "forget_with_lines requires the streaming Nystrom tier "
+            f"(Estimator(nystrom_m=...), {_NYSTROM}); the exact factor has "
+            "no stable downdate — refit a fresh Estimator instead")
+
+    # ---------------------------------------------------------- predict
+    def _predict_raw(self, query_lines: Sequence[str]):
+        """Batch predict returning the posterior's own std (no
+        recalibration), one result per line.
+
+        Duplicate lines are predicted once, and results persist in a
+        bounded LRU memo keyed by the query text (plan enumeration
+        re-submits the same sub-queries). A line served from the memo
+        launches no kernel."""
+        # one result PER LINE is the contract: both encoders skip blank
+        # lines, which would misalign every later result
+        keys = []
+        for i, line in enumerate(query_lines):
+            k = line.strip()
+            if not k:
+                raise ValueError(f"blank query line at index {i}")
+            keys.append(k)
+        # the memo first, then the posterior: the setter replaces the
+        # posterior before the memo, so results computed here can only
+        # land in a memo that belongs to this posterior or to an older
+        # (already discarded) one
+        cache = self._pred_cache
+        post = self.posterior
+        fresh = {}
+        need, seen = [], set()
+        for k in keys:
+            if k in cache:
+                cache.move_to_end(k)  # keep hot serving queries resident
+            elif k not in seen:
+                seen.add(k)
+                need.append(k)
+        if need:
+            mean, std = post.predict_mean_std_chunked(self.encode_lines(need))
+            fresh = dict(zip(need, zip(mean, std)))
+        pairs = [fresh[k] if k in fresh else cache[k] for k in keys]
+        cap = self.predict_cache_size
+        if cap > 0:
+            cache.update(fresh)
+            while len(cache) > cap:
+                cache.popitem(last=False)
+        out = np.asarray(pairs, dtype=self.dtype)
+        return out[:, 0].copy(), out[:, 1].copy()
+
+    def predict(self, query_lines: Sequence[str]
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """(pred_mean, pred_std) in log2-card space, one entry per line.
+        std is multiplied by the scale fitted by `calibrate_uncertainty`
+        (1.0 until then)."""
+        mean, std = self._predict_raw(query_lines)
+        if self.std_scale != 1.0:
+            std = std * self.std_scale
+        return mean, std
+
+    # ------------------------------------------------------- uncertainty
+    def calibrate_uncertainty(self, labeled_lines: Sequence[str],
+                              verbose: bool = True) -> float:
+        """Post-hoc uncertainty calibration on HELD-OUT labeled lines: the
+        MLE std scale applied to every later predict std, and the
+        split-conformal score set behind `predict_interval`. Both are
+        checkpointed. Returns the std scale."""
+        x, cards = self._encode_labeled_lines(labeled_lines,
+                                              "calibrate_uncertainty")
+        return self._calibrate_arrays(x, np.log2(cards), verbose,
+                                      source="held-out lines")
+
+    def _calibrate_arrays(self, x, y, verbose: bool, source: str) -> float:
+        """Shared core of `calibrate_uncertainty` and the `calibrate_frac`
+        holdout, from the raw posterior std."""
+        from nngp_tpu.eval.calibration import conformal_scores, fit_std_scale
+        mean, std = self.posterior.predict_mean_std_chunked(x)
+        self.std_scale = fit_std_scale(y, mean, std)
+        self._conformal_scores = conformal_scores(y, mean, std)
+        if verbose:
+            print(f"calibrated on {x.shape[0]} {source}: std_scale="
+                  f"{self.std_scale:.4f}")
+        return self.std_scale
+
+    def predict_interval(self, query_lines: Sequence[str],
+                         alpha: float = 0.1):
+        """(mean, lo, hi) in log2-card space: split-conformal central
+        intervals with finite-sample >= 1-alpha coverage for exchangeable
+        queries. Needs `calibrate_uncertainty` first."""
+        if self._conformal_scores is None:
+            raise ValueError(
+                "predict_interval requires calibrate_uncertainty(labeled_"
+                "lines) first (held-out lines, e.g. the feedback log)")
+        from nngp_tpu.eval.calibration import conformal_quantile
+        qhat = conformal_quantile(self._conformal_scores, alpha)
+        mean, std = self._predict_raw(query_lines)
+        return mean, mean - qhat * std, mean + qhat * std
+
+    def record_feedback(self, labeled_lines: Sequence[str]):
+        """Fold labeled serving feedback into the workload-drift monitor
+        and return a `serve.drift.DriftReport`: whether the model still
+        explains the live workload and, if not, the remediation measured
+        to help the exact tier ('relearn_hyperparams', which waits for
+        ROADMAP Queue A #9 here). Observes only; call
+        `drift_monitor.reset()` after acting."""
+        from nngp_tpu_torch.serve.drift import DriftMonitor, DriftReport
+        if self.drift_monitor is None:
+            self.drift_monitor = DriftMonitor()
+        x, cards = self._encode_labeled_lines(labeled_lines,
+                                              "record_feedback")
+        y = np.log2(cards)
+        mean, std = self.posterior.predict_mean_std_chunked(x)
+        std = np.maximum(std * self.std_scale, self.drift_monitor.std_floor)
+        abs_z = np.abs(y - mean) / std
+        drift = self.drift_monitor.update(abs_z)
+        q = np.exp2(np.abs(y - mean))  # symmetric q-error in card space
+        return DriftReport(
+            drift=drift, action="relearn_hyperparams" if drift else None,
+            mean_abs_z=float(np.mean(abs_z)),
+            median_q_error=float(np.median(q)),
+            n_observed=self.drift_monitor.n,
+            ph_stat=self.drift_monitor.stat,
+            threshold=self.drift_monitor.threshold)

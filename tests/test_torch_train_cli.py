@@ -1,7 +1,7 @@
 """The port's training CLI (`nngp_tpu_torch.cli.train`) end to end against
-the JAX CLI on the committed forest workload, fp64 on the CPU; its errors
-for paths not ported yet; and, in a fresh interpreter, that the slice
-loads neither jax nor pandas.
+the JAX CLI on the committed forest and synth join workloads, fp64 on the
+CPU; its errors for paths not ported yet; and, in a fresh interpreter,
+that the slice loads neither jax nor pandas.
 
 The JAX runs take the exact-diagonal fit path the forest workload takes at
 full size (see tests/test_torch_posterior.py). The q-error profile must
@@ -23,6 +23,7 @@ from nngp_tpu_torch.cli import train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FOREST = os.path.join(REPO, "workloads", "forest_data")
+SYNTH = os.path.join(REPO, "workloads", "synth_join_data")
 
 
 def _lines(text, prefix):
@@ -55,6 +56,38 @@ def test_cli_matches_jax_cli(extra, capsys, monkeypatch):
     assert len(_lines(out, "[timing] ")) == 4
 
 
+@pytest.mark.parametrize("extra", [
+    ["--schema_name", "synth", "--query_path", SYNTH, "--max_num_train",
+     "600"],
+    ["--schema_name", "synth", "--query_path", SYNTH, "--max_num_train",
+     "600", "--chunk_norm", "--kernel_type", "ntk"],
+    ["--query_path", FOREST, "--max_num_train", "400", "--select_reg",
+     "1e-4,1e-3,1e-2"],
+], ids=["synth", "synth-chunk_norm-ntk", "forest-select_reg"])
+def test_multi_join_and_select_reg_match_jax_cli(extra, capsys,
+                                                 monkeypatch):
+    """--schema_name (the multi-join loader) and --select_reg (the ridge
+    by evidence) print what the JAX CLI prints and return its profile."""
+    monkeypatch.setattr(JP, "_FUSED_FIT_MIN_N", 64)
+    argv = ["--x64", *extra]
+    want = jax_train.main(argv)
+    jax_out = capsys.readouterr().out
+    got = train.main(["--device", "cpu", *argv])
+    out = capsys.readouterr().out
+    for key in want:
+        assert got[key] == pytest.approx(want[key], rel=1e-6), key
+    for prefix in ("number of query", "train ", "diag_reg="):
+        assert len(_lines(out, prefix)) == len(_lines(jax_out, prefix))
+    for line, jax_line in zip(_lines(out, "diag_reg="),
+                              _lines(jax_out, "diag_reg=")):
+        assert line.split(":")[0] == jax_line.split(":")[0]
+        assert line.endswith("selected") == jax_line.endswith("selected")
+        assert float(line.split()[3]) == pytest.approx(
+            float(jax_line.split()[3]), rel=1e-6)
+    assert _lines(out, "number of query") == _lines(jax_out,
+                                                    "number of query")
+
+
 def test_cli_device_cuda_raises_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: --device cuda runs instead of raising")
@@ -69,8 +102,6 @@ def test_cli_device_cuda_raises_without_a_gpu():
     (["--learn_hyper"], "Queue A #9"),
     (["--select_kernel"], "Queue A #9"),
     (["--hyper_file", "hyper.json"], "Queue A #9"),
-    (["--select_reg", "1e-3,1e-2"], "Queue A #3"),
-    (["--schema_name", "synth"], "Queue A #7"),
     (["--relations", "title,cast_info"], "Queue A #7"),
     (["--profile_dir", "trace"], "Queue A #13"),
     (["--config", "run.json"], "Queue A #13"),
@@ -88,10 +119,14 @@ def test_unported_flags_name_their_roadmap_item(flags, item, capsys):
     assert "not ported yet" in err and f"ROADMAP {item}" in err
 
 
-def test_data_path_is_not_ported_yet():
+@pytest.mark.parametrize("schema", [None, "synth"])
+def test_data_path_is_not_ported_yet(schema):
+    query_path = SYNTH if schema else FOREST
+    extra = ["--schema_name", schema] if schema else []
     with pytest.raises(NotImplementedError, match="CSV loading not ported"):
-        train.main(["--device", "cpu", "--query_path", FOREST,
-                    "--data_path", "raw_csvs", "--max_num_train", "50"])
+        train.main(["--device", "cpu", "--query_path", query_path,
+                    "--data_path", "raw_csvs", "--max_num_train", "50",
+                    *extra])
 
 
 def test_slice_imports_neither_jax_nor_pandas():
