@@ -11,7 +11,9 @@ exits nonzero; nothing is caught and retried:
      `.build/` (reused when the source hash matches);
   3. kernels vs their plain PyTorch twins on the card: fp32 and fp64, nngp
      and ntk, relu/erf/abs/sin, depth 1 and 3, b_std 0 and 0.1, at ragged
-     sizes, at the forest shapes, and at the join widths d = 45, 61, 99;
+     sizes, at the forest shapes, at the join widths d = 45, 61, 99, and
+     at learned-shaped specs (w0 != w, b = 62 and 80.5) on plain and
+     ARD-scaled rows;
   4. the training slice: the training CLI on the full forest workload
      (fp32 nngp, fp32 ntk, fp64 nngp) with the launch counters checked and
      the q-error held against the fp64 anchors of
@@ -24,7 +26,17 @@ exits nonzero; nothing is caught and retried:
      counts (a memo hit launches nothing), the kernels on the prescaled
      real rows, an online extend against a refit, a checkpoint round
      trip, 8 streaming clients, the TCP server with online feedback, and
-     uncertainty calibration, with times.
+     uncertainty calibration, with times;
+  7. the learning slice (hyperparameters by evidence and active learning):
+     the training CLI's scalar and ARD learns on forest in fp64 against the
+     JAX package's fp64 anchors (learned values, log evidence, MSE,
+     q-error), the active-learning protocol of
+     `experiments/hyper_active_relearn.py` through `ActiveLearner` (learn
+     once and relearn every round) against its validation-MSE
+     trajectories, the fp32 scalar learn and a greedy `cli.active_train`
+     run in fp32 and fp64, and a synth6 Estimator with quality='best'
+     (chunk_norm, ARD learn, calibration) held against a direct fit of its
+     learned spec, then extended and relearned; with times.
 
 Each path's launches are counted from 0 around it; the summary's
 `launches` are their sum over every path. The last three lines are the
@@ -153,6 +165,56 @@ def compare_cross(spec, x1, x2, label, atol=1e-3):
                                 "nngp", atol))
 
 
+def learned_spec(w0, w, b):
+    """Dense(512, w0, b) - ReLU - Dense(1, w, b): the shape of a learned
+    spec (w0 != w, a large bias)."""
+    from nngp_tpu_torch.models.kernel_spec import (Activation, Dense,
+                                                   KernelSpec)
+
+    return KernelSpec((Dense(512, w0, b), Activation("relu"),
+                       Dense(1, w, b)))
+
+
+def ard_rows(n, seed, dtype, device, d, lo, hi):
+    """`inputs` rows times a per-column scale on a geometric ladder from
+    lo to hi, as an ARD learn scales them, with rows 2 and 3 reset to the
+    exact duplicated pair of `inputs`."""
+    x = inputs(n, seed, torch.float64, device, d) * torch.as_tensor(
+        np.geomspace(lo, hi, d), device=device)
+    x[2] = x[3] = 512.0
+    return x.to(dtype)
+
+
+def check_learned_specs(device):
+    """Both kernels at learned-shaped specs: the forest scalar learn
+    (w0 0.24, w 0.26, b 62) on plain rows, the forest ARD learn (w 0.28,
+    b 80.5) on rows scaled 0.17..0.64, and the same spec on d = 61 rows
+    scaled 5.6e-2..245 (synth6's ARD range); fp32 and fp64, nngp and ntk,
+    ragged sizes."""
+    scalar, ard = learned_spec(0.24, 0.26, 62.0), learned_spec(1.0, 0.28,
+                                                                80.5)
+    n_cases = 0
+    for dtype in (torch.float32, torch.float64):
+        cases = [
+            ("scalar learn", scalar, inputs(RAGGED_N, 6, dtype, device),
+             inputs(RAGGED_M, 7, dtype, device)),
+            ("ARD learn forest", ard,
+             ard_rows(RAGGED_N, 8, dtype, device, D, 0.17, 0.64),
+             ard_rows(RAGGED_M, 9, dtype, device, D, 0.17, 0.64)),
+            ("ARD learn synth6", ard,
+             ard_rows(RAGGED_N, 10, dtype, device, 61, 5.6e-2, 245.0),
+             ard_rows(RAGGED_M, 11, dtype, device, 61, 5.6e-2, 245.0)),
+        ]
+        for label, spec, x, x1 in cases:
+            label = f"{label} {str(dtype)[6:]}"
+            compare_sym(spec, x, f"sym {label}")
+            compare_cross(spec, x1, x, f"cross {label}")
+            n_cases += 1
+    print(f"learned-spec kernel checks: {n_cases} (spec, rows, dtype) cases, "
+          f"sym n={RAGGED_N}, cross (m, n)=({RAGGED_M}, {RAGGED_N}): all "
+          "within tolerance")
+
+
 def check_ragged(device):
     from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
 
@@ -197,8 +259,8 @@ def check_forest_shapes(device):
 
 
 def run_slice(argv):
-    """One CLI run; returns (median, p95, launches) and echoes the CLI's
-    headline lines (the per-partition profile is dropped)."""
+    """One CLI run; returns (median, p95, MSE, launches, output) and echoes
+    the CLI's headline lines (the per-partition profile is dropped)."""
     from nngp_tpu_torch.cli import train
     from nngp_tpu_torch.ops import gram_cuda
 
@@ -210,7 +272,7 @@ def run_slice(argv):
     launches = dict(gram_cuda.LAUNCHES)
     text = buf.getvalue()
     for line in text.splitlines():
-        if line.startswith(("train ", "[timing]", "memory:",
+        if line.startswith(("train ", "[timing]", "memory:", "learned",
                             "Mean Square Error", "symmetric q-error")):
             print(f"  {line}")
     q = re.search(r"symmetric q-error: median=([0-9.]+) p95=([0-9.]+)", text)
@@ -224,7 +286,7 @@ def run_slice(argv):
     for key, count in launches.items():
         if count < 1:
             raise AssertionError(f"{argv}: the {key} kernel never launched")
-    return med, p95, launches
+    return med, p95, mse, launches, text
 
 
 def check_slice(device_name):
@@ -237,7 +299,7 @@ def check_slice(device_name):
     for label, extra, get, tol_med, tol_p95 in runs:
         print(f"slice {label}:")
         argv = ["--device", device_name, "--query_path", FOREST, *extra]
-        med, p95, launches = run_slice(argv)
+        med, p95, _, launches, _ = run_slice(argv)
         a_med, a_p95 = ANCHORS[get]
         if abs(med / a_med - 1) > tol_med or abs(p95 / a_p95 - 1) > tol_p95:
             raise AssertionError(
@@ -739,6 +801,23 @@ def time_join_kernels(spec, x_train, x_test):
     return times
 
 
+def write_train_dir(tmp, train):
+    """A query directory under `tmp` holding the train lines; its path."""
+    import os
+
+    train_dir = os.path.join(tmp, "train")
+    os.makedirs(train_dir)
+    with open(os.path.join(train_dir, "join_query_train.txt"), "w") as f:
+        f.write("\n".join(train) + "\n")
+    return train_dir
+
+
+def synth6_test(test_labeled):
+    """(card-less test lines, their log2 cardinalities)."""
+    return ([l.rsplit("@", 1)[0] for l in test_labeled],
+            np.log2([float(l.rsplit("@", 1)[1]) for l in test_labeled]))
+
+
 def serve_slice(card, total, device):
     """The serving slice on synth6 at full size: Estimator fit and predict
     (fp64 and fp32), extend, checkpoint, streaming, socket, calibration.
@@ -749,13 +828,9 @@ def serve_slice(card, total, device):
     from nngp_tpu_torch.gp import fit_gp
 
     train, test_labeled, val = synth6_lines()
-    test = [l.rsplit("@", 1)[0] for l in test_labeled]
-    test_y = np.log2([float(l.rsplit("@", 1)[1]) for l in test_labeled])
+    test, test_y = synth6_test(test_labeled)
     with tempfile.TemporaryDirectory() as tmp:
-        train_dir = os.path.join(tmp, "train")
-        os.makedirs(train_dir)
-        with open(os.path.join(train_dir, "join_query_train.txt"), "w") as f:
-            f.write("\n".join(train) + "\n")
+        train_dir = write_train_dir(tmp, train)
         print(f"serving slice synth6: {len(train)} train / {len(test)} test "
               f"/ {len(val)} validation lines")
 
@@ -819,6 +894,349 @@ def serve_slice(card, total, device):
           f"{stream_st['p95_latency_ms']!r} ms, {qps!r} q/s")
 
 
+# ------------------------------------------------------ the learning slice
+# fp64 anchors of the JAX package on the CPU: 100 Adam steps on a 2048-row
+# subsample of the forest 10.8k train split, then the 10.8k fit and 3.6k
+# predict (experiments/hyper_forest_cpu.log, experiments/hyper_ard_forest.log,
+# both re-run with the JAX package as it stands; PERF.md)
+HYPER_ANCHORS = {
+    "scalar": {"w0": 0.2379, "w": 0.2593, "b": 62.2186, "diag_reg": 1.018e-3,
+               "logev": -5085.64, "mse": 17382.79813662229, "median": 2.5419,
+               "p95": 21.6533},
+    "ard": {"w0": 1.0, "w": 0.2808, "b": 80.4731, "diag_reg": 5.130e-4,
+            "logev": -5062.5, "mse": 16912.3, "median": 2.5350,
+            "p95": 19.8975},
+}
+# experiments/hyper_active_relearn.py on the forest 20/60/20 split, re-run
+# with the JAX package as it stands and printed in full: the cold learn
+# (reg_restarts=(3e-2,)), and the validation MSE after the initial fit and
+# after each of 3 top-k rounds of 1,000, learning once or relearning every
+# round (the log's 5.70 / 5.45 / 5.24 / 5.08 and 5.70 / 5.27 / 5.10 / 4.92)
+ACTIVE_COLD = {"w0": 0.23854979526001166, "w": 0.25840413935416484,
+               "b": 61.03359498122282, "diag_reg": 0.0010314174229813968,
+               "logev": -5088.677092146645}
+ACTIVE_ANCHORS = {
+    "once": (5.7042954600082725, 5.448500576299588, 5.244328868663951,
+             5.081265150300826),
+    "relearn": (5.7042954600082725, 5.2688821764158495, 5.095121935062376,
+                4.920342032610843)}
+# rel bounds on the card's fp64 run; the log evidence within 0.5 nats
+HYPER_TOL = {"w0": 2e-3, "w": 2e-3, "b": 2e-3, "diag_reg": 2e-3,
+             "mse": 1e-3, "median": 2e-3, "p95": 2e-3}
+LEARNED_RE = re.compile(
+    r"learned hyperparameters: w0=([0-9.]+) w=([0-9.]+) b=([0-9.]+) "
+    r"diag_reg=([0-9.e+-]+) \(exact log evidence ([0-9.e+-]+) on")
+GREEDY_P, GREEDY_K = 4096, 1000
+
+
+def hold_to_anchor(label, got, want):
+    """Every key of `want` within its bound (HYPER_TOL, or 0.5 nats for
+    the log evidence) of the anchor."""
+    bad = [k for k, w in want.items()
+           if not (abs(got[k] - w) <= 0.5 if k == "logev"
+                   else abs(got[k] / w - 1) <= HYPER_TOL[k])]
+    print(f"  {label} vs the fp64 anchor: " + ", ".join(
+        f"{k} {got[k]!r} ({w!r})" for k, w in want.items()))
+    if bad:
+        raise AssertionError(f"{label}: {bad} outside their bounds of the "
+                             "anchor")
+
+
+def learn_cli(total):
+    """The training CLI with --learn_hyper on the full forest split: fp64
+    scalar and ARD against the anchors, fp32 scalar beside fp64. Returns
+    the seconds of each learn."""
+    runs = [("fp64 scalar", ["--x64"], "scalar"),
+            ("fp64 ARD", ["--x64", "--ard"], "ard"),
+            ("fp32 scalar", [], None)]
+    got, learn_s = {}, {}
+    for label, extra, anchor in runs:
+        print(f"learning slice forest {label}:")
+        med, p95, mse, launches, text = run_slice(
+            ["--device", "cuda", "--query_path", FOREST, "--learn_hyper",
+             "--hyper_points", "2048", *extra])
+        m = LEARNED_RE.search(text)
+        t = re.search(r"\[timing\] hyperparameter learning \(MLL\): "
+                      r"([0-9.]+)s", text)
+        if m is None or t is None:
+            raise AssertionError(f"{label}: no learned-hyperparameter line")
+        got[label] = dict(zip(("w0", "w", "b", "diag_reg", "logev"),
+                              map(float, m.groups())),
+                          mse=mse, median=med, p95=p95)
+        learn_s[label] = float(t.group(1))
+        for key in total:
+            total[key] += launches[key]
+        if anchor:
+            hold_to_anchor(f"forest {label}", got[label],
+                           HYPER_ANCHORS[anchor])
+    f32, f64 = got["fp32 scalar"], got["fp64 scalar"]
+    dev = {k: f32[k] / f64[k] - 1 for k in f64 if k != "logev"}
+    print(f"  fp32 scalar learn vs fp64: relative {dev!r}; log evidence "
+          f"{f32['logev'] - f64['logev']!r} nats")
+    if abs(dev["median"]) > 0.05 or abs(dev["p95"]) > 0.1:
+        raise AssertionError(f"fp32 learn: q-error off fp64 by {dev}")
+    return learn_s
+
+
+def learn_active(total, device):
+    """hyper_active_relearn.py's protocol through ActiveLearner in fp64:
+    one cold learn, then top-k, budget 1000, 3 rounds, learning once
+    (extends) or relearning every round (warm learn + refit). Holds the
+    cold learn and both validation-MSE trajectories to the anchors, and
+    times the pieces of a round. Returns the times."""
+    from nngp_tpu_torch.active import ActiveLearner
+    from nngp_tpu_torch.cli import active_train
+    from nngp_tpu_torch.gp.hyperopt import fit_kernel_hyperparams
+
+    args = active_train.build_parser().parse_args(
+        ["--query_path", FOREST, "--x64"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        x_tr, y_tr, x_pool, y_pool, x_val, y_val, _ = \
+            active_train.load_split(args)
+    print(f"learning slice forest active learning: train {x_tr.shape[0]}, "
+          f"pool {x_pool.shape[0]}, validation {x_val.shape[0]}")
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = fit_kernel_hyperparams(x_tr, y_tr, steps=100, max_points=2048,
+                                  reg_restarts=(3e-2,), device=device)
+    times["cold_s"] = time.perf_counter() - t0
+    hold_to_anchor("cold learn", {"w0": cold.w0, "w": cold.w, "b": cold.b,
+                                  "diag_reg": cold.diag_reg,
+                                  "logev": cold.log_evidence}, ACTIVE_COLD)
+    for arm, relearn in (("once", None), ("relearn", cold)):
+        learner = ActiveLearner(cold.spec, budget=1000, active_iters=3,
+                                selection="topk", diag_reg=cold.diag_reg,
+                                input_scale=1.0, relearn_hyper=relearn,
+                                hyper_warm_steps=40, hyper_points=2048,
+                                device=device)
+        lines = []
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learner.active_train(x_tr, y_tr, x_pool, y_pool, x_val, y_val,
+                             printer=lines.append)
+        torch.cuda.synchronize()
+        arm_s = time.perf_counter() - t0
+        # initial fit + validation predict; per round a pool predict, the
+        # update (extend: cross + sym; relearn: a refit) and a validation
+        # predict
+        want = ({"sym": 4, "cross": 10} if relearn is None
+                else {"sym": 4, "cross": 7})
+        expect_launches(f"active {arm}", read_launches(), want, total)
+        for line in lines:
+            if line.startswith("relearned"):
+                print(f"  {line}")
+        mses = [float(l.split(":")[1]) for l in lines
+                if l.startswith("Test MSE Loss:")]
+        want_mse = ACTIVE_ANCHORS[arm]
+        print(f"  active {arm}: validation MSE {mses!r} (anchor "
+              f"{want_mse}); {arm_s!r} s")
+        if len(mses) != 4 or max(abs(a - b) for a, b in
+                                 zip(mses, want_mse)) > 0.01:
+            raise AssertionError(f"active {arm}: validation MSE {mses} "
+                                 f"not within 0.01 of {want_mse}")
+    # the pieces of one round, on the cold spec
+    learner = ActiveLearner(cold.spec, budget=1000, selection="topk",
+                            diag_reg=cold.diag_reg, input_scale=1.0,
+                            device=device)
+    post = learner.train(x_tr, y_tr)
+    xp = torch.as_tensor(x_pool, device=device)
+    yp = torch.as_tensor(y_pool, device=device)
+    xv = torch.as_tensor(x_val, device=device)
+    sel = learner.select(post, xp)
+    times["select_ms"] = host_ms(lambda: learner.select(post, xp))
+    times["extend_ms"] = host_ms(lambda: post.extend(xp[sel], yp[sel]))
+    times["val_predict_ms"] = host_ms(lambda: post.predict_mean_std(xv))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_kernel_hyperparams(x_tr, y_tr, steps=40, max_points=2048,
+                           init=(cold.w0, cold.w, cold.b, cold.diag_reg),
+                           reg_restarts=(), device=device)
+    times["warm_s"] = time.perf_counter() - t0
+    times["greedy_ms"] = time_greedy(post, xp)
+    print(f"  active round pieces (fp64, {x_tr.shape[0]} train, "
+          f"{x_pool.shape[0]} pool): top-k select {times['select_ms']!r} "
+          f"ms, extend by 1000 {times['extend_ms']!r} ms, validation "
+          f"predict {times['val_predict_ms']!r} ms; cold learn (2 "
+          f"restarts x 100 steps, 2048 rows) {times['cold_s']!r} s, warm "
+          f"relearn (40 steps) {times['warm_s']!r} s; greedy select "
+          f"P={GREEDY_P} k={GREEDY_K} {times['greedy_ms']!r} ms")
+    return times
+
+
+def time_greedy(post, x_pool):
+    """greedy_variance_select on the covariance of the top-P-std slice of
+    the pool, fp64 and fp32 (CUDA events, mean of 3 after one warm-up);
+    the fp32 pivots are printed beside fp64's."""
+    from nngp_tpu_torch.active import greedy_variance_select
+
+    _, std = post.predict_mean_std(x_pool)
+    top = torch.argsort(std, stable=True)[-GREEDY_P:]
+    _, cov = post._predict_scaled(x_pool[top], True)
+    out = {}
+    sels = {}
+    for label, c in (("fp64", cov), ("fp32", cov.float())):
+        noise = post.reg.to(c.dtype)
+        sels[label] = greedy_variance_select(c, GREEDY_K, noise)
+        out[label] = _event_ms(lambda: greedy_variance_select(c, GREEDY_K,
+                                                              noise), 3)
+    first = sels["fp64"]
+    if torch.unique(first).numel() != GREEDY_K:
+        raise AssertionError("greedy selected a pivot twice")
+    same = int((sels["fp32"] == first).sum())
+    print(f"  greedy P={GREEDY_P} k={GREEDY_K}: fp64 {out['fp64']!r} ms, "
+          f"fp32 {out['fp32']!r} ms; fp32 picks the fp64 pivot at {same} "
+          f"of {GREEDY_K} steps")
+    return out
+
+
+def learn_greedy_cli(total):
+    """cli.active_train --selection greedy on forest, fp64 and fp32 (the
+    default kernel): the per-round validation MSE of each, and the fp32
+    deviation from fp64."""
+    from nngp_tpu_torch.cli import active_train
+
+    hist = {}
+    for label, extra in (("fp64", ["--x64"]), ("fp32", [])):
+        reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            hist[label] = active_train.main(
+                ["--device", "cuda", "--query_path", FOREST,
+                 "--selection", "greedy", *extra])
+        # initial fit + validation predict; per round the pool std, the
+        # slice covariance (cross + sym), the extend and a validation
+        # predict
+        expect_launches(f"active_train greedy {label}", read_launches(),
+                        {"sym": 7, "cross": 13}, total)
+        mses = [h["val_mse"] for h in hist[label]]
+        if (len(mses) != 3 or not np.all(np.isfinite(mses))
+                or [h["num_train"] for h in hist[label]]
+                != [4600, 5600, 6600]):
+            raise AssertionError(f"greedy {label}: history {hist[label]}")
+    dev = [a["val_mse"] / b["val_mse"] - 1
+           for a, b in zip(hist["fp32"], hist["fp64"])]
+    print(f"  active_train greedy: validation MSE per round fp64 "
+          f"{[h['val_mse'] for h in hist['fp64']]!r}, fp32 "
+          f"{[h['val_mse'] for h in hist['fp32']]!r}; fp32 relative "
+          f"deviation {dev!r}")
+
+
+def learn_synth6(total, device):
+    """A synth6 fp32 Estimator with quality='best' (chunk_norm, ARD learn,
+    10% calibration holdout): q-error and coverage; its answers against a
+    direct fit of its learned spec on its scaled rows (the same batch, so
+    within `check_same_predictions`' 1e-11 bound); then an extend of 900 validation lines and
+    one relearn_hyperparams. Returns (construction s, relearn s)."""
+    import tempfile
+
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.serve import Estimator
+
+    train, test_labeled, val = synth6_lines()
+    test, test_y = synth6_test(test_labeled)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir = write_train_dir(tmp, train)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            est = Estimator("synth6", None, train_dir,
+                            stats_dir=SYNTH6_STATS, dtype=np.float32,
+                            quality="best", device=device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    print("learning slice synth6 fp32 quality='best':")
+    for line in buf.getvalue().splitlines():
+        print(f"  {line}")
+    # the learn launches nothing; the fit one sym, the holdout one cross
+    expect_launches("best construction", read_launches(),
+                    {"sym": 1, "cross": 1}, total)
+    res = est.hyper_result
+    if not (est.chunk_norm and res is not None
+            and res.feature_scale is not None):
+        raise AssertionError("quality='best' did not learn an ARD scale")
+    reset_launches()
+    mean, std = est.predict(test)
+    expect_launches("best predict", read_launches(),
+                    {"sym": 0, "cross": -(-len(test) // CHUNK)}, total)
+    med, p95 = qerror(mean, test_y)
+    _, lo, hi = est.predict_interval(test, alpha=0.1)
+    cover = float(np.mean((test_y >= lo) & (test_y <= hi)))
+    fs = res.feature_scale
+    print(f"  best: symmetric q-error median={med!r} p95={p95!r}; 90% "
+          f"conformal intervals cover {cover!r}; std_scale "
+          f"{est.std_scale!r}; ARD scale range [{float(fs.min())!r}, "
+          f"{float(fs.max())!r}]; construction {build_s!r} s")
+    if not (np.all(np.isfinite(std)) and 0.0 < cover <= 1.0):
+        raise AssertionError(f"best: std finite {np.isfinite(std).all()}, "
+                             f"cover {cover}")
+    # the direct fit predicts the distinct lines, as the Estimator's
+    # deduplicated batch does
+    p = est.posterior
+    direct = fit_gp(est.spec, p.x_train, p.y_train, diag_reg=est.diag_reg,
+                    input_scale=1.0)
+    uniq = list(dict.fromkeys(test))
+    dm, ds = direct.predict_mean_std_chunked(est.encode_lines(uniq))
+    row = {line: i for i, line in enumerate(uniq)}
+    pick = [row[line] for line in test]
+    # the std scaled in the Estimator's dtype, as its predict scales it
+    want = (dm[pick].astype(np.float64),
+            (ds[pick] * est.std_scale).astype(np.float64))
+    d = check_same_predictions("best vs a direct fit", mean, std, want,
+                               sum_scales(est, test))
+    del direct
+    print(f"  best vs a direct fit_gp of the learned spec on the scaled "
+          f"rows: max (|d mean|, |d var|) / scale {d!r}")
+    n0 = p.num_train
+    reset_launches()
+    est.extend_with_lines(val[:900])
+    expect_launches("best extend", read_launches(), {"sym": 1, "cross": 1},
+                    total)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logev = est.relearn_hyperparams(verbose=False)
+    torch.cuda.synchronize()
+    relearn_s = time.perf_counter() - t0
+    expect_launches("best relearn", read_launches(), {"sym": 1, "cross": 0},
+                    total)
+    new = est.hyper_result
+    mean2, _ = est.predict(test)
+    med2, p952 = qerror(mean2, test_y)
+    print(f"  relearn on {est.posterior.num_train} rows: w={new.w!r} "
+          f"b={new.b!r} diag_reg={new.diag_reg!r} log evidence {logev!r}; "
+          f"q-error median={med2!r} p95={p952!r}; {relearn_s!r} s")
+    if (est.posterior.num_train != n0 + 900 or new is res
+            or not np.isfinite(logev) or not med2 <= 1.25 * med):
+        raise AssertionError(f"relearn: {est.posterior.num_train} rows, "
+                             f"log evidence {logev}, median {med2}")
+    return build_s, relearn_s
+
+
+def learn_slice(card, total, device):
+    """Hyperparameter learning and active learning; adds every path's
+    launches to `total`."""
+    learn_s = learn_cli(total)
+    active = learn_active(total, device)
+    learn_greedy_cli(total)
+    build_s, relearn_s = learn_synth6(total, device)
+    print(f"learning times on {card}: forest CLI learn (3 restarts x 100 "
+          f"steps, 2048 rows) fp64 scalar {learn_s['fp64 scalar']!r} s, fp64 "
+          f"ARD {learn_s['fp64 ARD']!r} s, fp32 scalar "
+          f"{learn_s['fp32 scalar']!r} s (fp64 scalar learn s / 100 steps: "
+          f"{learn_s['fp64 scalar'] * 10.0!r} ms, subsample, copy and final "
+          f"loss included; cli.profile_slice --phases hyperopt times the "
+          f"step loop alone); active cold learn {active['cold_s']!r} s, warm "
+          f"relearn {active['warm_s']!r} s; round: select "
+          f"{active['select_ms']!r} ms, extend {active['extend_ms']!r} ms, "
+          f"validation predict {active['val_predict_ms']!r} ms; greedy "
+          f"{active['greedy_ms']!r} ms; synth6 best construction "
+          f"{build_s!r} s, relearn {relearn_s!r} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -844,11 +1262,13 @@ def main():
     check_ragged(device)
     errs = check_forest_shapes(device)
     check_join_widths(device)
+    check_learned_specs(device)
     launches = check_slice("cuda")
     print(f"times on {card}:")
     times = time_kernels(device)
     time_slice(device)
     serve_slice(card, launches, device)
+    learn_slice(card, launches, device)
 
     summary = {"kernels": [
         {"name": KERNELS[key][0], "route": "cuda", "source": SOURCE,

@@ -14,11 +14,14 @@ Layer map:
               Cholesky append
   models/     kernel specs (Dense/activation serial -> nngp/ntk recursion)
   gp/         exact GP posterior fit/predict/extend (nngp + ntk semantics),
-              ridge selection by evidence
+              ridge selection by evidence, kernel hyperparameters learned
+              by evidence (`hyperopt.py`)
+  active/     active learning: biased, top-k and greedy acquisition
   data/       pandas-free single-table and multi-join workload assembly
   serve/      the exact-tier Estimator, streaming batcher, TCP server,
               drift monitor, aux-query feedback merge
-  cli/        training, serving demo and profiling entry points
+  cli/        training, active-learning, serving demo and profiling entry
+              points
   convert.py  layer specs and posterior state to and from the JAX package
 
 Importing this package imports nothing heavy; `torch` loads with the

@@ -1,10 +1,24 @@
-"""Where the time of the slice's warm fit and warm predict goes.
+"""Where the time of the slice's warm phases goes: fit, predict, a
+hyperparameter learn and a greedy selection.
 
     python -m nngp_tpu_torch.cli.profile_slice --device cuda \
-        --query_path workloads/forest_data [--kernel_type ntk] [--x64]
+        --query_path workloads/forest_data [--kernel_type ntk] [--x64] \
+        [--phases fit,predict,hyperopt,hyperopt_warm,greedy]
 
 Takes the training CLI's flags (same workload, split, kernel and fit) plus
---reps. After one cold fit and one cold predict, for each phase:
+--reps and --phases. The phases:
+
+  fit            fit_gp of the spec of --depth/--activation/--w_std/--b_std;
+  predict        its predict_mean_std of the test split;
+  hyperopt       fit_kernel_hyperparams on --hyper_points training rows,
+                 --hyper_steps steps, the default 3 restarts (--ard: ARD);
+  hyperopt_warm  the same with one restart, as a warm relearn runs;
+  greedy         greedy_variance_select of GREEDY_K rows from the
+                 covariance of the GREEDY_POOL test rows of largest std (with
+                 --train_frac 0.2 --test_frac 0.6 the split is the active
+                 learner's 20/60/20 one and the test split is its pool).
+
+After one cold call of each phase, for each phase:
 
   wall_ms     host clock around the synchronized call, median of --reps;
   busy_ms     the union of the device activity intervals (kernels, copies,
@@ -12,8 +26,12 @@ Takes the training CLI's flags (same workload, split, kernel and fit) plus
   idle        1 - busy_ms / the host-clock wall of that traced call (the
               tracer's host overhead counts as idle, so this is an upper
               bound);
+  launches    the count of device activity records in the traced call;
   top         device ms per kernel name in the traced call, largest first;
-  peak_gib    torch.cuda.max_memory_allocated over the traced call.
+  peak_gib    torch.cuda.max_memory_allocated over the traced call;
+  step_ms     hyperopt phases only: (wall_ms - the wall_ms of the same
+              learn with 0 steps) / --hyper_steps, i.e. the step loop
+              without the subsample and the final loss.
 
 The device fields are null on the CPU, and when the tracer records no
 device activity. Prints one JSON line per phase.
@@ -29,11 +47,19 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity
 
+from nngp_tpu_torch.active import greedy_variance_select
 from nngp_tpu_torch.cli import train
 from nngp_tpu_torch.gp import fit_gp
+from nngp_tpu_torch.gp.hyperopt import fit_kernel_hyperparams
 from nngp_tpu_torch.utils.device import resolve_device, working_dtype
 
 TOP_KERNELS = 8
+# the hyperopt phases' ridge restarts beside init's 1e-3
+HYPER_RESTARTS = {"hyperopt": (3e-2, 0.3), "hyperopt_warm": ()}
+PHASES = ("fit", "predict", *HYPER_RESTARTS, "greedy")
+# the greedy phase's size: the active learner's pre-filtered slice and its
+# budget on forest
+GREEDY_POOL, GREEDY_K = 4096, 1000
 
 
 def union_length(intervals) -> float:
@@ -65,10 +91,14 @@ def _wall_ms(fn, device) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def _median_wall_ms(fn, device, reps: int) -> float:
+    return statistics.median(_wall_ms(fn, device) for _ in range(reps))
+
+
 def profile_phase(fn, device, reps: int) -> dict:
-    out = {"wall_ms": statistics.median(_wall_ms(fn, device)
-                                        for _ in range(reps)),
-           "busy_ms": None, "idle": None, "top": None, "peak_gib": None}
+    out = {"wall_ms": _median_wall_ms(fn, device, reps),
+           "busy_ms": None, "idle": None, "launches": None, "top": None,
+           "peak_gib": None}
     if device.type != "cuda":
         return out
     torch.cuda.reset_peak_memory_stats(device)
@@ -85,6 +115,7 @@ def profile_phase(fn, device, reps: int) -> dict:
     for name, start, end in spans:
         per_name[name] += (end - start) / 1e3
     out.update(busy_ms=busy_ms, idle=1.0 - busy_ms / traced_ms,
+               launches=len(spans),
                top=[[name[:80], ms]
                     for name, ms in per_name.most_common(TOP_KERNELS)])
     return out
@@ -94,29 +125,67 @@ def main(argv=None):
     p = train.build_parser()
     p.add_argument("--reps", type=int, default=5,
                    help="timed calls per phase (the median is reported)")
+    p.add_argument("--phases", type=str, default="fit,predict",
+                   help="comma-separated subset of " + ",".join(PHASES))
     args = p.parse_args(argv)
     train.reject_unported(p, args)
+    for flag in ("learn_hyper", "select_kernel", "hyper_file"):
+        if getattr(args, flag) != p.get_default(flag):
+            p.error(f"--{flag}: the fit and predict phases profile the "
+                    "spec given by --depth/--activation/--w_std/--b_std, "
+                    "the hyperopt phases a learn from the default init; "
+                    "fit with learned hyperparameters through "
+                    "nngp_tpu_torch.cli.train")
+    phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        p.error(f"--phases: unknown {unknown}; choose from {PHASES}")
     if args.reps < 1:
         p.error("--reps must be >= 1")
+    if set(phases) & set(HYPER_RESTARTS) and args.hyper_steps < 1:
+        p.error("--hyper_steps must be >= 1 to profile a learn")
     device = resolve_device(args.device)
     x_tr, y_tr, _, x_te, _, _ = train.load_split(args)
     spec = train.spec_from_args(args)
-    x_te = torch.as_tensor(x_te, dtype=working_dtype(args.x64),
-                           device=device)
+    dtype = working_dtype(args.x64)
+    x_te = torch.as_tensor(x_te, dtype=dtype, device=device)
+    xl = torch.as_tensor(x_tr, dtype=dtype, device=device)
+    yl = torch.as_tensor(y_tr, dtype=dtype, device=device)
 
     def fit():
         return fit_gp(spec, x_tr, y_tr, diag_reg=args.diag_reg,
                       get=args.kernel_type, device=device)
 
+    def learn(phase, steps):
+        return lambda: fit_kernel_hyperparams(
+            xl, yl, depth=args.depth, activation=args.activation,
+            get=args.kernel_type, steps=steps, max_points=args.hyper_points,
+            width=args.width, ard=args.ard,
+            reg_restarts=HYPER_RESTARTS[phase])
+
     post = fit()
     post.predict_mean_std(x_te)
+    fns = {"fit": fit,
+           "predict": lambda: post.predict_mean_std(x_te),
+           **{ph: learn(ph, args.hyper_steps) for ph in HYPER_RESTARTS}}
+    if "greedy" in phases:
+        _, std = post.predict_mean_std(x_te)
+        top = torch.argsort(std, stable=True)[-GREEDY_POOL:]
+        _, cov = post._predict_scaled(x_te[top], True)
+        noise = post.reg.to(cov.dtype)
+        fns["greedy"] = lambda: greedy_variance_select(cov, GREEDY_K, noise)
     records = []
-    for phase, fn in (("fit", fit),
-                      ("predict", lambda: post.predict_mean_std(x_te))):
+    for phase in phases:
+        fns[phase]()
         rec = {"phase": phase, "kernel_type": args.kernel_type,
                "dtype": str(x_te.dtype).removeprefix("torch."),
                "n_train": int(x_tr.shape[0]), "n_test": int(x_te.shape[0]),
-               **profile_phase(fn, device, args.reps)}
+               **profile_phase(fns[phase], device, args.reps)}
+        if phase in HYPER_RESTARTS:
+            zero = learn(phase, 0)
+            zero()
+            rec["step_ms"] = (rec["wall_ms"] - _median_wall_ms(
+                zero, device, args.reps)) / args.hyper_steps
         print(json.dumps(rec))
         records.append(rec)
     return records

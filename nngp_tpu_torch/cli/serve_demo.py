@@ -10,8 +10,8 @@ print shapes and latency.
 
 Same flags as the JAX demo plus --device (default cuda; no fallback to the
 CPU). Flags whose path is not ported stop with an error naming their
-ROADMAP item. --quality best fills chunk_norm and a 10% calibration
-holdout; its hyperparameter learning waits for ROADMAP Queue A #9.
+ROADMAP item. --quality best fills chunk_norm, ARD hyperparameters learned
+by evidence and a 10% calibration holdout for flags left unset.
 """
 
 import argparse
@@ -27,11 +27,6 @@ _NOT_PORTED = {
     "nystrom_m": "Queue A #10 (gp/nystrom.py)",
     "nystrom_moments": "Queue A #10 (gp/nystrom.py)",
     "pad_slots": "'Not to port' (shape buckets)",
-    "learn_hyper": "Queue A #9 (gp/hyperopt.py)",
-    "ard": "Queue A #9 (gp/hyperopt.py)",
-    "hyper_file": "Queue A #9 (gp/hyperopt.py)",
-    "hyper_steps": "Queue A #9 (gp/hyperopt.py)",
-    "hyper_points": "Queue A #9 (gp/hyperopt.py)",
 }
 _TIER_ITEMS = {"auto": "Queue A #10 (gp/nystrom.py)",
                "nystrom": "Queue A #10 (gp/nystrom.py)",
@@ -87,11 +82,16 @@ def build_parser():
     p.add_argument("--pad_slots", type=int, default=None,
                    help="not ported (shape buckets)")
     p.add_argument("--learn_hyper", action="store_true",
-                   help="not ported yet")
+                   help="learn (w0, w, b, diag_reg) by evidence before "
+                        "fitting (gp/hyperopt.py); the learned spec rides "
+                        "through --ckpt")
+    # three-state flags (unset / --x / --no-x): --quality best fills only
+    # unset ones
     p.add_argument("--ard", action=argparse.BooleanOptionalAction,
-                   default=None, help="not ported yet")
-    # three-state (unset / --chunk_norm / --no-chunk_norm): --quality best
-    # fills only an unset one
+                   default=None,
+                   help="with --learn_hyper: learn a per-feature input "
+                        "scale. Needs fp32-safe features: add --chunk_norm. "
+                        "--no-ard forces it off under --quality best")
     p.add_argument("--chunk_norm", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="rescale packed categorical chunk slots onto the "
@@ -99,11 +99,14 @@ def build_parser():
                         "the bit-exact reference encoding even under "
                         "--quality best")
     p.add_argument("--hyper_file", type=str, default=None,
-                   help="not ported yet")
-    p.add_argument("--hyper_steps", type=int, default=100,
-                   help="not ported yet")
+                   help="learned-hyperparameter JSON artifact "
+                        "(gp.hyperopt.HyperoptResult, written by either "
+                        "package): if it exists, serve with it and skip "
+                        "learning; with --learn_hyper and no such file, "
+                        "learn then save it there")
+    p.add_argument("--hyper_steps", type=int, default=100)
     p.add_argument("--hyper_points", type=int, default=4096,
-                   help="not ported yet")
+                   help="hyperopt subsample")
     p.add_argument("--calibrate_file", type=str, default=None,
                    help="HELD-OUT labeled query file (query@...@card lines): "
                         "fit the MLE std recalibration + split-conformal "
@@ -116,16 +119,18 @@ def build_parser():
                    choices=("off", "monitor", "online", "auto"),
                    help="with --listen: accept LABELED lines "
                         "(query@...@card) over the socket as serving "
-                        "feedback — monitor drift or learn online ('auto' "
-                        "is not ported yet)")
+                        "feedback — monitor drift, learn online, or "
+                        "auto-remediate a drift alarm by relearning the "
+                        "hyperparameters (serve/socket_server.py)")
     p.add_argument("--warmup_batch", type=int, default=4096,
                    help="with --listen: one predict of this many rows "
                         "before accepting connections, so the first "
                         "request pays no kernel build (0 disables)")
     p.add_argument("--quality", type=str, default="reference",
                    choices=["reference", "best"],
-                   help="'best' fills chunk_norm and a 10%% calibration "
-                        "holdout for flags left unset")
+                   help="'best' fills chunk_norm, ARD evidence-learned "
+                        "hyperparameters and a 10%% calibration holdout for "
+                        "flags left unset")
     p.add_argument("--tier", type=str, default=None,
                    choices=["auto", "exact", "nystrom", "distributed"],
                    help="posterior tier; only 'exact' is ported")
@@ -149,9 +154,6 @@ def reject_unported(p, args):
     if args.tier in _TIER_ITEMS:
         p.error(f"--tier {args.tier} is not ported yet "
                 f"(ROADMAP {_TIER_ITEMS[args.tier]})")
-    if args.feedback_mode == "auto":
-        p.error("--feedback_mode auto is not ported yet (ROADMAP Queue A "
-                "#9: its remediation is relearn_hyperparams)")
     if args.data_path:
         p.error("--data_path is not ported yet (ROADMAP Queue A #7, the "
                 "pandas CSV loaders); use --stats_dir")
@@ -193,14 +195,28 @@ def main(argv=None):
         est = Estimator.restore(args.ckpt, device=args.device)
     else:
         print("loading schema and training data ... This may take seconds ...")
+        # None, not False, when --learn_hyper is absent: --quality best
+        # fills only an unset flag
+        learn_hyper = True if args.learn_hyper else None
+        if args.hyper_file and os.path.exists(args.hyper_file):
+            from nngp_tpu_torch.gp.hyperopt import HyperoptResult
+            learn_hyper = HyperoptResult.load(args.hyper_file)
+            print(f"serving with hyperparameters from {args.hyper_file}")
         est = Estimator(args.schema_name, None, args.train_query_path,
                         chunk_size=args.chunk_size, use_aux=args.use_aux,
                         q_error_threshold=args.q_error_threshold,
                         coef_var_threshold=args.coef_var_threshold,
                         stats_dir=args.stats_dir, chunk_norm=args.chunk_norm,
-                        learn_hyper=False, quality=args.quality,
+                        learn_hyper=learn_hyper, hyper_ard=args.ard,
+                        hyper_steps=args.hyper_steps,
+                        hyper_points=args.hyper_points,
+                        quality=args.quality,
                         calibrate_frac=args.calibrate_frac, tier=args.tier,
                         device=args.device)
+        if (args.hyper_file and est.hyper_result is not None
+                and not os.path.exists(args.hyper_file)):
+            est.hyper_result.save(args.hyper_file)
+            print(f"saved hyperparameter artifact to {args.hyper_file}")
         if args.ckpt:
             est.save(args.ckpt)
     est.load_model()

@@ -4,8 +4,9 @@
         --query_path workloads/forest_data --device cuda
 
 Load the single-table or multi-join (--schema_name) workload -> seed-10
-60/20/20 split -> [--select_reg ridge by evidence] -> fit the exact
-GP on the NNGP or NTK kernel -> report MSE, the partitioned q-error profile
+60/20/20 split -> [--learn_hyper / --select_kernel / --hyper_file
+hyperparameters by evidence] -> [--select_reg ridge by evidence] -> fit
+the exact GP on the NNGP or NTK kernel -> report MSE, the partitioned q-error profile
 and the symmetric q-error line. Same flags and printed lines as the JAX
 CLI, plus --device (default cuda; no fallback to the CPU). fp32 by default,
 fp64 with --x64 on either device.
@@ -14,6 +15,7 @@ Paths not ported yet stop with an error naming their ROADMAP item.
 """
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -34,13 +36,6 @@ from nngp_tpu_torch.utils.timing import Timer
 _NOT_PORTED = {
     "nystrom_m": "Queue A #10 (gp/nystrom.py)",
     "nystrom_moments": "Queue A #10 (gp/nystrom.py)",
-    "learn_hyper": "Queue A #9 (gp/hyperopt.py)",
-    "hyper_steps": "Queue A #9 (gp/hyperopt.py)",
-    "hyper_points": "Queue A #9 (gp/hyperopt.py)",
-    "ard": "Queue A #9 (gp/hyperopt.py)",
-    "hyper_objective": "Queue A #9 (gp/hyperopt.py)",
-    "select_kernel": "Queue A #9 (gp/hyperopt.py)",
-    "hyper_file": "Queue A #9 (gp/hyperopt.py)",
     "profile_dir": "Queue A #13 (utils/profiling.py)",
     "config": "Queue A #13 (utils/config.py)",
 }
@@ -78,18 +73,34 @@ def build_parser():
     p.add_argument("--nystrom_moments", type=str, default="fp32",
                    choices=("fp32", "df64"), help="not ported yet")
     p.add_argument("--learn_hyper", action="store_true",
-                   help="not ported yet")
+                   help="learn (w0, w, b, diag_reg) by evidence before "
+                        "fitting (gp.hyperopt; multi-start Adam); overrides "
+                        "--w_std/--b_std/--diag_reg with the learned values")
     p.add_argument("--hyper_file", type=str, default=None,
-                   help="not ported yet")
-    p.add_argument("--hyper_steps", type=int, default=100,
-                   help="not ported yet")
+                   help="learned-hyperparameter JSON artifact "
+                        "(gp.hyperopt.HyperoptResult, either package's): "
+                        "if it exists, load it and skip learning; otherwise "
+                        "learn (with --learn_hyper/--select_kernel) and "
+                        "save it there")
+    p.add_argument("--hyper_steps", type=int, default=100)
     p.add_argument("--hyper_points", type=int, default=4096,
-                   help="not ported yet")
-    p.add_argument("--ard", action="store_true", help="not ported yet")
+                   help="training-row subsample the evidence is optimized "
+                        "on; 0 = the full training set (DTC objective only)")
+    p.add_argument("--ard", action="store_true",
+                   help="with --learn_hyper: learn a per-feature input "
+                        "scale; train and test features are rescaled by "
+                        "the learned vector before the fit")
     p.add_argument("--hyper_objective", type=str, default="auto",
-                   choices=["auto", "exact", "dtc"], help="not ported yet")
+                   choices=["auto", "exact", "dtc"],
+                   help="which evidence --learn_hyper maximizes: the exact "
+                        "GP's or the Nystrom/DTC model's; auto = exact "
+                        "(dtc once --nystrom_m is ported)")
     p.add_argument("--select_kernel", action="store_true",
-                   help="not ported yet")
+                   help="evidence-ranked model selection over (depth in "
+                        "1..3) x (relu, erf) with learned hyperparameters "
+                        "per structure (gp.hyperopt.select_kernel); "
+                        "overrides --depth/--activation/--w_std/--b_std/"
+                        "--diag_reg")
     p.add_argument("--depth", type=int, default=1, help="hidden layers")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--activation", type=str, default="relu",
@@ -184,6 +195,48 @@ def spec_from_args(args) -> KernelSpec:
                           args.w_std, args.b_std))
 
 
+def learn_hyperparams(p, args, x_tr, y_tr, timer, device):
+    """The HyperoptResult that --hyper_file, --select_kernel or
+    --learn_hyper ask for (in that order of precedence), or None."""
+    from nngp_tpu_torch.gp.hyperopt import (HyperoptResult,
+                                            fit_kernel_hyperparams,
+                                            select_kernel)
+
+    if args.hyper_file and os.path.exists(args.hyper_file):
+        # the learning costs minutes; the artifact is a small JSON
+        res = HyperoptResult.load(args.hyper_file)
+        print(f"loaded hyperparameters from {args.hyper_file} "
+              f"(depth={res.depth} activation={res.activation} "
+              f"{res.objective} log evidence {res.log_evidence:.2f})")
+        return res
+    if not (args.select_kernel or args.learn_hyper):
+        return None
+    # auto = the evidence of the tier that serves, the exact one here
+    objective = ("exact" if args.hyper_objective == "auto"
+                 else args.hyper_objective)
+    if args.select_kernel:
+        with timer.measure("kernel selection (evidence grid)"):
+            res, _ranked = select_kernel(
+                x_tr, y_tr, get=args.kernel_type, steps=args.hyper_steps,
+                max_points=args.hyper_points, width=args.width,
+                verbose=print, ard=args.ard, objective=objective,
+                dtc_m=512, device=device)
+        print(f"selected kernel: depth={res.depth} "
+              f"activation={res.activation}")
+        return res
+    if not args.hyper_points and objective != "dtc":
+        p.error("--hyper_points 0 (full-n hyperopt) requires the DTC "
+                "objective (exact loss is O(n^3)/step)")
+    with timer.measure("hyperparameter learning (MLL)"):
+        return fit_kernel_hyperparams(
+            x_tr, y_tr, depth=args.depth, activation=args.activation,
+            get=args.kernel_type, steps=args.hyper_steps,
+            max_points=args.hyper_points or None, width=args.width,
+            init=(args.w_std, args.w_std, max(args.b_std, 0.1),
+                  args.diag_reg), ard=args.ard, objective=objective,
+            dtc_m=512, device=device)
+
+
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
@@ -195,17 +248,40 @@ def main(argv=None):
 
     timer = Timer(device)
     spec = spec_from_args(args)
+    input_scale = None
+    res = learn_hyperparams(p, args, x_tr, y_tr, timer, device)
+    if res is not None:
+        print(f"learned hyperparameters: w0={res.w0:.4f} w={res.w:.4f} "
+              f"b={res.b:.4f} diag_reg={res.diag_reg:.3e} "
+              f"({res.objective} log evidence {res.log_evidence:.2f} "
+              f"on {res.num_points} rows)")
+        spec = res.spec
+        fit_kw = res.fit_kwargs()
+        args.diag_reg = fit_kw["diag_reg"]
+        input_scale = fit_kw.get("input_scale")
+        if res.feature_scale is not None:
+            s = res.feature_scale
+            print(f"learned ARD feature scale: range "
+                  f"[{s.min():.3g}, {s.max():.3g}]")
+            x_tr = res.scale_inputs(x_tr)
+            x_te = res.scale_inputs(x_te)
+        if args.hyper_file and not os.path.exists(args.hyper_file):
+            res.save(args.hyper_file)
+            print(f"saved hyperparameter artifact to {args.hyper_file}")
     print("memory:", _memory_usage_gb(device))
 
     def _fit():
         # x_tr stays host numpy: the fp32 prescale probe is free there
         return fit_gp(spec, x_tr, y_tr, diag_reg=args.diag_reg,
-                      get=args.kernel_type, device=device)
+                      get=args.kernel_type, input_scale=input_scale,
+                      device=device)
 
     if args.select_reg:
         cands = [float(v) for v in args.select_reg.split(",")]
         best, scores = select_diag_reg(spec, x_tr, y_tr, candidates=cands,
-                                       get=args.kernel_type, device=device)
+                                       get=args.kernel_type,
+                                       input_scale=input_scale,
+                                       device=device)
         for r, mll in sorted(scores.items()):
             tag = "  <-- selected" if r == float(best.diag_reg) else ""
             print(f"diag_reg={r:g}: log evidence {mll:.2f}{tag}")

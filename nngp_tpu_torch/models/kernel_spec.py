@@ -67,7 +67,7 @@ def _validate(layers: Sequence[Layer]):
             raise TypeError(f"Unknown layer {l!r}")
 
 
-def apply_recursion(k, ntk, d1, d2, layers: Sequence[Layer]):
+def apply_recursion(k, ntk, d1, d2, layers: Sequence[Layer], duals=None):
     """Run the dual recursion on a cross block.
 
     k:   (m, n) input covariance block  x1 @ x2.T / d
@@ -75,7 +75,11 @@ def apply_recursion(k, ntk, d1, d2, layers: Sequence[Layer]):
     d1:  (m, 1) input diag covariances of x1 rows
     d2:  (1, n) input diag covariances of x2 rows
 
-    Returns (nngp, ntk) for the block."""
+    `duals` selects the activation-dual registry (default DUALS; the
+    hyperparameter loss passes its grad-safe one). Returns (nngp, ntk) for
+    the block."""
+    if duals is None:
+        duals = DUALS
     for layer in layers:
         if isinstance(layer, Dense):
             w2 = layer.w_std ** 2
@@ -85,7 +89,7 @@ def apply_recursion(k, ntk, d1, d2, layers: Sequence[Layer]):
             d1 = w2 * d1 + b2
             d2 = w2 * d2 + b2
         else:
-            t, tdot, tdiag = DUALS[layer.name]
+            t, tdot, tdiag = duals[layer.name]
             ntk = ntk * tdot(k, d1, d2)
             k = t(k, d1, d2)
             d1 = tdiag(d1)

@@ -11,10 +11,14 @@ package's single-chip format, so either package restores what the other
 wrote. Online learning (`extend_with_lines`), uncertainty calibration and
 drift monitoring work as in the JAX package.
 
+Hyperparameters learned by evidence (`learn_hyper`, `hyper_ard`,
+`quality='best'`) come from `gp.hyperopt`; `relearn_hyperparams` relearns
+them on a live server, warm-started, and rolls back on any failure.
+
 What differs from the JAX Estimator:
-  - only the exact single-device tier is ported; the Nystrom, distributed
-    and hyperparameter-learning paths raise `NotImplementedError` naming
-    their ROADMAP item;
+  - only the exact single-device tier is ported; the Nystrom and
+    distributed paths raise `NotImplementedError` naming their ROADMAP
+    item;
   - there are no serving buckets: a predict runs exactly the rows it was
     given, in chunks of 8,192 (`GPPosterior.predict_mean_std_chunked`);
     the buckets existed to bound XLA compiles;
@@ -48,7 +52,6 @@ from nngp_tpu_torch.utils.device import resolve_device
 # squared fp32 Gram entries head toward overflow.
 _EXTEND_MAX_SCALED_ABS = 2.0 ** 20
 
-_HYPEROPT = "ROADMAP Queue A #9 (gp/hyperopt.py)"
 _NYSTROM = "ROADMAP Queue A #10 (gp/nystrom.py)"
 _PARALLEL = "ROADMAP Queue A #12 (parallel/)"
 
@@ -61,9 +64,6 @@ _NOT_PORTED = {
     "auto_nystrom_m": (None, _NYSTROM + ", tier='auto'"),
     "exact_max_n": (None, _NYSTROM + ", tier='auto' (its bound is derived "
                     "again for 80 GB)"),
-    "hyper_steps": (100, _HYPEROPT),
-    "hyper_points": (4096, _HYPEROPT),
-    "hyper_objective": ("auto", _HYPEROPT),
     "pad_slots": (None, "ROADMAP 'Not to port' (shape buckets)"),
 }
 
@@ -149,12 +149,25 @@ class Estimator:
         'cuda' without a GPU raises). Those whose path is not ported raise
         NotImplementedError naming their ROADMAP item when set off their
         default: mesh, dist_block_size, nystrom_m, nystrom_moments,
-        auto_nystrom_m, exact_max_n, learn_hyper, hyper_*, pad_slots, and
-        tier other than None or 'exact'.
+        auto_nystrom_m, exact_max_n, pad_slots, and tier other than None or
+        'exact'.
+
+        learn_hyper: True learns (w0, w, b, diag_reg) by exact-evidence
+        gradient descent on (a subsample of) the training queries before
+        the fit (`gp.hyperopt`, hyper_steps Adam steps on hyper_points
+        rows, the evidence of hyper_objective: 'exact', 'dtc', or 'auto' =
+        'exact' on this tier) and replaces the spec's Dense stds and
+        diag_reg. A `gp.hyperopt.HyperoptResult` (e.g. loaded from a
+        --hyper_file artifact of either package) is installed as it is,
+        after checking its kernel type and feature width. Requires an
+        mlp-shaped spec and features within the fp32-safe range (pass
+        chunk_norm=True for packed categorical chunks). hyper_ard: learn a
+        per-feature input scale too; it is applied to every encoded query
+        and rides through checkpoints.
 
         quality='best' fills the flags still unset: chunk_norm=True,
-        calibrate_frac=0.1 and learn_hyper=True. Hyperopt is not ported,
-        so pass learn_hyper=False to serve 'best' without it.
+        learn_hyper=True with hyper_ard=True, and calibrate_frac=0.1. An
+        explicit learn_hyper=False is kept.
 
         stats / stats_dir: the schema's TableStats, or a directory of
         TableStats JSONs laid out in the schema's table order. The raw-CSV
@@ -176,18 +189,12 @@ class Estimator:
         given = dict(mesh=mesh, dist_block_size=dist_block_size,
                      nystrom_m=nystrom_m, nystrom_moments=nystrom_moments,
                      auto_nystrom_m=auto_nystrom_m, exact_max_n=exact_max_n,
-                     hyper_steps=hyper_steps, hyper_points=hyper_points,
-                     hyper_objective=hyper_objective, pad_slots=pad_slots)
+                     pad_slots=pad_slots)
         for name, value in given.items():
             default, item = _NOT_PORTED[name]
             if value != default:
                 raise NotImplementedError(
                     f"Estimator({name}=...) is not ported yet ({item})")
-        if learn_hyper or hyper_ard:
-            raise NotImplementedError(
-                "learn_hyper / hyper_ard (hyperparameter learning) is not "
-                f"ported yet ({_HYPEROPT}); with quality='best' pass "
-                "learn_hyper=False to serve without it")
         if tier not in (None, "exact"):
             if tier in ("nystrom", "auto"):
                 raise NotImplementedError(
@@ -243,7 +250,8 @@ class Estimator:
         self.std_scale = 1.0            # post-hoc std recalibration (MLE)
         self._conformal_scores = None   # sorted |y-mu|/std calibration set
         self.drift_monitor = None       # created lazily by record_feedback
-        self.feature_scale = None       # an ARD scale, from a checkpoint
+        self.feature_scale = None       # a learned ARD scale
+        self.hyper_result = None        # the HyperoptResult in effect
         x_cal = y_cal = None
         if n_cal > 0:
             # seeded holdout before the fit: calibration rows must be held
@@ -256,10 +264,25 @@ class Estimator:
             if verbose:
                 print(f"calibration holdout: {n_cal} queries "
                       f"(fit on {x.shape[0]})")
+        if learn_hyper:
+            if isinstance(learn_hyper, bool):
+                self._learn_hyperparams(x, y, hyper_steps, hyper_points,
+                                        verbose, ard=bool(hyper_ard),
+                                        objective=hyper_objective)
+            else:
+                if hyper_ard and learn_hyper.feature_scale is None:
+                    raise ValueError(
+                        "hyper_ard=True but the hyper artifact is scalar-"
+                        "mode (no feature_scale) — relearn it with ard=True "
+                        "or drop hyper_ard")
+                self._apply_hyper_result(learn_hyper, x, verbose)
+            x = self._apply_feature_scale(x)
+        elif hyper_ard:
+            raise ValueError("hyper_ard requires learn_hyper=True")
         self.posterior = self._fit(x, y)
         self._validate_fit()
         if x_cal is not None:
-            self._calibrate_arrays(x_cal,
+            self._calibrate_arrays(self._apply_feature_scale(x_cal),
                                    np.asarray(y_cal, np.float64).ravel(),
                                    verbose, source="holdout")
 
@@ -310,6 +333,163 @@ class Estimator:
             print("Estimator: the native query encoder is unavailable (no "
                   "g++?); encoding query lines with the Python encoder",
                   file=sys.stderr)
+
+    def _require_mlp_spec(self, op_name: str):
+        """Hyperopt parameterizes mlp-shaped stacks only: learning a
+        different kernel family than the server's would swap the model out
+        from under the user. Returns (acts, denses)."""
+        acts = [l for l in self.spec.layers if isinstance(l, Activation)]
+        denses = [l for l in self.spec.layers if isinstance(l, Dense)]
+        if not acts or len(denses) != len(acts) + 1 or len(
+                {a.name for a in acts}) != 1:
+            raise ValueError(
+                f"{op_name} requires an mlp-shaped spec "
+                "((Dense, Activation)*depth + Dense, one activation); got "
+                f"{self.spec.layers}")
+        return acts, denses
+
+    def _print_hyper(self, verb: str, res):
+        print(f"{verb} hyperparameters: w0={res.w0:.4f} w={res.w:.4f} "
+              f"b={res.b:.4f} diag_reg={res.diag_reg:.3e} "
+              f"({res.objective} log evidence {res.log_evidence:.2f} "
+              f"on {res.num_points} rows)")
+
+    def _learn_hyperparams(self, x, y, steps, max_points, verbose,
+                           ard: bool = False, objective: str = "auto"):
+        """Replace the spec and diag_reg (and, with ard, the feature
+        scale) by evidence-learned values. save() already writes the
+        learned Dense stds and the feature scale."""
+        from nngp_tpu_torch.gp.hyperopt import fit_kernel_hyperparams
+
+        acts, denses = self._require_mlp_spec("learn_hyper")
+        max_abs = float(np.max(np.abs(x))) if x.size else 0.0
+        if max_abs > _EXTEND_MAX_SCALED_ABS:
+            raise ValueError(
+                f"learn_hyper: max|feature| = {max_abs:.3g} exceeds the "
+                "fp32-safe range (squared Gram entries overflow); pass "
+                "chunk_norm=True to put packed categorical chunks on the "
+                "[0, 1000] scale")
+        if objective == "auto":
+            objective = "exact"        # 'dtc' when the Nystrom tier lands
+        if not max_points and objective != "dtc":
+            raise ValueError(
+                "hyper_points=0 (full-n hyperopt) requires the DTC "
+                "objective — the exact loss is O(n^3) per step")
+        res = fit_kernel_hyperparams(
+            x, y, depth=len(acts), activation=acts[0].name,
+            get=self.kernel_type, steps=steps,
+            max_points=max_points or None,   # 0 -> full n (dtc is O(n m^2))
+            width=denses[0].width, ard=ard, objective=objective,
+            dtc_m=512, device=self.device)
+        if res.feature_scale is not None:
+            self.feature_scale = np.asarray(res.feature_scale, np.float64)
+        if verbose:
+            self._print_hyper("learned", res)
+        self.spec = res.spec
+        self.diag_reg = res.diag_reg
+        self.hyper_result = res
+
+    def _apply_hyper_result(self, res, x: np.ndarray, verbose: bool):
+        """Install an already-learned HyperoptResult (e.g. a --hyper_file
+        artifact) as this server's spec, ridge and ARD scale, after
+        checking its provenance (kernel type, feature width) and the fp32
+        magnitude range: a mismatched artifact degrades every prediction
+        with no other diagnostic."""
+        num_features = x.shape[1]
+        for art_features in (getattr(res, "num_features", None),
+                             (len(np.ravel(res.feature_scale))
+                              if res.feature_scale is not None else None)):
+            if art_features is not None and art_features != num_features:
+                raise ValueError(
+                    f"hyper artifact was learned on {art_features} "
+                    f"features but this schema encodes {num_features} — "
+                    "wrong workload/stats?")
+        if getattr(res, "get", None) and res.get != self.kernel_type:
+            raise ValueError(
+                f"hyper artifact maximized the {res.get!r} evidence but "
+                f"this server fits kernel_type={self.kernel_type!r} — "
+                "relearn with the matching get")
+        # b != 0 turns the input prescale off (the spec is no longer scale
+        # equivariant), so raw 2^64-packed chunks would overflow the
+        # squared fp32 Gram
+        scaled_max = float(np.max(np.abs(x))) if x.size else 0.0
+        if res.feature_scale is not None:
+            scaled_max *= float(np.max(np.abs(res.feature_scale)))
+        if (self.dtype == np.float32 and res.b != 0.0
+                and scaled_max > _EXTEND_MAX_SCALED_ABS):
+            raise ValueError(
+                f"hyper artifact has b={res.b:g} (prescale off) but "
+                f"max|feature| ~ {scaled_max:.3g} exceeds the fp32-safe "
+                "range; pass chunk_norm=True (or use fp64)")
+        if res.feature_scale is not None:
+            self.feature_scale = np.asarray(res.feature_scale, np.float64)
+        if verbose:
+            self._print_hyper("loaded", res)
+        self.spec = res.spec
+        self.diag_reg = res.diag_reg
+        self.hyper_result = res
+
+    def relearn_hyperparams(self, labeled_lines: Optional[Sequence[str]] =
+                            None, steps: int = 40,
+                            max_points: Optional[int] = 2048,
+                            verbose: bool = True) -> float:
+        """Warm hyperparameter recalibration of a live server: relearn
+        (w0, w, b, diag_reg), and the ARD scale if one is active,
+        warm-started from the current values (one restart, `steps` Adam
+        steps), then refit the posterior with the new kernel. Online
+        extends shift the training distribution and the evidence optimum
+        moves with it.
+
+        labeled_lines: `query@...@card` lines to learn from and refit on;
+        None takes the posterior's own training rows.
+
+        Transactional: on any exception during the refit, the previous
+        spec, ridge, feature scale and posterior all stay in effect.
+        Returns the new log evidence."""
+        from nngp_tpu_torch.gp.hyperopt import fit_kernel_hyperparams
+
+        if labeled_lines is not None:
+            x_fs, cards = self._encode_labeled_lines(labeled_lines,
+                                                     "relearn_hyperparams")
+            y = np.log2(cards).reshape(-1, 1).astype(self.dtype)
+        else:
+            p = self.posterior
+            x_fs = p.x_train.cpu().numpy() * float(p.input_scale)
+            y = p.y_train.cpu().numpy()
+        # back to raw feature units: the relearn may produce a new scale
+        x_raw = (x_fs / self.feature_scale.astype(x_fs.dtype)
+                 if self.feature_scale is not None else x_fs)
+        acts, denses = self._require_mlp_spec("relearn_hyperparams")
+        # warm init from the live spec; b is log-parameterized, so a pinned
+        # zero bias warm-starts at the default 0.1
+        w0 = denses[0].w_std
+        w = denses[1].w_std if len(denses) > 1 else denses[0].w_std
+        b = denses[0].b_std if denses[0].b_std > 0 else 0.1
+        res = fit_kernel_hyperparams(
+            x_raw, y, depth=len(acts), activation=acts[0].name,
+            get=self.kernel_type, steps=steps, max_points=max_points,
+            width=denses[0].width, init=(w0, w, b, self.diag_reg),
+            reg_restarts=(), ard=self.feature_scale is not None,
+            init_feature_scale=self.feature_scale, device=self.device)
+        if verbose:
+            self._print_hyper("relearned", res)
+        old = (self.spec, self.diag_reg, self.feature_scale, self.posterior)
+        try:
+            self.spec = res.spec
+            self.diag_reg = res.diag_reg
+            if res.feature_scale is not None:
+                self.feature_scale = np.asarray(res.feature_scale,
+                                                np.float64)
+            self.posterior = self._fit(self._apply_feature_scale(x_raw), y)
+            self._validate_fit()
+            self.hyper_result = res
+        except BaseException:
+            # a new spec, ridge or scale left in place against the old
+            # posterior would put every later query in the wrong geometry
+            (self.spec, self.diag_reg,
+             self.feature_scale, self.posterior) = old
+            raise
+        return float(res.log_evidence)
 
     def _fit(self, x, y):
         # x/y are host numpy: the fp32 prescale probe (max|x|) is free there
@@ -369,6 +549,7 @@ class Estimator:
                               if "feature_scale" in meta else None)
         self.std_scale = float(meta.get("std_scale", 1.0))
         self.drift_monitor = None
+        self.hyper_result = None
         self._init_encoders()
         with np.load(os.path.join(ckpt_dir, "posterior.npz")) as arrs:
             self._conformal_scores = (np.asarray(arrs["conformal_scores"])
@@ -643,9 +824,8 @@ class Estimator:
         """Fold labeled serving feedback into the workload-drift monitor
         and return a `serve.drift.DriftReport`: whether the model still
         explains the live workload and, if not, the remediation measured
-        to help the exact tier ('relearn_hyperparams', which waits for
-        ROADMAP Queue A #9 here). Observes only; call
-        `drift_monitor.reset()` after acting."""
+        to help the exact tier ('relearn_hyperparams'). Observes only;
+        call `drift_monitor.reset()` after acting."""
         from nngp_tpu_torch.serve.drift import DriftMonitor, DriftReport
         if self.drift_monitor is None:
             self.drift_monitor = DriftMonitor()

@@ -3,9 +3,8 @@
 The port's copy of `nngp_tpu/serve/socket_server.py`, with the same line
 protocol. It is carried in this package because importing any
 `nngp_tpu.serve` module loads jax (the package's `__init__` imports the
-JAX Estimator). Only the feedback modes whose remediation is ported are
-served: feedback_mode='auto' relearns hyperparameters on a drift alarm,
-which waits for ROADMAP Queue A #9, and raises at construction.
+JAX Estimator). The remediation of the Nystrom tier (`grow_inducing` over
+`train_log`) waits for ROADMAP Queue A #10, so `train_log` raises.
 
 Protocol (newline-delimited UTF-8, one request per line):
   request   a card-less query line in the serving grammar
@@ -126,7 +125,16 @@ class EstimatorSocketServer:
       'monitor'  folds them into the drift detector only
                  (`Estimator.record_feedback`);
       'online'   monitor + `extend_with_lines` (the posterior learns the
-                 labels incrementally).
+                 labels incrementally);
+      'auto'     online + on a drift alarm the report's remediation,
+                 `relearn_hyperparams` on the exact tier, then a reset of
+                 the monitor. A remediation this package cannot apply is
+                 skipped and counted in stats()['remediations_skipped'],
+                 and the monitor resets so the alarm cannot latch. When
+                 the estimator was calibrated, the conformal scores are
+                 refreshed on the next feedback batch before it is folded
+                 into training (those lines are still held out, which the
+                 split-conformal guarantee requires).
 
     Malformed labeled lines are validated per line and cost only
     themselves (stats()['feedback_errors']), never the batch.
@@ -142,13 +150,14 @@ class EstimatorSocketServer:
     def __init__(self, estimator, host: str = "127.0.0.1", port: int = 0,
                  alpha: Optional[float] = None, timeout_s: float = 120.0,
                  feedback_mode: str = "off", feedback_batch: int = 64,
-                 feedback_flush_s: float = 2.0, **batcher_kwargs):
-        if feedback_mode == "auto":
+                 feedback_flush_s: float = 2.0, train_log=None,
+                 **batcher_kwargs):
+        if train_log is not None:
             raise NotImplementedError(
-                "feedback_mode='auto' remediates a drift alarm with "
-                "relearn_hyperparams, which is not ported yet (ROADMAP "
-                "Queue A #9, gp/hyperopt.py); use 'online' or 'monitor'")
-        if feedback_mode not in ("off", "monitor", "online"):
+                "train_log feeds the Nystrom tier's grow_inducing "
+                "remediation, which is not ported yet (ROADMAP Queue A #10, "
+                "gp/nystrom.py)")
+        if feedback_mode not in ("off", "monitor", "online", "auto"):
             raise ValueError(
                 "feedback_mode must be off|monitor|online|auto, got "
                 f"{feedback_mode!r}")
@@ -162,7 +171,9 @@ class EstimatorSocketServer:
         self._fb_queue: "queue.SimpleQueue" = queue.SimpleQueue()
         self._fb_stats = {"feedback_lines": 0, "feedback_batches": 0,
                           "extends": 0, "drift_alarms": 0,
+                          "remediations": 0, "remediations_skipped": 0,
                           "feedback_errors": 0}
+        self._recal_pending = False
         self._fb_running = feedback_mode != "off"
 
         def locked_predict(lines):
@@ -235,11 +246,27 @@ class EstimatorSocketServer:
                 report = est.record_feedback(good)
                 st["feedback_lines"] += len(good)
                 st["feedback_batches"] += 1
-                if self.feedback_mode == "online":
+                # a remediation moved the posterior: refresh the stale
+                # conformal calibration on this batch BEFORE extending with
+                # it, while its lines are still held out
+                if (self._recal_pending
+                        and getattr(est, "_conformal_scores", None)
+                        is not None):
+                    est.calibrate_uncertainty(good, verbose=False)
+                    self._recal_pending = False
+                if self.feedback_mode in ("online", "auto"):
                     est.extend_with_lines(good)
                     st["extends"] += 1
                 if report.drift:
                     st["drift_alarms"] += 1
+                if report.drift and self.feedback_mode == "auto":
+                    if report.action == "relearn_hyperparams":
+                        est.relearn_hyperparams(verbose=False)
+                        st["remediations"] += 1
+                        self._recal_pending = True
+                    else:
+                        st["remediations_skipped"] += 1
+                    est.drift_monitor.reset()
         except Exception:  # noqa: BLE001 — the worker must survive
             st["feedback_errors"] += len(good)
 

@@ -9,6 +9,7 @@ orders); 1e-4 in fp32. A checkpoint restored in the same package predicts
 bit for bit what it saved.
 """
 
+import dataclasses
 import json
 import os
 
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 
 import nngp_tpu.gp.posterior as JP
 from nngp_tpu.serve.estimator import Estimator as JaxEstimator
+from nngp_tpu_torch.models.kernel_spec import KernelSpec
 from nngp_tpu_torch.ops import gram_cuda
 from nngp_tpu_torch.serve import Estimator
 from tests.test_active_serve import _toy_schema_files
@@ -310,12 +312,6 @@ def test_explicit_learn_hyper_false_survives_quality_best():
     ({"tier": "auto"}, "Queue A #10"),
     ({"auto_nystrom_m": 1024}, "Queue A #10"),
     ({"exact_max_n": 70000}, "Queue A #10"),
-    ({"learn_hyper": True}, "Queue A #9"),
-    ({"hyper_ard": True}, "Queue A #9"),
-    ({"hyper_steps": 10}, "Queue A #9"),
-    ({"hyper_points": 512}, "Queue A #9"),
-    ({"hyper_objective": "dtc"}, "Queue A #9"),
-    ({"quality": "best"}, "Queue A #9"),
     ({"pad_slots": 8}, "Not to port"),
     ({"stats": None}, "Queue A #7"),
 ])
@@ -445,3 +441,174 @@ def test_jax_checkpoint_restores_with_a_custom_spec(toy, tmp_path):
     np.testing.assert_array_equal(
         est.posterior.x_train.numpy(), np.asarray(jest.posterior.x_train))
     assert float(est.posterior.reg) == float(jnp.asarray(jest.posterior.reg))
+
+
+# ------------------------------------------------ learned hyperparameters
+HYPER = dict(hyper_steps=8, hyper_points=48)
+
+
+@pytest.fixture(scope="module")
+def learned(toy):
+    """(JAX, port) Estimators with ARD hyperparameters learned by
+    evidence, and the scalar pair (the JAX fit on its exact-diagonal
+    path)."""
+    return {ard: _pair(toy, learn_hyper=True, hyper_ard=ard, **HYPER)
+            for ard in (True, False)}
+
+
+def _close_hyper(res, jres, rtol=1e-6):
+    for field in ("w0", "w", "b", "diag_reg", "log_evidence"):
+        assert getattr(res, field) == pytest.approx(getattr(jres, field),
+                                                    rel=rtol), field
+    if jres.feature_scale is not None:
+        np.testing.assert_allclose(res.feature_scale, jres.feature_scale,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("ard", [True, False], ids=["ard", "scalar"])
+def test_learned_estimator_matches_jax(learned, ard):
+    """learn_hyper=True (hyper_ard on and off): the same learned values
+    (rtol 1e-6), the ARD scale applied to every query, predictions within
+    rtol 1e-9."""
+    jest, est = learned[ard]
+    _close_hyper(est.hyper_result, jest.hyper_result)
+    assert (est.feature_scale is None) == (not ard)
+    assert est.spec.layers[0].b_std == est.hyper_result.b
+    _close(est.predict(LINES), jest.predict(LINES))
+
+
+def test_quality_best_learns_as_jax_does(toy):
+    """quality='best' now learns: chunk_norm, ARD hyperparameters and a
+    10% calibration holdout, as the JAX package routes it."""
+    stats, qdir = toy
+    kw = dict(stats=stats, dtype=np.float64, verbose=False, quality="best",
+              **HYPER)
+    # each package's unset sentinel: False in JAX, None in the port
+    jest = JaxEstimator("toy", None, qdir, learn_hyper=False, **kw)
+    est = Estimator("toy", None, qdir, device="cpu", **kw)
+    assert est.chunk_norm and est.feature_scale is not None
+    assert est.posterior.num_train == jest.posterior.num_train == 50
+    _close_hyper(est.hyper_result, jest.hyper_result)
+    assert est.std_scale == pytest.approx(jest.std_scale, rel=1e-8)
+    _close(est.predict(LINES), jest.predict(LINES))
+
+
+def test_learned_checkpoints_load_in_either_package(learned, tmp_path):
+    """A checkpoint carries the learned spec and the ARD scale: the JAX
+    one restores in the port and the port's in JAX, each predicting what
+    the other did (rtol 1e-9)."""
+    jest, est = learned[True]
+    jest.save(str(tmp_path / "jax"))
+    est.save(str(tmp_path / "port"))
+    back = Estimator.restore(str(tmp_path / "jax"), device="cpu")
+    jback = JaxEstimator.restore(str(tmp_path / "port"))
+    assert back.spec.layers[0].w_std == jest.spec.layers[0].w_std
+    np.testing.assert_array_equal(back.feature_scale, jest.feature_scale)
+    np.testing.assert_array_equal(jback.feature_scale, est.feature_scale)
+    _close(back.predict(LINES), jest.predict(LINES))
+    _close(jback.predict(LINES), est.predict(LINES))
+
+
+def test_hyper_artifacts_from_either_package_serve_alike(toy, learned,
+                                                         tmp_path):
+    """learn_hyper=<HyperoptResult>: a JAX-written artifact installed in
+    the port serves what the JAX Estimator serves with it, and the
+    reverse (rtol 1e-9)."""
+    from nngp_tpu.gp.hyperopt import HyperoptResult as JaxResult
+    from nngp_tpu_torch.gp.hyperopt import HyperoptResult
+
+    stats, qdir = toy
+    jest, est = learned[True]
+    jest.hyper_result.save(str(tmp_path / "jax.json"))
+    est.hyper_result.save(str(tmp_path / "port.json"))
+    on_port = Estimator("toy", None, qdir, stats=stats, dtype=np.float64,
+                        verbose=False, device="cpu",
+                        learn_hyper=HyperoptResult.load(
+                            str(tmp_path / "jax.json")))
+    on_jax = JaxEstimator("toy", None, qdir, stats=stats, dtype=np.float64,
+                          verbose=False,
+                          learn_hyper=JaxResult.load(
+                              str(tmp_path / "port.json")))
+    _close(on_port.predict(LINES), jest.predict(LINES))
+    _close(on_jax.predict(LINES), est.predict(LINES))
+
+
+def test_hyper_artifact_guards_raise_like_jax(toy, learned):
+    """_apply_hyper_result's provenance and range guards and hyper_ard
+    with a scalar artifact raise ValueError in both packages."""
+    stats, qdir = toy
+    res = learned[True][1].hyper_result
+    scalar = learned[False][1].hyper_result
+    cases = [
+        (dict(learn_hyper=dataclasses.replace(res, num_features=7)),
+         "learned on 7 features"),
+        (dict(learn_hyper=dataclasses.replace(res, get="ntk")),
+         "maximized the 'ntk' evidence"),
+        (dict(learn_hyper=scalar, hyper_ard=True), "scalar-mode"),
+        (dict(learn_hyper=dataclasses.replace(
+            scalar, feature_scale=np.full(11, 2.0 ** 30)),
+            dtype=np.float32), "exceeds the fp32-safe range"),
+        (dict(hyper_ard=True), "hyper_ard requires learn_hyper"),
+    ]
+    for kw, match in cases:
+        with pytest.raises(ValueError, match=match):
+            Estimator("toy", None, qdir, stats=stats, verbose=False,
+                      device="cpu", **{"dtype": np.float64, **kw})
+
+
+def test_learn_requires_an_mlp_spec_and_a_safe_range(toy):
+    from nngp_tpu_torch.models.kernel_spec import Activation, Dense
+
+    stats, qdir = toy
+    odd = KernelSpec((Dense(64), Activation("relu"), Dense(64),
+                      Activation("erf"), Dense(1)))
+    with pytest.raises(ValueError, match="mlp-shaped spec"):
+        Estimator("toy", None, qdir, stats=stats, spec=odd, verbose=False,
+                  learn_hyper=True, device="cpu", **HYPER)
+    _, est = _pair(toy)
+    with pytest.raises(ValueError, match="fp32-safe range"):
+        est._learn_hyperparams(np.full((4, 11), 2.0 ** 21), np.ones((4, 1)),
+                               5, 48, False)
+    with pytest.raises(ValueError, match="requires the DTC objective"):
+        est._learn_hyperparams(np.ones((4, 11)), np.ones((4, 1)), 5, 0,
+                               False)
+
+
+def test_relearn_after_extend_matches_jax(toy):
+    """extend_with_lines, then relearn_hyperparams (warm, from the
+    posterior's own rows): the same relearned values and predictions."""
+    jest, est = _pair(toy, learn_hyper=True, hyper_ard=True, **HYPER)
+    new = _labeled(12, 20, scale=3.0)
+    est.extend_with_lines(new)
+    jest.extend_with_lines(new)
+    kw = dict(steps=6, max_points=48, verbose=False)
+    assert est.relearn_hyperparams(**kw) == pytest.approx(
+        jest.relearn_hyperparams(**kw), rel=1e-6)
+    _close_hyper(est.hyper_result, jest.hyper_result)
+    assert est.posterior.num_train == jest.posterior.num_train == 80
+    _close(est.predict(LINES), jest.predict(LINES), rtol=1e-8)
+    lines = _labeled(13, 30)
+    kw["verbose"] = True
+    est.relearn_hyperparams(lines, **kw)
+    assert est.posterior.num_train == 30
+
+
+def test_relearn_rolls_back_on_any_failure(learned, monkeypatch):
+    """A refit that raises leaves the spec, ridge, ARD scale, posterior
+    and hyperparameter result of before in place."""
+    _, est = learned[True]
+    before = (est.spec, est.diag_reg, est.feature_scale, est.posterior,
+              est.hyper_result)
+    want = est.predict(LINES)
+
+    def broken_fit(x, y):
+        raise RuntimeError("device lost mid-refit")
+
+    monkeypatch.setattr(est, "_fit", broken_fit)
+    with pytest.raises(RuntimeError, match="device lost"):
+        est.relearn_hyperparams(steps=3, verbose=False)
+    after = (est.spec, est.diag_reg, est.feature_scale, est.posterior,
+             est.hyper_result)
+    assert all(a is b for a, b in zip(after, before))
+    for g, w in zip(est.predict(LINES), want):
+        np.testing.assert_array_equal(g, w)

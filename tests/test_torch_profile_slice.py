@@ -40,8 +40,30 @@ def test_profile_runs_on_the_cpu(kernel_type, capsys):
         assert rec["busy_ms"] is None and rec["idle"] is None
 
 
+def test_profile_learning_phases_run_on_the_cpu(capsys, monkeypatch):
+    """The hyperopt phases (3 restarts and 1) and the greedy phase (cut to
+    8 of 64 rows): one JSON line each, with a step time for a learn."""
+    monkeypatch.setattr(profile_slice, "GREEDY_POOL", 64)
+    monkeypatch.setattr(profile_slice, "GREEDY_K", 8)
+    phases = ["hyperopt", "hyperopt_warm", "greedy"]
+    records = profile_slice.main([
+        "--device", "cpu", "--query_path", FOREST, "--max_num_train", "200",
+        "--x64", "--phases", ",".join(phases), "--hyper_points", "64",
+        "--hyper_steps", "2", "--reps", "1"])
+    out = capsys.readouterr().out
+    assert [r["phase"] for r in records] == phases
+    assert out.count('{"phase": ') == 3
+    for rec in records:
+        assert rec["dtype"] == "float64"
+        assert rec["wall_ms"] > 0
+        assert rec["busy_ms"] is None and rec["launches"] is None
+    assert [("step_ms" in r) for r in records] == [True, True, False]
+
+
 def test_profile_rejects_unported_flags_and_bad_reps(capsys):
-    for flags in (["--learn_hyper"], ["--reps", "0"]):
+    for flags in (["--learn_hyper"], ["--reps", "0"],
+                  ["--phases", "fit,bogus"],
+                  ["--phases", "hyperopt", "--hyper_steps", "0"]):
         with pytest.raises(SystemExit) as exc:
             profile_slice.main(["--device", "cpu", *flags])
         assert exc.value.code == 2

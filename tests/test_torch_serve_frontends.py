@@ -455,11 +455,53 @@ def test_feedback_over_the_wire(toy, mode):
 
 
 def test_feedback_auto_waits_for_hyperopt():
-    with pytest.raises(NotImplementedError, match="Queue A #9"):
-        EstimatorSocketServer(_StubEstimator(), port=0, feedback_mode="auto")
+    """feedback_mode='auto' is served now that its remediation
+    (relearn_hyperparams) is ported; only the Nystrom tier's train_log
+    still waits (ROADMAP Queue A #10)."""
+    with EstimatorSocketServer(_StubEstimator(), port=0,
+                               feedback_mode="auto") as srv:
+        st = srv.stats()
+    assert st["remediations"] == st["remediations_skipped"] == 0
+    with pytest.raises(NotImplementedError, match="Queue A #10"):
+        EstimatorSocketServer(_StubEstimator(), port=0, feedback_mode="auto",
+                              train_log=["t@x,1,0@5"])
     with pytest.raises(ValueError, match="feedback_mode must be"):
         EstimatorSocketServer(_StubEstimator(), port=0,
                               feedback_mode="sometimes")
+
+
+def test_feedback_auto_relearns_on_a_drift_alarm(toy):
+    """'auto': labeled lines extend the posterior; when the drift monitor
+    alarms, the exact tier relearns its hyperparameters (warm, on the
+    posterior's own rows), the monitor resets, and the conformal scores
+    of a calibrated estimator are refreshed on the next batch before it is
+    folded in."""
+    est = _estimator(toy)
+    est.calibrate_uncertainty(_lines(np.random.default_rng(8), 30,
+                                     labeled=True), verbose=False)
+    rng = np.random.default_rng(9)
+    calm = _lines(rng, 140, labeled=True)
+    drifted = _lines(rng, 60, labeled=True, scale=4.0)
+    after = _lines(rng, 20, labeled=True)
+    n0 = est.posterior.num_train
+    with EstimatorSocketServer(est, port=0, feedback_mode="auto",
+                               feedback_batch=400,
+                               feedback_flush_s=0.3) as srv:
+        _client(srv.host, srv.port, calm)
+        _wait(lambda: srv.stats()["feedback_lines"] >= 140)
+        scores = est._conformal_scores
+        _client(srv.host, srv.port, drifted)
+        _wait(lambda: srv.stats()["remediations"] >= 1, 120.0)
+        _client(srv.host, srv.port, after)
+        _wait(lambda: srv.stats()["feedback_lines"] >= 220)
+        st = srv.stats()
+    assert st["drift_alarms"] == st["remediations"] >= 1
+    assert st["remediations_skipped"] == st["feedback_errors"] == 0
+    assert est.hyper_result is not None
+    assert est.spec.layers[0].b_std == est.hyper_result.b > 0
+    assert est.posterior.num_train == n0 + 220
+    assert est.drift_monitor.n <= 80        # reset at the alarm
+    assert est._conformal_scores is not scores
 
 
 # ------------------------------------------------------ drift and feedback
@@ -566,19 +608,47 @@ def test_serve_demo_cpu_with_checkpoint_streaming_and_listen(toy, tmp_path,
     assert len(replies) == 3 and all("mean" in r for r in replies)
 
 
+def test_serve_demo_learns_and_reuses_a_hyper_file(toy, tmp_path, capsys):
+    """--learn_hyper --ard --hyper_file learns, saves the artifact and
+    serves; a second run serves with the artifact without learning, and
+    predicts the same."""
+    from nngp_tpu_torch.cli import serve_demo
+
+    stats, qdir = toy
+    stats_dir = tmp_path / "stats"
+    stats_dir.mkdir()
+    for i, s in enumerate(stats):
+        s.save(str(stats_dir / f"{i}_{s.table_name}.json"))
+    test_file = tmp_path / "test.txt"
+    test_file.write_text("\n".join(_lines(np.random.default_rng(5), 10,
+                                          labeled=True)) + "\n")
+    hyper = tmp_path / "hyper.json"
+    argv = ["--device", "cpu", "--schema_name", "toy", "--stats_dir",
+            str(stats_dir), "--train_query_path", qdir, "--test_query_file",
+            str(test_file), "--hyper_file", str(hyper), "--hyper_steps",
+            "4", "--hyper_points", "40"]
+    serve_demo.main(argv + ["--learn_hyper", "--ard"])
+    first = capsys.readouterr().out
+    serve_demo.main(argv)
+    second = capsys.readouterr().out
+    assert "learned hyperparameters" in first
+    assert "saved hyperparameter artifact" in first and hyper.exists()
+    assert f"serving with hyperparameters from {hyper}" in second
+    assert "learned hyperparameters" not in second
+
+    def first5(out):
+        return out.split("first 5")[1].split("\n")[1:6]
+
+    assert first5(first) == first5(second)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--mesh_devices", "4"], "Queue A #12"),
     (["--nystrom_m", "64"], "Queue A #10"),
     (["--nystrom_moments", "df64"], "Queue A #10"),
     (["--pad_slots", "8"], "'Not to port'"),
-    (["--learn_hyper"], "Queue A #9"),
-    (["--ard"], "Queue A #9"),
-    (["--hyper_file", "h.json"], "Queue A #9"),
-    (["--hyper_steps", "5"], "Queue A #9"),
-    (["--hyper_points", "64"], "Queue A #9"),
     (["--tier", "auto"], "Queue A #10"),
     (["--tier", "distributed"], "Queue A #12"),
-    (["--feedback_mode", "auto", "--listen", "127.0.0.1:0"], "Queue A #9"),
     (["--data_path", "csvs"], "Queue A #7"),
 ])
 def test_serve_demo_unported_flags_name_their_item(flags, item, capsys):
@@ -611,11 +681,26 @@ sys.meta_path.insert(0, _Block())
 
 def test_serving_imports_and_runs_with_jax_and_pandas_blocked(tmp_path):
     """A fresh interpreter in which importing jax or pandas raises: the
-    serving package and the demo import, and the demo serves the
-    committed synth workload on the CPU."""
+    serving package, the demo, hyperparameter learning and active
+    learning import; a short learn and the active-learning CLI run, and
+    the demo serves the committed synth workload on the CPU."""
     code = _BLOCK_HOOK + (
+        "import numpy as np\n"
         "import nngp_tpu_torch.serve\n"
         "import nngp_tpu_torch.cli.serve_demo as demo\n"
+        "import nngp_tpu_torch.active\n"
+        "from nngp_tpu_torch.cli import active_train\n"
+        "from nngp_tpu_torch.gp.hyperopt import fit_kernel_hyperparams\n"
+        "rng = np.random.default_rng(0)\n"
+        "res = fit_kernel_hyperparams(rng.uniform(0, 1, (40, 3)),\n"
+        "                             rng.normal(size=40), steps=3,\n"
+        "                             ard=True, device='cpu')\n"
+        "assert np.isfinite(res.log_evidence)\n"
+        "hist = active_train.main(['--device', 'cpu', '--schema_name',\n"
+        "    'synth', '--query_path', 'workloads/synth_join_data',\n"
+        "    '--budget', '20', '--active_iters', '1', '--selection',\n"
+        "    'greedy'])\n"
+        "assert hist[0]['num_train'] == 500, hist\n"
         "demo.main(['--device', 'cpu', '--schema_name', 'synth',\n"
         "           '--stats_dir', 'workloads/synth_stats',\n"
         "           '--train_query_path', 'workloads/synth_join_data',\n"

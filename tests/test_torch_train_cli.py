@@ -1,7 +1,9 @@
 """The port's training CLI (`nngp_tpu_torch.cli.train`) end to end against
 the JAX CLI on the committed forest and synth join workloads, fp64 on the
-CPU; its errors for paths not ported yet; and, in a fresh interpreter,
-that the slice loads neither jax nor pandas.
+CPU, with and without hyperparameters learned by evidence (--learn_hyper,
+--ard, --select_kernel, --hyper_file artifacts of either package); its
+errors for paths not ported yet; and, in a fresh interpreter, that the
+slice loads neither jax nor pandas.
 
 The JAX runs take the exact-diagonal fit path the forest workload takes at
 full size (see tests/test_torch_posterior.py). The q-error profile must
@@ -99,17 +101,10 @@ def test_cli_device_cuda_raises_without_a_gpu():
 @pytest.mark.parametrize("flags,item", [
     (["--kernel_type", "gp"], "Queue A #11"),
     (["--nystrom_m", "64"], "Queue A #10"),
-    (["--learn_hyper"], "Queue A #9"),
-    (["--select_kernel"], "Queue A #9"),
-    (["--hyper_file", "hyper.json"], "Queue A #9"),
     (["--relations", "title,cast_info"], "Queue A #7"),
     (["--profile_dir", "trace"], "Queue A #13"),
     (["--config", "run.json"], "Queue A #13"),
     (["--nystrom_moments", "df64"], "Queue A #10"),
-    (["--hyper_steps", "50"], "Queue A #9"),
-    (["--hyper_points", "1024"], "Queue A #9"),
-    (["--ard"], "Queue A #9"),
-    (["--hyper_objective", "exact"], "Queue A #9"),
 ])
 def test_unported_flags_name_their_roadmap_item(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -117,6 +112,85 @@ def test_unported_flags_name_their_roadmap_item(flags, item, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP {item}" in err
+
+
+HYPER = ["--hyper_points", "96", "--hyper_steps", "8"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--learn_hyper", *HYPER],
+    ["--learn_hyper", "--ard", "--kernel_type", "ntk", *HYPER],
+    ["--learn_hyper", "--hyper_objective", "dtc", "--b_std", "0.3",
+     "--diag_reg", "1e-2", *HYPER],
+], ids=["scalar", "ard-ntk", "dtc"])
+def test_learn_hyper_matches_jax_cli(extra, capsys, monkeypatch):
+    """--learn_hyper: the same learned-hyperparameter lines, the ARD
+    scale applied to train and test rows, the fit with the learned spec
+    and ridge (prescale off, b != 0), the same profile (rel 1e-6)."""
+    monkeypatch.setattr(JP, "_FUSED_FIT_MIN_N", 64)
+    argv = ["--x64", "--query_path", FOREST, "--max_num_train", "200",
+            *extra]
+    want = jax_train.main(argv)
+    jax_out = capsys.readouterr().out
+    got = train.main(["--device", "cpu", *argv])
+    out = capsys.readouterr().out
+    for key in want:
+        assert got[key] == pytest.approx(want[key], rel=1e-6), key
+    for prefix in ("learned hyperparameters", "learned ARD"):
+        assert _lines(out, prefix) == _lines(jax_out, prefix)
+    assert len(_lines(out, "learned hyperparameters")) == 1
+    assert len(_lines(out, "[timing] ")) == 5
+
+
+def test_hyper_file_artifacts_cross_between_the_clis(tmp_path, capsys,
+                                                     monkeypatch):
+    """An artifact learned and saved by the JAX CLI serves the port's
+    CLI, and one saved by the port's serves the JAX CLI; each loaded run
+    gives the profile of the run that learned it."""
+    monkeypatch.setattr(JP, "_FUSED_FIT_MIN_N", 64)
+    base = ["--x64", "--query_path", FOREST, "--max_num_train", "200",
+            "--ard", *HYPER]
+    jax_file, port_file = str(tmp_path / "jax.json"), str(tmp_path / "p.json")
+    jax_learned = jax_train.main(base + ["--learn_hyper", "--hyper_file",
+                                         jax_file])
+    port_learned = train.main(["--device", "cpu", *base, "--learn_hyper",
+                               "--hyper_file", port_file])
+    out = capsys.readouterr().out
+    assert out.count("saved hyperparameter artifact") == 2
+    on_port = train.main(["--device", "cpu", *base, "--hyper_file",
+                          jax_file])
+    on_jax = jax_train.main(base + ["--hyper_file", port_file])
+    out = capsys.readouterr().out
+    assert out.count("loaded hyperparameters from") == 2
+    for key in jax_learned:
+        assert on_port[key] == pytest.approx(jax_learned[key], rel=1e-6)
+        assert on_jax[key] == pytest.approx(port_learned[key], rel=1e-6)
+
+
+def test_select_kernel_ranks_six_structures(capsys):
+    """--select_kernel competes depth 1..3 x (relu, erf) on evidence and
+    fits the winner; the grid lines are `select_kernel`'s (held against
+    JAX in tests/test_torch_hyperopt.py)."""
+    profile = train.main(["--device", "cpu", "--x64", "--query_path",
+                          FOREST, "--max_num_train", "120", "--select_kernel",
+                          "--hyper_points", "48", "--hyper_steps", "3"])
+    out = capsys.readouterr().out
+    grid = _lines(out, "depth=")
+    assert len(grid) == 6 and "log evidence" in grid[0]
+    best = max(grid, key=lambda l: float(l.split("log evidence ")[1]
+                                         .split()[0]))
+    depth, act = best.split(":")[0].split()
+    assert _lines(out, "selected kernel: ") == [
+        f"selected kernel: {depth} activation={act.split('=')[1]}"]
+    assert all(np.isfinite(v) for v in profile.values())
+
+
+def test_full_n_exact_hyperopt_is_refused(capsys):
+    with pytest.raises(SystemExit) as exc:
+        train.main(["--device", "cpu", "--query_path", FOREST,
+                    "--learn_hyper", "--hyper_points", "0"])
+    assert exc.value.code == 2
+    assert "requires the DTC objective" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("schema", [None, "synth"])
