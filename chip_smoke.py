@@ -7,13 +7,16 @@ Run from the root of a checkout. The phases run in order and any failure
 exits nonzero; nothing is caught and retried:
 
   1. card: the nvidia-smi name and power limit, and torch's device name;
-  2. build: nvcc compiles `nngp_tpu_torch/csrc/gram.cu` for sm_90a into
-     `.build/` (reused when the source hash matches);
+  2. build: nvcc compiles `nngp_tpu_torch/csrc/gram.cu` for sm_90a and g++
+     the port's native query encoder `nngp_tpu_torch/csrc/fastenc.cpp`,
+     both into `.build/` (reused when the source hash matches);
   3. kernels vs their plain PyTorch twins on the card: fp32 and fp64, nngp
      and ntk, relu/erf/abs/sin, depth 1 and 3, b_std 0 and 0.1, at ragged
      sizes, at the forest shapes, at the join widths d = 45, 61, 99, and
      at learned-shaped specs (w0 != w, b = 62 and 80.5) on plain and
-     ARD-scaled rows;
+     ARD-scaled rows; and into outputs filled with NaN first, at ragged
+     sizes and at n = 10,800, with the persistent grid capped at 1 and 7
+     blocks as well as uncapped, so every element must be written;
   4. the training slice: the training CLI on the full forest workload
      (fp32 nngp, fp32 ntk, fp64 nngp) with the launch counters checked and
      the q-error held against the fp64 anchors of
@@ -40,9 +43,12 @@ exits nonzero; nothing is caught and retried:
 
 Each path's launches are counted from 0 around it; the summary's
 `launches` are their sum over every path. The last three lines are the
-card line, one JSON object with a summary per kernel, and the result line
-`{"ok": true, "device": {...}}`. Without CUDA, or outside a checkout, the
-script fails before printing any result.
+card line, one JSON object with a summary per kernel (its time per call,
+its own device time, the roofline bound and share, and the time of
+`torch.matmul` writing the same output, labelled "dot only": not the same
+function, a yardstick), and the result line `{"ok": true, "device":
+{...}}`. Without CUDA, or outside a checkout, the script fails before
+printing any result.
 """
 
 import contextlib
@@ -236,6 +242,58 @@ def check_ragged(device):
           "within tolerance")
 
 
+def check_every_element_written(device):
+    """Both kernels into outputs filled with NaN, so an element the
+    persistent walk skipped stays NaN and fails the comparison: ragged n
+    with the grid capped at 1 and 7 blocks and uncapped, d = 150 (staged in
+    two passes, single-buffered), and the forest shapes (n = 10,800)
+    uncapped and capped at 5; fp32 and fp64, nngp and ntk (fp32 nngp at
+    d = 20 takes the pipelined staging, the others the single-buffered
+    one), the main path's spec and a depth-3 erf one."""
+    from nngp_tpu_torch.models.kernel_spec import (KernelSpec, mlp,
+                                                   reference_kernel)
+    from nngp_tpu_torch.ops.gram_cuda import (gram_cross_plain,
+                                              gram_sym_plain, launch_cross,
+                                              launch_sym)
+
+    n_cases = 0
+    for dtype in (torch.float32, torch.float64):
+        for n, m, d, caps in ((1, 1, D, (0, 1)), (65, 63, D, (0, 1, 7)),
+                              (129, 127, D, (0, 1, 7)),
+                              (300, 129, 150, (0, 7)),
+                              (RAGGED_N, RAGGED_M, D, (0, 7)),
+                              (FOREST_N, FOREST_M, D, (0, 5))):
+            x = inputs(max(n, 4), 0, dtype, device, d)[:n].contiguous()
+            x1 = inputs(max(m, 4), 1, dtype, device, d)[:m].contiguous()
+            for spec in (reference_kernel(),
+                         KernelSpec(mlp(3, activation="erf", b_std=0.1))):
+                pk, pt = gram_sym_plain(spec, x, ("nngp", "ntk"),
+                                        diag_add=0.5)
+                ck, ct = gram_cross_plain(spec, x1, x, ("nngp", "ntk"))
+                for cap in caps:
+                    label = (f"NaN-filled n={n} d={d} {str(dtype)[6:]} "
+                             f"blocks={cap}")
+                    k = torch.full_like(pk, float("nan"))
+                    t = torch.full_like(pk, float("nan"))
+                    launch_sym(spec, x, k, t, diag_add=0.5, max_blocks=cap)
+                    c0 = torch.full_like(ck, float("nan"))
+                    c1 = torch.full_like(ck, float("nan"))
+                    launch_cross(spec, x1, x, c0, c1, max_blocks=cap)
+                    torch.cuda.synchronize()
+                    check_close(f"sym {label} nngp", k, pk, dtype, "nngp")
+                    check_close(f"sym {label} ntk", t, pt, dtype, "ntk")
+                    check_close(f"cross {label} nngp", c0, ck, dtype, "nngp")
+                    check_close(f"cross {label} ntk", c1, ct, dtype, "ntk")
+                    if not (torch.equal(k, k.mT) and torch.equal(t, t.mT)):
+                        raise AssertionError(f"sym {label}: not symmetric")
+                    n_cases += 1
+                del pk, pt, ck, ct, k, t, c0, c1
+            del x, x1
+            torch.cuda.empty_cache()
+    print(f"NaN-filled kernel checks: {n_cases} (dtype, n, spec, grid) cases "
+          f"up to n={FOREST_N}: every element written, all within tolerance")
+
+
 def check_forest_shapes(device):
     """The slice's spec at the forest shapes; returns the fp32 nngp max
     abs differences {'sym': ..., 'cross': ...}."""
@@ -335,7 +393,11 @@ def paired_ms(kernel_fn, plain_fn, reps=10):
 
 def time_kernels(device):
     """Each wrapper as the slice's nngp fit and predict call it, against
-    its plain twin, at the forest shapes; returns the fp32 times."""
+    its plain twin, at the forest shapes (per call, CUDA events), with the
+    kernel's own device time (torch.profiler), its roofline bound and, in
+    fp32, torch.matmul writing the same output (dot only); returns the fp32
+    figures."""
+    from nngp_tpu_torch.cli.gram_bench import bound, device_ms
     from nngp_tpu_torch.gp.posterior import solve_ridge
     from nngp_tpu_torch.models.kernel_spec import diag_eval, reference_kernel
     from nngp_tpu_torch.ops.gram_cuda import (gram_cross, gram_cross_plain,
@@ -348,20 +410,35 @@ def time_kernels(device):
         x1 = inputs(FOREST_M, 3, dtype, device)
         diag = diag_eval(spec.layers, x, ("nngp", "ntk"))
         reg = solve_ridge(diag)
-        times = {
-            "sym": paired_ms(
-                lambda: gram_sym(spec, x, "nngp", diag_add=reg, diag=diag),
-                lambda: gram_sym_plain(spec, x, "nngp", diag_add=reg,
-                                       diag=diag)),
-            "cross": paired_ms(
-                lambda: gram_cross(spec, x1, x, "nngp"),
-                lambda: gram_cross_plain(spec, x1, x, "nngp")),
+        calls = {
+            "sym": (lambda: gram_sym(spec, x, "nngp", diag_add=reg,
+                                     diag=diag),
+                    lambda: gram_sym_plain(spec, x, "nngp", diag_add=reg,
+                                           diag=diag),
+                    lambda: torch.matmul(x, x.mT), FOREST_N),
+            "cross": (lambda: gram_cross(spec, x1, x, "nngp"),
+                      lambda: gram_cross_plain(spec, x1, x, "nngp"),
+                      lambda: torch.matmul(x1, x.mT), FOREST_M),
         }
-        for key, (k_ms, p_ms) in times.items():
+        times = {}
+        for key, (kernel_fn, plain_fn, matmul_fn, rows) in calls.items():
+            k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
+            b_ms, b_by = bound(key, rows, FOREST_N, D, dtype)
+            times[key] = {
+                "ms": k_ms, "device_ms": device_ms(kernel_fn, 10),
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "share": b_ms / k_ms,
+                "library_ms": (_event_ms(matmul_fn, 10)
+                               if dtype == torch.float32 else None)}
             print(f"time {KERNELS[key][0]} {str(dtype)[6:]} nngp: kernel "
-                  f"{k_ms!r} ms, plain {p_ms!r} ms")
+                  f"{k_ms!r} ms per call ({times[key]['device_ms']!r} ms on "
+                  f"the device), plain {p_ms!r} ms; bound {b_ms!r} ms "
+                  f"({b_by}), share {b_ms / k_ms!r}; torch.matmul dot only "
+                  f"{times[key]['library_ms']!r} ms")
         if dtype == torch.float32:
             out = times
+        del x, x1, diag
+        torch.cuda.empty_cache()
     return out
 
 
@@ -411,8 +488,8 @@ CHUNK = 8192                 # rows per predict chunk (predict_mean_std_chunked)
 
 
 def check_join_widths(device):
-    """Both kernels at the join workloads' feature widths, which take the
-    kernels' 32-feature staging loop through 2-4 passes: fp32 and fp64,
+    """Both kernels at the join workloads' feature widths, staged in one
+    pass each (odd d = 45, 61, 99 with a zero pad feature): fp32 and fp64,
     relu and erf, nngp and ntk, at ragged sizes."""
     from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
 
@@ -512,6 +589,14 @@ def host_ms(fn, reps=5):
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(out))
+
+
+def expect_native_encoder(*estimators):
+    """Every serving Estimator encodes query lines with the port's own
+    g++-built encoder, not the Python fall-back."""
+    kinds = [est.encoder_kind for est in estimators]
+    if any(kind != "native" for kind in kinds):
+        raise AssertionError(f"encoder_kind {kinds}; expected 'native'")
 
 
 def build_estimator(train_dir, dtype, device):
@@ -778,7 +863,9 @@ def check_calibration(label, est, test, test_y, cal_lines):
 
 def time_join_kernels(spec, x_train, x_test):
     """Each kernel against its plain twin at synth6's d = 61 shapes (fp32,
-    prescaled rows, as the fp32 fit and predict call them)."""
+    prescaled rows, as the fp32 fit and predict call them), with the
+    kernel's own device time."""
+    from nngp_tpu_torch.cli.gram_bench import device_ms
     from nngp_tpu_torch.gp.posterior import solve_ridge
     from nngp_tpu_torch.models.kernel_spec import diag_eval
     from nngp_tpu_torch.ops.gram_cuda import (gram_cross, gram_cross_plain,
@@ -786,19 +873,19 @@ def time_join_kernels(spec, x_train, x_test):
 
     diag = diag_eval(spec.layers, x_train, ("nngp", "ntk"))
     reg = solve_ridge(diag)
-    times = {
-        "sym": paired_ms(
-            lambda: gram_sym(spec, x_train, "nngp", diag_add=reg, diag=diag),
-            lambda: gram_sym_plain(spec, x_train, "nngp", diag_add=reg,
-                                   diag=diag)),
-        "cross": paired_ms(
-            lambda: gram_cross(spec, x_test, x_train, "nngp"),
-            lambda: gram_cross_plain(spec, x_test, x_train, "nngp")),
+    calls = {
+        "sym": (lambda: gram_sym(spec, x_train, "nngp", diag_add=reg,
+                                 diag=diag),
+                lambda: gram_sym_plain(spec, x_train, "nngp", diag_add=reg,
+                                       diag=diag)),
+        "cross": (lambda: gram_cross(spec, x_test, x_train, "nngp"),
+                  lambda: gram_cross_plain(spec, x_test, x_train, "nngp")),
     }
-    for key, (k_ms, p_ms) in times.items():
+    for key, (kernel_fn, plain_fn) in calls.items():
+        k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
         print(f"time {KERNELS[key][0]} fp32 nngp d=61 synth6: kernel "
-              f"{k_ms!r} ms, plain {p_ms!r} ms")
-    return times
+              f"{k_ms!r} ms per call ({device_ms(kernel_fn, 10)!r} ms on the "
+              f"device), plain {p_ms!r} ms")
 
 
 def write_train_dir(tmp, train):
@@ -847,6 +934,7 @@ def serve_slice(card, total, device):
         serve_and_check(est32, "fp32", test, test_y, 0.03, 0.01, total)
         print(f"  encoder: {est64.encoder_kind}; d = "
               f"{est64.posterior.x_train.shape[1]}")
+        expect_native_encoder(est64, est32)
 
         x_test32 = torch.as_tensor(est32.encode_lines(test), device=device)
         x_test32 = (x_test32 / est32.posterior.input_scale).contiguous()
@@ -878,6 +966,7 @@ def serve_slice(card, total, device):
 
         extend_ms = check_extend(est64, test, test_y, val, total)
         back = check_checkpoint(est64, test, os.path.join(tmp, "ckpt"))
+        expect_native_encoder(back)
         del est64
         stream_st, qps = check_streaming(back, test, total)
         check_socket(back, test, test_labeled[256:320], total)
@@ -1154,6 +1243,7 @@ def learn_synth6(total, device):
     # the learn launches nothing; the fit one sym, the holdout one cross
     expect_launches("best construction", read_launches(),
                     {"sym": 1, "cross": 1}, total)
+    expect_native_encoder(est)
     res = est.hyper_result
     if not (est.chunk_norm and res is not None
             and res.feature_scale is not None):
@@ -1243,6 +1333,7 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     import nngp_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from nngp_tpu_torch import native
     from nngp_tpu_torch.ops import _build
     from nngp_tpu_torch.utils.device import resolve_device
 
@@ -1258,8 +1349,15 @@ def main():
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({'cached library' if cached else 'nvcc'})")
+    t0 = time.perf_counter()
+    if not native.is_available():
+        raise AssertionError("the native query encoder did not build (g++ "
+                             f"on {native.fastenc._SRC})")
+    print(f"build native encoder: {time.perf_counter() - t0:.2f} s "
+          f"({native.fastenc.library_path()})")
 
     check_ragged(device)
+    check_every_element_written(device)
     errs = check_forest_shapes(device)
     check_join_widths(device)
     check_learned_specs(device)
@@ -1273,8 +1371,9 @@ def main():
     summary = {"kernels": [
         {"name": KERNELS[key][0], "route": "cuda", "source": SOURCE,
          "replaces": KERNELS[key][1], "launches": launches[key],
-         "max_abs_err": errs[key], "ms": times[key][0],
-         "plain_ms": times[key][1]}
+         "max_abs_err": errs[key], **times[key],
+         "library": "torch.matmul(x1, x2.mT) fp32: dot only, not the same "
+                    "function"}
         for key in ("sym", "cross")]}
     print(card)
     print(json.dumps(summary))

@@ -2,13 +2,18 @@
 
 A port of `nngp_tpu` (JAX/Pallas on a TPU) to PyTorch on an NVIDIA H100.
 The JAX package stays the reference; this package keeps its module names so
-each counterpart is easy to find, and imports its framework-free host
-modules (`nngp_tpu.featurize`, `nngp_tpu.eval`, `nngp_tpu.native`) instead
-of copying them. `nngp_tpu.serve` cannot be imported without jax, so
-`serve/` carries its own copies of the front ends.
+each counterpart is easy to find. It imports nothing of the JAX package,
+not even its framework-free host modules: it carries its own copies
+(`featurize/`, `eval/`, `native/` with `csrc/fastenc.cpp`, and the serving
+front ends), each naming the file it copies. The tests hold each copy to
+its original.
 
 Layer map:
   utils/      device and dtype policy (TF32 off), timing
+  featurize/  query-line parsing, table stats, single-table and join
+              encoders (copies of the JAX package's)
+  native/     the g++-built native query-line encoder (`csrc/fastenc.cpp`)
+  eval/       q-error profiles, splits, calibration (copies)
   ops/        dual activations, input Gram, the hand-written CUDA Gram
               kernels (`csrc/gram.cu`) with their plain PyTorch twins, the
               Cholesky append

@@ -27,7 +27,7 @@ What differs from the JAX learner:
 import numpy as np
 import torch
 
-from nngp_tpu.eval.qerror import PredictionStatistics
+from nngp_tpu_torch.eval.qerror import PredictionStatistics
 from nngp_tpu_torch.gp import GPPosterior, fit_gp
 from nngp_tpu_torch.models.kernel_spec import Activation, Dense, KernelSpec
 from nngp_tpu_torch.utils.device import resolve_device

@@ -16,7 +16,7 @@ import sys
 
 import numpy as np
 
-from nngp_tpu.eval.splits import train_test_val_split
+from nngp_tpu_torch.eval.splits import train_test_val_split
 from nngp_tpu_torch.active import ActiveLearner
 from nngp_tpu_torch.data.workload import (load_multi_join_workload,
                                           load_single_table_workload)

@@ -21,11 +21,11 @@ import sys
 import numpy as np
 import torch
 
-from nngp_tpu.eval.qerror import (PredictionStatistics, qerror_profile,
-                                  symmetric_qerror)
-from nngp_tpu.eval.splits import train_test_val_split
 from nngp_tpu_torch.data.workload import (load_multi_join_workload,
                                           load_single_table_workload)
+from nngp_tpu_torch.eval.qerror import (PredictionStatistics,
+                                        qerror_profile, symmetric_qerror)
+from nngp_tpu_torch.eval.splits import train_test_val_split
 from nngp_tpu_torch.gp import fit_gp, select_diag_reg
 from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
 from nngp_tpu_torch.utils.device import resolve_device, working_dtype
@@ -173,7 +173,7 @@ def load_split(args):
     print(f"number of query: {x.shape[0]}  feature dim: {x.shape[1]}")
 
     if args.uneven_split:
-        from nngp_tpu.eval.splits import uneven_train_test_split
+        from nngp_tpu_torch.eval.splits import uneven_train_test_split
         (x_tr, y_tr, infos_tr, x_te, y_te, infos_te, *_rest) = \
             uneven_train_test_split(
                 x, y, all_query_infos=infos,
@@ -319,7 +319,7 @@ def main(argv=None):
           f"p95={np.quantile(q, 0.95):.4f} p99={np.quantile(q, 0.99):.4f} "
           f"max={np.max(q):.4f}")
     if args.calibration:
-        from nngp_tpu.eval.calibration import calibration_table
+        from nngp_tpu_torch.eval.calibration import calibration_table
         table = calibration_table(y_true, mean, std.cpu().numpy().ravel())
         print("<" * 80)
         print("Calibration Result:")

@@ -6,9 +6,8 @@ the stats branch of the multi-join path. Single-table column stats come
 from a `<name>_stats.json` next to the query directory or from a scan of
 the query files themselves; multi-join stats from a directory of
 TableStats JSONs. The raw-CSV branches need pandas
-(`nngp_tpu/data/loaders.py`) and are not ported yet. This module imports
-`nngp_tpu.featurize` directly: importing `nngp_tpu.data` would pull in
-pandas.
+(`nngp_tpu/data/loaders.py`) and are not ported yet. The encoders are the
+port's own copies in `nngp_tpu_torch.featurize`.
 """
 
 import os
@@ -16,10 +15,10 @@ from typing import Optional
 
 import numpy as np
 
-from nngp_tpu.featurize.encoder import SingleTableEncoder
-from nngp_tpu.featurize.join import MultiJoinEncoder
-from nngp_tpu.featurize.parser import load_single_table_queries
-from nngp_tpu.featurize.stats import TableStats, load_stats_dir
+from nngp_tpu_torch.featurize.encoder import SingleTableEncoder
+from nngp_tpu_torch.featurize.join import MultiJoinEncoder
+from nngp_tpu_torch.featurize.parser import load_single_table_queries
+from nngp_tpu_torch.featurize.stats import TableStats, load_stats_dir
 
 
 def single_table_stats(name: str, query_path: str,

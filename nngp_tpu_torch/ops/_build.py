@@ -27,21 +27,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _SYM_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p,                 # x, dx
+    ctypes.c_void_p,                                  # x
     ctypes.c_int, ctypes.c_int, ctypes.c_int,         # n, d, ldx
+    ctypes.c_void_p, ctypes.c_int,                    # traj, n_act
     ctypes.c_void_p, ctypes.c_void_p,                 # diag0, diag1
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # out0, out1, ldo
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # kinds, w2, b2
-    ctypes.c_int, ctypes.c_int,                       # n_layers, want_ntk
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,         # n_layers, want_ntk, max_blocks
     ctypes.c_void_p,                                  # stream
 ]
 _CROSS_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # x1, dx1, m, ld1
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # x2, dx2, n, ld2
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,       # x1, m, ld1
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,       # x2, n, ld2
     ctypes.c_int,                                      # d
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,    # traj1, traj2, n_act
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,    # out0, out1, ldo
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # kinds, w2, b2
-    ctypes.c_int, ctypes.c_int,                        # n_layers, want_ntk
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # n_layers, want_ntk, max_blocks
     ctypes.c_void_p,                                   # stream
 ]
 

@@ -38,8 +38,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from nngp_tpu.featurize.join import MultiJoinEncoder
-from nngp_tpu.featurize.stats import TableStats
+from nngp_tpu_torch.featurize.join import MultiJoinEncoder
+from nngp_tpu_torch.featurize.stats import TableStats
 from nngp_tpu_torch.convert import posterior_from_numpy, posterior_to_numpy
 from nngp_tpu_torch.data.workload import schema_stats
 from nngp_tpu_torch.gp.posterior import fit_gp
@@ -321,7 +321,7 @@ class Estimator:
         """The Python encoder (training files, fall-back) and, when g++
         can build it, the native line encoder for the serving hot path.
         `encoder_kind` says which one encodes query lines."""
-        from nngp_tpu.native import FastEncoder, is_available
+        from nngp_tpu_torch.native import FastEncoder, is_available
 
         self.encoder = MultiJoinEncoder(self.stats, chunk_norm=self.chunk_norm)
         if is_available():
@@ -797,7 +797,7 @@ class Estimator:
     def _calibrate_arrays(self, x, y, verbose: bool, source: str) -> float:
         """Shared core of `calibrate_uncertainty` and the `calibrate_frac`
         holdout, from the raw posterior std."""
-        from nngp_tpu.eval.calibration import conformal_scores, fit_std_scale
+        from nngp_tpu_torch.eval.calibration import conformal_scores, fit_std_scale
         mean, std = self.posterior.predict_mean_std_chunked(x)
         self.std_scale = fit_std_scale(y, mean, std)
         self._conformal_scores = conformal_scores(y, mean, std)
@@ -815,7 +815,7 @@ class Estimator:
             raise ValueError(
                 "predict_interval requires calibrate_uncertainty(labeled_"
                 "lines) first (held-out lines, e.g. the feedback log)")
-        from nngp_tpu.eval.calibration import conformal_quantile
+        from nngp_tpu_torch.eval.calibration import conformal_quantile
         qhat = conformal_quantile(self._conformal_scores, alpha)
         mean, std = self._predict_raw(query_lines)
         return mean, mean - qhat * std, mean + qhat * std

@@ -275,7 +275,7 @@ class EstimatorSocketServer:
         resp = {"mean": m, "std": s, "card": float(2.0 ** m)}
         scores = getattr(self.estimator, "_conformal_scores", None)
         if self.alpha is not None and scores is not None:
-            from nngp_tpu.eval.calibration import conformal_quantile
+            from nngp_tpu_torch.eval.calibration import conformal_quantile
             qhat = conformal_quantile(scores, self.alpha)
             lo, hi = m - qhat * s, m + qhat * s
             resp.update(lo=lo, hi=hi, card_lo=float(2.0 ** lo),

@@ -399,10 +399,10 @@ def test_extend_is_transactional_and_exact_tier_cannot_forget(pair64):
 
 def test_python_encoder_fallback_is_visible_and_equal(toy, pair64,
                                                       monkeypatch, capsys):
-    import nngp_tpu.native
+    import nngp_tpu_torch.native
 
     stats, qdir = toy
-    monkeypatch.setattr(nngp_tpu.native, "is_available", lambda: False)
+    monkeypatch.setattr(nngp_tpu_torch.native, "is_available", lambda: False)
     est = Estimator("toy", None, qdir, stats=stats, dtype=np.float64,
                     verbose=False, device="cpu")
     assert est.encoder_kind == "python"

@@ -1,6 +1,7 @@
 """The Gram wrappers of `nngp_tpu_torch.ops.gram_cuda` on the CPU, where
 they run their plain PyTorch twins, against the JAX package; the Python
-twin of the CUDA kernel's lower-tile index formula; the wrappers' input
+twin of the CUDA kernels' persistent tile walk and lower-tile index
+formula; the diagonal trajectories the kernels read; the wrappers' input
 checks; and the kernel build's failure paths.
 
 The CUDA kernels themselves run only on a GPU: `python3 chip_smoke.py`
@@ -26,9 +27,12 @@ from nngp_tpu_torch.models.kernel_spec import (KernelSpec,
                                                reference_kernel)
 from nngp_tpu_torch.ops import _build, gram_cuda
 from nngp_tpu_torch.ops.gram import input_diag
-from nngp_tpu_torch.ops.gram_cuda import (gram_cross, gram_cross_plain,
+from nngp_tpu_torch.ops.gram_cuda import (TILE_SHAPE, diag_trajectories,
+                                          gram_cross, gram_cross_plain,
                                           gram_sym, gram_sym_plain,
-                                          lower_tile_coords)
+                                          launch_cross, launch_sym,
+                                          lower_tile_coords, tile_counts,
+                                          tile_of, tile_walk)
 from tests.test_torch_common import jax_spec, n, rows, t
 
 SPECS32 = [reference_kernel(), KernelSpec(mlp(2, activation="erf")),
@@ -159,6 +163,185 @@ def test_lower_tile_formula_past_float32_precision():
         ti, tj = lower_tile_coords(t_)
         assert ti * (ti + 1) // 2 <= t_ < (ti + 1) * (ti + 2) // 2
         assert 0 <= tj <= ti and ti * (ti + 1) // 2 + tj == t_
+
+
+RAGGED = (1, 63, 64, 65, 127, 128, 129, 1017, 10800)
+GRIDS = (1, 7, 132, 264, 10 ** 6)
+
+
+def _visits(kind, m, n, dtype, grid):
+    walk = tile_walk(kind, m, n, dtype, grid)
+    assert len(walk) == min(grid, tile_counts(kind, m, n, dtype)[0])
+    return [tile for block in walk for tile in block]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", RAGGED)
+def test_sym_walk_visits_every_lower_tile_once(n, dtype):
+    """For every persistent-grid size the blocks together visit each tile
+    that meets the lower triangle (tile rows of TILE_SHAPE[0], columns of
+    TILE_SHAPE[1], so fp64's walk takes two tile columns per tile row)
+    exactly once, and no other tile."""
+    bm, bn = TILE_SHAPE[dtype]
+    rows, cols = -(-n // bm), -(-n // bn)
+    want = sorted((ti, tj) for ti in range(rows) for tj in range(cols)
+                  if tj * bn <= min(n, (ti + 1) * bm) - 1)
+    for grid in GRIDS:
+        assert sorted(_visits("sym", n, n, dtype, grid)) == want, grid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", RAGGED)
+def test_cross_walk_visits_every_tile_once(n, dtype):
+    m = max(1, n // 3)
+    bm, bn = TILE_SHAPE[dtype]
+    want = sorted((ti, tj) for ti in range(-(-m // bm))
+                  for tj in range(-(-n // bn)))
+    for grid in GRIDS:
+        assert sorted(_visits("cross", m, n, dtype, grid)) == want, grid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 65, 129, 300])
+def test_sym_walk_covers_each_lower_element_in_one_tile(n, dtype):
+    """Each element on or below the diagonal lies in exactly one visited
+    tile: the kernel writes it there and its mirror from the same value."""
+    bm, bn = TILE_SHAPE[dtype]
+    hits = np.zeros((n, n), np.int64)
+    for ti, tj in _visits("sym", n, n, dtype, 7):
+        hits[ti * bm:(ti + 1) * bm, tj * bn:(tj + 1) * bn] += 1
+    lower = np.tril(np.ones((n, n), bool))
+    assert np.all(hits[lower] == 1)
+
+
+def test_walk_step_order_and_skips():
+    """Blocks take steps b, b + grid, ...; the fp64 sym walk's last tile row
+    may run past the tile columns, and those steps are skipped."""
+    assert tile_walk("cross", 200, 300, torch.float32, 2) == [
+        [(0, 0), (0, 2), (1, 1)], [(0, 1), (1, 0), (1, 2)]]
+    # n = 129 in fp64: 2 tile rows, 3 tile columns; tile row 1 holds 4 steps
+    assert tile_counts("sym", 129, 129, torch.float64) == (6, 3)
+    assert [tile_of("sym", s, 3, 2) for s in range(6)] == [
+        (0, 0), (0, 1), (1, 0), (1, 1), (1, 2), None]
+
+
+def test_no_row_tile_limit():
+    """The persistent 1-D walk has no grid dimension to overflow: more than
+    65,535 row tiles (the old 2-D grid's limit) are walked like any other."""
+    m = 65536 * TILE_SHAPE[torch.float32][0] + 1
+    tiles, cols = tile_counts("cross", m, 100, torch.float32)
+    assert (tiles, cols) == (65537, 1)
+    assert tile_of("cross", tiles - 1, cols, 1) == (65536, 0)
+    tiles, _ = tile_counts("sym", m, m, torch.float32)
+    assert tile_of("sym", tiles - 1, 65537, 1) == (65536, 65536)
+
+
+@pytest.mark.parametrize("spec", [
+    reference_kernel(), KernelSpec(mlp(3, activation="erf", b_std=0.1)),
+    KernelSpec(mlp(2, activation="sin", w_std=1.3, b_std=0.2)),
+    KernelSpec(mlp(2, activation="abs")),
+], ids=["relu", "erf3_b", "sin2_wb", "abs2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_diag_trajectories_are_the_recursions_own(spec, dtype):
+    """The kernels read, per row, the diagonal covariance entering each
+    activation: exactly the d1 that apply_recursion carries there."""
+    from nngp_tpu_torch.models.kernel_spec import apply_recursion
+    from nngp_tpu_torch.ops.dual_activations import DUALS
+
+    x = t(rows(29, seed=8, dtype=np.float32 if dtype == torch.float32
+               else np.float64))
+    dx = input_diag(x)
+    seen = []
+
+    def spy(name):
+        fn, dot, tdiag = DUALS[name]
+
+        def record(k, d1, d2):
+            seen.append(d1.reshape(-1).clone())
+            return fn(k, d1, d2)
+        return record, dot, tdiag
+
+    duals = {name: spy(name) for name in DUALS}
+    k0 = torch.zeros(29, 1, dtype=dtype)
+    apply_recursion(k0, torch.zeros_like(k0), dx[:, None], dx[:1, None],
+                    spec.layers, duals=duals)
+    traj = diag_trajectories(spec.layers, dx)
+    assert traj.shape == (len(seen), 29)
+    for got, want in zip(traj, seen):
+        assert torch.equal(got, want)
+
+
+def test_launchers_check_outputs_then_device():
+    spec = reference_kernel()
+    x = torch.ones(5, 3)
+    with pytest.raises(ValueError, match="out0 must be"):
+        launch_sym(spec, x, torch.empty(5, 4))
+    with pytest.raises(ValueError, match="out1 must be"):
+        launch_sym(spec, x, torch.empty(5, 5), torch.empty(5, 5).mT[:, :5])
+    with pytest.raises(ValueError, match="out0 must be"):
+        launch_sym(spec, x, torch.empty(5, 5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        launch_sym(spec, x, torch.empty(5, 5), torch.empty(5, 5))
+    with pytest.raises(ValueError, match="out0 must be"):
+        launch_cross(spec, x[:2], x, torch.empty(5, 2))
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        launch_cross(spec, x[:2], x, torch.empty(2, 5))
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """The argtypes `_build` declares have one entry per parameter of the
+    C entry points (gram.cu's SYM_ARGS / CROSS_ARGS)."""
+    import re
+
+    with open(_build.SOURCE) as f:
+        src = f.read()
+    for macro, argtypes in (("SYM_ARGS", _build._SYM_ARGTYPES),
+                            ("CROSS_ARGS", _build._CROSS_ARGTYPES)):
+        body = re.search(rf"#define {macro}(.*?)\n#define", src, re.S).group(1)
+        assert body.count(",") + 1 == len(argtypes), macro
+
+
+def test_bench_bound_is_the_store_or_the_dot():
+    """gram_bench's roofline: bytes (x read once, the output written once)
+    over 3.35 TB/s against dot FLOPs over the fp32 / fp64 peak."""
+    from nngp_tpu_torch.cli.gram_bench import bound
+
+    ms, by = bound("sym", 10800, 10800, 20, torch.float32)
+    assert by == "bytes"
+    assert ms == pytest.approx((10800 * 20 + 10800 ** 2) * 4 / 3.35e9)
+    ms, by = bound("cross", 3600, 10800, 61, torch.float32)
+    assert by == "operations"
+    assert ms == pytest.approx(2 * 61 * 3600 * 10800 / 67e9)
+    assert bound("cross", 3600, 10800, 20, torch.float64)[0] == \
+        pytest.approx((14400 * 20 + 3600 * 10800) * 8 / 3.35e9)
+
+
+def test_bench_per_element_counts_loop_work():
+    """The SASS estimate on a made-up listing: a staging loop of 4
+    instructions a cp.async, a dot loop of 2 an FFMA, 6 K0 instructions, a
+    recursion loop of 12 over 2 elements (6 MUFU) and a store loop of 3 an
+    STG."""
+    from nngp_tpu_torch.cli.gram_bench import per_element
+
+    listing = ["LDGSTS", "IADD3", "ISETP", "BRA 0x0",          # 0-3
+               "FFMA", "BRA 0x40",                            # 4-5
+               "FMUL", "FFMA", "FFMA", "STS", "IADD3", "BAR.SYNC",  # 6-11
+               "MUFU.RSQ", "MUFU.RSQ", "MUFU.RSQ", "FADD", "FMUL", "FADD",
+               "MUFU.RSQ", "MUFU.RSQ", "MUFU.RSQ", "FADD", "FMUL",
+               "BRA 0xc0",                                    # 12-23
+               "LDS", "STG", "BRA 0x180", "EXIT"]             # 24-27
+    ins = [(f"{16 * i:04x}", x) for i, x in enumerate(listing)]
+    got = per_element(ins, sym=False, d=2, own=1, copies=1)
+    assert got == {"stage": 4.0, "dot": 4.0, "k0": 6.0, "recursion": 6.0,
+                   "store": 3.0, "total": 23.0}
+    assert per_element(ins, sym=True, d=2, own=1, copies=1)["store"] == 3.0
+
+
+def test_bench_needs_a_gpu(capsys):
+    from nngp_tpu_torch.cli import gram_bench
+
+    assert gram_bench.main([]) == 1
+    assert "needs a GPU" in capsys.readouterr().err
 
 
 def test_cpu_tensors_use_the_plain_twins_without_counting_launches():

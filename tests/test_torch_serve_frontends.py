@@ -670,7 +670,7 @@ import sys
 
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "pandas"):
+        if name.split(".")[0] in ("jax", "jaxlib", "pandas", "nngp_tpu"):
             raise ImportError(f"blocked {name}")
         return None
 
@@ -680,12 +680,17 @@ sys.meta_path.insert(0, _Block())
 
 
 def test_serving_imports_and_runs_with_jax_and_pandas_blocked(tmp_path):
-    """A fresh interpreter in which importing jax or pandas raises: the
-    serving package, the demo, hyperparameter learning and active
-    learning import; a short learn and the active-learning CLI run, and
-    the demo serves the committed synth workload on the CPU."""
+    """A fresh interpreter in which importing jax, pandas or the JAX
+    package `nngp_tpu` raises: every module of the port imports; a short
+    learn and the active-learning CLI run, and the demo serves the
+    committed synth workload on the CPU."""
     code = _BLOCK_HOOK + (
+        "import importlib, pkgutil\n"
         "import numpy as np\n"
+        "import nngp_tpu_torch\n"
+        "for mod in pkgutil.walk_packages(nngp_tpu_torch.__path__,\n"
+        "                                 'nngp_tpu_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
         "import nngp_tpu_torch.serve\n"
         "import nngp_tpu_torch.cli.serve_demo as demo\n"
         "import nngp_tpu_torch.active\n"
@@ -707,7 +712,7 @@ def test_serving_imports_and_runs_with_jax_and_pandas_blocked(tmp_path):
         "           '--test_query_file',\n"
         "           'workloads/synth_join_data/join_query_2.txt',\n"
         "           '--limit', '50'])\n"
-        "loaded = [m for m in ('jax', 'jaxlib', 'pandas') "
+        "loaded = [m for m in ('jax', 'jaxlib', 'pandas', 'nngp_tpu') "
         "if m in sys.modules]\n"
         "print('LOADED', loaded)\n")
     env = dict(os.environ, OMP_NUM_THREADS="2")
