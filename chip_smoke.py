@@ -39,7 +39,20 @@ exits nonzero; nothing is caught and retried:
      trajectories, the fp32 scalar learn and a greedy `cli.active_train`
      run in fp32 and fp64, and a synth6 Estimator with quality='best'
      (chunk_norm, ARD learn, calibration) held against a direct fit of its
-     learned spec, then extended and relearned; with times.
+     learned spec, then extended and relearned; with times;
+  8. the Nystrom slice (`gp/nystrom.py`): the forest_2048 Nystrom pins in
+     fp64 and fp32 + df64 moments; synth6_big at full size (150,000 lines
+     unpacked with lzma into a temporary directory, 90,000 train / 30,000
+     test, m = 2048, chunk_norm): fit on 89,000, extend by 1,000, predict
+     the 30,000 in fp64 and fp32 moments against their anchors, extend vs
+     a refit and forget(extend) vs the fit, finalize 'host' vs 'device', an
+     NTK fit, `gram_cross` at the panel shape (16,384 x 2,048, d = 61)
+     against its twin with times; the exact tier's fit, extend and refit
+     peaks, nngp and ntk, at n = 40,000 (ntk fp64 at 32,000; the
+     `exact_max_n` rule); an Estimator with tier='auto'
+     routed to the Nystrom tier (checkpoint, forget and extend of lines,
+     grow_inducing); the train CLI's DTC learn and the Nystrom active
+     learner with growth against the JAX package's CPU anchors; with times.
 
 Each path's launches are counted from 0 around it; the summary's
 `launches` are their sum over every path. The last three lines are the
@@ -316,9 +329,10 @@ def check_forest_shapes(device):
     return errs
 
 
-def run_slice(argv):
+def run_slice(argv, need=("sym", "cross")):
     """One CLI run; returns (median, p95, MSE, launches, output) and echoes
-    the CLI's headline lines (the per-partition profile is dropped)."""
+    the CLI's headline lines (the per-partition profile is dropped). Fails
+    unless each kernel of `need` launched."""
     from nngp_tpu_torch.cli import train
     from nngp_tpu_torch.ops import gram_cuda
 
@@ -341,8 +355,8 @@ def run_slice(argv):
     if not all(np.isfinite([med, p95, mse])):
         raise AssertionError(f"non-finite q-error or MSE for {argv}")
     print(f"  launches {launches}")
-    for key, count in launches.items():
-        if count < 1:
+    for key in need:
+        if launches[key] < 1:
             raise AssertionError(f"{argv}: the {key} kernel never launched")
     return med, p95, mse, launches, text
 
@@ -394,9 +408,9 @@ def paired_ms(kernel_fn, plain_fn, reps=10):
 def time_kernels(device):
     """Each wrapper as the slice's nngp fit and predict call it, against
     its plain twin, at the forest shapes (per call, CUDA events), with the
-    kernel's own device time (torch.profiler), its roofline bound and, in
-    fp32, torch.matmul writing the same output (dot only); returns the fp32
-    figures."""
+    kernel's own device time (torch.profiler), its roofline bound and
+    torch.matmul writing the same output in the same dtype (dot only);
+    returns the fp32 figures."""
     from nngp_tpu_torch.cli.gram_bench import bound, device_ms
     from nngp_tpu_torch.gp.posterior import solve_ridge
     from nngp_tpu_torch.models.kernel_spec import diag_eval, reference_kernel
@@ -428,8 +442,7 @@ def time_kernels(device):
                 "ms": k_ms, "device_ms": device_ms(kernel_fn, 10),
                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "share": b_ms / k_ms,
-                "library_ms": (_event_ms(matmul_fn, 10)
-                               if dtype == torch.float32 else None)}
+                "library_ms": _event_ms(matmul_fn, 10)}
             print(f"time {KERNELS[key][0]} {str(dtype)[6:]} nngp: kernel "
                   f"{k_ms!r} ms per call ({times[key]['device_ms']!r} ms on "
                   f"the device), plain {p_ms!r} ms; bound {b_ms!r} ms "
@@ -1327,6 +1340,550 @@ def learn_slice(card, total, device):
           f"{build_s!r} s, relearn {relearn_s!r} s")
 
 
+# ------------------------------------------------------- the Nystrom slice
+SYNTH6_BIG_XZ = "workloads/synth6_big_xz"
+BIG_TRAIN, BIG_TEST = 90000, 30000
+NY_M, NY_EXT, NY_PANEL, NY_D = 2048, 1000, 16384, 61
+# (median, p95) of the symmetric q-error on synth6_big: the seed-10
+# 60/20/20 split, m = 2048 seed-0 uniform inducing rows of the 90,000 train
+# rows, chunk_norm, the reference kernel; fit on the first 89,000, extend
+# with the last 1,000, predict the 30,000 test rows
+# (experiments/nystrom_df64_moments_ab.py; its log
+# experiments/nystrom_df64_moments_ab2.log). 'df64' is fp64 moments at the
+# 1e-12 rank cut (the fp64 CPU oracle scores 2.399 / 23.8, BASELINE.md);
+# 'fp32' is fp32 moments at 1e-8 on another chip, so its bounds are wider.
+NY_ANCHORS = {"df64": (2.3997, 23.79), "fp32": (2.5177, 25.49)}
+NY_TOL = {"df64": (2e-3, 2e-3), "fp32": (0.02, 0.03)}
+# the Nystrom pins of tests/test_parity_gate.py:108-115 (forest, the
+# split's first 2,048 train rows, m = 256), fp64 and fp32 + df64 moments
+FOREST_2048_PINS = (3.5658, 46.3905)
+# The JAX package's train CLI on the CPU, fp64, as it stands:
+#   python -m nngp_tpu.cli.train --query_path workloads/forest_data --x64 \
+#       --nystrom_m 2048 --learn_hyper
+DTC_ANCHOR = {"w0": 0.2510, "w": 0.2800, "b": 78.5442, "diag_reg": 8.388e-4,
+              "logev": -9970.01, "mse": 18099.053257790147,
+              "median": 2.6787, "p95": 22.5834}
+DTC_RE = re.compile(
+    r"learned hyperparameters: w0=([0-9.]+) w=([0-9.]+) b=([0-9.]+) "
+    r"diag_reg=([0-9.e+-]+) \(dtc log evidence ([0-9.e+-]+) on")
+# The JAX package's ActiveLearner(nystrom_m=1024, nystrom_grow=256) on the
+# CPU, fp64, forest 20/60/20, top-k, 3 rounds of 1,000, as it stands:
+# validation MSE after the initial fit and after each round
+NY_ACTIVE_ANCHOR = (6.39861511277883, 6.166571525613683, 5.930777271358477,
+                    5.745355015026577)
+# exact fits and extends at this n measure the peaks of default_exact_max_n
+PEAK_N = 40000
+PEAK_N_NTK64 = 32000
+
+
+def panels(n):
+    return -(-n // NY_PANEL)
+
+
+def big_split(tmp):
+    """synth6_big unpacked with lzma into `tmp`, its lines in file order,
+    split as `train_test_val_split` splits (random.seed(10) shuffle):
+    (90,000 train lines, 30,000 test lines)."""
+    import lzma
+    import os
+    import random
+    import shutil
+
+    qdir = os.path.join(tmp, "synth6_big_data")
+    os.makedirs(qdir)
+    lines = []
+    for name in sorted(os.listdir(SYNTH6_BIG_XZ)):
+        if not name.endswith(".xz"):
+            continue
+        out = os.path.join(qdir, name[:-3])
+        with lzma.open(os.path.join(SYNTH6_BIG_XZ, name), "rb") as f_in, \
+                open(out, "wb") as f_out:
+            shutil.copyfileobj(f_in, f_out)
+        with open(out) as f:
+            lines.extend(l.strip() for l in f if l.strip())
+    idx = list(range(len(lines)))
+    random.seed(10)
+    random.shuffle(idx)
+    lines = [lines[i] for i in idx]
+    return lines[:BIG_TRAIN], lines[BIG_TRAIN:BIG_TRAIN + BIG_TEST]
+
+
+def encode_big(lines):
+    """(x fp32 chunk_norm features, y = log2 card) of labeled lines, with
+    the port's native encoder, as `Estimator._encode_labeled_lines` does."""
+    from nngp_tpu_torch.data.workload import schema_stats
+    from nngp_tpu_torch.featurize.join import MultiJoinEncoder
+    from nngp_tpu_torch.native import FastEncoder
+
+    stats = schema_stats("synth6", SYNTH6_STATS)
+    x, cards, *_ = FastEncoder(stats).encode_multi(
+        "\n".join(lines), with_card=True, dtype=np.float32)
+    x = x * MultiJoinEncoder(stats, chunk_norm=True).col_scale.astype(
+        np.float32)
+    return x, np.log2(cards).reshape(-1, 1).astype(np.float32)
+
+
+def hold_q(label, mean, y, anchor, tol):
+    med, p95 = qerror(mean, y)
+    print(f"  {label}: symmetric q-error median={med!r} p95={p95!r} "
+          f"(anchor {anchor[0]} / {anchor[1]}, rel bounds {tol[0]} / "
+          f"{tol[1]})")
+    if (abs(med / anchor[0] - 1) > tol[0]
+            or abs(p95 / anchor[1] - 1) > tol[1]):
+        raise AssertionError(f"{label}: {med} / {p95} outside the bounds")
+    return med, p95
+
+
+def same_means(label, got, want, bound=1e-6):
+    """max |got - want| <= bound * max |want|; returns the ratio."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+    print(f"  {label}: max|d mean| / max|mean| = {rel!r} (bound {bound})")
+    if not rel <= bound:
+        raise AssertionError(f"{label}: {rel} > {bound}")
+    return rel
+
+
+def nystrom_pins(total, device):
+    """(a) The forest_2048 Nystrom pins on the card: fp64, and fp32 with
+    moments='df64', each a fit (K_mm + one panel) and one predict."""
+    from nngp_tpu_torch.cli import train
+    from nngp_tpu_torch.gp import fit_nystrom
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+
+    args = train.build_parser().parse_args(["--query_path", FOREST, "--x64"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        x_tr, y_tr, _, x_te, y_te, _ = train.load_split(args)
+    y_te = np.asarray(y_te, np.float64).ravel()
+    for label, dtype, moments in (("fp64", np.float64, "fp32"),
+                                  ("fp32 + df64 moments", np.float32,
+                                   "df64")):
+        reset_launches()
+        post = fit_nystrom(reference_kernel(), x_tr[:2048].astype(dtype),
+                           y_tr[:2048].astype(dtype), num_inducing=256,
+                           seed=0, moments=moments, device=device)
+        mean, _ = post.predict_mean_std(
+            torch.as_tensor(x_te.astype(dtype), device=device))
+        torch.cuda.synchronize()
+        expect_launches(f"forest_2048 {label}", read_launches(),
+                        {"sym": 0, "cross": 3}, total)
+        hold_q(f"forest_2048 Nystrom m=256 {label} (finalize "
+               f"{post.finalize})", mean.cpu().numpy().ravel(), y_te,
+               FOREST_2048_PINS, (2e-3, 2e-3))
+
+
+def peak_gib(fn, device):
+    """(result, peak GiB above what was allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+
+
+def nystrom_arm(spec, moments, big, total, device, get="nngp"):
+    """One arm of the 90k protocol: a cold fit on 89,000 rows (launch
+    count), a timed warm fit with its peak, extend-1000, forget-1000,
+    predict-30k in 8,192-row chunks; the q-error. Returns (posterior,
+    extended posterior, test means, times)."""
+    from nngp_tpu_torch.gp import fit_nystrom
+
+    x_tr, y_tr, x_te, y_te, rows = big
+    xf, yf = x_tr[:-NY_EXT], y_tr[:-NY_EXT]
+    xe, ye = x_tr[-NY_EXT:], y_tr[-NY_EXT:]
+
+    def fit():
+        return fit_nystrom(spec, xf, yf, num_inducing=NY_M,
+                           inducing_rows=rows, input_scale=1.0, get=get,
+                           moments=moments, device=device)
+
+    label = f"90k {get} {moments} moments"
+    reset_launches()
+    post = fit()
+    torch.cuda.synchronize()
+    expect_launches(f"{label} fit (K_mm + {panels(xf.shape[0])} panels)",
+                    read_launches(),
+                    {"sym": 0, "cross": panels(xf.shape[0]) + 1}, total)
+    times = {"fit_ms": host_ms(fit, reps=3)}
+    _, times["fit_peak_gib"] = peak_gib(fit, device)
+    reset_launches()
+    ext = post.extend(xe, ye)
+    back = ext.forget(xe, ye)
+    mean, std = ext.predict_mean_std_chunked(x_te, chunk=CHUNK)
+    torch.cuda.synchronize()
+    expect_launches(f"{label} extend + forget + predict", read_launches(),
+                    {"sym": 0, "cross": 2 + -(-x_te.shape[0] // CHUNK)},
+                    total)
+    times["extend_ms"] = host_ms(lambda: post.extend(xe, ye), reps=3)
+    times["forget_ms"] = host_ms(lambda: ext.forget(xe, ye), reps=3)
+    times["predict_ms"] = host_ms(
+        lambda: ext.predict_mean_std_chunked(x_te, chunk=CHUNK), reps=3)
+    if not (np.all(np.isfinite(std)) and np.all(std >= 0)):
+        raise AssertionError(f"{label}: std not finite and >= 0")
+    print(f"  {label}: rank {post.rank}, rank_rtol {post.rank_rtol!r}, "
+          f"finalize {post.finalize}; warm fit {times['fit_ms']!r} ms "
+          f"(peak {times['fit_peak_gib']!r} GiB), extend-{NY_EXT} "
+          f"{times['extend_ms']!r} ms, forget-{NY_EXT} "
+          f"{times['forget_ms']!r} ms, predict-{x_te.shape[0]} "
+          f"{times['predict_ms']!r} ms")
+    return post, ext, back, mean, times
+
+
+def nystrom_big(card, total, device, big):
+    """(b) synth6_big at full size: both moment arms against their
+    anchors; extend vs a refit on all 90,000 rows and forget(extend) vs
+    the fit; finalize 'host' vs 'device'; one NTK fit; gram_cross at the
+    panel shapes against its plain twin; the times."""
+    from nngp_tpu_torch.gp import fit_nystrom
+    from nngp_tpu_torch.gp import nystrom as TN
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+
+    spec = reference_kernel()
+    x_tr, y_tr, x_te, y_te, rows = big
+    yv = y_te.ravel().astype(np.float64)
+    print(f"Nystrom slice synth6_big: {x_tr.shape[0]} train / "
+          f"{x_te.shape[0]} test rows, d = {x_tr.shape[1]}, m = {NY_M}, "
+          f"panel {NY_PANEL}")
+    times = {}
+    for moments in ("df64", "fp32"):
+        post, ext, back, mean, times[moments] = nystrom_arm(
+            spec, moments, big, total, device)
+        hold_q(f"90k {moments} moments", mean, yv, NY_ANCHORS[moments],
+               NY_TOL[moments])
+        if moments != "df64":
+            # the tier applies the device policy itself: TF32 switched on
+            # by a caller is off again inside the predict's GEMMs
+            torch.backends.cuda.matmul.allow_tf32 = True
+            again = ext.predict_mean_std_chunked(x_te, chunk=CHUNK)[0]
+            if (torch.backends.cuda.matmul.allow_tf32
+                    or not np.array_equal(again, mean)):
+                raise AssertionError("TF32 was on inside a Nystrom predict")
+            continue
+        refit = fit_nystrom(spec, x_tr, y_tr, inducing_rows=rows,
+                            input_scale=1.0, diag_reg=float(post.reg),
+                            diag_reg_absolute_scale=True, moments="df64",
+                            device=device)
+        same_means("90k df64 extend vs refit on 90,000", mean,
+                   refit.predict_mean_std_chunked(x_te)[0])
+        fit_mean = post.predict_mean_std_chunked(x_te)[0]
+        same_means("90k df64 forget(extend) vs fit",
+                   back.predict_mean_std_chunked(x_te)[0], fit_mean)
+        host = fit_nystrom(spec, x_tr[:-NY_EXT], y_tr[:-NY_EXT],
+                           inducing_rows=rows, input_scale=1.0,
+                           moments="df64", finalize="host", device=device)
+        same_means("90k df64 finalize host vs device",
+                   host.predict_mean_std_chunked(x_te)[0], fit_mean)
+        x_m = post.x_m
+
+        def bases(on_device):
+            TN._BASES_CACHE.clear()
+            return TN._inducing_bases(spec, "nngp", post.rank_rtol, x_m,
+                                      device=on_device, entries="df64")
+
+        times["whiten"] = {w: host_ms(lambda: bases(w == "device"), reps=3)
+                           for w in ("host", "device")}
+        times["finalize"] = {
+            f: host_ms(lambda: TN._finalize(post.c_raw, post.b_w, post.reg,
+                                            post.dtype, f), reps=3)
+            for f in ("host", "device")}
+        del refit, host, ext, back
+    ntk, ntk_ext, _, ntk_mean, times["ntk"] = nystrom_arm(
+        spec, "df64", big, total, device, get="ntk")
+    ntk_refit = fit_nystrom(spec, x_tr, y_tr, inducing_rows=rows, get="ntk",
+                            input_scale=1.0, diag_reg=float(ntk.reg),
+                            diag_reg_absolute_scale=True, moments="df64",
+                            device=device)
+    same_means("90k ntk df64 extend vs refit on 90,000", ntk_mean,
+               ntk_refit.predict_mean_std_chunked(x_te)[0])
+    print(f"  90k ntk df64: symmetric q-error {qerror(ntk_mean, yv)!r}")
+    del ntk, ntk_ext, ntk_refit
+    torch.cuda.empty_cache()
+    panel = check_panel_kernels(spec, device)
+    print(f"Nystrom times on {card} (ms unless GiB): " + json.dumps(times))
+    return panel
+
+
+def pair_bound(m, n, d, dtype, outputs):
+    """(bound ms, 'bytes' or 'operations') of a cross launch writing
+    `outputs` (m, n) Grams: x read once, each output written once; the dot's
+    2 d FLOPs per element (at the rates of cli/gram_bench.py)."""
+    from nngp_tpu_torch.cli.gram_bench import HBM_BYTES_PER_S, PEAK_FLOPS
+
+    size = torch.empty((), dtype=dtype).element_size()
+    t_bytes = ((m + n) * d + outputs * m * n) * size / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * d * m * n / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_panel_kernels(spec, device):
+    """gram_cross at the Nystrom panel shape (16,384 x 2,048, d = 61): the
+    nngp Gram and the (nngp, ntk) pair against the plain twin, fp32 and
+    fp64, then timed (per call and on the device) beside the twin, the
+    bound and torch.matmul (dot only). Returns the fp32 nngp figures."""
+    from nngp_tpu_torch.cli.gram_bench import device_ms
+    from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_cross_plain
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        xp = inputs(NY_PANEL, 12, dtype, device, NY_D)
+        xm = inputs(NY_M, 13, dtype, device, NY_D)
+        err = compare_cross(spec, xp, xm, f"cross Nystrom panel {dtype}")
+        print(f"Nystrom panel kernel check {str(dtype)[6:]}: "
+              f"{NY_PANEL}x{NY_M}x{NY_D} max|k-plain| {err!r}")
+        for get, outputs in (("nngp", 1), (("nngp", "ntk"), 2)):
+            k_ms, p_ms = paired_ms(lambda: gram_cross(spec, xp, xm, get),
+                                   lambda: gram_cross_plain(spec, xp, xm,
+                                                            get))
+            row = {"ms": k_ms,
+                   "device_ms": device_ms(lambda: gram_cross(spec, xp, xm,
+                                                             get), 10),
+                   "plain_ms": p_ms,
+                   "library_ms": _event_ms(lambda: torch.matmul(xp, xm.mT),
+                                           10)}
+            row["bound_ms"], row["bound_by"] = pair_bound(
+                NY_PANEL, NY_M, NY_D, dtype, outputs)
+            row["share"] = row["bound_ms"] / row["device_ms"]
+            name = "nngp" if outputs == 1 else "nngp+ntk"
+            print(f"time gram_cross Nystrom panel {str(dtype)[6:]} {name}: "
+                  + json.dumps(row))
+            if dtype == torch.float32 and outputs == 1:
+                out = dict(row, max_abs_err=err)
+        del xp, xm
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_exact_peaks(x, y, device):
+    """The peaks behind `Estimator`'s exact_max_n, for nngp and ntk in fp32
+    and fp64 (at n = 40,000, ntk fp64 at 32,000 so that it stays well
+    inside the card), each above what was allocated before the fit, in
+    bytes per n^2: an exact fit; an extend of it by 1,000 rows (the
+    posterior it extends included); a second fit while the first posterior
+    is alive, as `relearn_hyperparams` refits. All are printed, then the
+    check fails if one exceeds the constant the rule uses. The ridge is 0.1
+    of the mean diagonal, so the fp32 factor of these rows cannot fail; the
+    peaks do not depend on it."""
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+    from nngp_tpu_torch.serve.estimator import (EXACT_PEAK_BYTES_PER_N2,
+                                                default_exact_max_n)
+
+    spec = reference_kernel()
+    out = {}
+    for get in ("nngp", "ntk"):
+        for dtype in (torch.float32, torch.float64):
+            n = PEAK_N_NTK64 if (get, dtype) == ("ntk", torch.float64) \
+                else PEAK_N
+            xt = torch.as_tensor(x[:n + NY_EXT], dtype=dtype, device=device)
+            yt = torch.as_tensor(y[:n + NY_EXT], dtype=dtype, device=device)
+
+            def fit():
+                return fit_gp(spec, xt[:n], yt[:n], diag_reg=0.1, get=get,
+                              input_scale=1.0)
+
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            peaks = {}
+
+            def peak(name, fn):
+                torch.cuda.reset_peak_memory_stats(device)
+                res = fn()
+                torch.cuda.synchronize()
+                peaks[name] = torch.cuda.max_memory_allocated(device) - base
+                return res
+
+            post = peak("fit", fit)
+            peak("extend", lambda: post.extend(xt[n:], yt[n:]))
+            peak("refit", fit)
+            del post
+            torch.cuda.empty_cache()
+            out[f"{get} {str(dtype)[6:]}"] = {
+                "n": n,
+                "gib": {k: v / 2 ** 30 for k, v in peaks.items()},
+                "bytes_per_n2": {k: v / n ** 2 for k, v in peaks.items()},
+                "constant": EXACT_PEAK_BYTES_PER_N2[get, dtype],
+                "exact_max_n": default_exact_max_n(device, dtype, get)}
+    print("  exact fit / extend / refit peaks: " + json.dumps(out))
+    for key, row in out.items():
+        if max(row["bytes_per_n2"].values()) > row["constant"]:
+            raise AssertionError(f"exact peaks {key} at n={row['n']}: "
+                                 f"{row['bytes_per_n2']} bytes per n^2 > "
+                                 f"{row['constant']}")
+    return out
+
+
+def nystrom_estimator(total, device, big_lines, big, tmp):
+    """(c) An Estimator with tier='auto' on the 90,000 train lines: routed
+    to the Nystrom tier with m = 2048 (90,000 > exact_max_n), df64
+    moments; its q-error through predict; a checkpoint round trip;
+    forget_with_lines and extend_with_lines back; grow_inducing by 512."""
+    import os
+
+    from nngp_tpu_torch.serve import Estimator
+    from nngp_tpu_torch.serve.estimator import default_exact_max_n
+
+    train, test_labeled = big_lines
+    test, test_y = synth6_test(test_labeled)
+    x_tr, y_tr = big[0], big[1]
+    check_exact_peaks(x_tr, y_tr, device)
+    max_n = default_exact_max_n(device, np.float32)
+    train_dir = write_train_dir(tmp, train)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        est = Estimator("synth6", None, train_dir, stats_dir=SYNTH6_STATS,
+                        dtype=np.float32, chunk_norm=True, tier="auto",
+                        auto_nystrom_m=NY_M, nystrom_moments="df64",
+                        device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    routing = [l for l in buf.getvalue().splitlines()
+               if l.startswith("tier routing")]
+    print(f"  Estimator tier='auto': {routing}; exact_max_n {max_n} on "
+          f"this card; construction {build_s!r} s")
+    if not (est.nystrom_m == NY_M and est.posterior.num_inducing == NY_M
+            and est.posterior.moments == "df64" and BIG_TRAIN > max_n):
+        raise AssertionError(f"tier='auto' routed {routing}")
+    expect_launches("Estimator construction (fit)", read_launches(),
+                    {"sym": 0, "cross": panels(BIG_TRAIN) + 1}, total)
+    expect_native_encoder(est)
+    reset_launches()
+    mean, std = est.predict(test)
+    expect_launches("Estimator predict", read_launches(),
+                    {"sym": 0, "cross": -(-len(set(test)) // CHUNK)}, total)
+    hold_q("Estimator 90k df64 predict", mean, test_y, NY_ANCHORS["df64"],
+           NY_TOL["df64"])
+    est.save(os.path.join(tmp, "ny_ckpt"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        back = Estimator.restore(os.path.join(tmp, "ny_ckpt"), device=device)
+    # the JAX format keeps each fp64 moment as an fp32 (hi, lo) pair, 48
+    # bits: the restored predictions agree to fp32 rounding, not bit for bit
+    b_mean, b_std = back.predict(test)
+    same_means("checkpoint round trip, mean", b_mean, mean)
+    same_means("checkpoint round trip, std", b_std, std)
+    print(f"  checkpoint: restored m={back.nystrom_m}, moments "
+          f"{back.nystrom_moments}")
+    del back
+    reset_launches()
+    t0 = time.perf_counter()
+    est.forget_with_lines(train[-NY_EXT:])
+    forget_s = time.perf_counter() - t0
+    n_forgot = est.posterior.num_train
+    est.extend_with_lines(train[-NY_EXT:])
+    expect_launches("forget_with_lines + extend_with_lines",
+                    read_launches(), {"sym": 0, "cross": 2}, total)
+    if n_forgot != BIG_TRAIN - NY_EXT or est.posterior.num_train != BIG_TRAIN:
+        raise AssertionError(f"forget/extend: {n_forgot}, "
+                             f"{est.posterior.num_train}")
+    same_means("Estimator extend(forget(lines)) vs the fit",
+               est.predict(test)[0], mean)
+    elbo0 = est.posterior.elbo()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_new = est.grow_inducing(train, num_new=512)
+    torch.cuda.synchronize()
+    grow_s = time.perf_counter() - t0
+    expect_launches("grow_inducing", read_launches(),
+                    {"sym": 0, "cross": panels(BIG_TRAIN) + 1}, total)
+    elbo1 = est.posterior.elbo()
+    med, p95 = qerror(est.predict(test)[0], test_y)
+    print(f"  grow_inducing(512): m {NY_M} -> {m_new}, ELBO {elbo0!r} -> "
+          f"{elbo1!r}, q-error {med!r} / {p95!r}; forget_with_lines "
+          f"{forget_s!r} s, grow {grow_s!r} s")
+    if m_new != NY_M + 512 or not elbo1 >= elbo0 - 1e-9 * abs(elbo0):
+        raise AssertionError(f"grow: m {m_new}, ELBO {elbo0} -> {elbo1}")
+    return {"construction_s": build_s, "forget_s": forget_s,
+            "grow_s": grow_s}
+
+
+def nystrom_learn(total, device):
+    """(d) The training CLI's DTC learn on forest fp64 (--nystrom_m 2048
+    --learn_hyper: the objective resolves to 'dtc') against the JAX CLI's
+    anchors; (e) ActiveLearner(nystrom_m=1024, nystrom_grow=256) on the
+    forest 20/60/20 split, fp64, top-k, 3 rounds of 1,000, against JAX's
+    validation-MSE trajectory."""
+    from nngp_tpu_torch.active import ActiveLearner
+    from nngp_tpu_torch.cli import active_train
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+
+    print("Nystrom slice forest DTC learn (train CLI, fp64):")
+    med, p95, mse, launches, text = run_slice(
+        ["--device", "cuda", "--query_path", FOREST, "--x64", "--nystrom_m",
+         "2048", "--learn_hyper"], need=("cross",))
+    m = DTC_RE.search(text)
+    t = re.search(r"\[timing\] hyperparameter learning \(MLL\): "
+                  r"([0-9.]+)s", text)
+    if m is None or t is None:
+        raise AssertionError("no DTC learned-hyperparameter line")
+    got = dict(zip(("w0", "w", "b", "diag_reg", "logev"),
+                   map(float, m.groups())), mse=mse, median=med, p95=p95)
+    hold_to_anchor("forest DTC learn", got, DTC_ANCHOR)
+    for key in total:
+        total[key] += launches[key]
+    args = active_train.build_parser().parse_args(
+        ["--query_path", FOREST, "--x64"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        x_tr, y_tr, x_pool, y_pool, x_val, y_val, _ = \
+            active_train.load_split(args)
+    learner = ActiveLearner(reference_kernel(), budget=1000, active_iters=3,
+                            selection="topk", nystrom_m=1024,
+                            nystrom_grow=256, device=device)
+    lines = []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post, _ = learner.active_train(x_tr, y_tr, x_pool, y_pool, x_val, y_val,
+                                   printer=lines.append)
+    torch.cuda.synchronize()
+    active_s = time.perf_counter() - t0
+    # initial fit (K_mm + 1 panel) and validation predict; per round a
+    # pool predict, the grown refit (K_mm + 1 panel) and a validation
+    # predict
+    expect_launches("active Nystrom grow", read_launches(),
+                    {"sym": 0, "cross": 3 + 3 * 4}, total)
+    mses = [float(l.split(":")[1]) for l in lines
+            if l.startswith("Test MSE Loss:")]
+    print(f"  active Nystrom m=1024 grow 256: validation MSE {mses!r} "
+          f"(anchor {NY_ACTIVE_ANCHOR}); m {post.num_inducing}; "
+          f"{active_s!r} s")
+    if (len(mses) != 4 or post.num_inducing != 1024 + 3 * 256
+            or max(abs(a - b) for a, b in zip(mses, NY_ACTIVE_ANCHOR))
+            > 0.01):
+        raise AssertionError(f"active Nystrom: {mses}, m "
+                             f"{post.num_inducing}")
+    return {"learn_s": float(t.group(1)), "active_s": active_s}
+
+
+def nystrom_slice(card, total, device):
+    """Phase 8: the Nystrom tier. Returns the fp32 nngp figures of
+    gram_cross at the panel shape."""
+    import tempfile
+
+    from nngp_tpu_torch.gp.nystrom import select_inducing
+
+    nystrom_pins(total, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train, test = big_split(tmp)
+        x_tr, y_tr = encode_big(train)
+        x_te, y_te = encode_big(test)
+        print(f"synth6_big unpacked and encoded (native, chunk_norm) in "
+              f"{time.perf_counter() - t0!r} s")
+        big = (x_tr, y_tr, x_te, y_te,
+               x_tr[select_inducing(BIG_TRAIN, NY_M, 0)])
+        panel = nystrom_big(card, total, device, big)
+        est_times = nystrom_estimator(total, device, (train, test), big, tmp)
+    learn = nystrom_learn(total, device)
+    print(f"Nystrom serving and learning times on {card}: "
+          + json.dumps({**est_times, **learn}))
+    return panel
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1367,6 +1924,7 @@ def main():
     time_slice(device)
     serve_slice(card, launches, device)
     learn_slice(card, launches, device)
+    panel = nystrom_slice(card, launches, device)
 
     summary = {"kernels": [
         {"name": KERNELS[key][0], "route": "cuda", "source": SOURCE,
@@ -1375,6 +1933,8 @@ def main():
          "library": "torch.matmul(x1, x2.mT) fp32: dot only, not the same "
                     "function"}
         for key in ("sym", "cross")]}
+    # the cross kernel at the Nystrom panel shape, fp32 nngp
+    summary["kernels"][1]["nystrom_panel"] = panel
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

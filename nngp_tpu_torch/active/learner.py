@@ -1,12 +1,14 @@
-"""Posterior-variance active learning, exact single-device tier (PyTorch
-counterpart of `nngp_tpu/active/learner.py`).
+"""Posterior-variance active learning on the exact or the Nystrom tier
+(PyTorch counterpart of `nngp_tpu/active/learner.py`).
 
 Each round predicts the unlabeled pool, normalizes the std by max(mean)
 (coefficient of variation), selects `budget` points (biased sampling with p
 proportional to the normalized std, top-k std, or batch-diverse greedy
 conditional variance), merges them into the train set and updates the
-posterior: an O(n^2 k) `GPPosterior.extend` by default, a full refit with
-refit='full', or a hyperparameter relearn and refit with relearn_hyper.
+posterior: an O(n^2 k) `GPPosterior.extend` by default (on the Nystrom
+tier an exact moment extend, or with nystrom_grow an inducing-set growth),
+a full refit with refit='full', or a hyperparameter relearn and refit with
+relearn_hyper.
 
 The pools, the train set and the selection stay on the learner's device.
 What differs from the JAX learner:
@@ -19,8 +21,7 @@ What differs from the JAX learner:
   - a relearn round refits with the learned spec itself, whose layer
     program reaches the CUDA Gram kernels by value at every launch (the
     JAX learner passes traced `spec_params` so jit compiles once);
-  - the Nystrom tier (nystrom_m, nystrom_grow, nystrom_moments) waits for
-    ROADMAP Queue A #10, the mesh tier for #12, and pad_acquisitions is
+  - the mesh tier waits for ROADMAP Queue A #12, and pad_acquisitions is
     not ported (ROADMAP 'Not to port').
 """
 
@@ -28,11 +29,9 @@ import numpy as np
 import torch
 
 from nngp_tpu_torch.eval.qerror import PredictionStatistics
-from nngp_tpu_torch.gp import GPPosterior, fit_gp
+from nngp_tpu_torch.gp import GPPosterior, fit_gp, fit_nystrom
 from nngp_tpu_torch.models.kernel_spec import Activation, Dense, KernelSpec
 from nngp_tpu_torch.utils.device import resolve_device
-
-_NYSTROM = "ROADMAP Queue A #10 (gp/nystrom.py)"
 
 
 class ActiveLearner:
@@ -70,17 +69,21 @@ class ActiveLearner:
         selection: 'biased' / 'topk' (default: 'biased' when biased_sample
         else 'topk') or 'greedy'.
 
-        mesh, dist_block_size (ROADMAP Queue A #12), nystrom_m,
-        nystrom_grow, nystrom_moments (#10) and pad_acquisitions ('Not to
-        port') raise NotImplementedError when set off their default."""
+        nystrom_m: run the loop on the streaming Nystrom/DTC tier with
+        this many inducing rows (`gp.nystrom`); rounds extend its moments
+        exactly, and relearns maximize the DTC evidence. nystrom_moments:
+        'fp32' or 'df64'. nystrom_grow: with nystrom_m, also grow the
+        inducing set each round by this many seeded uniform rows of the
+        acquired batch (`NystromPosterior.grow_inducing`, a streamed
+        refit).
+
+        mesh, dist_block_size (ROADMAP Queue A #12) and pad_acquisitions
+        ('Not to port') raise NotImplementedError when set off their
+        default."""
         if mesh is not None or dist_block_size is not None:
             raise NotImplementedError(
                 "ActiveLearner(mesh=...) is not ported yet (ROADMAP Queue A "
                 "#12, parallel/)")
-        if nystrom_m is not None or nystrom_grow or nystrom_moments != "fp32":
-            raise NotImplementedError(
-                f"the Nystrom active-learning tier is not ported yet "
-                f"({_NYSTROM})")
         if pad_acquisitions:
             raise NotImplementedError(
                 "pad_acquisitions is not ported (ROADMAP 'Not to port': it "
@@ -95,6 +98,25 @@ class ActiveLearner:
         if selection not in ("biased", "topk", "greedy"):
             raise ValueError("selection must be 'biased', 'topk' or "
                              "'greedy'")
+        if nystrom_grow and nystrom_m is None:
+            raise ValueError("nystrom_grow requires nystrom_m")
+        if nystrom_grow and refit == "full":
+            raise ValueError(
+                "nystrom_grow needs refit='incremental': a full refit "
+                "rebuilds the inducing set at the original nystrom_m each "
+                "round, discarding the growth")
+        if nystrom_grow and relearn_hyper:
+            raise ValueError(
+                "nystrom_grow is incompatible with relearn_hyper: relearn "
+                "rounds refit with the new kernel at the original "
+                "nystrom_m, discarding the growth")
+        if nystrom_moments not in ("fp32", "df64"):
+            raise ValueError("nystrom_moments must be 'fp32' or 'df64', got "
+                             f"{nystrom_moments!r}")
+        self.nystrom_m = nystrom_m
+        self.nystrom_moments = nystrom_moments
+        self.nystrom_grow = int(nystrom_grow)
+        self._grow_rng = np.random.default_rng(seed)
         self.device = resolve_device(device)
         self.selection = selection
         self.spec = spec
@@ -153,7 +175,8 @@ class ActiveLearner:
                   activation=acts[0].name if acts else "relu",
                   width=next(l.width for l in self.spec.layers
                              if isinstance(l, Dense)),
-                  device=self.device)
+                  objective="dtc" if self.nystrom_m is not None else "exact",
+                  dtc_m=min(512, self.nystrom_m or 512), device=self.device)
         prev = self._hyper
         if prev is None:                 # cold start: full restarts
             res = fit_kernel_hyperparams(x_train, y_train,
@@ -167,7 +190,14 @@ class ActiveLearner:
         self._adopt_hyper(res)
         return res
 
-    def train(self, x_train, y_train) -> GPPosterior:
+    def train(self, x_train, y_train):
+        if self.nystrom_m is not None:
+            return fit_nystrom(self.spec, self._hscale(self._dev(x_train)),
+                               self._dev(y_train),
+                               num_inducing=self.nystrom_m,
+                               diag_reg=self.diag_reg, get=self.kernel_type,
+                               input_scale=self.input_scale,
+                               moments=self.nystrom_moments)
         return fit_gp(self.spec, self._hscale(self._dev(x_train)),
                       self._dev(y_train), diag_reg=self.diag_reg,
                       get=self.kernel_type, input_scale=self.input_scale)
@@ -309,6 +339,14 @@ class ActiveLearner:
                             f"b={res.b:.4f} diag_reg={res.diag_reg:.3e} "
                             f"logev={res.log_evidence:.1f}")
                 post = self.train(x_train, y_train)
+            elif self.refit == "incremental" and self.nystrom_grow > 0:
+                s = min(self.nystrom_grow, x_delta.shape[0])
+                pick = self._grow_rng.choice(x_delta.shape[0], size=s,
+                                             replace=False)
+                post = post.grow_inducing(
+                    self._hscale(x_delta)[torch.as_tensor(
+                        pick, device=x_delta.device)],
+                    self._hscale(x_train), y_train)
             elif self.refit == "incremental":
                 post = post.extend(self._hscale(x_delta), y_delta)
             else:

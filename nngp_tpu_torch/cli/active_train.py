@@ -26,9 +26,6 @@ from nngp_tpu_torch.utils.device import resolve_device
 # flag -> ROADMAP item that ports its path; setting one to anything but its
 # default stops the CLI
 _NOT_PORTED = {
-    "nystrom_m": "Queue A #10 (gp/nystrom.py)",
-    "nystrom_grow": "Queue A #10 (gp/nystrom.py)",
-    "nystrom_moments": "Queue A #10 (gp/nystrom.py)",
     "mesh_devices": "Queue A #12 (parallel/)",
     "pad_acquisitions": "'Not to port' (shape buckets: a CUDA launch "
                         "takes any shape)",
@@ -53,7 +50,10 @@ def build_parser():
                         "selection (pivoted Cholesky of the pool posterior "
                         "covariance, active/greedy.py)")
     p.add_argument("--nystrom_grow", type=int, default=0,
-                   help="not ported yet")
+                   help="with --nystrom_m: grow the inducing set by this "
+                        "many rows per acquisition round (uniform subsample "
+                        "of the acquired batch; O(n (m+s)^2) streamed refit "
+                        "instead of the fixed-capacity moment extend)")
     p.add_argument("--active_iters", type=int, default=3)
     p.add_argument("--pad_acquisitions", action="store_true",
                    help="not ported")
@@ -100,14 +100,19 @@ def build_parser():
     p.add_argument("--hyper_objective", type=str, default="auto",
                    choices=["auto", "exact", "dtc"],
                    help="which evidence --learn_hyper maximizes; auto = "
-                        "exact (dtc needs --nystrom_m, not ported yet)")
+                        "dtc when --nystrom_m is set, else exact")
     p.add_argument("--x64", action="store_true", help="fp64")
     p.add_argument("--mesh_devices", type=int, default=0,
                    help="not ported yet")
     p.add_argument("--nystrom_m", type=int, default=None,
-                   help="not ported yet")
+                   help="run the loop on the streaming Nystrom/DTC tier "
+                        "with this many inducing rows (O(m^2) device "
+                        "state at any n; exact moment extends per round)")
     p.add_argument("--nystrom_moments", type=str, default="fp32",
-                   choices=["fp32", "df64"], help="not ported yet")
+                   choices=["fp32", "df64"],
+                   help="Nystrom moment precision: df64 = fp64 kernel "
+                        "entries, bases, projections and accumulators "
+                        "(fp32 posteriors)")
     return p
 
 
@@ -160,8 +165,9 @@ def main(argv=None):
             print(f"loaded hyperparameters from {args.hyper_file}")
         else:
             from nngp_tpu_torch.gp.hyperopt import fit_kernel_hyperparams
-            objective = ("exact" if args.hyper_objective == "auto"
-                         else args.hyper_objective)
+            objective = args.hyper_objective
+            if objective == "auto":
+                objective = "dtc" if args.nystrom_m else "exact"
             if not args.hyper_points and objective != "dtc":
                 raise SystemExit("--hyper_points 0 (full-n hyperopt) "
                                  "requires the DTC objective (exact loss "
@@ -171,7 +177,8 @@ def main(argv=None):
                 get=args.kernel_type, steps=args.hyper_steps,
                 max_points=args.hyper_points or None,  # 0 -> full n (dtc)
                 width=args.width, ard=args.ard,
-                objective=objective, dtc_m=512, device=device)
+                objective=objective, dtc_m=min(512, args.nystrom_m or 512),
+                device=device)
             if args.hyper_file:
                 res.save(args.hyper_file)
                 print(f"saved hyperparameter artifact to {args.hyper_file}")
@@ -195,7 +202,9 @@ def main(argv=None):
         spec, budget=args.budget, active_iters=args.active_iters,
         kernel_type=args.kernel_type, biased_sample=args.biased_sample,
         selection=args.selection, diag_reg=args.diag_reg, refit=args.refit,
-        input_scale=input_scale, relearn_hyper=hyper_res,
+        nystrom_m=args.nystrom_m, nystrom_grow=args.nystrom_grow,
+        nystrom_moments=args.nystrom_moments, input_scale=input_scale,
+        relearn_hyper=hyper_res,
         hyper_points=args.hyper_points or None, hyper_ard=args.ard,
         partition_keys="num_table" if args.schema_name else "num_predicates",
         device=device)

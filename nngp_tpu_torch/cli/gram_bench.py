@@ -10,7 +10,9 @@ warm-up. The shapes are the main path's: forest (sym n = 10,800, cross
 3,600 x 10,800, d = 20) in fp32 and fp64, and the synth6 width d = 61 in
 fp32. Rows are uniform in [0, 1000) from a fixed seed.
 
-  bound_ms   max(bytes / 3.35 TB/s, dot FLOPs / 67 TFLOP/s fp32 or 34 fp64):
+  bound_ms   max(bytes / 3.35 TB/s, dot FLOPs / 67 TFLOP/s): the H100 SXM's
+             fp32 rate outside the tensor cores and its fp64 tensor-core
+             rate, the card's peaks for the two types;
              bytes = x read once + the output written once (the full n x n
              for sym); FLOPs = 2 d per distinct output (n (n + 1) / 2 for
              sym). `bound_by` names the larger term;
@@ -18,8 +20,9 @@ fp32. Rows are uniform in [0, 1000) from a fixed seed.
              ms is the whole call from CUDA events, the wrapper's small
              torch ops (the input diagonal, the trajectories) included;
   share      bound_ms / ms;
-  matmul_ms  torch.matmul(x1, x2.mT) at "highest" precision: cuBLAS writing
-             the same output bytes from a dot of depth d. It is not the same
+  matmul_ms  torch.matmul(x1, x2.mT) in the kernel's dtype, at "highest"
+             precision in fp32: cuBLAS writing the same output bytes from a
+             dot of depth d. It is not the same
              function (no recursion, no diagonal); a yardstick only. The
              port never calls it.
 
@@ -45,7 +48,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 SHAPES = (("forest", 10800, 3600, 20, torch.float32),
           ("forest", 10800, 3600, 20, torch.float64),
           ("synth6", 10800, 3600, 61, torch.float32))
@@ -127,7 +130,7 @@ def time_checkout(label, reps):
             ms = event_ms(fn, reps)
             dev_ms = device_ms(fn, reps)
             b_ms, b_by = bound(kind, rows_out, n, d, dtype)
-            mm_ms = (event_ms(mm, reps) if dtype == torch.float32 else None)
+            mm_ms = event_ms(mm, reps)
             print(json.dumps({
                 "checkout": label, "kernel": kernel, "shape": name,
                 "m": rows_out, "n": n, "d": d, "dtype": str(dtype)[6:],

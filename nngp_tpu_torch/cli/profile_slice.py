@@ -1,9 +1,15 @@
 """Where the time of the slice's warm phases goes: fit, predict, a
-hyperparameter learn and a greedy selection.
+hyperparameter learn, a greedy selection, and the Nystrom tier's fit and
+predict.
 
     python -m nngp_tpu_torch.cli.profile_slice --device cuda \
         --query_path workloads/forest_data [--kernel_type ntk] [--x64] \
         [--phases fit,predict,hyperopt,hyperopt_warm,greedy]
+    python workloads/unpack_synth6_big.py
+    python -m nngp_tpu_torch.cli.profile_slice --device cuda \
+        --schema_name synth6 --query_path workloads/synth6_big_data \
+        --chunk_norm --nystrom_m 2048 [--nystrom_moments df64] \
+        --phases nystrom_fit,nystrom_predict
 
 Takes the training CLI's flags (same workload, split, kernel and fit) plus
 --reps and --phases. The phases:
@@ -16,7 +22,12 @@ Takes the training CLI's flags (same workload, split, kernel and fit) plus
   greedy         greedy_variance_select of GREEDY_K rows from the
                  covariance of the GREEDY_POOL test rows of largest std (with
                  --train_frac 0.2 --test_frac 0.6 the split is the active
-                 learner's 20/60/20 one and the test split is its pool).
+                 learner's 20/60/20 one and the test split is its pool);
+  nystrom_fit    fit_nystrom with --nystrom_m inducing rows and
+                 --nystrom_moments on the train split (host numpy rows, as
+                 the training CLI passes them);
+  nystrom_predict  its predict_mean_std_chunked of the test split, 8,192
+                 rows a chunk.
 
 After one cold call of each phase, for each phase:
 
@@ -49,14 +60,15 @@ from torch.profiler import ProfilerActivity
 
 from nngp_tpu_torch.active import greedy_variance_select
 from nngp_tpu_torch.cli import train
-from nngp_tpu_torch.gp import fit_gp
+from nngp_tpu_torch.gp import fit_gp, fit_nystrom
 from nngp_tpu_torch.gp.hyperopt import fit_kernel_hyperparams
 from nngp_tpu_torch.utils.device import resolve_device, working_dtype
 
 TOP_KERNELS = 8
 # the hyperopt phases' ridge restarts beside init's 1e-3
 HYPER_RESTARTS = {"hyperopt": (3e-2, 0.3), "hyperopt_warm": ()}
-PHASES = ("fit", "predict", *HYPER_RESTARTS, "greedy")
+NYSTROM_PHASES = ("nystrom_fit", "nystrom_predict")
+PHASES = ("fit", "predict", *HYPER_RESTARTS, "greedy", *NYSTROM_PHASES)
 # the greedy phase's size: the active learner's pre-filtered slice and its
 # budget on forest
 GREEDY_POOL, GREEDY_K = 4096, 1000
@@ -144,6 +156,8 @@ def main(argv=None):
         p.error("--reps must be >= 1")
     if set(phases) & set(HYPER_RESTARTS) and args.hyper_steps < 1:
         p.error("--hyper_steps must be >= 1 to profile a learn")
+    if set(phases) & set(NYSTROM_PHASES) and not args.nystrom_m:
+        p.error("--phases nystrom_*: give --nystrom_m")
     device = resolve_device(args.device)
     x_tr, y_tr, _, x_te, _, _ = train.load_split(args)
     spec = train.spec_from_args(args)
@@ -163,11 +177,20 @@ def main(argv=None):
             width=args.width, ard=args.ard,
             reg_restarts=HYPER_RESTARTS[phase])
 
-    post = fit()
-    post.predict_mean_std(x_te)
-    fns = {"fit": fit,
-           "predict": lambda: post.predict_mean_std(x_te),
-           **{ph: learn(ph, args.hyper_steps) for ph in HYPER_RESTARTS}}
+    def fit_ny():
+        return fit_nystrom(spec, x_tr, y_tr, num_inducing=args.nystrom_m,
+                           diag_reg=args.diag_reg, get=args.kernel_type,
+                           moments=args.nystrom_moments, device=device)
+
+    fns = {**{ph: learn(ph, args.hyper_steps) for ph in HYPER_RESTARTS},
+           "nystrom_fit": fit_ny}
+    if set(phases) & {"fit", "predict", "greedy"}:
+        post = fit()
+        post.predict_mean_std(x_te)
+        fns.update(fit=fit, predict=lambda: post.predict_mean_std(x_te))
+    if "nystrom_predict" in phases:
+        ny = fit_ny()
+        fns["nystrom_predict"] = lambda: ny.predict_mean_std_chunked(x_te)
     if "greedy" in phases:
         _, std = post.predict_mean_std(x_te)
         top = torch.argsort(std, stable=True)[-GREEDY_POOL:]

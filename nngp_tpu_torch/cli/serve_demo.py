@@ -11,7 +11,9 @@ print shapes and latency.
 Same flags as the JAX demo plus --device (default cuda; no fallback to the
 CPU). Flags whose path is not ported stop with an error naming their
 ROADMAP item. --quality best fills chunk_norm, ARD hyperparameters learned
-by evidence and a 10% calibration holdout for flags left unset.
+by evidence (the DTC evidence on the Nystrom tier), df64 Nystrom moments
+in fp32 and a 10% calibration holdout for flags left unset. --nystrom_m
+or --tier auto|nystrom serve from the streaming Nystrom/DTC tier.
 """
 
 import argparse
@@ -24,13 +26,9 @@ import time
 # default stops the demo
 _NOT_PORTED = {
     "mesh_devices": "Queue A #12 (parallel/)",
-    "nystrom_m": "Queue A #10 (gp/nystrom.py)",
-    "nystrom_moments": "Queue A #10 (gp/nystrom.py)",
     "pad_slots": "'Not to port' (shape buckets)",
 }
-_TIER_ITEMS = {"auto": "Queue A #10 (gp/nystrom.py)",
-               "nystrom": "Queue A #10 (gp/nystrom.py)",
-               "distributed": "Queue A #12 (parallel/)"}
+_TIER_ITEMS = {"distributed": "Queue A #12 (parallel/)"}
 
 
 def load_query_lines_without_card(path: str, limit=None):
@@ -76,9 +74,14 @@ def build_parser():
     p.add_argument("--mesh_devices", type=int, default=0,
                    help="not ported yet")
     p.add_argument("--nystrom_m", type=int, default=None,
-                   help="not ported yet")
+                   help="serve from the streaming Nystrom/DTC tier with "
+                        "this many inducing rows (O(m^2) device state at "
+                        "any train-set size)")
     p.add_argument("--nystrom_moments", type=str, default=None,
-                   choices=("fp32", "df64"), help="not ported yet")
+                   choices=("fp32", "df64"),
+                   help="Nystrom moment precision (df64 = fp64 kernel "
+                        "entries, bases, projections and accumulators; "
+                        "they ride through --ckpt)")
     p.add_argument("--pad_slots", type=int, default=None,
                    help="not ported (shape buckets)")
     p.add_argument("--learn_hyper", action="store_true",
@@ -120,8 +123,10 @@ def build_parser():
                    help="with --listen: accept LABELED lines "
                         "(query@...@card) over the socket as serving "
                         "feedback — monitor drift, learn online, or "
-                        "auto-remediate a drift alarm by relearning the "
-                        "hyperparameters (serve/socket_server.py)")
+                        "auto-remediate a drift alarm (relearn the "
+                        "hyperparameters; on the Nystrom tier grow the "
+                        "inducing set on the training log) "
+                        "(serve/socket_server.py)")
     p.add_argument("--warmup_batch", type=int, default=4096,
                    help="with --listen: one predict of this many rows "
                         "before accepting connections, so the first "
@@ -133,7 +138,12 @@ def build_parser():
                         "flags left unset")
     p.add_argument("--tier", type=str, default=None,
                    choices=["auto", "exact", "nystrom", "distributed"],
-                   help="posterior tier; only 'exact' is ported")
+                   help="posterior-tier routing: 'auto' keeps the exact "
+                        "tier while the train set fits the device "
+                        "(Estimator exact_max_n) and serves from the "
+                        "streaming Nystrom tier beyond; explicit values "
+                        "force a tier ('distributed' is not ported yet). "
+                        "Default: derive from --nystrom_m")
     p.add_argument("--calibrate_frac", type=float, default=None,
                    help="hold out this fraction of the training queries "
                         "and auto-calibrate uncertainty on them")
@@ -210,6 +220,8 @@ def main(argv=None):
                         learn_hyper=learn_hyper, hyper_ard=args.ard,
                         hyper_steps=args.hyper_steps,
                         hyper_points=args.hyper_points,
+                        nystrom_m=args.nystrom_m,
+                        nystrom_moments=args.nystrom_moments,
                         quality=args.quality,
                         calibrate_frac=args.calibrate_frac, tier=args.tier,
                         device=args.device)
@@ -234,9 +246,12 @@ def main(argv=None):
         alpha = args.interval_alpha if args.calibrate_file else None
         if args.warmup_batch:
             est.warmup(max_batch=args.warmup_batch)
+        # train_log: the Nystrom tier's growth refits on the training
+        # queries (read only when a growth runs)
         with EstimatorSocketServer(est, host=host or "127.0.0.1",
                                    port=int(port), alpha=alpha,
-                                   feedback_mode=args.feedback_mode) as srv:
+                                   feedback_mode=args.feedback_mode,
+                                   train_log=args.train_query_path) as srv:
             print(f"serving on {srv.host}:{srv.port} "
                   f"(newline-delimited queries; JSON replies"
                   f"{'; conformal intervals' if alpha else ''}) — Ctrl-C "

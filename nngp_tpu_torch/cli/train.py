@@ -6,7 +6,8 @@
 Load the single-table or multi-join (--schema_name) workload -> seed-10
 60/20/20 split -> [--learn_hyper / --select_kernel / --hyper_file
 hyperparameters by evidence] -> [--select_reg ridge by evidence] -> fit
-the exact GP on the NNGP or NTK kernel -> report MSE, the partitioned q-error profile
+the exact GP (or with --nystrom_m the streaming Nystrom/DTC tier) on the
+NNGP or NTK kernel -> report MSE, the partitioned q-error profile
 and the symmetric q-error line. Same flags and printed lines as the JAX
 CLI, plus --device (default cuda; no fallback to the CPU). fp32 by default,
 fp64 with --x64 on either device.
@@ -26,7 +27,7 @@ from nngp_tpu_torch.data.workload import (load_multi_join_workload,
 from nngp_tpu_torch.eval.qerror import (PredictionStatistics,
                                         qerror_profile, symmetric_qerror)
 from nngp_tpu_torch.eval.splits import train_test_val_split
-from nngp_tpu_torch.gp import fit_gp, select_diag_reg
+from nngp_tpu_torch.gp import fit_gp, fit_nystrom, select_diag_reg
 from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
 from nngp_tpu_torch.utils.device import resolve_device, working_dtype
 from nngp_tpu_torch.utils.timing import Timer
@@ -34,8 +35,6 @@ from nngp_tpu_torch.utils.timing import Timer
 # flag -> ROADMAP item that ports its path; setting one to anything but its
 # default stops the CLI
 _NOT_PORTED = {
-    "nystrom_m": "Queue A #10 (gp/nystrom.py)",
-    "nystrom_moments": "Queue A #10 (gp/nystrom.py)",
     "profile_dir": "Queue A #13 (utils/profiling.py)",
     "config": "Queue A #13 (utils/config.py)",
 }
@@ -69,9 +68,15 @@ def build_parser():
                    help="comma-separated diag_reg candidates: fit each, keep "
                         "the one with the highest exact log evidence")
     p.add_argument("--nystrom_m", type=int, default=None,
-                   help="not ported yet")
+                   help="fit the streaming Nystrom/DTC tier with this many "
+                        "inducing rows instead of the exact posterior "
+                        "(gp/nystrom.py): O(n m^2) flops, O(m^2) device "
+                        "state")
     p.add_argument("--nystrom_moments", type=str, default="fp32",
-                   choices=("fp32", "df64"), help="not ported yet")
+                   choices=("fp32", "df64"),
+                   help="Nystrom moment precision: df64 runs the kernel "
+                        "entries, bases, projections and accumulators in "
+                        "fp64 (fp32 posteriors only)")
     p.add_argument("--learn_hyper", action="store_true",
                    help="learn (w0, w, b, diag_reg) by evidence before "
                         "fitting (gp.hyperopt; multi-start Adam); overrides "
@@ -93,8 +98,8 @@ def build_parser():
     p.add_argument("--hyper_objective", type=str, default="auto",
                    choices=["auto", "exact", "dtc"],
                    help="which evidence --learn_hyper maximizes: the exact "
-                        "GP's or the Nystrom/DTC model's; auto = exact "
-                        "(dtc once --nystrom_m is ported)")
+                        "GP's or the Nystrom/DTC model's; auto = dtc with "
+                        "--nystrom_m, else exact")
     p.add_argument("--select_kernel", action="store_true",
                    help="evidence-ranked model selection over (depth in "
                         "1..3) x (relu, erf) with learned hyperparameters "
@@ -211,16 +216,18 @@ def learn_hyperparams(p, args, x_tr, y_tr, timer, device):
         return res
     if not (args.select_kernel or args.learn_hyper):
         return None
-    # auto = the evidence of the tier that serves, the exact one here
-    objective = ("exact" if args.hyper_objective == "auto"
-                 else args.hyper_objective)
+    # auto = the evidence of the tier that serves
+    objective = args.hyper_objective
+    if objective == "auto":
+        objective = "dtc" if args.nystrom_m else "exact"
+    dtc_m = min(512, args.nystrom_m or 512)
     if args.select_kernel:
         with timer.measure("kernel selection (evidence grid)"):
             res, _ranked = select_kernel(
                 x_tr, y_tr, get=args.kernel_type, steps=args.hyper_steps,
                 max_points=args.hyper_points, width=args.width,
                 verbose=print, ard=args.ard, objective=objective,
-                dtc_m=512, device=device)
+                dtc_m=dtc_m, device=device)
         print(f"selected kernel: depth={res.depth} "
               f"activation={res.activation}")
         return res
@@ -234,7 +241,7 @@ def learn_hyperparams(p, args, x_tr, y_tr, timer, device):
             max_points=args.hyper_points or None, width=args.width,
             init=(args.w_std, args.w_std, max(args.b_std, 0.1),
                   args.diag_reg), ard=args.ard, objective=objective,
-            dtc_m=512, device=device)
+            dtc_m=dtc_m, device=device)
 
 
 def main(argv=None):
@@ -272,10 +279,18 @@ def main(argv=None):
 
     def _fit():
         # x_tr stays host numpy: the fp32 prescale probe is free there
+        if args.nystrom_m:
+            return fit_nystrom(spec, x_tr, y_tr, num_inducing=args.nystrom_m,
+                               diag_reg=args.diag_reg, get=args.kernel_type,
+                               input_scale=input_scale,
+                               moments=args.nystrom_moments, device=device)
         return fit_gp(spec, x_tr, y_tr, diag_reg=args.diag_reg,
                       get=args.kernel_type, input_scale=input_scale,
                       device=device)
 
+    if args.select_reg and args.nystrom_m:
+        p.error("--select_reg selects on the exact posterior; drop "
+                "--nystrom_m (the Nystrom tier has posterior.log_evidence())")
     if args.select_reg:
         cands = [float(v) for v in args.select_reg.split(",")]
         best, scores = select_diag_reg(spec, x_tr, y_tr, candidates=cands,

@@ -1,0 +1,634 @@
+"""Nystrom (DTC) approximate GP posterior: the streaming tier (PyTorch
+counterpart of `nngp_tpu/gp/nystrom.py`).
+
+    K  ~=  Q = K_nm K_mm^+ K_mn          (Nystrom, m inducing rows)
+
+with the inducing set a seeded uniform subset of the training rows. The fit
+streams row panels, so device state is O(m^2 + panel * m) at any n:
+
+  1. K_mm comes from `gram_cross(x_m, x_m)` (the same function JAX
+     evaluates, `spec.kernel_fn(x_m, x_m)`, so its diagonal carries the
+     generic dual's value at rho = 1 in both packages). The whitening
+     basis W (W^T K_mm W ~= I) is a jittered Cholesky inverse
+     chol(K_mm + j I)^-T, j = rank_rtol * lam_max escalated 10x until the
+     factor succeeds ('chol'), or the eigenvalue-truncated eigenbasis
+     ('eigh'). It runs in fp64 (`torch.linalg.cholesky_ex`, then
+     `solve_triangular`) on the CPU or, with finalize='device', on the
+     posterior's device: one implementation, two devices.
+  2. Each panel's cross Gram K_pm comes from `gram_cross` (the CUDA kernel
+     on a card); it is whitened before squaring, psi_p = W^T K_mp, and
+
+         C += psi_p psi_p^T      b += psi_p y_p
+         M1 += W_K^T K_mp psi_p^T                   (ntk only)
+
+     with `torch.matmul` (TF32 off). The relative ridge's trace is the
+     exact diagonal recursion of the panel's rows.
+  3. The k x k solve stage runs once, in fp64, on the host or the device:
+     ic ic^T = (C + rI)^-1 by Cholesky, falling back to the eigenvalue-
+     clamped inverse root when moment noise left C + rI indefinite (noise
+     directions revert to the prior 1/r).
+
+Predict: psi* = W^T k_m*, mean = psi*^T beta, var = k** - |psi*|^2 +
+r |ic^T psi*|^2 (DTC; the prior diagonal k** stays exact). get='ntk'
+Nystrom-approximates both kernels of the mixed covariance through the
+streamed moment M1 = W_K^T K_mn T_nm W_T. Moments are row sums, so
+`extend` and `forget` add or subtract panels and rerun the solve stage:
+exact for this model class.
+
+What differs from the JAX module:
+  - moments='df64' runs in native fp64: on an fp32 posterior the K_mm and
+    panel kernel entries (the fp64 `gram_cross`), the bases, the
+    projections and the accumulators are `torch.float64`, and the
+    predict-side projections are rounded to fp32 only after the
+    projection, as JAX's `df_round` does. The posterior holds those
+    tensors in fp64 where JAX holds (hi, lo) fp32 pairs; `convert.py`
+    maps between the two layouts.
+  - the last panel runs ragged: no zero-padded tail and no row mask;
+  - the device basis escalates its jitter 10x on a failed factor, as the
+    host basis does (JAX's emulated-fp64 device basis floors pivots);
+  - finalize='auto' resolves to 'device' for a posterior on a CUDA device
+    (fp32 or fp64: the device path is native fp64), 'host' on the CPU;
+  - not ported: inducing='rpchol' and `select_inducing_rpchol`, and
+    precision='high' (ROADMAP 'Not to port'); mesh= (ROADMAP Queue A #12).
+"""
+
+import dataclasses
+import hashlib
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from nngp_tpu_torch.gp.posterior import _as_tensor, _auto_input_scale
+from nngp_tpu_torch.models.kernel_spec import (KernelSpec,
+                                               apply_diag_recursion,
+                                               diag_eval)
+from nngp_tpu_torch.ops.gram import input_diag
+from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
+from nngp_tpu_torch.utils.device import resolve_device
+
+_DEFAULT_PANEL = 16384
+_PARALLEL = "ROADMAP Queue A #12 (parallel/)"
+
+
+def _default_rank_rtol(dtype, moments: str = "fp32") -> float:
+    """The K_mm rank cut (JAX's defaults, so the anchors are the same
+    function): fp64 1e-14; fp32 1e-8, the floor set by fp32 K_mm entry
+    noise (~6e-8 of lam_max); fp32 with moments='df64' 1e-12, since its
+    entries carry fp64 precision."""
+    if dtype == torch.float64:
+        return 1e-14
+    return 1e-12 if moments == "df64" else 1e-8
+
+
+def select_inducing(n: int, m: int, seed: int = 0) -> np.ndarray:
+    """Seeded uniform inducing subset (sorted for locality)."""
+    if m >= n:
+        return np.arange(n)
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(n, size=m, replace=False))
+
+
+def select_inducing_rpchol(*args, **kwargs):
+    """Not ported: randomly pivoted Cholesky selection lost to uniform
+    selection on predictive q-error on forest and synth6."""
+    raise NotImplementedError(
+        "select_inducing_rpchol is not ported (ROADMAP 'Not to port': it "
+        "lost to uniform selection on q-error on forest and synth6)")
+
+
+# ------------------------------------------------------- whitening bases
+# Both bases and the solve stage are one fp64 torch implementation; where it
+# runs is a device: the CPU for 'host' (LAPACK), the posterior's device for
+# 'device' (cuSOLVER on a card).
+_HOST = torch.device("cpu")
+
+
+def _whiten_basis(kmm64: torch.Tensor, rank_rtol: float) -> torch.Tensor:
+    """Truncated inverse-sqrt eigenbasis W (m, k): W^T K_mm W = I_k."""
+    lam, v = torch.linalg.eigh(0.5 * (kmm64 + kmm64.mT))
+    keep = lam > rank_rtol * max(float(lam[-1]), 0.0)
+    if not bool(torch.any(keep)):
+        raise ValueError(
+            "K_mm has no eigenvalue above rank_rtol * lam_max — degenerate "
+            "inducing set (all-identical rows?)")
+    return v[:, keep] / torch.sqrt(lam[keep])[None, :]
+
+
+def _lam_max_estimate(sym64: torch.Tensor, iters: int = 16) -> float:
+    """Power-iteration lambda_max of a symmetric PSD matrix, floored at its
+    largest diagonal entry. One host sync, at the end."""
+    m = sym64.shape[0]
+    v = sym64.new_full((m,), 1.0 / math.sqrt(m))
+    lam = sym64.new_zeros(())
+    for _ in range(iters):
+        w = sym64 @ v
+        lam = v @ w
+        v = w / torch.clamp_min(torch.linalg.norm(w), 1e-300)
+    return max(float(lam), float(torch.max(torch.diagonal(sym64))))
+
+
+def _whiten_basis_chol(kmm64: torch.Tensor,
+                       rank_rtol: float) -> torch.Tensor:
+    """Jittered-Cholesky whitening basis W = chol(K_mm + j I)^-T (m, m) on
+    K_mm's device, j = rank_rtol * lam_max escalated 10x until the factor
+    succeeds (fp32 kernel noise can leave the fp64 copy slightly
+    indefinite). One host sync per attempt (the factor's info)."""
+    sym = 0.5 * (kmm64 + kmm64.mT)
+    m = sym.shape[0]
+    lam_max = _lam_max_estimate(sym)
+    if lam_max <= 0.0:
+        raise ValueError(
+            "K_mm has non-positive spectrum — degenerate inducing set "
+            "(all-identical rows?)")
+    jitter = rank_rtol * lam_max
+    eye = torch.eye(m, dtype=sym.dtype, device=sym.device)
+    for _ in range(8):
+        ell, info = torch.linalg.cholesky_ex(sym + jitter * eye)
+        if int(info) != 0:
+            jitter *= 10.0
+            continue
+        return torch.linalg.solve_triangular(ell, eye,
+                                             upper=False).mT.contiguous()
+    raise torch.linalg.LinAlgError(
+        "K_mm not factorizable even at jitter "
+        f"{jitter:.3e} (lam_max ~ {lam_max:.3e})")
+
+
+_BASES_CACHE = {}
+_BASES_CACHE_MAX = 4
+
+
+def _inducing_bases(spec, get, rank_rtol, x_m, whiten="chol", device=False,
+                    entries="fp32"):
+    """(w_solve, w_kmm) whitening bases of K_mm; w_kmm (the NNGP basis) is
+    None unless get='ntk'. entries='df64' evaluates K_mm with the fp64
+    kernel on the fp32 rows and returns fp64 bases; otherwise the bases
+    come back in x_m's dtype. device=True (whiten='chol' only) factors on
+    x_m's device instead of the host.
+
+    Cached on the value of the inducing set (sha1 of its bytes) with the
+    spec, get, rtol, whiten, device and entries: repeated fits with the
+    same inducing rows (active-learning refits, timing loops) reuse it.
+    At most 4 entries, each two concrete (m, k) tensors."""
+    if device and whiten != "chol":
+        raise ValueError("device bases require whiten='chol' (the eigh "
+                         "basis is a host semantics anchor)")
+    df64 = entries == "df64"
+    out_dtype = torch.float64 if df64 else x_m.dtype
+    key = (spec, get, float(rank_rtol), whiten, bool(device), entries,
+           str(x_m.dtype), str(x_m.device), tuple(x_m.shape),
+           hashlib.sha1(x_m.cpu().numpy().tobytes()).hexdigest())
+    hit = _BASES_CACHE.get(key)
+    if hit is not None:
+        return hit
+    xe = x_m.to(torch.float64) if df64 else x_m
+    if get == "ntk":
+        kmm_nngp, kmm_solve = gram_cross(spec, xe, xe, ("nngp", "ntk"))
+    else:
+        kmm_nngp, kmm_solve = None, gram_cross(spec, xe, xe, "nngp")
+    basis_fn = _whiten_basis_chol if whiten == "chol" else _whiten_basis
+    where = x_m.device if device else _HOST
+    out = tuple(None if k is None else basis_fn(
+        k.to(device=where, dtype=torch.float64), rank_rtol).to(
+            device=x_m.device, dtype=out_dtype).contiguous()
+        for k in (kmm_solve, kmm_nngp))
+    if len(_BASES_CACHE) >= _BASES_CACHE_MAX:
+        _BASES_CACHE.pop(next(iter(_BASES_CACHE)))
+    _BASES_CACHE[key] = out
+    return out
+
+
+# ---------------------------------------------------------- solve stage
+def _resolve_finalize(mode: str, device) -> str:
+    """'auto' -> 'device' for a posterior on a CUDA device, 'host' on the
+    CPU (whose fp64 LAPACK is native there)."""
+    if mode not in ("host", "device", "auto"):
+        raise ValueError(
+            f"finalize must be 'host', 'device' or 'auto', got {mode!r}")
+    if mode == "auto":
+        return "device" if torch.device(device).type == "cuda" else "host"
+    return mode
+
+
+def _finalize(c_raw, b_w, reg, dtype, mode: str):
+    """The k x k solve stage in fp64, on the CPU (mode 'host') or on the
+    moments' device ('device'): (ic, beta) with ic ic^T = (C + rI)^-1 and
+    beta = that @ b, returned on the moments' device. Cholesky, then L^-1
+    by `solve_triangular`; if moment noise left C + rI indefinite, the
+    eigenvalue-clamped inverse root (noise directions revert to the prior
+    1/r). One host sync, the factor's info."""
+    where = c_raw.device if mode == "device" else _HOST
+    c64 = c_raw.detach().to(device=where, dtype=torch.float64)
+    c64 = 0.5 * (c64 + c64.mT)
+    r = reg.detach().to(device=where, dtype=torch.float64)
+    eye = torch.eye(c64.shape[0], dtype=torch.float64, device=where)
+    ell, info = torch.linalg.cholesky_ex(c64 + r * eye)
+    if int(info) == 0:
+        ic64 = torch.linalg.solve_triangular(ell, eye, upper=False).mT
+    else:
+        lam, v = torch.linalg.eigh(c64)
+        ic64 = v * torch.rsqrt(torch.clamp_min(lam, 0.0) + r)[None, :]
+    beta64 = ic64 @ (ic64.mT @ b_w.detach().to(device=where,
+                                                dtype=torch.float64))
+    return (ic64.to(device=c_raw.device, dtype=dtype).contiguous(),
+            beta64.to(device=c_raw.device, dtype=dtype))
+
+
+# ------------------------------------------------------------ streaming
+def _stream_moments(spec, get, x_m, w_solve, w_kmm, x, y, panel_size,
+                    c_raw=None, b_w=None, m1_w=None, diag_sum=None,
+                    yty=None):
+    """Panel loop over the (n, d) rows x and (n, 1) labels y (tensors on
+    x_m's device, prescaled): the whitened moments of every panel added to
+    the given accumulators, or to zeros. The moments run in the bases'
+    dtype (fp64 for moments='df64'); the last panel is ragged. Returns
+    (c_raw, b_w, m1_w or None, diag_sum, yty)."""
+    mdt = w_solve.dtype
+    dev = x_m.device
+    k = w_solve.shape[1]
+    x_me = x_m.to(mdt)
+    if c_raw is None:
+        c_raw = torch.zeros((k, k), dtype=mdt, device=dev)
+        b_w = torch.zeros((k, 1), dtype=mdt, device=dev)
+        m1_w = (torch.zeros((w_kmm.shape[1], k), dtype=mdt, device=dev)
+                if get == "ntk" else None)
+        diag_sum = torch.zeros((), dtype=mdt, device=dev)
+    if yty is None:
+        yty = torch.zeros((), dtype=mdt, device=dev)
+    n = x.shape[0]
+    p = min(panel_size, max(n, 1))
+    for s in range(0, n, p):
+        x_p = x[s:s + p].to(mdt).contiguous()
+        y_p = y[s:s + p].to(mdt)
+        if get == "ntk":
+            nngp_pm, solve_pm = gram_cross(spec, x_p, x_me, ("nngp", "ntk"))
+        else:
+            solve_pm = gram_cross(spec, x_p, x_me, "nngp")
+        psi = (solve_pm @ w_solve).mT                 # (k, p)
+        c_raw = c_raw + psi @ psi.mT
+        b_w = b_w + psi @ y_p
+        if get == "ntk":
+            m1_w = m1_w + (nngp_pm @ w_kmm).mT @ psi.mT
+        # the relative ridge's trace: the exact solve-kernel diagonal
+        dn, dt = apply_diag_recursion(input_diag(x_p), spec.layers)
+        diag_sum = diag_sum + torch.sum(dt if get == "ntk" else dn)
+        yty = yty + torch.sum(y_p * y_p)
+    return c_raw, b_w, m1_w, diag_sum, yty
+
+
+# ------------------------------------------------------------ posterior
+@dataclasses.dataclass
+class NystromPosterior:
+    """Nystrom/DTC posterior, all tensors on one device. Same predict
+    surface as `GPPosterior`. The moment fields (w_solve, w_kmm, c_raw,
+    b_w, m1_w, diag_sum, yty) are fp64 for moments='df64' and in the
+    posterior's dtype otherwise; x_m, ic, beta_w and reg always in the
+    posterior's dtype."""
+
+    x_m: torch.Tensor                 # (m, d) inducing rows, prescaled
+    w_solve: torch.Tensor             # (m, k) whitening basis, solve kernel
+    ic: torch.Tensor                  # (k, k): ic ic^T = (clamp(C) + r I)^-1
+    beta_w: torch.Tensor              # (k, 1) whitened weights
+    reg: torch.Tensor                 # scalar ridge actually used
+    c_raw: torch.Tensor               # (k, k) sum psi psi^T
+    b_w: torch.Tensor                 # (k, 1) sum psi y
+    diag_sum: torch.Tensor            # sum of the true solve-kernel diagonal
+    m1_w: Optional[torch.Tensor]      # (k2, k) W_K^T K_mn T_nm W_T, ntk only
+    w_kmm: Optional[torch.Tensor]     # (m, k2) NNGP whitening, ntk only
+    spec: KernelSpec
+    get: str = "nngp"
+    diag_reg: float = 1e-3
+    num_train: int = 0
+    input_scale: float = 1.0
+    # kept for the checkpoint format; only 'highest' is accepted
+    precision: str = "highest"
+    rank_rtol: float = 1e-6
+    panel_size: int = _DEFAULT_PANEL
+    # where the k x k solve stage runs; extend/forget/grow reuse it
+    finalize: str = "host"
+    # streamed sum of y^2 (the DTC evidence's quadratic term); None on
+    # posteriors restored from checkpoints that predate it
+    yty: Optional[torch.Tensor] = None
+    moments: str = "fp32"
+
+    @property
+    def device(self) -> torch.device:
+        return self.x_m.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.x_m.dtype
+
+    @property
+    def num_inducing(self) -> int:
+        return self.x_m.shape[0]
+
+    @property
+    def rank(self) -> int:
+        """Whitening-basis dimension after truncation."""
+        return self.w_solve.shape[1]
+
+    def _as_input(self, x):
+        if isinstance(x, torch.Tensor):
+            if x.device != self.device:
+                raise ValueError(f"input is on {x.device}, the posterior on "
+                                 f"{self.device}")
+            return x.to(self.dtype).contiguous()
+        return torch.as_tensor(np.asarray(x), dtype=self.dtype,
+                               device=self.device).contiguous()
+
+    def _labels(self, y, rows: int):
+        y = _as_tensor(y, self.device, self.dtype)
+        if y.dim() == 1:
+            y = y[:, None]
+        if y.shape != (rows, 1):
+            raise ValueError(f"labels have shape {tuple(y.shape)} for "
+                             f"{rows} rows")
+        return y
+
+    # ------------------------------------------------------------ predict
+    def _projections(self, x_test, need_kmm):
+        """(psi_solve (k, mt), psi_kmm (k2, mt) or None) of prescaled test
+        rows. moments='df64': kernel entries and projections in fp64,
+        rounded to the posterior's dtype after the projection."""
+        df64 = self.moments == "df64"
+        xe = x_test.to(torch.float64) if df64 else x_test
+        xm = self.x_m.to(torch.float64) if df64 else self.x_m
+        psi_k = None
+        if self.get == "nngp":
+            cross = gram_cross(self.spec, xe, xm, "nngp")
+            psi = (cross @ self.w_solve).mT
+        elif need_kmm:
+            nngp_c, ntk_c = gram_cross(self.spec, xe, xm, ("nngp", "ntk"))
+            psi = (ntk_c @ self.w_solve).mT
+            psi_k = (nngp_c @ self.w_kmm).mT.to(self.dtype)
+        else:
+            psi = (gram_cross(self.spec, xe, xm, "ntk") @ self.w_solve).mT
+        return psi.to(self.dtype), psi_k
+
+    def _predict_scaled(self, x_test, compute_cov):
+        """Predict body on raw-unit x_test: the mean is exact, var/cov come
+        back divided by input_scale^2."""
+        resolve_device(self.device)
+        x_test = self._as_input(x_test)
+        if self.input_scale != 1.0:
+            x_test = x_test * (1.0 / self.input_scale)
+        layers = self.spec.layers
+        if self.get == "nngp":
+            psi, _ = self._projections(x_test, False)
+            mean = psi.mT @ self.beta_w
+            if compute_cov is False:
+                return mean
+            h = self.ic.mT @ psi
+            if compute_cov == "diag":
+                var = (diag_eval(layers, x_test, "nngp")
+                       - torch.sum(psi * psi, dim=0)
+                       + self.reg * torch.sum(h * h, dim=0))
+                return mean, torch.clamp_min(var, 0.0)
+            k_ss = gram_sym(self.spec, x_test, "nngp")   # exact diagonal
+            return mean, k_ss - psi.mT @ psi + self.reg * (h.mT @ h)
+
+        # get == 'ntk': both kernels Nystrom-approximated
+        psi_t, psi_k = self._projections(x_test, compute_cov is not False)
+        mean = psi_t.mT @ self.beta_w
+        if compute_cov is False:
+            return mean
+        ct = self.ic @ (self.ic.mT @ psi_t)              # (C + rI)^-1 psi_t
+        g = self.m1_w.to(self.dtype) @ ct                # (k2, mt)
+        if compute_cov == "diag":
+            var = (diag_eval(layers, x_test, "nngp")
+                   + torch.sum(g * g, dim=0)
+                   - 2.0 * torch.sum(psi_k * g, dim=0))
+            return mean, torch.clamp_min(var, 0.0)
+        k_ss = gram_sym(self.spec, x_test, "nngp")
+        return mean, k_ss + g.mT @ g - psi_k.mT @ g - g.mT @ psi_k
+
+    def predict(self, x_test, compute_cov=True):
+        """Posterior (mean, cov) in raw input units: `GPPosterior.predict`
+        with K replaced by its Nystrom approximation and the exact prior
+        diagonal k** (the DTC predictive). compute_cov: True, 'diag' or
+        False."""
+        if compute_cov not in (True, False, "diag"):
+            raise ValueError(f"compute_cov must be True, False or 'diag', "
+                             f"got {compute_cov!r}")
+        out = self._predict_scaled(x_test, compute_cov)
+        if compute_cov is False or self.input_scale == 1.0:
+            return out
+        mean, v = out
+        return mean, v * (self.input_scale * self.input_scale)
+
+    def predict_mean_std(self, x_test):
+        """(mean (m, 1), std (m,)); std compensated after the sqrt so fp32
+        stays finite at any input_scale."""
+        mean, var = self._predict_scaled(x_test, "diag")
+        return mean, torch.sqrt(var) * self.input_scale
+
+    def predict_mean_std_chunked(self, x_test, chunk: int = 8192):
+        """(mean, std) as 1-D numpy arrays, `chunk` rows per predict."""
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        means, stds = [], []
+        for s in range(0, x_test.shape[0], chunk):
+            mean, std = self.predict_mean_std(x_test[s:s + chunk])
+            means.append(mean.reshape(-1).cpu().numpy())
+            stds.append(std.reshape(-1).cpu().numpy())
+        return np.concatenate(means), np.concatenate(stds)
+
+    # ----------------------------------------------------- extend, forget
+    def _stream(self, x, y, **acc):
+        resolve_device(self.device)
+        x = self._as_input(x)
+        y = self._labels(y, x.shape[0])
+        if self.input_scale != 1.0:
+            x = x * (1.0 / self.input_scale)
+        return x.shape[0], _stream_moments(
+            self.spec, self.get, self.x_m, self.w_solve, self.w_kmm, x, y,
+            self.panel_size, **acc)
+
+    def extend(self, x_new, y_new) -> "NystromPosterior":
+        """Add labeled rows (raw units): their moments are accumulated and
+        the k x k solve stage reruns, O(s m^2 + m^3). Exact: extend then
+        predict equals a refit on the concatenated rows with the same
+        inducing set and ridge. The fit's ridge is kept."""
+        s, (c_raw, b_w, m1_w, diag_sum, yty) = self._stream(
+            x_new, y_new, c_raw=self.c_raw, b_w=self.b_w, m1_w=self.m1_w,
+            diag_sum=self.diag_sum, yty=self.yty)
+        ic, beta_w = _finalize(c_raw, b_w, self.reg, self.dtype,
+                               self.finalize)
+        return dataclasses.replace(
+            self, ic=ic, beta_w=beta_w, c_raw=c_raw, b_w=b_w, m1_w=m1_w,
+            diag_sum=diag_sum, yty=yty if self.yty is not None else None,
+            num_train=self.num_train + s)
+
+    def forget(self, x_old, y_old) -> "NystromPosterior":
+        """Remove rows added before by subtracting their moments and
+        rerunning the solve stage: forget(extend(rows)) is the posterior
+        without them. The rows must be those streamed in (same features
+        and labels); a mismatch cannot be detected here."""
+        rows = len(x_old)
+        if rows > self.num_train:
+            raise ValueError(f"forget({rows} rows) exceeds num_train "
+                             f"({self.num_train})")
+        _, (dc, db, dm1, dd, dy2) = self._stream(x_old, y_old)
+        c_raw = self.c_raw - dc
+        b_w = self.b_w - db
+        m1_w = self.m1_w - dm1 if self.get == "ntk" else None
+        ic, beta_w = _finalize(c_raw, b_w, self.reg, self.dtype,
+                               self.finalize)
+        return dataclasses.replace(
+            self, ic=ic, beta_w=beta_w, c_raw=c_raw, b_w=b_w, m1_w=m1_w,
+            diag_sum=self.diag_sum - dd,
+            yty=self.yty - dy2 if self.yty is not None else None,
+            num_train=self.num_train - rows)
+
+    def grow_inducing(self, x_new_inducing, x_train, y_train):
+        """Refit on (x_train, y_train) with the inducing set enlarged by
+        `x_new_inducing` (raw units). The whitening basis changes, so this
+        is a full streamed refit, O(n (m + s)^2); the Titsias ELBO cannot
+        decrease."""
+        old_raw = self.x_m.to(torch.float64) * float(self.input_scale)
+        new = _as_tensor(x_new_inducing, self.device, torch.float64)
+        rows = torch.cat([old_raw, new])
+        return fit_nystrom(
+            self.spec, x_train, y_train, diag_reg=self.diag_reg,
+            get=self.get, panel_size=self.panel_size,
+            rank_rtol=self.rank_rtol, input_scale=self.input_scale,
+            precision=self.precision, inducing_rows=rows,
+            finalize=self.finalize, moments=self.moments,
+            device=self.device)
+
+    # ---------------------------------------------------- model evidence
+    def log_evidence(self) -> float:
+        """Closed-form log evidence of y ~ N(0, Q + rI):
+        quad = (y^T y - |ic^T b|^2) / r, logdet = (n - k) log r
+        - 2 log|det ic|; with a prescale s, quad / s^2 and n log s^2."""
+        if self.yty is None:
+            raise ValueError(
+                "log_evidence needs the streamed y^T y moment; this "
+                "posterior predates evidence tracking — refit")
+        n, k = self.num_train, self.rank
+        r = float(self.reg)
+        ic64 = self.ic.to(torch.float64)
+        h = (ic64.mT @ self.b_w.to(torch.float64)).reshape(-1)
+        quad = (float(self.yty) - float(h @ h)) / r
+        _, logabs = torch.linalg.slogdet(ic64)
+        logdet = (n - k) * math.log(r) - 2.0 * float(logabs)
+        if self.input_scale != 1.0:
+            s2 = float(self.input_scale) ** 2
+            quad /= s2
+            logdet += n * math.log(s2)
+        return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
+
+    def capacity_gap(self) -> float:
+        """Per-row Nystrom gap tr(K - Q) / (n r): the ELBO's trace penalty
+        per training row in ridge units."""
+        trace_gap = float(self.diag_sum) - float(
+            torch.trace(self.c_raw.to(torch.float64)))
+        return max(trace_gap, 0.0) / (max(self.num_train, 1)
+                                      * float(self.reg))
+
+    def elbo(self) -> float:
+        """Titsias' collapsed lower bound on the exact GP evidence:
+        log_evidence() - tr(K - Q) / (2 r), monotone non-decreasing under
+        inducing-set inclusion."""
+        return self.log_evidence() - 0.5 * self.capacity_gap() * \
+            max(self.num_train, 1)
+
+
+# ------------------------------------------------------------------- fit
+def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
+                diag_reg: float = 1e-3, get: str = "nngp",
+                diag_reg_absolute_scale: bool = False, seed: int = 0,
+                panel_size: int = _DEFAULT_PANEL,
+                rank_rtol: Optional[float] = None,
+                input_scale: Optional[float] = None,
+                precision: str = "highest", whiten: str = "chol",
+                inducing: str = "uniform", inducing_rows=None,
+                mesh=None, mesh_axis: str = "data",
+                finalize: str = "auto", moments: str = "fp32",
+                device=None) -> NystromPosterior:
+    """Streaming Nystrom/DTC fit: O(n m^2) flops, O(m^2 + panel * m)
+    device memory. The arguments of the JAX function, plus `device` (where
+    the posterior lives; required for numpy input, a tensor's own device by
+    default). x_train's dtype (fp32 or fp64) is the posterior's.
+
+    whiten: 'chol' (jittered Cholesky basis, rank m) or 'eigh' (the
+    eigenvalue-truncated basis, rank <= m). inducing_rows: explicit (m, d)
+    inducing rows in raw units, overriding the seeded uniform selection
+    (the hook `grow_inducing` uses). finalize: 'host', 'device' or 'auto'.
+    moments: 'fp32' or 'df64' (fp32 posteriors only: the kernel entries,
+    bases, projections and accumulators in fp64, with the rank cut 1e-12).
+    """
+    if get not in ("nngp", "ntk"):
+        raise ValueError(f"get must be 'nngp' or 'ntk', got {get!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"fit_nystrom(mesh=...) is not ported yet ({_PARALLEL})")
+    if precision == "high":
+        raise NotImplementedError(
+            "precision='high' is not ported (ROADMAP 'Not to port': the "
+            "TPU's 3-pass MXU mode; its counterpart here would be TF32, "
+            "which utils/device.py forbids)")
+    if precision != "highest":
+        raise ValueError(f"precision must be 'highest', got {precision!r}")
+    if inducing == "rpchol":
+        select_inducing_rpchol()
+    if inducing != "uniform":
+        raise ValueError(
+            f"inducing must be 'uniform' or 'rpchol', got {inducing!r}")
+    if whiten not in ("chol", "eigh"):
+        raise ValueError(f"whiten must be 'chol' or 'eigh', got {whiten!r}")
+    if moments not in ("fp32", "df64"):
+        raise ValueError(f"moments must be 'fp32' or 'df64', "
+                         f"got {moments!r}")
+    if device is None:
+        if not isinstance(x_train, torch.Tensor):
+            raise ValueError("fit_nystrom needs device= for numpy input")
+        device = x_train.device
+    device = resolve_device(device)
+    finalize = _resolve_finalize(finalize, device)
+    x = _as_tensor(x_train, device)
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"x_train must be float32 or float64, got {x.dtype}")
+    if moments == "df64" and x.dtype != torch.float32:
+        raise ValueError("moments='df64' is the fp64-moment path for fp32 "
+                         f"posteriors; got dtype {x.dtype} (fp64 already "
+                         "carries full precision)")
+    y = _as_tensor(y_train, device, x.dtype)
+    if y.dim() == 1:
+        y = y[:, None]
+    n = x.shape[0]
+    if input_scale is None:
+        input_scale = _auto_input_scale(x_train, spec.layers)
+    if input_scale != 1.0:
+        x = x * (1.0 / input_scale)
+    if inducing_rows is not None:
+        x_m = _as_tensor(inducing_rows, device, x.dtype)
+        if input_scale != 1.0:
+            x_m = x_m * (1.0 / input_scale)
+    else:
+        idx = torch.as_tensor(select_inducing(n, num_inducing, seed),
+                              device=device)
+        x_m = x[idx]
+    x_m = x_m.contiguous()
+    if rank_rtol is None:
+        rank_rtol = _default_rank_rtol(x.dtype, moments)
+    w_solve, w_kmm = _inducing_bases(
+        spec, get, float(rank_rtol), x_m, whiten=whiten,
+        device=(finalize == "device" and whiten == "chol"), entries=moments)
+    c_raw, b_w, m1_w, diag_sum, yty = _stream_moments(
+        spec, get, x_m, w_solve, w_kmm, x, y, panel_size)
+    if diag_reg_absolute_scale:
+        reg = torch.tensor(diag_reg, dtype=x.dtype, device=device)
+    else:
+        reg = (diag_reg * diag_sum / n).to(x.dtype)
+    ic, beta_w = _finalize(c_raw, b_w, reg, x.dtype, finalize)
+    return NystromPosterior(
+        x_m=x_m, w_solve=w_solve, ic=ic, beta_w=beta_w, reg=reg,
+        c_raw=c_raw, b_w=b_w, diag_sum=diag_sum, m1_w=m1_w, w_kmm=w_kmm,
+        spec=spec, get=get, diag_reg=diag_reg, num_train=n,
+        input_scale=float(input_scale), precision=precision,
+        rank_rtol=float(rank_rtol), panel_size=panel_size,
+        finalize=finalize, yty=yty, moments=moments)

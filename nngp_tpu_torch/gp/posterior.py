@@ -205,8 +205,13 @@ class GPPosterior:
         alpha = _tri_solve(l, _tri_solve(l, y), transpose=True)
         k_tt = None
         if self.get == "ntk":
-            k_tt = torch.cat([torch.cat([self.k_tt_nngp, n21.mT], dim=1),
-                              torch.cat([n21, n22], dim=1)])
+            # filled block by block: no (n, n + m) temporary at the peak
+            n = self.k_tt_nngp.shape[0]
+            k_tt = self.k_tt_nngp.new_empty((n + n22.shape[0],) * 2)
+            k_tt[:n, :n] = self.k_tt_nngp
+            k_tt[n:, :n] = n21
+            k_tt[:n, n:] = n21.mT
+            k_tt[n:, n:] = n22
         return dataclasses.replace(
             self, x_train=torch.cat([self.x_train, x_new]), y_train=y, l=l,
             alpha=alpha, k_tt_nngp=k_tt)

@@ -1,24 +1,31 @@
-"""Serving estimator, the exact tier: the PyTorch counterpart of
-`nngp_tpu/serve/estimator.py`.
+"""Serving estimator: the PyTorch counterpart of
+`nngp_tpu/serve/estimator.py`, with its exact and Nystrom tiers.
 
 A DBMS hands over sub-query lines and gets back (mean, std) of the log2
 cardinality of each. The constructor loads the schema stats and the
-training queries, fits the exact posterior once on `device`, and
-`predict(query_lines)` encodes the lines (native C++ encoder when g++ is
-present) and runs the cross Gram kernel and the triangular solves there.
-The fitted state is a checkpoint (`save` / `Estimator.restore`) in the JAX
-package's single-chip format, so either package restores what the other
-wrote. Online learning (`extend_with_lines`), uncertainty calibration and
+training queries, fits the posterior once on `device` (the exact GP, or
+the streaming Nystrom/DTC tier with `nystrom_m` inducing rows, or the tier
+`tier='auto'` picks by the train-set size), and `predict(query_lines)`
+encodes the lines (native C++ encoder when g++ is present) and runs the
+cross Gram kernel and the solves there. The fitted state is a checkpoint
+(`save` / `Estimator.restore`) in the JAX package's single-chip and
+Nystrom formats, so either package restores what the other wrote. Online
+learning (`extend_with_lines`; on the Nystrom tier also
+`forget_with_lines` and `grow_inducing`), uncertainty calibration and
 drift monitoring work as in the JAX package.
 
 Hyperparameters learned by evidence (`learn_hyper`, `hyper_ard`,
-`quality='best'`) come from `gp.hyperopt`; `relearn_hyperparams` relearns
-them on a live server, warm-started, and rolls back on any failure.
+`quality='best'`) come from `gp.hyperopt`, against the evidence of the
+tier that serves (DTC on the Nystrom tier); `relearn_hyperparams`
+relearns them on a live server, warm-started, and rolls back on any
+failure.
 
 What differs from the JAX Estimator:
-  - only the exact single-device tier is ported; the Nystrom and
-    distributed paths raise `NotImplementedError` naming their ROADMAP
-    item;
+  - the distributed tier (mesh) raises `NotImplementedError` naming its
+    ROADMAP item;
+  - `exact_max_n`, the train-set size up to which `tier='auto'` keeps the
+    exact tier, defaults to a bound derived from the card's memory
+    (`default_exact_max_n`); 55,000 on the CPU;
   - there are no serving buckets: a predict runs exactly the rows it was
     given, in chunks of 8,192 (`GPPosterior.predict_mean_std_chunked`);
     the buckets existed to bound XLA compiles;
@@ -30,6 +37,7 @@ What differs from the JAX Estimator:
 
 import collections
 import json
+import math
 import os
 import sys
 import time
@@ -40,8 +48,11 @@ import torch
 
 from nngp_tpu_torch.featurize.join import MultiJoinEncoder
 from nngp_tpu_torch.featurize.stats import TableStats
-from nngp_tpu_torch.convert import posterior_from_numpy, posterior_to_numpy
+from nngp_tpu_torch.convert import (nystrom_from_numpy, nystrom_to_numpy,
+                                    posterior_from_numpy, posterior_to_numpy)
 from nngp_tpu_torch.data.workload import schema_stats
+from nngp_tpu_torch.gp.nystrom import (NystromPosterior, _resolve_finalize,
+                                       fit_nystrom)
 from nngp_tpu_torch.gp.posterior import fit_gp
 from nngp_tpu_torch.models.kernel_spec import (Activation, Dense, KernelSpec,
                                                reference_kernel)
@@ -52,20 +63,46 @@ from nngp_tpu_torch.utils.device import resolve_device
 # squared fp32 Gram entries head toward overflow.
 _EXTEND_MAX_SCALED_ABS = 2.0 ** 20
 
-_NYSTROM = "ROADMAP Queue A #10 (gp/nystrom.py)"
 _PARALLEL = "ROADMAP Queue A #12 (parallel/)"
 
 # constructor argument -> (its default, what ports its path)
 _NOT_PORTED = {
     "mesh": (None, _PARALLEL),
     "dist_block_size": (None, _PARALLEL),
-    "nystrom_m": (None, _NYSTROM),
-    "nystrom_moments": (None, _NYSTROM),
-    "auto_nystrom_m": (None, _NYSTROM + ", tier='auto'"),
-    "exact_max_n": (None, _NYSTROM + ", tier='auto' (its bound is derived "
-                    "again for 80 GB)"),
     "pad_slots": (None, "ROADMAP 'Not to port' (shape buckets)"),
 }
+
+# tier='auto' keeps the exact tier while its largest device-memory peak
+# stays within this share of the card's memory. The peaks, in bytes per
+# element of the n x n Gram, by kernel and dtype: a fit, an extend (with the
+# posterior it extends), and a refit while the live posterior is kept, as
+# `relearn_hyperparams` refits; the refit's is the largest. nngp: 8.00, 8.41
+# and 12.00 bytes in fp32, 16.01, 16.82 and 24.01 in fp64; an ntk posterior
+# also keeps the train NNGP Gram, so it needs more. Measured on an NVIDIA
+# H100 80GB HBM3 (700 W) by `chip_smoke.py` (phase 8, which fails if a peak
+# exceeds the constants below; PERF.md). nngp: ~75k rows fp32 and ~53k fp64
+# on the 80 GB card. On the CPU the JAX package's 55,000 stays.
+EXACT_MEMORY_SHARE = 0.8
+EXACT_PEAK_BYTES_PER_N2 = {("nngp", torch.float32): 12.1,
+                           ("nngp", torch.float64): 24.1,
+                           ("ntk", torch.float32): 20.1,
+                           ("ntk", torch.float64): 40.1}
+EXACT_MAX_N_CPU = 55000
+
+
+def default_exact_max_n(device, dtype, get: str = "nngp") -> int:
+    """The largest train-set size whose exact-tier peaks for kernel `get`
+    stay within EXACT_MEMORY_SHARE of `device`'s memory (EXACT_MAX_N_CPU on
+    the CPU). dtype: the working dtype, numpy or torch."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return EXACT_MAX_N_CPU
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.float64 if np.dtype(dtype) == np.float64 \
+            else torch.float32
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(math.sqrt(EXACT_MEMORY_SHARE * total
+                         / EXACT_PEAK_BYTES_PER_N2[get, dtype]))
 
 
 def _spec_to_json(spec: KernelSpec):
@@ -143,14 +180,25 @@ class Estimator:
                  quality: str = "reference",
                  calibrate_frac: Optional[float] = None,
                  calibrate_seed: int = 7, tier: Optional[str] = None,
-                 auto_nystrom_m: Optional[int] = None,
+                 auto_nystrom_m: int = 2048,
                  exact_max_n: Optional[int] = None, *, device):
         """The arguments of the JAX Estimator, plus `device` (required;
         'cuda' without a GPU raises). Those whose path is not ported raise
         NotImplementedError naming their ROADMAP item when set off their
-        default: mesh, dist_block_size, nystrom_m, nystrom_moments,
-        auto_nystrom_m, exact_max_n, pad_slots, and tier other than None or
-        'exact'.
+        default: mesh, dist_block_size, pad_slots, and tier='distributed'.
+
+        nystrom_m: fit the streaming Nystrom/DTC tier (`gp.nystrom`) with
+        this many inducing rows instead of the exact posterior: O(m^2)
+        device state at any n. nystrom_moments: its moment precision,
+        'fp32' (default) or 'df64' (fp64 kernel entries, bases,
+        projections and accumulators on an fp32 posterior).
+
+        tier: None derives the tier from the flags (nystrom_m set ->
+        Nystrom, else exact). 'auto' keeps the exact tier while the fitted
+        row count is at most exact_max_n (None: `default_exact_max_n` of
+        the device, dtype and kernel_type) and routes larger train sets to the Nystrom
+        tier with auto_nystrom_m inducing rows (and moments 'df64' under
+        quality='best' in fp32). 'exact' and 'nystrom' force a tier.
 
         learn_hyper: True learns (w0, w, b, diag_reg) by exact-evidence
         gradient descent on (a subsample of) the training queries before
@@ -187,23 +235,21 @@ class Estimator:
             nystrom_moments=nystrom_moments, dtype=dtype,
             calibrate_frac=calibrate_frac)
         given = dict(mesh=mesh, dist_block_size=dist_block_size,
-                     nystrom_m=nystrom_m, nystrom_moments=nystrom_moments,
-                     auto_nystrom_m=auto_nystrom_m, exact_max_n=exact_max_n,
                      pad_slots=pad_slots)
         for name, value in given.items():
             default, item = _NOT_PORTED[name]
             if value != default:
                 raise NotImplementedError(
                     f"Estimator({name}=...) is not ported yet ({item})")
-        if tier not in (None, "exact"):
-            if tier in ("nystrom", "auto"):
-                raise NotImplementedError(
-                    f"tier={tier!r} is not ported yet ({_NYSTROM})")
-            if tier == "distributed":
-                raise NotImplementedError(
-                    f"tier='distributed' is not ported yet ({_PARALLEL})")
+        if tier == "distributed":
+            raise NotImplementedError(
+                f"tier='distributed' is not ported yet ({_PARALLEL})")
+        if tier not in (None, "auto", "exact", "nystrom"):
             raise ValueError("tier must be 'auto', 'exact', 'nystrom' or "
                              f"'distributed'; got {tier!r}")
+        if nystrom_moments not in (None, "fp32", "df64"):
+            raise ValueError("nystrom_moments must be 'fp32' or 'df64', got "
+                             f"{nystrom_moments!r}")
         if kernel_type not in ("nngp", "ntk"):
             raise ValueError(
                 f"kernel_type must be 'nngp' or 'ntk', got {kernel_type!r}")
@@ -220,6 +266,9 @@ class Estimator:
         self.diag_reg = diag_reg
         self.dtype = np.dtype(dtype).type
         self.chunk_norm = bool(chunk_norm)
+        self.nystrom_m = nystrom_m
+        self._moments_unset = nystrom_moments is None
+        self.nystrom_moments = nystrom_moments or "fp32"
         self.spec = spec if spec is not None else reference_kernel()
         if stats is None:
             if stats_dir is None:
@@ -245,8 +294,9 @@ class Estimator:
         if calibrate_frac > 0.0 and x.shape[0] >= 20:
             n_cal = min(max(10, int(round(calibrate_frac * x.shape[0]))),
                         x.shape[0] // 2)
-        if tier is not None and verbose:
-            print(f"tier routing: n={x.shape[0] - n_cal} -> exact")
+        if tier is not None:
+            self._route_tier(tier, x.shape[0] - n_cal, auto_nystrom_m,
+                             exact_max_n, verbose)
         self.std_scale = 1.0            # post-hoc std recalibration (MLE)
         self._conformal_scores = None   # sorted |y-mu|/std calibration set
         self.drift_monitor = None       # created lazily by record_feedback
@@ -317,6 +367,35 @@ class Estimator:
         return (chunk_norm, learn_hyper, hyper_ard, nystrom_moments,
                 calibrate_frac)
 
+    def _route_tier(self, tier: str, n: int, auto_m: int, exact_max_n,
+                    verbose: bool):
+        """Resolve tier='auto'/'exact'/'nystrom' into nystrom_m (None for
+        the exact tier) before the fit. 'auto': the exact tier while n <=
+        exact_max_n, the Nystrom tier beyond."""
+        if exact_max_n is None:
+            exact_max_n = default_exact_max_n(self.device, self.dtype,
+                                              self.kernel_type)
+        if tier == "auto":
+            if self.nystrom_m is not None or n > exact_max_n:
+                tier = "nystrom"
+            else:
+                tier = "exact"
+        if tier == "exact":
+            self.nystrom_m = None
+        else:
+            if self.nystrom_m is None:
+                self.nystrom_m = min(int(auto_m), n)
+            if (self.quality == "best" and self._moments_unset
+                    and np.dtype(self.dtype) == np.float32):
+                # the decision table's rule, which the constructor could
+                # not apply before the tier was known
+                self.nystrom_moments = "df64"
+        if verbose:
+            print(f"tier routing: n={n} -> {tier}"
+                  + (f" (m={self.nystrom_m}, moments="
+                     f"{self.nystrom_moments})" if tier == "nystrom" else "")
+                  + f"; exact_max_n {exact_max_n}")
+
     def _init_encoders(self):
         """The Python encoder (training files, fall-back) and, when g++
         can build it, the native line encoder for the serving hot path.
@@ -370,7 +449,7 @@ class Estimator:
                 "chunk_norm=True to put packed categorical chunks on the "
                 "[0, 1000] scale")
         if objective == "auto":
-            objective = "exact"        # 'dtc' when the Nystrom tier lands
+            objective = "dtc" if self.nystrom_m else "exact"
         if not max_points and objective != "dtc":
             raise ValueError(
                 "hyper_points=0 (full-n hyperopt) requires the DTC "
@@ -380,7 +459,7 @@ class Estimator:
             get=self.kernel_type, steps=steps,
             max_points=max_points or None,   # 0 -> full n (dtc is O(n m^2))
             width=denses[0].width, ard=ard, objective=objective,
-            dtc_m=512, device=self.device)
+            dtc_m=self._dtc_m(objective), device=self.device)
         if res.feature_scale is not None:
             self.feature_scale = np.asarray(res.feature_scale, np.float64)
         if verbose:
@@ -388,6 +467,12 @@ class Estimator:
         self.spec = res.spec
         self.diag_reg = res.diag_reg
         self.hyper_result = res
+
+    def _dtc_m(self, objective: str) -> int:
+        """Inducing rows of the DTC objective: the tier's, at most 512."""
+        if objective == "dtc" and self.nystrom_m:
+            return min(512, self.nystrom_m)
+        return 512
 
     def _apply_hyper_result(self, res, x: np.ndarray, verbose: bool):
         """Install an already-learned HyperoptResult (e.g. a --hyper_file
@@ -441,7 +526,9 @@ class Estimator:
         moves with it.
 
         labeled_lines: `query@...@card` lines to learn from and refit on;
-        None takes the posterior's own training rows.
+        None takes the posterior's own training rows (exact tier only: the
+        Nystrom tier does not keep its rows, so pass the full current
+        training log). The objective is the serving tier's evidence.
 
         Transactional: on any exception during the refit, the previous
         spec, ridge, feature scale and posterior all stay in effect.
@@ -454,6 +541,11 @@ class Estimator:
             y = np.log2(cards).reshape(-1, 1).astype(self.dtype)
         else:
             p = self.posterior
+            if isinstance(p, NystromPosterior):
+                raise ValueError(
+                    "relearn_hyperparams: the streaming Nystrom tier does "
+                    "not retain its training rows (O(m^2) state) — pass "
+                    "labeled_lines (e.g. the serving feedback log)")
             x_fs = p.x_train.cpu().numpy() * float(p.input_scale)
             y = p.y_train.cpu().numpy()
         # back to raw feature units: the relearn may produce a new scale
@@ -465,12 +557,14 @@ class Estimator:
         w0 = denses[0].w_std
         w = denses[1].w_std if len(denses) > 1 else denses[0].w_std
         b = denses[0].b_std if denses[0].b_std > 0 else 0.1
+        objective = "dtc" if self.nystrom_m else "exact"
         res = fit_kernel_hyperparams(
             x_raw, y, depth=len(acts), activation=acts[0].name,
             get=self.kernel_type, steps=steps, max_points=max_points,
             width=denses[0].width, init=(w0, w, b, self.diag_reg),
             reg_restarts=(), ard=self.feature_scale is not None,
-            init_feature_scale=self.feature_scale, device=self.device)
+            init_feature_scale=self.feature_scale, objective=objective,
+            dtc_m=self._dtc_m(objective), device=self.device)
         if verbose:
             self._print_hyper("relearned", res)
         old = (self.spec, self.diag_reg, self.feature_scale, self.posterior)
@@ -493,13 +587,28 @@ class Estimator:
 
     def _fit(self, x, y):
         # x/y are host numpy: the fp32 prescale probe (max|x|) is free there
+        if self.nystrom_m is not None:
+            return fit_nystrom(self.spec, x, y, num_inducing=self.nystrom_m,
+                               diag_reg=self.diag_reg, get=self.kernel_type,
+                               moments=self.nystrom_moments,
+                               device=self.device)
         return fit_gp(self.spec, x, y, diag_reg=self.diag_reg,
                       get=self.kernel_type, device=self.device)
 
     def _validate_fit(self):
-        """Fail loudly if the factorization degenerated: non-finite alpha
-        or factor diagonal (one device sync)."""
+        """Fail loudly if the fit degenerated: non-finite alpha or factor
+        diagonal, or on the Nystrom tier non-finite whitened weights or
+        inverse factor (one device sync)."""
         p = self.posterior
+        if isinstance(p, NystromPosterior):
+            ok = torch.stack([torch.isfinite(p.beta_w).all(),
+                              torch.isfinite(p.ic).all()]).cpu()
+            if not (bool(ok[0]) and bool(ok[1])):
+                raise FloatingPointError(
+                    "Nystrom fit produced non-finite state (beta finite: "
+                    f"{bool(ok[0])}, ic finite: {bool(ok[1])}). Check "
+                    "training cards > 0 and feature encodings.")
+            return
         ok = torch.stack([torch.isfinite(p.alpha).all(),
                           torch.isfinite(torch.diagonal(p.l)).all()]).cpu()
         ok_alpha, ok_l = bool(ok[0]), bool(ok[1])
@@ -515,17 +624,16 @@ class Estimator:
                 mesh=None, *, device):
         """An Estimator from a checkpoint directory (`meta.json` +
         `posterior.npz`) written by this package or by the JAX package's
-        single-chip exact tier, on `device`. A JAX column-block factor is
-        assembled into one dense factor and a padded posterior is cut to
-        its real rows; Nystrom and distributed checkpoints raise."""
+        single-chip exact or Nystrom tier, on `device`. A JAX column-block
+        factor is assembled into one dense factor and a padded posterior is
+        cut to its real rows; distributed checkpoints raise. A Nystrom
+        posterior's solve stage runs where finalize='auto' puts it on
+        `device`."""
         if mesh is not None:
             raise NotImplementedError(
                 f"restore(mesh=...) is not ported yet ({_PARALLEL})")
         with open(os.path.join(ckpt_dir, "meta.json")) as f:
             meta = json.load(f)
-        if "nystrom" in meta:
-            raise NotImplementedError(
-                f"a Nystrom checkpoint cannot be restored yet ({_NYSTROM})")
         if "distributed" in meta:
             raise NotImplementedError("a distributed checkpoint cannot be "
                                       f"restored yet ({_PARALLEL})")
@@ -551,10 +659,19 @@ class Estimator:
         self.drift_monitor = None
         self.hyper_result = None
         self._init_encoders()
+        self.nystrom_m, self.nystrom_moments = None, "fp32"
         with np.load(os.path.join(ckpt_dir, "posterior.npz")) as arrs:
             self._conformal_scores = (np.asarray(arrs["conformal_scores"])
                                       if "conformal_scores" in arrs
                                       else None)
+            if "nystrom" in meta:
+                self.posterior = nystrom_from_numpy(
+                    arrs, meta["nystrom"], self.spec, self.kernel_type,
+                    self.diag_reg, self.device,
+                    finalize=_resolve_finalize("auto", self.device))
+                self.nystrom_m = self.posterior.num_inducing
+                self.nystrom_moments = self.posterior.moments
+                return self
             n = int(meta.get("n_real", arrs["x_train"].shape[0]))
             k_tt = arrs["k_tt_nngp"] if "k_tt_nngp" in arrs else None
             state = {
@@ -571,7 +688,7 @@ class Estimator:
 
     def save(self, ckpt_dir: str):
         """Persist the posterior, the encoder stats and the calibration:
-        the JAX package's single-chip checkpoint format."""
+        the JAX package's single-chip or Nystrom checkpoint format."""
         os.makedirs(ckpt_dir, exist_ok=True)
         p = self.posterior
         meta = {
@@ -584,19 +701,22 @@ class Estimator:
             "stats": [s.to_json() for s in self.stats],
             "chunk_norm": self.chunk_norm,
             "quality": self.quality,
-            # x_train is stored divided by input_scale; the scale must ride
-            # along or a restored posterior would mis-scale every query
-            "input_scale": float(p.input_scale),
         }
         if self.feature_scale is not None:
             meta["feature_scale"] = [float(v) for v in self.feature_scale]
         if self.std_scale != 1.0:
             meta["std_scale"] = float(self.std_scale)
-        state = posterior_to_numpy(p)
-        arrs = {k: state[k] for k in ("x_train", "y_train", "l", "alpha",
-                                      "reg")}
-        if state["k_tt_nngp"] is not None:
-            arrs["k_tt_nngp"] = state["k_tt_nngp"]
+        if isinstance(p, NystromPosterior):
+            arrs, meta["nystrom"] = nystrom_to_numpy(p)
+        else:
+            # x_train is stored divided by input_scale; the scale must ride
+            # along or a restored posterior would mis-scale every query
+            meta["input_scale"] = float(p.input_scale)
+            state = posterior_to_numpy(p)
+            arrs = {k: state[k] for k in ("x_train", "y_train", "l",
+                                          "alpha", "reg")}
+            if state["k_tt_nngp"] is not None:
+                arrs["k_tt_nngp"] = state["k_tt_nngp"]
         if self._conformal_scores is not None:
             arrs["conformal_scores"] = np.asarray(self._conformal_scores)
         with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
@@ -607,9 +727,10 @@ class Estimator:
     def load_model(self, verbose: bool = True):
         """Warm-up prediction on the training rows (the reference
         estimator's `load_model`), chunked so the cross Gram stays
-        8,192 x n."""
+        8,192 x n; on the Nystrom tier on the inducing rows."""
         p = self.posterior
-        mean, std = p.predict_mean_std_chunked(p.x_train * p.input_scale)
+        rows = p.x_m if isinstance(p, NystromPosterior) else p.x_train
+        mean, std = p.predict_mean_std_chunked(rows * p.input_scale)
         if verbose:
             print(mean.shape, std.shape)
             print("Model construction complete.")
@@ -629,7 +750,9 @@ class Estimator:
         return dt
 
     def _feature_dim(self) -> int:
-        return int(self.posterior.x_train.shape[1])
+        p = self.posterior
+        rows = p.x_m if isinstance(p, NystromPosterior) else p.x_train
+        return int(rows.shape[1])
 
     # -------------------------------------------------------- encoding
     def _apply_chunk_norm(self, x: np.ndarray) -> np.ndarray:
@@ -711,9 +834,10 @@ class Estimator:
 
     def extend_with_lines(self, labeled_lines: Sequence[str]) -> int:
         """Online learning: fold freshly-labeled `query@...@card` lines into
-        the posterior with an O(n^2 k) block-Cholesky append, keeping the
-        fit's ridge. A new posterior is built and installed after
-        validation. Returns the number of rows added."""
+        the posterior, keeping the fit's ridge: an O(n^2 k) block-Cholesky
+        append on the exact tier, a moment update on the Nystrom tier. A
+        new posterior is built and installed after validation. Returns the
+        number of rows added."""
         x, cards = self._encode_labeled_lines(labeled_lines,
                                               "extend_with_lines")
         self._guard_feature_magnitude(x, "extend_with_lines")
@@ -721,13 +845,45 @@ class Estimator:
         self._install_posterior(self.posterior.extend(x, y))
         return x.shape[0]
 
-    def forget_with_lines(self, labeled_lines: Sequence[str]):
-        """Online forgetting belongs to the streaming Nystrom tier; the
-        exact factor has no stable downdate, so refit instead."""
-        raise NotImplementedError(
-            "forget_with_lines requires the streaming Nystrom tier "
-            f"(Estimator(nystrom_m=...), {_NYSTROM}); the exact factor has "
-            "no stable downdate — refit a fresh Estimator instead")
+    def forget_with_lines(self, labeled_lines: Sequence[str]) -> int:
+        """Online forgetting (Nystrom tier only): remove labeled lines
+        trained or extended in before (expired feedback, a sliding window)
+        by exact moment subtraction, O(s m^2 + m^3). The exact tier
+        refuses: its factor has no stable downdate. Transactional; returns
+        the number of rows removed."""
+        if not isinstance(self.posterior, NystromPosterior):
+            raise NotImplementedError(
+                "forget_with_lines requires the streaming Nystrom tier "
+                "(Estimator(nystrom_m=...)); the exact factor has no "
+                "stable downdate — refit a fresh Estimator instead")
+        x, cards = self._encode_labeled_lines(labeled_lines,
+                                              "forget_with_lines")
+        y = np.log2(cards).reshape(-1, 1).astype(self.dtype)
+        self._install_posterior(self.posterior.forget(x, y))
+        return x.shape[0]
+
+    def grow_inducing(self, labeled_lines: Sequence[str],
+                      num_new: int = 512, seed: int = 0) -> int:
+        """Grow the Nystrom tier's capacity: enlarge the inducing set by
+        `num_new` seeded uniform rows of `labeled_lines` and refit on
+        exactly those lines (the full training log: growth changes the
+        whitening basis, so it is an O(n (m + s)^2) streamed refit). The
+        ELBO (`posterior.elbo()`) cannot decrease. Transactional; returns
+        the new inducing count."""
+        if not isinstance(self.posterior, NystromPosterior):
+            raise NotImplementedError(
+                "grow_inducing requires the streaming Nystrom tier "
+                "(Estimator(nystrom_m=...)); the exact tier has no "
+                "inducing set — its capacity is n itself")
+        x, cards = self._encode_labeled_lines(labeled_lines, "grow_inducing")
+        self._guard_feature_magnitude(x, "grow_inducing")
+        y = np.log2(cards).reshape(-1, 1).astype(self.dtype)
+        rng = np.random.default_rng(seed)
+        pick = rng.choice(x.shape[0], size=min(num_new, x.shape[0]),
+                          replace=False)
+        self._install_posterior(self.posterior.grow_inducing(x[pick], x, y))
+        self.nystrom_m = self.posterior.num_inducing
+        return self.posterior.num_inducing
 
     # ---------------------------------------------------------- predict
     def _predict_raw(self, query_lines: Sequence[str]):
@@ -824,8 +980,9 @@ class Estimator:
         """Fold labeled serving feedback into the workload-drift monitor
         and return a `serve.drift.DriftReport`: whether the model still
         explains the live workload and, if not, the remediation measured
-        to help the exact tier ('relearn_hyperparams'). Observes only;
-        call `drift_monitor.reset()` after acting."""
+        to help this tier ('relearn_hyperparams' on the exact tier,
+        'grow_inducing' on the Nystrom tier). Observes only; call
+        `drift_monitor.reset()` after acting."""
         from nngp_tpu_torch.serve.drift import DriftMonitor, DriftReport
         if self.drift_monitor is None:
             self.drift_monitor = DriftMonitor()
@@ -836,9 +993,14 @@ class Estimator:
         std = np.maximum(std * self.std_scale, self.drift_monitor.std_floor)
         abs_z = np.abs(y - mean) / std
         drift = self.drift_monitor.update(abs_z)
+        action = None
+        if drift:
+            action = ("grow_inducing"
+                      if isinstance(self.posterior, NystromPosterior)
+                      else "relearn_hyperparams")
         q = np.exp2(np.abs(y - mean))  # symmetric q-error in card space
         return DriftReport(
-            drift=drift, action="relearn_hyperparams" if drift else None,
+            drift=drift, action=action,
             mean_abs_z=float(np.mean(abs_z)),
             median_q_error=float(np.median(q)),
             n_observed=self.drift_monitor.n,

@@ -3,8 +3,7 @@
 The port's copy of `nngp_tpu/serve/socket_server.py`, with the same line
 protocol. It is carried in this package because importing any
 `nngp_tpu.serve` module loads jax (the package's `__init__` imports the
-JAX Estimator). The remediation of the Nystrom tier (`grow_inducing` over
-`train_log`) waits for ROADMAP Queue A #10, so `train_log` raises.
+JAX Estimator).
 
 Protocol (newline-delimited UTF-8, one request per line):
   request   a card-less query line in the serving grammar
@@ -18,8 +17,8 @@ Protocol (newline-delimited UTF-8, one request per line):
   feedback  (feedback_mode != "off") a LABELED line `query@...@card` —
             e.g. the true cardinality observed after executing the plan —
             is acknowledged immediately with {"feedback": "queued"} and
-            folded into drift monitoring / online learning in the
-            background (see EstimatorSocketServer).
+            folded into drift monitoring / online learning / automatic
+            remediation in the background (see EstimatorSocketServer).
   \\stats   returns the server's metrics as one JSON line (qps, batch
             sizes, latency percentiles, feedback counters).
 
@@ -31,6 +30,7 @@ line poisons only its own future: the batcher bisects failed batches
 """
 
 import json
+import os
 import queue
 import socketserver
 import threading
@@ -127,13 +127,17 @@ class EstimatorSocketServer:
       'online'   monitor + `extend_with_lines` (the posterior learns the
                  labels incrementally);
       'auto'     online + on a drift alarm the report's remediation,
-                 `relearn_hyperparams` on the exact tier, then a reset of
-                 the monitor. A remediation this package cannot apply is
-                 skipped and counted in stats()['remediations_skipped'],
-                 and the monitor resets so the alarm cannot latch. When
-                 the estimator was calibrated, the conformal scores are
-                 refreshed on the next feedback batch before it is folded
-                 into training (those lines are still held out, which the
+                 then a reset of the monitor: `relearn_hyperparams` on the
+                 exact tier; on the Nystrom tier `grow_inducing`, which
+                 needs the full training log back (`train_log`: the
+                 labeled lines the server was trained with, or the path
+                 of its query directory; the feedback received so far is
+                 appended). Without a log the growth is skipped, counted
+                 in stats()['remediations_skipped'], and the monitor
+                 resets so the alarm cannot latch. When the estimator was
+                 calibrated, the conformal scores are refreshed on the
+                 next feedback batch before it is folded into training
+                 (those lines are still held out, which the
                  split-conformal guarantee requires).
 
     Malformed labeled lines are validated per line and cost only
@@ -152,11 +156,6 @@ class EstimatorSocketServer:
                  feedback_mode: str = "off", feedback_batch: int = 64,
                  feedback_flush_s: float = 2.0, train_log=None,
                  **batcher_kwargs):
-        if train_log is not None:
-            raise NotImplementedError(
-                "train_log feeds the Nystrom tier's grow_inducing "
-                "remediation, which is not ported yet (ROADMAP Queue A #10, "
-                "gp/nystrom.py)")
         if feedback_mode not in ("off", "monitor", "online", "auto"):
             raise ValueError(
                 "feedback_mode must be off|monitor|online|auto, got "
@@ -167,6 +166,13 @@ class EstimatorSocketServer:
         self.feedback_mode = feedback_mode
         self.feedback_batch = int(feedback_batch)
         self.feedback_flush_s = float(feedback_flush_s)
+        # the labeled lines the server was trained with (the Nystrom
+        # growth refits on them): a list, or a query directory whose
+        # non-aux *.txt files are read at the first growth
+        self.train_log = (train_log if isinstance(train_log, str)
+                          else list(train_log) if train_log is not None
+                          else None)
+        self._fb_log: list = []          # every valid labeled line received
         self._model_lock = threading.Lock()
         self._fb_queue: "queue.SimpleQueue" = queue.SimpleQueue()
         self._fb_stats = {"feedback_lines": 0, "feedback_batches": 0,
@@ -198,6 +204,17 @@ class EstimatorSocketServer:
     def _submit_feedback(self, line: str) -> dict:
         self._fb_queue.put(line)
         return {"feedback": "queued", "mode": self.feedback_mode}
+
+    def _resolve_train_log(self):
+        if isinstance(self.train_log, str):
+            lines = []
+            for fn in sorted(os.listdir(self.train_log)):
+                if not fn.endswith(".txt") or "aux" in fn:
+                    continue
+                with open(os.path.join(self.train_log, fn)) as f:
+                    lines.extend(ln.strip() for ln in f if ln.strip())
+            self.train_log = lines
+        return self.train_log
 
     def _feedback_loop(self):
         batch = []
@@ -246,6 +263,7 @@ class EstimatorSocketServer:
                 report = est.record_feedback(good)
                 st["feedback_lines"] += len(good)
                 st["feedback_batches"] += 1
+                self._fb_log.extend(good)
                 # a remediation moved the posterior: refresh the stale
                 # conformal calibration on this batch BEFORE extending with
                 # it, while its lines are still held out
@@ -260,12 +278,18 @@ class EstimatorSocketServer:
                 if report.drift:
                     st["drift_alarms"] += 1
                 if report.drift and self.feedback_mode == "auto":
-                    if report.action == "relearn_hyperparams":
-                        est.relearn_hyperparams(verbose=False)
+                    if (report.action == "grow_inducing"
+                            and self.train_log is None):
+                        # growth needs the full training log back
+                        st["remediations_skipped"] += 1
+                    else:
+                        if report.action == "grow_inducing":
+                            est.grow_inducing(self._resolve_train_log()
+                                              + self._fb_log)
+                        else:
+                            est.relearn_hyperparams(verbose=False)
                         st["remediations"] += 1
                         self._recal_pending = True
-                    else:
-                        st["remediations_skipped"] += 1
                     est.drift_monitor.reset()
         except Exception:  # noqa: BLE001 — the worker must survive
             st["feedback_errors"] += len(good)

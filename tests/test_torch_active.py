@@ -226,12 +226,41 @@ def test_biased_batches_are_distinct_in_range_and_seeded():
     assert not np.array_equal(picks[0], picks[2])
 
 
+@pytest.mark.parametrize("kw,rtol", [
+    ({"nystrom_m": 32}, 1e-9),
+    ({"nystrom_m": 32, "nystrom_grow": 8}, 1e-9),
+    ({"nystrom_m": 32, "nystrom_moments": "df64"}, 1e-3),
+], ids=["m", "grow", "df64"])
+def test_nystrom_arguments_run_the_nystrom_tier(kw, rtol):
+    """The Nystrom arguments (once refused, now ported) against the JAX
+    learner, top-k: nystrom_m rounds extend the moments, nystrom_grow
+    grows the inducing set by 8 rows a round, both to the same validation
+    MSE (rtol 1e-9). moments='df64' on fp32 rows is held to JAX's fp64
+    pipeline on the same rows at rtol 1e-3 (the fp32 predict and the
+    1e-12 rank cut, where fp64 cuts at 1e-14)."""
+    split = _split(seed=3)
+    jkw = dict(kw)
+    if "nystrom_moments" in kw:
+        split = [a.astype(np.float32) for a in split]
+        jkw.pop("nystrom_moments")
+    jl = JaxLearner(JaxSpec(jax_mlp(1)), budget=20, active_iters=3,
+                    biased_sample=False, **jkw)
+    tl = ActiveLearner(KernelSpec(mlp(1)), budget=20, active_iters=3,
+                       selection="topk", device="cpu", **kw)
+    jpost, jhist = jl.active_train(*[np.asarray(a, np.float64)
+                                     for a in split], printer=None)
+    post, hist = tl.active_train(*split, printer=None)
+    assert post.num_inducing == jpost.num_inducing == \
+        32 + 3 * kw.get("nystrom_grow", 0)
+    assert post.moments == kw.get("nystrom_moments", "fp32")
+    assert [h["num_train"] for h in hist] == [h["num_train"] for h in jhist]
+    np.testing.assert_allclose([h["val_mse"] for h in hist],
+                               [h["val_mse"] for h in jhist], rtol=rtol)
+
+
 @pytest.mark.parametrize("kw,match", [
     ({"mesh": object()}, "Queue A #12"),
     ({"dist_block_size": 64}, "Queue A #12"),
-    ({"nystrom_m": 32}, "Queue A #10"),
-    ({"nystrom_grow": 2}, "Queue A #10"),
-    ({"nystrom_moments": "df64"}, "Queue A #10"),
     ({"pad_acquisitions": True}, "Not to port"),
 ])
 def test_unported_arguments_name_their_roadmap_item(kw, match):
@@ -241,7 +270,13 @@ def test_unported_arguments_name_their_roadmap_item(kw, match):
 
 def test_bad_arguments_raise():
     for kw, match in (({"refit": "sometimes"}, "refit must be"),
-                      ({"selection": "random"}, "selection must be")):
+                      ({"selection": "random"}, "selection must be"),
+                      ({"nystrom_grow": 8}, "requires nystrom_m"),
+                      ({"nystrom_m": 8, "nystrom_grow": 8, "refit": "full"},
+                       "refit='incremental'"),
+                      ({"nystrom_m": 8, "nystrom_grow": 8,
+                        "relearn_hyper": True}, "incompatible"),
+                      ({"nystrom_moments": "bf16"}, "nystrom_moments")):
         with pytest.raises(ValueError, match=match):
             ActiveLearner(KernelSpec(mlp(1)), device="cpu", **kw)
     with pytest.raises(TypeError, match="device"):

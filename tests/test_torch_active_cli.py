@@ -67,10 +67,29 @@ def test_cli_hyper_file_from_jax_and_relearn(tmp_path, capsys):
                                [h["val_mse"] for h in want], rtol=1e-9)
 
 
+@pytest.mark.parametrize("flags,jax_flags,rtol", [
+    (["--x64", "--nystrom_m", "64"], ["--x64", "--nystrom_m", "64"], 1e-9),
+    (["--x64", "--nystrom_m", "64", "--nystrom_grow", "16"],
+     ["--x64", "--nystrom_m", "64", "--nystrom_grow", "16"], 1e-9),
+    (["--nystrom_m", "64", "--nystrom_moments", "df64"],
+     ["--x64", "--nystrom_m", "64"], 1e-3),
+], ids=["m", "grow", "df64"])
+def test_cli_nystrom_flags_match_jax_cli(flags, jax_flags, rtol, capsys):
+    """The Nystrom flags (once refused, now ported), top-k, against the
+    JAX CLI: the same validation MSE per round (rtol 1e-9 in fp64);
+    --nystrom_moments df64 on fp32 rows against JAX's fp64 run at rtol
+    1e-3 (the fp32 predict and the 1e-12 rank cut)."""
+    base = ["--schema_name", "synth", "--query_path", SYNTH, "--budget",
+            "60", "--active_iters", "2", "--selection", "topk"]
+    want = jax_cli.main(base + jax_flags)
+    got = active_train.main(["--device", "cpu", *base, *flags])
+    capsys.readouterr()
+    assert [h["num_train"] for h in got] == [h["num_train"] for h in want]
+    np.testing.assert_allclose([h["val_mse"] for h in got],
+                               [h["val_mse"] for h in want], rtol=rtol)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--nystrom_m", "64"], "Queue A #10"),
-    (["--nystrom_grow", "2"], "Queue A #10"),
-    (["--nystrom_moments", "df64"], "Queue A #10"),
     (["--mesh_devices", "4"], "Queue A #12"),
     (["--pad_acquisitions"], "'Not to port'"),
     (["--relations", "title,cast_info"], "Queue A #7"),

@@ -196,11 +196,16 @@ def test_ard_feature_scale_rides_a_jax_checkpoint(pair64, tmp_path):
 
 
 def test_nystrom_and_distributed_checkpoints_raise(toy, tmp_path):
+    """A JAX Nystrom checkpoint now restores (it predicts what the JAX
+    Estimator predicts; the cross-package cases are in
+    test_torch_nystrom_serve.py); a distributed one still raises."""
     stats, qdir = toy
-    JaxEstimator("toy", None, qdir, stats=stats, dtype=np.float64,
-                 nystrom_m=20, verbose=False).save(str(tmp_path / "ny"))
-    with pytest.raises(NotImplementedError, match="Queue A #10"):
-        Estimator.restore(str(tmp_path / "ny"), device="cpu")
+    jest = JaxEstimator("toy", None, qdir, stats=stats, dtype=np.float64,
+                        nystrom_m=20, verbose=False)
+    jest.save(str(tmp_path / "ny"))
+    est = Estimator.restore(str(tmp_path / "ny"), device="cpu")
+    assert est.nystrom_m == 20 and est.posterior.num_inducing == 20
+    _close(est.predict(LINES), jest.predict(LINES))
     with open(tmp_path / "ny" / "meta.json") as f:
         meta = json.load(f)
     del meta["nystrom"]
@@ -306,12 +311,6 @@ def test_explicit_learn_hyper_false_survives_quality_best():
     ({"mesh": object()}, "Queue A #12"),
     ({"dist_block_size": 64}, "Queue A #12"),
     ({"tier": "distributed"}, "Queue A #12"),
-    ({"nystrom_m": 32}, "Queue A #10"),
-    ({"nystrom_moments": "df64"}, "Queue A #10"),
-    ({"tier": "nystrom"}, "Queue A #10"),
-    ({"tier": "auto"}, "Queue A #10"),
-    ({"auto_nystrom_m": 1024}, "Queue A #10"),
-    ({"exact_max_n": 70000}, "Queue A #10"),
     ({"pad_slots": 8}, "Not to port"),
     ({"stats": None}, "Queue A #7"),
 ])
@@ -321,6 +320,37 @@ def test_unported_arguments_name_their_roadmap_item(toy, kw, item):
     args.update(kw)
     with pytest.raises(NotImplementedError, match=item):
         Estimator("toy", None, qdir, **args)
+
+
+@pytest.mark.parametrize("kw,m", [
+    ({"nystrom_m": 32}, 32),
+    ({"nystrom_m": 32, "nystrom_moments": "df64"}, 32),
+    ({"tier": "nystrom"}, 60),
+    ({"tier": "auto"}, None),
+    ({"tier": "auto", "auto_nystrom_m": 24, "exact_max_n": 50}, 24),
+    ({"tier": "auto", "exact_max_n": 70000}, None),
+])
+def test_nystrom_arguments_select_the_tier(toy, kw, m):
+    """The Nystrom arguments (once refused, now ported): nystrom_m fits
+    the Nystrom tier; tier='nystrom' takes min(auto_nystrom_m, n);
+    tier='auto' keeps the exact tier while n <= exact_max_n (55,000 on
+    the CPU by default) and routes the 60 toy rows to Nystrom with
+    auto_nystrom_m rows when exact_max_n is below them. The JAX
+    Estimator routes the same way."""
+    stats, qdir = toy
+    kw = dict(kw, dtype=np.float32 if "nystrom_moments" in kw
+              else np.float64)
+    est = Estimator("toy", None, qdir, stats=stats, verbose=False,
+                    device="cpu", **kw)
+    jest = JaxEstimator("toy", None, qdir, stats=stats, verbose=False, **kw)
+    assert est.nystrom_m == jest.nystrom_m == m
+    if m is None:
+        assert hasattr(est.posterior, "l")
+    else:
+        assert est.posterior.num_inducing == m
+        assert est.posterior.moments == kw.get("nystrom_moments", "fp32")
+        rtol = 1e-4 if kw["dtype"] == np.float32 else 1e-7
+        _close(est.predict(LINES), jest.predict(LINES), rtol=rtol)
 
 
 def test_bad_arguments_raise(toy):

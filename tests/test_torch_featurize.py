@@ -262,13 +262,14 @@ def _imports_of_the_jax_package(path):
         else:
             continue
         found += [(node.lineno, n) for n in names
-                  if n == "nngp_tpu" or n.startswith("nngp_tpu.")]
+                  if n.split(".")[0] in ("nngp_tpu", "jax", "jaxlib")]
     return found
 
 
 def test_the_port_imports_nothing_of_the_jax_package():
     sources = _python_sources()
     assert len(sources) > 40
+    assert os.path.join(REPO, "nngp_tpu_torch", "gp", "nystrom.py") in sources
     offenders = {os.path.relpath(p, REPO): _imports_of_the_jax_package(p)
                  for p in sources}
     assert {p: f for p, f in offenders.items() if f} == {}
@@ -281,6 +282,14 @@ def test_the_import_scan_finds_an_import_of_the_jax_package(tmp_path):
                    "from nngp_tpu_torch import ops\n")
     assert _imports_of_the_jax_package(str(bad)) == [
         (2, "nngp_tpu.eval"), (4, "nngp_tpu.featurize")]
+
+
+def test_the_import_scan_finds_an_import_of_jax(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import torch\nimport jax.numpy as jnp\n"
+                   "from jaxlib import xla_client\n")
+    assert _imports_of_the_jax_package(str(bad)) == [
+        (2, "jax.numpy"), (3, "jaxlib")]
 
 
 def test_the_copies_are_tracked_by_git():

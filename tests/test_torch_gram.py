@@ -314,6 +314,11 @@ def test_bench_bound_is_the_store_or_the_dot():
     assert ms == pytest.approx(2 * 61 * 3600 * 10800 / 67e9)
     assert bound("cross", 3600, 10800, 20, torch.float64)[0] == \
         pytest.approx((14400 * 20 + 3600 * 10800) * 8 / 3.35e9)
+    # fp64 at the card's tensor-core rate (67 TFLOP/s): the Nystrom panel
+    # shape is bound by its bytes, not by its dot
+    ms, by = bound("cross", 16384, 2048, 61, torch.float64)
+    assert by == "bytes"
+    assert ms == pytest.approx((18432 * 61 + 16384 * 2048) * 8 / 3.35e9)
 
 
 def test_bench_per_element_counts_loop_work():

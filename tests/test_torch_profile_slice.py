@@ -60,10 +60,28 @@ def test_profile_learning_phases_run_on_the_cpu(capsys, monkeypatch):
     assert [("step_ms" in r) for r in records] == [True, True, False]
 
 
+@pytest.mark.parametrize("moments", ["fp32", "df64"])
+def test_profile_nystrom_phases_run_on_the_cpu(moments, capsys):
+    """The Nystrom tier's fit and chunked predict: one JSON line each; the
+    exact fit is skipped when no exact phase is asked for."""
+    phases = ["nystrom_fit", "nystrom_predict"]
+    records = profile_slice.main([
+        "--device", "cpu", "--query_path", FOREST, "--max_num_train", "300",
+        "--nystrom_m", "32", "--nystrom_moments", moments, "--phases",
+        ",".join(phases), "--reps", "1"])
+    capsys.readouterr()
+    assert [r["phase"] for r in records] == phases
+    for rec in records:
+        assert rec["dtype"] == "float32" and rec["wall_ms"] > 0
+        assert (rec["n_train"], rec["n_test"]) == (300, 3600)
+        assert rec["busy_ms"] is None
+
+
 def test_profile_rejects_unported_flags_and_bad_reps(capsys):
     for flags in (["--learn_hyper"], ["--reps", "0"],
                   ["--phases", "fit,bogus"],
-                  ["--phases", "hyperopt", "--hyper_steps", "0"]):
+                  ["--phases", "hyperopt", "--hyper_steps", "0"],
+                  ["--phases", "nystrom_fit"]):
         with pytest.raises(SystemExit) as exc:
             profile_slice.main(["--device", "cpu", *flags])
         assert exc.value.code == 2

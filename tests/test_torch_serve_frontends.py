@@ -455,16 +455,17 @@ def test_feedback_over_the_wire(toy, mode):
 
 
 def test_feedback_auto_waits_for_hyperopt():
-    """feedback_mode='auto' is served now that its remediation
-    (relearn_hyperparams) is ported; only the Nystrom tier's train_log
-    still waits (ROADMAP Queue A #10)."""
+    """feedback_mode='auto' is served, and so is the Nystrom tier's
+    train_log (a list of lines, or a query directory read at the first
+    growth; the remediation itself is in test_torch_nystrom_serve.py)."""
     with EstimatorSocketServer(_StubEstimator(), port=0,
                                feedback_mode="auto") as srv:
         st = srv.stats()
     assert st["remediations"] == st["remediations_skipped"] == 0
-    with pytest.raises(NotImplementedError, match="Queue A #10"):
-        EstimatorSocketServer(_StubEstimator(), port=0, feedback_mode="auto",
-                              train_log=["t@x,1,0@5"])
+    with EstimatorSocketServer(_StubEstimator(), port=0, feedback_mode="auto",
+                               train_log=("t@x,1,0@5",)) as srv:
+        assert srv.train_log == ["t@x,1,0@5"]
+        assert srv._resolve_train_log() == ["t@x,1,0@5"]
     with pytest.raises(ValueError, match="feedback_mode must be"):
         EstimatorSocketServer(_StubEstimator(), port=0,
                               feedback_mode="sometimes")
@@ -642,12 +643,50 @@ def test_serve_demo_learns_and_reuses_a_hyper_file(toy, tmp_path, capsys):
     assert first5(first) == first5(second)
 
 
+@pytest.mark.parametrize("flags,m", [
+    (["--nystrom_m", "24"], 24),
+    (["--nystrom_m", "24", "--nystrom_moments", "df64"], 24),
+    (["--tier", "nystrom"], 60),
+], ids=["m", "df64", "tier"])
+def test_serve_demo_nystrom_flags(toy, tmp_path, capsys, flags, m):
+    """The demo's Nystrom flags (once refused, now ported) serve from the
+    Nystrom tier, and its checkpoint restores on a second run with the
+    same answers."""
+    from nngp_tpu_torch.cli import serve_demo
+
+    stats, qdir = toy
+    stats_dir = tmp_path / "stats"
+    stats_dir.mkdir()
+    for i, s in enumerate(stats):
+        s.save(str(stats_dir / f"{i}_{s.table_name}.json"))
+    test_file = tmp_path / "test.txt"
+    test_file.write_text("\n".join(_lines(np.random.default_rng(5), 10,
+                                          labeled=True)) + "\n")
+    argv = ["--device", "cpu", "--schema_name", "toy", "--stats_dir",
+            str(stats_dir), "--train_query_path", qdir, "--test_query_file",
+            str(test_file), "--ckpt", str(tmp_path / "ck"), *flags]
+    serve_demo.main(argv)
+    first = capsys.readouterr().out
+    serve_demo.main(argv)
+    second = capsys.readouterr().out
+    assert "predicted 10 queries" in first and "restoring" in second
+    with open(tmp_path / "ck" / "meta.json") as f:
+        meta = json.load(f)
+    assert meta["nystrom"]["moments"] == (
+        "df64" if "df64" in flags else "fp32")
+    with np.load(tmp_path / "ck" / "posterior.npz") as arrs:
+        assert arrs["x_m"].shape[0] == m
+    first5 = [l.split()[:2] for l in
+              first.split("first 5")[1].split("\n")[1:6]]
+    again = [l.split()[:2] for l in
+             second.split("first 5")[1].split("\n")[1:6]]
+    np.testing.assert_allclose(np.asarray(again, float),
+                               np.asarray(first5, float), atol=2e-3)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--mesh_devices", "4"], "Queue A #12"),
-    (["--nystrom_m", "64"], "Queue A #10"),
-    (["--nystrom_moments", "df64"], "Queue A #10"),
     (["--pad_slots", "8"], "'Not to port'"),
-    (["--tier", "auto"], "Queue A #10"),
     (["--tier", "distributed"], "Queue A #12"),
     (["--data_path", "csvs"], "Queue A #7"),
 ])
@@ -701,6 +740,13 @@ def test_serving_imports_and_runs_with_jax_and_pandas_blocked(tmp_path):
         "                             rng.normal(size=40), steps=3,\n"
         "                             ard=True, device='cpu')\n"
         "assert np.isfinite(res.log_evidence)\n"
+        "from nngp_tpu_torch.gp import fit_nystrom\n"
+        "ny = fit_nystrom(res.spec,\n"
+        "                 rng.uniform(0, 1, (40, 3)).astype(np.float32),\n"
+        "                 rng.normal(size=40), num_inducing=8,\n"
+        "                 moments='df64', device='cpu')\n"
+        "ny = ny.extend(rng.uniform(0, 1, (4, 3)), rng.normal(size=4))\n"
+        "assert np.isfinite(ny.log_evidence()) and ny.num_train == 44\n"
         "hist = active_train.main(['--device', 'cpu', '--schema_name',\n"
         "    'synth', '--query_path', 'workloads/synth_join_data',\n"
         "    '--budget', '20', '--active_iters', '1', '--selection',\n"

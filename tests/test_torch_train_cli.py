@@ -100,11 +100,9 @@ def test_cli_device_cuda_raises_without_a_gpu():
 
 @pytest.mark.parametrize("flags,item", [
     (["--kernel_type", "gp"], "Queue A #11"),
-    (["--nystrom_m", "64"], "Queue A #10"),
     (["--relations", "title,cast_info"], "Queue A #7"),
     (["--profile_dir", "trace"], "Queue A #13"),
     (["--config", "run.json"], "Queue A #13"),
-    (["--nystrom_moments", "df64"], "Queue A #10"),
 ])
 def test_unported_flags_name_their_roadmap_item(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -112,6 +110,30 @@ def test_unported_flags_name_their_roadmap_item(flags, item, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP {item}" in err
+
+
+@pytest.mark.parametrize("flags,jax_flags,rel", [
+    (["--x64", "--nystrom_m", "64"], ["--x64", "--nystrom_m", "64"], 1e-6),
+    (["--nystrom_m", "64", "--nystrom_moments", "df64"],
+     ["--x64", "--nystrom_m", "64"], 1e-3),
+], ids=["fp64", "fp32-df64"])
+def test_nystrom_flags_match_jax_cli(flags, jax_flags, rel, capsys):
+    """--nystrom_m fits the streaming tier: the profile of the JAX CLI's
+    fp64 run at rel 1e-6, and with fp32 rows and --nystrom_moments df64
+    at rel 1e-3 (the port's df64 is native fp64, but the rows, the
+    predict and the 1e-12 rank cut (fp64: 1e-14) are fp32-shaped)."""
+    base = ["--query_path", FOREST, "--max_num_train", "400"]
+    want = jax_train.main(base + jax_flags)
+    capsys.readouterr()
+    got = train.main(["--device", "cpu", *base, *flags])
+    out = capsys.readouterr().out
+    for key in want:
+        assert got[key] == pytest.approx(want[key], rel=rel), key
+    assert len(_lines(out, "[timing] ")) == 4
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu", *base, *flags, "--select_reg",
+                    "1e-3,1e-2"])
+    assert "drop --nystrom_m" in capsys.readouterr().err
 
 
 HYPER = ["--hyper_points", "96", "--hyper_steps", "8"]
