@@ -52,7 +52,23 @@ exits nonzero; nothing is caught and retried:
      `exact_max_n` rule); an Estimator with tier='auto'
      routed to the Nystrom tier (checkpoint, forget and extend of lines,
      grow_inducing); the train CLI's DTC learn and the Nystrom active
-     learner with growth against the JAX package's CPU anchors; with times.
+     learner with growth against the JAX package's CPU anchors; with times;
+  9. the baselines slice (`models/`, `baselines/`, `ops/iterative.py`),
+     forest 10,800 / 3,600 at full width: whether scikit-learn is installed
+     (its four host-side model types run at 2,000 rows where it is, and are
+     printed as absent where it is not); the deterministic RBF-GP in fp64
+     and, through both CLIs, in fp32 against the JAX package's CPU values;
+     DNN, MCDropout, DeepEnsemble, Density, MSCN, DKL-SKI and DKL through
+     `cli.train_baselines` at its defaults against bands around the JAX
+     package's runs, with train times; `cli.train_multijoin` MSCN and TLSTM
+     on synth_join_data against the JAX package's CPU values;
+     `BaselineActiveLearner` DNN and DeepEnsemble, 3 rounds of 1,000;
+     `batched_cg`, `slq_logdet` and `predict_dkl_ski` against their dense
+     counterparts on the SKI operator at n = 10,800. No baseline reaches a
+     Gram kernel, and the launch counters are checked to say so.
+
+Phase 4 also runs the training CLI in fp64 on the synthimdb, synthtpch and
+synthtpcds join workloads against the JAX package's fp64 q-error.
 
 Each path's launches are counted from 0 around it; the summary's
 `launches` are their sum over every path. The last three lines are the
@@ -1350,9 +1366,14 @@ NY_M, NY_EXT, NY_PANEL, NY_D = 2048, 1000, 16384, 61
 # with the last 1,000, predict the 30,000 test rows
 # (experiments/nystrom_df64_moments_ab.py; its log
 # experiments/nystrom_df64_moments_ab2.log). 'df64' is fp64 moments at the
-# 1e-12 rank cut (the fp64 CPU oracle scores 2.399 / 23.8, BASELINE.md);
-# 'fp32' is fp32 moments at 1e-8 on another chip, so its bounds are wider.
-NY_ANCHORS = {"df64": (2.3997, 23.79), "fp32": (2.5177, 25.49)}
+# 1e-12 rank cut (the fp64 CPU oracle scores 2.399 / 23.8, BASELINE.md).
+# 'fp32' is fp32 moments at 1e-8: the whitening amplifies fp32 rounding by
+# up to 1e4, so every machine and GEMM library lands elsewhere in the third
+# digit (that log's chip 2.5177 / 25.49; on one CPU the JAX package 2.5289 /
+# 25.890 and this package 2.5221 / 26.079,
+# tests/test_torch_synth6_big_fp32.py). The anchor is the JAX package's CPU
+# value, its bounds wider.
+NY_ANCHORS = {"df64": (2.3997, 23.79), "fp32": (2.5289, 25.890)}
 NY_TOL = {"df64": (2e-3, 2e-3), "fp32": (0.02, 0.03)}
 # the Nystrom pins of tests/test_parity_gate.py:108-115 (forest, the
 # split's first 2,048 train rows, m = 256), fp64 and fp32 + df64 moments
@@ -1884,6 +1905,417 @@ def nystrom_slice(card, total, device):
     return panel
 
 
+# ------------------------------------- the other committed workload families
+# fp64 (median, p95) of the exact tier at the reference kernel on the
+# families the port had not run: the seed-10 60/20/20 split of the committed
+# query files (synthimdb 18,000 queries, d = 84: 10,800 train / 3,600 test;
+# synthtpch d = 45 and synthtpcds d = 99, 12,000 queries each: 7,200 / 2,400).
+# The JAX package on the CPU in fp64: experiments/synthimdb_eval.log
+# ("raw default"), experiments/synthtpch_eval.log and
+# experiments/synthtpcds_eval.log ("default"; BASELINE.md, "reference
+# defaults").
+FAMILY_ANCHORS = {"synthimdb": (3.4195, 79.945),
+                  "synthtpch": (2.3308, 24.82),
+                  "synthtpcds": (5.2344, 227.79)}
+
+
+def families_slice(total):
+    """The training CLI in fp64 on each of the three families, held to the
+    JAX package's fp64 q-error at rel 2e-3. Adds the launches to `total`."""
+    for family, anchor in FAMILY_ANCHORS.items():
+        print(f"slice {family} fp64 nngp:")
+        argv = ["--device", "cuda", "--schema_name", family, "--query_path",
+                f"workloads/{family}_data", "--x64"]
+        med, p95, _, launches, _ = run_slice(argv)
+        if (abs(med / anchor[0] - 1) > 2e-3
+                or abs(p95 / anchor[1] - 1) > 2e-3):
+            raise AssertionError(
+                f"{family}: median {med} / p95 {p95} outside rel 2e-3 of "
+                f"the fp64 anchors {anchor[0]} / {anchor[1]}")
+        print(f"  {family}: within rel 2e-3 of {anchor[0]} / {anchor[1]}")
+        for key in total:
+            total[key] += launches[key]
+
+
+# ------------------------------------------------------ the baselines slice
+# The RBF-GP baseline is deterministic (constant init, nothing sampled):
+# (median, p95) of the JAX package on the CPU on forest 10,800 / 3,600,
+#   python -m nngp_tpu.cli.train --kernel_type gp --x64      (fp64)
+#   python -m nngp_tpu.cli.train_baselines --model_type RBF-GP  (fp32)
+RBF_GP_ANCHOR = {"fp64": (15.0502, 346.1539), "fp32": (15.0502, 346.1538)}
+# Forest 10,800 / 3,600 at the CLI's defaults (256 hidden units, 40 epochs,
+# batches of 128): (median, p95) of the JAX package's runs on another chip
+# from other random bits (experiments/baseline_runs/*.log). The port's
+# initial weights follow the same law from other bits, so the bound is a
+# band: median within 10%, p95 within 25%; a model outside it is judged on
+# three seeds (`judge`).
+BASELINE_ANCHORS = {"DNN": (3.3452, 35.31), "MCDropout": (3.8774, 44.88),
+                    "DeepEnsemble": (4.0715, 50.30),
+                    "Density": (4.0449, 53.44), "MSCN": (3.3831, 41.40),
+                    "DKL-SKI": (3.9251, 50.97)}
+BASELINE_BAND = (0.10, 0.25)
+# synth_join_data, 2,400 queries (1,440 train / 480 test), the CLI's
+# defaults: the JAX package on the CPU,
+#   python -m nngp_tpu.cli.train_multijoin --model_type MSCN|TLSTM \
+#       --query_path workloads/synth_join_data --stats_dir workloads/synth_stats
+MULTIJOIN_ANCHORS = {"MSCN": (2.4550, 17.1487), "TLSTM": (2.5421, 18.7409)}
+MULTIJOIN_BAND = (0.15, 0.35)
+SKLEARN_TYPES = ("GP", "KRR", "MLP", "XGB")
+EPOCH_LINE = re.compile(r"^(\d+)-th Epochs: ")
+
+
+class StampedOutput(io.StringIO):
+    """Captured stdout that notes the host time at which each per-epoch
+    line of a trainer was written."""
+
+    def __init__(self):
+        super().__init__()
+        self.epochs = []
+
+    def write(self, text):
+        if EPOCH_LINE.match(text):
+            torch.cuda.synchronize()
+            self.epochs.append(time.perf_counter())
+        return super().write(text)
+
+
+def run_baseline_cli(main_fn, argv, steps_per_epoch):
+    """One baseline CLI run: (median, p95, MSE, wall s, ms per optimizer
+    step). The step time is the span from the first per-epoch line to the
+    last over the steps between them (the first epoch, which warms the
+    allocator and cuBLAS, is left out)."""
+    out = StampedOutput()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main_fn(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    text = out.getvalue()
+    q = re.search(r"symmetric q-error: median=([0-9.]+) p95=([0-9.]+)", text)
+    mse = re.search(r"mean square error: ([0-9.eE+-]+)", text)
+    if q is None or mse is None:
+        raise AssertionError(f"CLI output lacks the q-error lines: {argv}")
+    med, p95, mse = float(q.group(1)), float(q.group(2)), float(mse.group(1))
+    if not all(np.isfinite([med, p95, mse])):
+        raise AssertionError(f"non-finite q-error or MSE for {argv}")
+    step_ms = None
+    if len(out.epochs) > 1:
+        step_ms = ((out.epochs[-1] - out.epochs[0]) * 1e3
+                   / ((len(out.epochs) - 1) * steps_per_epoch))
+    return med, p95, mse, wall_s, step_ms
+
+
+def in_band(med, p95, anchor, band):
+    return (abs(med / anchor[0] - 1) <= band[0]
+            and abs(p95 / anchor[1] - 1) <= band[1])
+
+
+def judge(label, run, seeds, anchor, band):
+    """Hold a trained model to its anchor. run(seed) -> a row with the
+    model's 'median' and 'p95'. The first seed is the CLI's default: inside
+    the band it passes alone. Outside, the other seeds run too and the
+    spread is printed: some of these models (MSCN on raw features, DKL-SKI's
+    40 stochastic steps) land further apart from seed to seed than the band
+    is wide, and the anchor is one run from other random bits. It then
+    passes when the anchor lies inside the seeds' range widened by the
+    band. Returns the rows."""
+    rows = [run(seeds[0])]
+    med, p95 = rows[0]["median"], rows[0]["p95"]
+    inside = in_band(med, p95, anchor, band)
+    print(f"  {label}: median {med / anchor[0] - 1:+.1%} / p95 "
+          f"{p95 / anchor[1] - 1:+.1%} of the anchor {anchor[0]} / "
+          f"{anchor[1]} (band {band[0]:.0%} / {band[1]:.0%}): "
+          f"{'inside' if inside else 'outside, running seeds ' + str(seeds[1:])}")
+    if inside:
+        return rows
+    rows += [run(seed) for seed in seeds[1:]]
+    meds = [r["median"] for r in rows]
+    p95s = [r["p95"] for r in rows]
+    ok = (min(meds) * (1 - band[0]) <= anchor[0] <= max(meds) * (1 + band[0])
+          and min(p95s) * (1 - band[1]) <= anchor[1]
+          <= max(p95s) * (1 + band[1]))
+    print(f"  {label}: seeds {seeds}: medians {meds}, p95s {p95s}; the "
+          f"anchor {anchor[0]} / {anchor[1]} lies "
+          f"{'inside' if ok else 'OUTSIDE'} that range widened by the band")
+    if not ok:
+        raise AssertionError(f"{label}: anchor outside the seeds' range")
+    return rows
+
+
+def baselines_rbf_gp(device):
+    """RBF-GP: in fp64 straight through `models/gp_rbf.py`, in fp32 through
+    both CLIs, against the JAX package's CPU values."""
+    from nngp_tpu_torch.cli import train, train_baselines
+    from nngp_tpu_torch.models import gp_rbf
+
+    args = train.build_parser().parse_args(["--query_path", FOREST, "--x64"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        x_tr, y_tr, _, x_te, y_te, _ = train.load_split(args)
+    x_d, y_d, xt_d = (torch.as_tensor(a, dtype=torch.float64, device=device)
+                      for a in (x_tr, y_tr, x_te))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = gp_rbf.train(x_d, y_d, verbose=None)
+    mu, _ = gp_rbf.predict(params, x_d, y_d, xt_d)
+    torch.cuda.synchronize()
+    fp64_s = time.perf_counter() - t0
+    hold_q("RBF-GP fp64 (10 MLL steps + predict)", mu.cpu().numpy().ravel(),
+           np.asarray(y_te, np.float64).ravel(), RBF_GP_ANCHOR["fp64"],
+           (2e-3, 2e-3))
+    del x_d, y_d, xt_d, mu
+    torch.cuda.empty_cache()
+    times = {"fp64_s": fp64_s}
+    for label, main_fn, argv in (
+            ("cli.train --kernel_type gp", train.main,
+             ["--device", "cuda", "--kernel_type", "gp", "--query_path",
+              FOREST]),
+            ("cli.train_baselines RBF-GP", train_baselines.main,
+             ["--device", "cuda", "--model_type", "RBF-GP"])):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main_fn(argv)
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        q = re.search(r"symmetric q-error: median=([0-9.]+) p95=([0-9.]+)",
+                      buf.getvalue())
+        med, p95 = float(q.group(1)), float(q.group(2))
+        anchor = RBF_GP_ANCHOR["fp32"]
+        print(f"  RBF-GP fp32 {label}: median={med} p95={p95} (JAX CPU fp32 "
+              f"{anchor[0]} / {anchor[1]}, rel bounds 0.02 / 0.05)")
+        if (abs(med / anchor[0] - 1) > 0.02
+                or abs(p95 / anchor[1] - 1) > 0.05):
+            raise AssertionError(f"RBF-GP fp32 {label}: {med} / {p95}")
+    return times, (med, p95)
+
+
+def baselines_trained(rbf_fp32):
+    """The trained models on forest at full width through
+    `cli.train_baselines`, default flags: q-error against the bands, train
+    time and ms per optimizer step. Returns the table's rows by model."""
+    from nngp_tpu_torch.cli import train_baselines
+
+    steps = -(-FOREST_N // 128)
+    table = {}
+    for mt in (*BASELINE_ANCHORS, "DKL"):
+        per_epoch = 1 if mt.startswith("DKL") else steps
+
+        def run(seed, mt=mt, per_epoch=per_epoch):
+            med, p95, mse, wall_s, step_ms = run_baseline_cli(
+                train_baselines.main,
+                ["--device", "cuda", "--model_type", mt, "--seed",
+                 str(seed)], per_epoch)
+            print(f"  {mt} seed {seed}: median={med} p95={p95} MSE={mse}; "
+                  f"CLI {wall_s!r} s, {step_ms!r} ms per optimizer step "
+                  f"({per_epoch} per epoch)")
+            return {"seed": seed, "median": med, "p95": p95, "mse": mse,
+                    "cli_s": wall_s, "step_ms": step_ms}
+
+        if mt in BASELINE_ANCHORS:
+            table[mt] = judge(mt, run, (0, 1, 2), BASELINE_ANCHORS[mt],
+                              BASELINE_BAND)
+            continue
+        table[mt] = [run(0)]
+        # DKL has no anchor: finite, and better than the RBF-GP
+        if not (table[mt][0]["median"] < rbf_fp32[0]
+                and table[mt][0]["p95"] < rbf_fp32[1]):
+            raise AssertionError(f"DKL {table[mt][0]} is no better than "
+                                 f"RBF-GP {rbf_fp32}")
+    return table
+
+
+def baselines_sklearn():
+    """Whether scikit-learn is installed; where it is, the four host-side
+    model types at 2,000 train rows (the sklearn GP's optimizer refactors an
+    n x n Gram on the host many times)."""
+    from nngp_tpu_torch.cli import train_baselines
+
+    try:
+        import sklearn
+    except ImportError:
+        for mt in SKLEARN_TYPES:
+            print(f"  {mt}: absent: sklearn")
+        return None
+    print(f"  scikit-learn {sklearn.__version__} is installed")
+    rows = {}
+    for mt in SKLEARN_TYPES:
+        med, p95, mse, wall_s, _ = run_baseline_cli(
+            train_baselines.main,
+            ["--model_type", mt, "--max_num_train", "2000"], 1)
+        rows[mt] = {"median": med, "p95": p95, "mse": mse, "cli_s": wall_s}
+        print(f"  {mt} (2,000 train rows, host): median={med} p95={p95} "
+              f"MSE={mse}; CLI {wall_s!r} s")
+    return rows
+
+
+def baselines_multijoin():
+    from nngp_tpu_torch.cli import train_multijoin
+
+    table = {}
+    steps = -(-1440 // 64)
+    for mt, anchor in MULTIJOIN_ANCHORS.items():
+        def run(seed, mt=mt):
+            med, p95, mse, wall_s, step_ms = run_baseline_cli(
+                train_multijoin.main,
+                ["--device", "cuda", "--model_type", mt, "--query_path",
+                 "workloads/synth_join_data", "--stats_dir",
+                 "workloads/synth_stats", "--seed", str(seed)], steps)
+            print(f"  multi-join {mt} seed {seed}: median={med} p95={p95} "
+                  f"MSE={mse}; CLI {wall_s!r} s, {step_ms!r} ms per "
+                  f"optimizer step")
+            return {"seed": seed, "median": med, "p95": p95, "mse": mse,
+                    "cli_s": wall_s, "step_ms": step_ms}
+
+        # the CLI's default seed (it also seeds the split) is 10
+        table[mt] = judge(f"multi-join {mt}", run, (10,), anchor,
+                          MULTIJOIN_BAND)
+    return table
+
+
+def baselines_active(device):
+    """`BaselineActiveLearner`, 3 rounds of 1,000 on the forest 3,600 /
+    10,800 / 3,600 split: the validation MSE falls from the initial fit to
+    the last round."""
+    from nngp_tpu_torch.active import BaselineActiveLearner
+    from nngp_tpu_torch.data.workload import load_single_table_workload
+    from nngp_tpu_torch.eval.splits import train_test_val_split
+
+    x, y, infos, _ = load_single_table_workload(FOREST, dtype=np.float32)
+    (x_tr, y_tr, _, x_pool, y_pool, _, x_val, y_val, _) = \
+        train_test_val_split(x, y, train_frac=0.2, test_frac=0.6,
+                             all_query_infos=infos)
+    times = {}
+    for mt, unc in (("DNN", "entropy"), ("DeepEnsemble", "entropy")):
+        learner = BaselineActiveLearner(model_type=mt, uncertainty=unc,
+                                        budget=1000, active_iters=3,
+                                        device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, history = learner.active_train(x_tr, y_tr, x_pool, y_pool, x_val,
+                                          y_val, printer=None)
+        torch.cuda.synchronize()
+        times[mt] = time.perf_counter() - t0
+        mses = [h["val_mse"] for h in history]
+        sizes = [h["num_train"] for h in history]
+        print(f"  active {mt}: train sizes {sizes}, validation MSE {mses}; "
+              f"{times[mt]!r} s")
+        if (sizes != [3600, 4600, 5600, 6600]
+                or not all(np.isfinite(mses)) or not mses[-1] < mses[0]):
+            raise AssertionError(f"active {mt}: {sizes} {mses}")
+    return times
+
+
+def baselines_internal(device):
+    """The iterative solver stack on the SKI operator at n = 10,800, in
+    fp64: `batched_cg` against `cholesky_solve`, `slq_logdet` against the
+    exact log-determinant, `predict_dkl_ski` against `predict_dkl`; with
+    the time of a CG iteration and of the host read its stopping rule
+    costs."""
+    from nngp_tpu_torch.cli import train
+    from nngp_tpu_torch.models import dkl, ski
+    from nngp_tpu_torch.ops.iterative import (batched_cg, rademacher,
+                                              slq_logdet)
+
+    args = train.build_parser().parse_args(["--query_path", FOREST])
+    with contextlib.redirect_stdout(io.StringIO()):
+        x_tr, y_tr, _, x_te, y_te, _ = train.load_split(args)
+    params = ski.train_dkl_ski(x_tr, y_tr, epochs=5, device=device)
+    p64 = {k: v.double() for k, v in params.items()}
+    x = torch.as_tensor(x_tr, dtype=torch.float64, device=device)
+    y = torch.as_tensor(y_tr, dtype=torch.float64, device=device)
+    n = x.shape[0]
+    with torch.no_grad():
+        z = dkl._rescale(dkl._embed(p64, x))
+        ws, kuu, amp, noise = ski._ski_parts(p64, z, ski.GRID_SIZE)
+
+        def mvm(v):
+            return ski.ski_mvm(ws, kuu, amp, noise, v)
+
+        k = torch.empty((n, n), dtype=torch.float64, device=device)
+        eye = torch.eye(512, dtype=torch.float64, device=device)
+        for s in range(0, n, 512):
+            e = min(s + 512, n)
+            cols = torch.zeros((n, e - s), dtype=torch.float64,
+                               device=device)
+            cols[s:e] = eye[:e - s, :e - s]
+            k[:, s:e] = mvm(cols)
+        chol = torch.linalg.cholesky(k)
+        yc = y.reshape(-1, 1) - p64["mean_const"]
+        gen = torch.Generator(device=device).manual_seed(0)
+        probes = rademacher((n, 8), gen, torch.float64)
+        rhs = torch.cat([yc, probes], dim=1)
+        want = torch.cholesky_solve(rhs, chol)
+        calls = []
+
+        def counted(v):
+            calls.append(1)
+            return mvm(v)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = batched_cg(counted, rhs, tol=1e-5, max_iters=256)
+        torch.cuda.synchronize()
+        cg_ms = (time.perf_counter() - t0) * 1e3
+        rel = float((got - want).norm() / want.norm())
+        mvm_ms = _event_ms(lambda: mvm(rhs), 20)
+        read_ms = host_ms(lambda: float(torch.max(rhs[0])), reps=20)
+        print(f"  batched_cg on the SKI operator, n = {n}, 9 columns, fp64: "
+              f"{len(calls)} iterations in {cg_ms!r} ms, |x - chol|/|chol| = "
+              f"{rel!r} (tol 1e-5; bound 1e-3); one product {mvm_ms!r} ms, "
+              f"one host read of the stopping rule {read_ms!r} ms")
+        if not rel <= 1e-3:
+            raise AssertionError(f"batched_cg: relative error {rel}")
+        exact = 2.0 * float(torch.log(torch.diagonal(chol)).sum())
+        est = float(slq_logdet(mvm, n, gen, num_probes=16, num_iters=25,
+                               dtype=torch.float64))
+        print(f"  slq_logdet: {est!r} against the exact log-determinant "
+              f"{exact!r} (rel {abs(est / exact - 1)!r}; bound 0.05)")
+        if not abs(est / exact - 1) <= 0.05:
+            raise AssertionError(f"slq_logdet: {est} vs {exact}")
+        del k, chol, want, got
+        torch.cuda.empty_cache()
+    # 1,024 test rows: every variance chunk costs a 512-column CG
+    x_te, y_te = x_te[:1024], y_te[:1024]
+    m_ski, s_ski = ski.predict_dkl_ski(p64, x_tr, y_tr, x_te)
+    m_exact, s_exact = dkl.predict_dkl(p64, x_tr, y_tr, x_te)
+    yv = np.asarray(y_te, np.float64).ravel()
+    q_ski = qerror(m_ski.cpu().numpy(), yv)
+    q_exact = qerror(m_exact.cpu().numpy(), yv)
+    d_mean = float((m_ski - m_exact).abs().median())
+    d_std = float((s_ski - s_exact).abs().median())
+    print(f"  predict_dkl_ski against predict_dkl (same parameters, fp64): "
+          f"q-error {q_ski} against {q_exact}; median |d mean| {d_mean!r}, "
+          f"median |d std| {d_std!r}")
+    if (abs(q_ski[0] / q_exact[0] - 1) > 0.05 or d_mean > 0.1
+            or not bool(torch.isfinite(s_ski).all())):
+        raise AssertionError("predict_dkl_ski departs from predict_dkl")
+
+
+def baselines_slice(card, device):
+    """Phase 9: the finite-width and GP baselines on the card. They reach
+    no Gram kernel (every product and factorization is a torch call), which
+    the launch counters show."""
+    print("baselines slice (forest 10,800 / 3,600 unless said otherwise):")
+    reset_launches()
+    t0 = time.perf_counter()
+    sk = baselines_sklearn()
+    rbf_times, rbf_fp32 = baselines_rbf_gp(device)
+    rows = baselines_trained(rbf_fp32)
+    multi = baselines_multijoin()
+    active_s = baselines_active(device)
+    baselines_internal(device)
+    if read_launches() != {"sym": 0, "cross": 0}:
+        raise AssertionError(f"a baseline launched a Gram kernel: "
+                             f"{read_launches()}")
+    print(f"baseline results and times on {card}: " + json.dumps(
+        {"rbf_gp_s": rbf_times, "forest": rows, "multijoin": multi,
+         "active_s": active_s, "sklearn": sk,
+         "phase_s": time.perf_counter() - t0}))
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1918,13 +2350,27 @@ def main():
     errs = check_forest_shapes(device)
     check_join_widths(device)
     check_learned_specs(device)
-    launches = check_slice("cuda")
+    phase_s = {}
+
+    def timed(label, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        phase_s[label] = round(time.perf_counter() - t0, 2)
+        print(f"phase {label}: {phase_s[label]} s")
+        return out
+
+    launches = timed("4 training slice", check_slice, "cuda")
+    timed("4b workload families", families_slice, launches)
     print(f"times on {card}:")
-    times = time_kernels(device)
+    times = timed("5 kernel times", time_kernels, device)
     time_slice(device)
-    serve_slice(card, launches, device)
-    learn_slice(card, launches, device)
-    panel = nystrom_slice(card, launches, device)
+    timed("6 serving slice", serve_slice, card, launches, device)
+    timed("7 learning slice", learn_slice, card, launches, device)
+    panel = timed("8 Nystrom slice", nystrom_slice, card, launches, device)
+    timed("9 baselines slice", baselines_slice, card, device)
+    print("phase seconds: " + json.dumps(phase_s))
 
     summary = {"kernels": [
         {"name": KERNELS[key][0], "route": "cuda", "source": SOURCE,

@@ -1,6 +1,6 @@
 """Where the time of the slice's warm phases goes: fit, predict, a
-hyperparameter learn, a greedy selection, and the Nystrom tier's fit and
-predict.
+hyperparameter learn, a greedy selection, the Nystrom tier's fit and
+predict, and a training epoch of two baselines.
 
     python -m nngp_tpu_torch.cli.profile_slice --device cuda \
         --query_path workloads/forest_data [--kernel_type ntk] [--x64] \
@@ -10,6 +10,8 @@ predict.
         --schema_name synth6 --query_path workloads/synth6_big_data \
         --chunk_norm --nystrom_m 2048 [--nystrom_moments df64] \
         --phases nystrom_fit,nystrom_predict
+    python -m nngp_tpu_torch.cli.profile_slice --device cuda \
+        --query_path workloads/forest_data --phases baseline_dnn,baseline_ski
 
 Takes the training CLI's flags (same workload, split, kernel and fit) plus
 --reps and --phases. The phases:
@@ -27,7 +29,14 @@ Takes the training CLI's flags (same workload, split, kernel and fit) plus
                  --nystrom_moments on the train split (host numpy rows, as
                  the training CLI passes them);
   nystrom_predict  its predict_mean_std_chunked of the test split, 8,192
-                 rows a chunk.
+                 rows a chunk;
+  baseline_dnn   one epoch of `train_multitask` (the DNN baseline) on the
+                 train split at its default width (256 hidden units, batches
+                 of 128, fp32), model set-up included;
+  baseline_ski   one epoch (one full-batch Adam step: two SKI products
+                 under autograd, one batched CG, one SLQ) of `train_dkl_ski`
+                 at its defaults (256 hidden units, 100 x 100 grid, 8
+                 probes, fp32).
 
 After one cold call of each phase, for each phase:
 
@@ -40,9 +49,10 @@ After one cold call of each phase, for each phase:
   launches    the count of device activity records in the traced call;
   top         device ms per kernel name in the traced call, largest first;
   peak_gib    torch.cuda.max_memory_allocated over the traced call;
-  step_ms     hyperopt phases only: (wall_ms - the wall_ms of the same
+  step_ms     hyperopt phases: (wall_ms - the wall_ms of the same
               learn with 0 steps) / --hyper_steps, i.e. the step loop
-              without the subsample and the final loss.
+              without the subsample and the final loss; baseline phases:
+              wall_ms / the epoch's optimizer steps.
 
 The device fields are null on the CPU, and when the tracer records no
 device activity. Prints one JSON line per phase.
@@ -59,16 +69,22 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity
 
 from nngp_tpu_torch.active import greedy_variance_select
+from nngp_tpu_torch.baselines.trainer import train_multitask
 from nngp_tpu_torch.cli import train
 from nngp_tpu_torch.gp import fit_gp, fit_nystrom
 from nngp_tpu_torch.gp.hyperopt import fit_kernel_hyperparams
+from nngp_tpu_torch.models.ski import train_dkl_ski
 from nngp_tpu_torch.utils.device import resolve_device, working_dtype
 
 TOP_KERNELS = 8
 # the hyperopt phases' ridge restarts beside init's 1e-3
 HYPER_RESTARTS = {"hyperopt": (3e-2, 0.3), "hyperopt_warm": ()}
 NYSTROM_PHASES = ("nystrom_fit", "nystrom_predict")
-PHASES = ("fit", "predict", *HYPER_RESTARTS, "greedy", *NYSTROM_PHASES)
+BASELINE_PHASES = ("baseline_dnn", "baseline_ski")
+PHASES = ("fit", "predict", *HYPER_RESTARTS, "greedy", *NYSTROM_PHASES,
+          *BASELINE_PHASES)
+# the DNN baseline's default minibatch
+BASELINE_BATCH = 128
 # the greedy phase's size: the active learner's pre-filtered slice and its
 # budget on forest
 GREEDY_POOL, GREEDY_K = 4096, 1000
@@ -118,8 +134,11 @@ def profile_phase(fn, device, reps: int) -> dict:
                                             ProfilerActivity.CUDA]) as prof:
         traced_ms = _wall_ms(fn, device)
     out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    # device activity only: an annotated range (e.g. an optimizer's step)
+    # also shows on the device timeline and spans the gaps inside it
     spans = [(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
+             for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
     if not spans:
         return out
     busy_ms = union_length((s, e) for _, s, e in spans) / 1e3
@@ -183,7 +202,14 @@ def main(argv=None):
                            moments=args.nystrom_moments, device=device)
 
     fns = {**{ph: learn(ph, args.hyper_steps) for ph in HYPER_RESTARTS},
-           "nystrom_fit": fit_ny}
+           "nystrom_fit": fit_ny,
+           "baseline_dnn": lambda: train_multitask(
+               x_tr, y_tr, epochs=1, batch_size=BASELINE_BATCH,
+               device=device),
+           "baseline_ski": lambda: train_dkl_ski(x_tr, y_tr, epochs=1,
+                                                 device=device)}
+    baseline_steps = {"baseline_dnn": -(-x_tr.shape[0] // BASELINE_BATCH),
+                      "baseline_ski": 1}
     if set(phases) & {"fit", "predict", "greedy"}:
         post = fit()
         post.predict_mean_std(x_te)
@@ -200,8 +226,11 @@ def main(argv=None):
     records = []
     for phase in phases:
         fns[phase]()
-        rec = {"phase": phase, "kernel_type": args.kernel_type,
-               "dtype": str(x_te.dtype).removeprefix("torch."),
+        baseline = phase in BASELINE_PHASES      # fp32 whatever --x64
+        rec = {"phase": phase,
+               "kernel_type": None if baseline else args.kernel_type,
+               "dtype": ("float32" if baseline
+                         else str(x_te.dtype).removeprefix("torch.")),
                "n_train": int(x_tr.shape[0]), "n_test": int(x_te.shape[0]),
                **profile_phase(fns[phase], device, args.reps)}
         if phase in HYPER_RESTARTS:
@@ -209,6 +238,9 @@ def main(argv=None):
             zero()
             rec["step_ms"] = (rec["wall_ms"] - _median_wall_ms(
                 zero, device, args.reps)) / args.hyper_steps
+        if baseline:
+            rec["steps"] = baseline_steps[phase]
+            rec["step_ms"] = rec["wall_ms"] / rec["steps"]
         print(json.dumps(rec))
         records.append(rec)
     return records

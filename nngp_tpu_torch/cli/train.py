@@ -7,7 +7,8 @@ Load the single-table or multi-join (--schema_name) workload -> seed-10
 60/20/20 split -> [--learn_hyper / --select_kernel / --hyper_file
 hyperparameters by evidence] -> [--select_reg ridge by evidence] -> fit
 the exact GP (or with --nystrom_m the streaming Nystrom/DTC tier) on the
-NNGP or NTK kernel -> report MSE, the partitioned q-error profile
+NNGP or NTK kernel, or with --kernel_type gp the trainable RBF GP baseline
+(models/gp_rbf.py) -> report MSE, the partitioned q-error profile
 and the symmetric q-error line. Same flags and printed lines as the JAX
 CLI, plus --device (default cuda; no fallback to the CPU). fp32 by default,
 fp64 with --x64 on either device.
@@ -48,7 +49,8 @@ def build_parser():
                    help="torch device; cuda raises when no GPU is present")
     p.add_argument("--kernel_type", type=str, default="nngp",
                    choices=["nngp", "ntk", "gp"],
-                   help="posterior semantics ('gp' is not ported yet)")
+                   help="posterior semantics; 'gp' is the MLL-trained RBF GP "
+                        "baseline (models/gp_rbf.py)")
     p.add_argument("--chunk_norm", action="store_true",
                    help="rescale packed categorical chunk slots onto the "
                         "[0,1000] numeric scale")
@@ -134,9 +136,6 @@ def build_parser():
 
 
 def reject_unported(p, args):
-    if args.kernel_type == "gp":
-        p.error("--kernel_type gp is not ported yet (ROADMAP Queue A #11, "
-                "models/gp_rbf.py)")
     if not args.schema_name and len(args.relations.split(",")) > 1:
         p.error("binary-join workloads (a comma in --relations) are not "
                 "ported yet (ROADMAP Queue A #7: they need the CSV loaders)")
@@ -244,16 +243,28 @@ def learn_hyperparams(p, args, x_tr, y_tr, timer, device):
             dtc_m=dtc_m, device=device)
 
 
-def main(argv=None):
-    p = build_parser()
-    args = p.parse_args(argv)
-    reject_unported(p, args)
-    device = resolve_device(args.device)
-    torch_dtype = working_dtype(args.x64)
+def fit_predict_rbf_gp(x_tr, y_tr, x_te, timer, device, torch_dtype):
+    """--kernel_type gp: MLL hyperparameter descent of the RBF GP baseline,
+    then a timed posterior predict; (mean, std) on the device."""
+    from nngp_tpu_torch.models import gp_rbf
 
-    x_tr, y_tr, _, x_te, y_te, infos_te = load_split(args)
+    x_tr_d = torch.as_tensor(x_tr, dtype=torch_dtype, device=device)
+    y_tr_d = torch.as_tensor(y_tr, dtype=torch_dtype,
+                             device=device).reshape(-1, 1)
+    x_te_d = torch.as_tensor(x_te, dtype=torch_dtype, device=device)
+    with timer.measure("GP hyperparameter training (10 MLL steps)"):
+        params = gp_rbf.train(x_tr_d, y_tr_d)
+    with timer.measure("GP inference (cold, incl. compile)"):
+        mean, cov = gp_rbf.predict(params, x_tr_d, y_tr_d, x_te_d)
+    with timer.measure("GP inference (warm)"):
+        mean, cov = gp_rbf.predict(params, x_tr_d, y_tr_d, x_te_d)
+    timer.report()
+    return mean, torch.sqrt(torch.diagonal(cov).clamp_min(0.0))
 
-    timer = Timer(device)
+
+def fit_predict_nngp(p, args, x_tr, y_tr, x_te, timer, device, torch_dtype):
+    """The NNGP / NTK posterior the flags ask for, fitted and timed;
+    (mean, std) of the test rows on the device."""
     spec = spec_from_args(args)
     input_scale = None
     res = learn_hyperparams(p, args, x_tr, y_tr, timer, device)
@@ -319,6 +330,25 @@ def main(argv=None):
         mean, std = post.predict_mean_std(x_te_dev)
     timer.report()
     print("memory:", _memory_usage_gb(device))
+    return mean, std
+
+
+def main(argv=None):
+    p = build_parser()
+    args = p.parse_args(argv)
+    reject_unported(p, args)
+    device = resolve_device(args.device)
+    torch_dtype = working_dtype(args.x64)
+
+    x_tr, y_tr, _, x_te, y_te, infos_te = load_split(args)
+
+    timer = Timer(device)
+    if args.kernel_type == "gp":
+        mean, std = fit_predict_rbf_gp(x_tr, y_tr, x_te, timer, device,
+                                       torch_dtype)
+    else:
+        mean, std = fit_predict_nngp(p, args, x_tr, y_tr, x_te, timer,
+                                     device, torch_dtype)
 
     mean = mean.cpu().numpy().ravel()
     y_true = np.asarray(y_te).ravel()

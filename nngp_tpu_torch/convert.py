@@ -161,3 +161,137 @@ def nystrom_from_numpy(arrs, meta: dict, spec: KernelSpec, get: str,
         panel_size=int(meta["panel_size"]),
         finalize=finalize or meta.get("finalize", "host"),
         moments=moments, **fields)
+
+
+# ---------------------------------------------------------------- baselines
+# JAX parameters of the baseline models, handed over as numpy (a flax
+# `params` tree turned into nested dicts of arrays, with or without its
+# top-level "params" key; the flat dict of `models/dkl.py` / `models/ski.py`;
+# the three (1, 1) arrays of `models/gp_rbf.py`), to the port's state_dicts.
+def _tensor(a, transpose=False):
+    a = np.array(a)                   # a copy: the arrays may be read-only
+    return torch.as_tensor(a.T.copy() if transpose else a)
+
+
+def _inner(params: dict) -> dict:
+    return params["params"] if "params" in params else params
+
+
+def flax_dense_to_linear(dense: dict, prefix: str = "") -> dict:
+    """A flax `Dense` ({"kernel": (in, out), "bias": (out,)}) as the
+    `weight` (out, in) and `bias` of an `nn.Linear` named `prefix`."""
+    return {f"{prefix}weight": _tensor(dense["kernel"], transpose=True),
+            f"{prefix}bias": _tensor(dense["bias"])}
+
+
+def _dense_state(tree: dict, names: dict) -> dict:
+    """state_dict from flax Dense layers: names maps a flax layer name to
+    the port's attribute name."""
+    out = {}
+    for flax_name, name in names.items():
+        out.update(flax_dense_to_linear(tree[flax_name], f"{name}."))
+    return out
+
+
+def mlp_state(params: dict) -> dict:
+    """`models.baselines.MLP` (and `models.mscn.MLPHead`) from flax."""
+    return _dense_state(_inner(params), {"Dense_0": "fc1", "Dense_1": "fc2"})
+
+
+def multitask_state(params: dict) -> dict:
+    return _dense_state(_inner(params), {"Dense_0": "trunk", "Dense_1": "reg",
+                                         "Dense_2": "cla"})
+
+
+def density_state(params: dict) -> dict:
+    """`MLPDensityRegressor` and `MCDropoutModel` (trunk, mu, sigma)."""
+    return _dense_state(_inner(params), {"Dense_0": "trunk", "Dense_1": "mu",
+                                         "Dense_2": "sigma"})
+
+
+def deep_ensemble_state(params: dict) -> dict:
+    """`DeepEnsemble` from the vmapped flax tree: every leaf has a leading
+    member axis; kernels stay (member, in, out), biases become
+    (member, 1, out)."""
+    tree = _inner(params)
+    out = {}
+    for flax_name, name in (("Dense_0", "trunk"), ("Dense_1", "mu"),
+                            ("Dense_2", "sigma")):
+        out[f"w_{name}"] = _tensor(tree[flax_name]["kernel"])
+        out[f"b_{name}"] = _tensor(tree[flax_name]["bias"])[:, None, :]
+    return out
+
+
+def set_conv_state(tree: dict, prefix: str) -> dict:
+    """`SetConvolution` (Dense_0, Dense_1, ...) as `prefix`layers.i."""
+    out = {}
+    for i in range(len(tree)):
+        out.update(flax_dense_to_linear(tree[f"Dense_{i}"],
+                                        f"{prefix}layers.{i}."))
+    return out
+
+
+def _head_state(tree: dict, prefix: str = "head.") -> dict:
+    return {f"{prefix}{k}": v for k, v in mlp_state(tree).items()}
+
+
+def _mscn_family_state(params: dict, convs) -> dict:
+    tree = _inner(params)
+    out = _head_state(tree["_MLPHead_0"])
+    for i, name in enumerate(convs):
+        out.update(set_conv_state(tree[f"SetConvolution_{i}"], f"{name}."))
+    return out
+
+
+def mscn_state(params: dict) -> dict:
+    return _mscn_family_state(params, ("pred_conv",))
+
+
+def mscn_join_state(params: dict) -> dict:
+    return _mscn_family_state(params, ("pred_conv", "join_conv"))
+
+
+def mscn_multi_state(params: dict) -> dict:
+    return _mscn_family_state(params, ("table_conv", "pred_conv",
+                                       "join_conv"))
+
+
+def lstm_step_state(cell: dict, prefix: str = "cell.") -> dict:
+    """`LSTMStep` from a flax `OptimizedLSTMCell` tree: the input kernels
+    `ii`, `ig`, `io` packed (i, g, o) along the output axis, with the one
+    bias each gate has (stored under `hi`, `hg`, `ho`). The recurrent
+    kernels, the forget gate's input kernel and its bias multiply the zero
+    state and have no counterpart."""
+    kernel = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"])
+                             for g in "igo"], axis=1)
+    bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in "igo"])
+    return {f"{prefix}gates.weight": _tensor(kernel, transpose=True),
+            f"{prefix}gates.bias": _tensor(bias)}
+
+
+def tree_lstm_join_state(params: dict) -> dict:
+    tree = _inner(params)
+    out = _mscn_family_state(params, ("pred_conv", "join_conv"))
+    out.update(lstm_step_state(tree["_LSTMStep_0"]["OptimizedLSTMCell_0"]))
+    return out
+
+
+def tree_lstm_multi_state(params: dict) -> dict:
+    tree = _inner(params)
+    out = _head_state(tree["head"])
+    out.update(_dense_state(tree, {"op_nn": "op_nn", "meta_nn": "meta_nn"}))
+    out.update(set_conv_state(tree["pred_conv"], "pred_conv."))
+    out.update(lstm_step_state(tree["cell"]))
+    return out
+
+
+def flat_params_from_numpy(params: dict, device="cpu", dtype=None) -> dict:
+    """The flat parameter dict of `models/dkl.py`, `models/ski.py` or
+    `models/gp_rbf.py` (same names and shapes in both packages) as tensors
+    on `device`."""
+    out = {k: _tensor(v).to(device) for k, v in params.items()}
+    return out if dtype is None else {k: v.to(dtype) for k, v in out.items()}
+
+
+def flat_params_to_numpy(params: dict) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

@@ -26,7 +26,7 @@ def single_table_stats(name: str, query_path: str,
                        chunk_size: int = 64) -> TableStats:
     if data_path:
         raise NotImplementedError(
-            "CSV loading not ported yet (ROADMAP Queue A: data loaders); "
+            "CSV loading not ported yet (ROADMAP Queue A #7: the CSV loaders); "
             "drop --data_path to take the stats from the query files")
     stats_json = os.path.join(query_path, os.pardir, f"{name}_stats.json")
     if os.path.exists(stats_json):

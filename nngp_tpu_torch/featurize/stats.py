@@ -1,9 +1,10 @@
 """Table statistics + feature address layout.
 
-A copy of `nngp_tpu/featurize/stats.py`.
-Its code differs only in its imports: the port imports nothing of the
-JAX package. `tests/test_torch_featurize.py` holds the copy to the
-original.
+A copy of `nngp_tpu/featurize/stats.py` without `TableStats.from_dataframe`
+(stats from a raw-CSV dataframe, which needs pandas; the port's CSV data
+layer is not written yet). Otherwise its code differs only in its imports: the port
+imports nothing of the JAX package. `tests/test_torch_featurize.py` holds
+the copy to the original.
 
 One featurization library replacing the reference's three copies of the same
 logic (`reference/QuerySampler.py:24-56`,
@@ -131,39 +132,6 @@ class TableStats:
         return (value - col.min) / col.denominator * 1000.0
 
     # ------------------------------------------------------------ builders
-    @classmethod
-    def from_dataframe(cls, df, col_types: Sequence[str], table_name: str,
-                       chunk_size: int = 64,
-                       fk_code_dicts: Optional[Dict[str, Dict]] = None
-                       ) -> "TableStats":
-        """Exact reference semantics incl. NaN -> -1 fill before stats
-        (`reference/JoinQuerySampler.py:35,42-68`) and FK columns reusing
-        their PK's code dict (`:52-56`)."""
-        df = df.fillna(-1)
-        cols = []
-        for i, name in enumerate(df.columns):
-            series = df.iloc[:, i]
-            if col_types[i] == CATEGORICAL:
-                if fk_code_dicts and name in fk_code_dicts:
-                    code_dict = fk_code_dicts[name]
-                    cats = tuple(sorted(code_dict, key=code_dict.get))
-                else:
-                    # pd.Categorical like the reference
-                    # (`JoinQuerySampler.py:49`): np.unique raises TypeError
-                    # on mixed-type object columns (e.g. string ids whose
-                    # NaNs the fillna(-1) above turned into int -1)
-                    import pandas as pd
-                    cats = tuple(pd.Categorical(series).categories.tolist())
-                cols.append(ColumnStats(name=name, kind=CATEGORICAL, categories=cats))
-            else:
-                vals = series.to_numpy()
-                cols.append(ColumnStats(
-                    name=name, kind=NUMERICAL,
-                    min=float(np.min(vals)), max=float(np.max(vals)),
-                ))
-        return cls(table_name=table_name, columns=tuple(cols),
-                   chunk_size=chunk_size, num_rows=len(df.index))
-
     @classmethod
     def from_query_files(cls, query_path: str, col_names: Sequence[str],
                          table_name: str, chunk_size: int = 64) -> "TableStats":

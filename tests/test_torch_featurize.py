@@ -262,7 +262,8 @@ def _imports_of_the_jax_package(path):
         else:
             continue
         found += [(node.lineno, n) for n in names
-                  if n.split(".")[0] in ("nngp_tpu", "jax", "jaxlib")]
+                  if n.split(".")[0] in ("nngp_tpu", "jax", "jaxlib", "flax",
+                                         "optax", "pandas")]
     return found
 
 
@@ -270,6 +271,13 @@ def test_the_port_imports_nothing_of_the_jax_package():
     sources = _python_sources()
     assert len(sources) > 40
     assert os.path.join(REPO, "nngp_tpu_torch", "gp", "nystrom.py") in sources
+    for new in ("ops/iterative.py", "models/gp_rbf.py", "models/dkl.py",
+                "models/ski.py", "models/baselines.py", "models/mscn.py",
+                "models/tree_lstm.py", "baselines/trainer.py",
+                "baselines/mscn_trainer.py", "featurize/mscn.py",
+                "cli/train_baselines.py", "cli/train_multijoin.py",
+                "cli/deep_ensemble_demo.py", "active/baseline_learner.py"):
+        assert os.path.join(REPO, "nngp_tpu_torch", *new.split("/")) in sources
     offenders = {os.path.relpath(p, REPO): _imports_of_the_jax_package(p)
                  for p in sources}
     assert {p: f for p, f in offenders.items() if f} == {}
@@ -290,6 +298,14 @@ def test_the_import_scan_finds_an_import_of_jax(tmp_path):
                    "from jaxlib import xla_client\n")
     assert _imports_of_the_jax_package(str(bad)) == [
         (2, "jax.numpy"), (3, "jaxlib")]
+
+
+def test_the_import_scan_finds_flax_optax_and_pandas(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import flax.linen as nn\nimport sklearn\n"
+                   "def f():\n    import optax\n    import pandas as pd\n")
+    assert _imports_of_the_jax_package(str(bad)) == [
+        (1, "flax.linen"), (4, "optax"), (5, "pandas")]
 
 
 def test_the_copies_are_tracked_by_git():

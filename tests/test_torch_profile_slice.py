@@ -2,6 +2,7 @@
 gives the device-busy time, and a small run of the whole script (on the
 CPU only the host-clock wall is measured; the device fields stay null)."""
 
+import json
 import os
 
 import pytest
@@ -75,6 +76,26 @@ def test_profile_nystrom_phases_run_on_the_cpu(moments, capsys):
         assert rec["dtype"] == "float32" and rec["wall_ms"] > 0
         assert (rec["n_train"], rec["n_test"]) == (300, 3600)
         assert rec["busy_ms"] is None
+
+
+def test_profile_baseline_phases_run_on_the_cpu(capsys):
+    """One epoch of the DNN baseline (ceil(300 / 128) = 3 optimizer steps)
+    and one full-batch step of DKL-SKI: one JSON line each, fp32 whatever
+    --x64 says, with the time per optimizer step; neither needs the exact
+    fit."""
+    phases = ["baseline_dnn", "baseline_ski"]
+    records = profile_slice.main([
+        "--device", "cpu", "--query_path", FOREST, "--max_num_train", "300",
+        "--x64", "--phases", ",".join(phases), "--reps", "1"])
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("{")]
+    assert [json.loads(l)["phase"] for l in lines] == phases
+    assert [r["steps"] for r in records] == [3, 1]
+    for rec in records:
+        assert rec["dtype"] == "float32" and rec["kernel_type"] is None
+        assert rec["step_ms"] == pytest.approx(rec["wall_ms"] / rec["steps"])
+        assert rec["wall_ms"] > 0 and rec["busy_ms"] is None
+        assert (rec["n_train"], rec["n_test"]) == (300, 3600)
 
 
 def test_profile_rejects_unported_flags_and_bad_reps(capsys):

@@ -709,7 +709,8 @@ import sys
 
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "pandas", "nngp_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pandas",
+                                  "nngp_tpu"):
             raise ImportError(f"blocked {name}")
         return None
 
@@ -758,7 +759,8 @@ def test_serving_imports_and_runs_with_jax_and_pandas_blocked(tmp_path):
         "           '--test_query_file',\n"
         "           'workloads/synth_join_data/join_query_2.txt',\n"
         "           '--limit', '50'])\n"
-        "loaded = [m for m in ('jax', 'jaxlib', 'pandas', 'nngp_tpu') "
+        "loaded = [m for m in ('jax', 'jaxlib', 'flax', 'optax', 'pandas',\n"
+        "                      'nngp_tpu') "
         "if m in sys.modules]\n"
         "print('LOADED', loaded)\n")
     env = dict(os.environ, OMP_NUM_THREADS="2")

@@ -99,7 +99,6 @@ def test_cli_device_cuda_raises_without_a_gpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--kernel_type", "gp"], "Queue A #11"),
     (["--relations", "title,cast_info"], "Queue A #7"),
     (["--profile_dir", "trace"], "Queue A #13"),
     (["--config", "run.json"], "Queue A #13"),
