@@ -65,7 +65,20 @@ exits nonzero; nothing is caught and retried:
      `BaselineActiveLearner` DNN and DeepEnsemble, 3 rounds of 1,000;
      `batched_cg`, `slq_logdet` and `predict_dkl_ski` against their dense
      counterparts on the SKI operator at n = 10,800. No baseline reaches a
-     Gram kernel, and the launch counters are checked to say so.
+     Gram kernel, and the launch counters are checked to say so;
+ 10. the data-layer slice (`data/`, `featurize/schema.py`, the offline
+     CLIs, `utils/`): the raw tables of synthtpch and synthtpcds (copies of
+     the generators' `build_tables`) written as CSVs into a temporary
+     directory, read by the `SCHEMAS` loaders, recoded by `DBSchema`,
+     labeled by `MultiJoinSampler` (one process per arity) and held byte for
+     byte to the committed query and stats files, with each step's seconds;
+     the training CLI in fp64 on both from their CSVs (--data_path) against
+     `FAMILY_ANCHORS`; `cli.clean_schema` and `cli.sample_queries` on the
+     synthtpch tables against the sha256 of the JAX CLIs' files; `cli.sweep`
+     (16 fp32 fits at 10,800 / 3,600, depths 1-8) against the JAX package's
+     fp64 rows; `cli.train --profile_dir` (a Chrome trace naming both Gram
+     kernels) and `--config` (the flags' result); and
+     `cli.production_serving_demo` to its end.
 
 Phase 4 also runs the training CLI in fp64 on the synthimdb, synthtpch and
 synthtpcds join workloads against the JAX package's fp64 q-error.
@@ -2315,6 +2328,594 @@ def baselines_slice(card, device):
          "phase_s": time.perf_counter() - t0}))
 
 
+# ---------------------------------------------------- the data-layer slice
+# Raw tables of the committed synthtpch and synthtpcds workloads. Copies of
+# `build_tables` and `write_csvs` of `workloads/make_synthtpch.py:46-133`
+# and `workloads/make_synthtpcds.py:47-168` (numpy + csv only: those
+# scripts import the JAX package), with one change: their Zipf draws go
+# through `_zipf`, numpy 2.0's `Generator.zipf` on the generator's uniform
+# stream. The committed files came from that stream; numpy 2.3 draws other
+# Zipf values from the same seed (lineitem, orders, item and store_sales
+# then differ), while its uniforms and integers are unchanged.
+# `tests/test_torch_sampler.py` holds the copies' CSVs to the originals'
+# bytes, and `RAW_SHA256` holds them here.
+_INT64_MAX = float(np.iinfo(np.int64).max)
+
+
+def _zipf(rng, a, size):
+    """`rng.zipf(a, size)` as numpy 2.0 draws it (its rejection sampler,
+    `random_zipf` in numpy's distributions.c), two uniforms an attempt,
+    leaving `rng` where numpy 2.0 leaves it."""
+    import math
+
+    am1 = a - 1.0
+    b = math.pow(2.0, am1)
+    out = np.empty(size, np.int64)
+    state = rng.bit_generator.state
+    buf, i, k = rng.random(2 * size + 64).tolist(), 0, 0
+    while k < size:
+        if i + 2 > len(buf):
+            buf += rng.random(2 * (size - k) + 64).tolist()
+        u, v = 1.0 - buf[i], buf[i + 1]
+        i += 2
+        x = math.floor(math.pow(u, -1.0 / am1))
+        if x > _INT64_MAX or x < 1.0:
+            continue
+        t = math.pow(1.0 + 1.0 / x, am1)
+        if v * x * (t - 1.0) / (b - 1.0) <= t / b:
+            out[k] = int(x)
+            k += 1
+    rng.bit_generator.state = state
+    rng.random(i)            # consume exactly the uniforms the draws used
+    return out
+
+
+def tpch_tables(seed=59, scale=1.0):
+    """`make_synthtpch.build_tables`: a TPC-H-shaped star through lineitem."""
+    rng = np.random.default_rng(seed)
+    n_orders = max(int(20000 * scale), 40)
+    n_parts = max(int(5000 * scale), 20)
+    n_supps = max(int(500 * scale), 10)
+
+    part = {
+        "part_key": np.arange(n_parts),
+        "size": np.minimum(_zipf(rng, 1.6, n_parts), 50),
+        "retail_price": np.round(
+            900 + 100 * np.minimum(_zipf(rng, 1.4, n_parts), 200)
+            + rng.integers(0, 100, n_parts), 2),
+    }
+    supplier = {
+        "supp_key": np.arange(n_supps),
+        "nationkey": rng.integers(0, 25, n_supps),
+        "acctbal": np.round(rng.uniform(-999.99, 9999.99, n_supps), 2),
+    }
+    # 1-7 lines per order (the TPC-H lineitem multiplicity), Zipf-skewed
+    lines_per_order = np.minimum(_zipf(rng, 1.5, n_orders), 7)
+    order_key_col = np.repeat(np.arange(n_orders), lines_per_order)
+    n_lines = order_key_col.shape[0]
+    line_number = np.concatenate(
+        [np.arange(1, k + 1) for k in lines_per_order])
+    part_key_col = np.minimum(_zipf(rng, 1.25, n_lines), n_parts) - 1
+    supp_key_col = np.minimum(_zipf(rng, 1.35, n_lines), n_supps) - 1
+    quantity = 1 + np.minimum(_zipf(rng, 1.5, n_lines) - 1, 49)
+    extended_price = np.round(
+        quantity * part["retail_price"][part_key_col]
+        * rng.uniform(0.9, 1.1, n_lines), 2)
+    discount = np.round(rng.integers(0, 11, n_lines) / 100.0, 2)
+    tax = np.round(rng.integers(0, 9, n_lines) / 100.0, 2)
+    lineitem = {
+        "order_key": order_key_col, "part_key": part_key_col,
+        "supp_key": supp_key_col, "line_number": line_number,
+        "quantity": quantity, "extended_price": extended_price,
+        "discount": discount, "tax": tax,
+    }
+    # orders.total_price = the sum of its lines' discounted prices
+    total_price = np.zeros(n_orders)
+    np.add.at(total_price, order_key_col, extended_price * (1 - discount))
+    orders = {
+        "order_key": np.arange(n_orders),
+        "order_status": np.minimum(_zipf(rng, 2.2, n_orders), 3) - 1,
+        "total_price": np.round(total_price, 2),
+        "ship_priority": (rng.random(n_orders) < 0.2).astype(int),
+    }
+    return {"lineitem.csv": lineitem, "part.csv": part,
+            "orders.csv": orders, "supplier.csv": supplier}
+
+
+def tpcds_tables(seed=67, scale=1.0):
+    """`make_synthtpcds.build_tables`: a TPC-DS-shaped star with a
+    join-graph triangle (store_sales, item, promotion)."""
+    rng = np.random.default_rng(seed)
+    n_items = max(int(4000 * scale), 20)
+    n_stores = max(int(12 * max(scale, 0.5)), 4)
+    n_custs = max(int(15000 * scale), 30)
+    n_promos = max(int(300 * scale), 8)
+    n_sales = max(int(60000 * scale), 200)
+
+    wholesale = np.round(1 + 99 * rng.random(n_items) ** 2, 2)
+    item = {
+        "item_sk": np.arange(n_items),
+        "current_price": np.round(wholesale * rng.uniform(1.2, 3.0,
+                                                          n_items), 2),
+        "wholesale_cost": wholesale,
+        "brand_id": np.minimum(_zipf(rng, 1.4, n_items), 400),
+        "class_id": np.minimum(_zipf(rng, 1.6, n_items), 50),
+        "category_id": np.minimum(_zipf(rng, 1.8, n_items), 10),
+        "manufact_id": np.minimum(_zipf(rng, 1.3, n_items), 500),
+    }
+    store = {
+        "store_sk": np.arange(n_stores),
+        "number_employees": rng.integers(50, 301, n_stores),
+        "floor_space": rng.integers(5000, 10000001, n_stores),
+        "market_id": rng.integers(1, 11, n_stores),
+        "devision_id": rng.integers(1, 7, n_stores),
+        "company_id": rng.integers(1, 3, n_stores),
+        "tax_percentage": np.round(rng.integers(0, 12, n_stores) / 100.0, 2),
+    }
+    customer = {
+        "customer_sk": np.arange(n_custs),
+        "birth_day": rng.integers(1, 29, n_custs),
+        "birth_month": rng.integers(1, 13, n_custs),
+        "birth_year": rng.integers(1930, 2008, n_custs),
+    }
+    promotion = {
+        "promo_sk": np.arange(n_promos),
+        "item_sk": np.minimum(_zipf(rng, 1.3, n_promos), n_items) - 1,
+        "cost": np.round(1000.0 * np.minimum(_zipf(rng, 1.5, n_promos), 90),
+                         2),
+        "response_target": (rng.random(n_promos) < 0.5).astype(int),
+    }
+    it_sk = np.minimum(_zipf(rng, 1.2, n_sales), n_items) - 1
+    quantity = 1 + np.minimum(_zipf(rng, 1.4, n_sales) - 1, 99)
+    unit_wholesale = wholesale[it_sk]
+    unit_list = np.round(unit_wholesale * rng.uniform(1.2, 3.0, n_sales), 2)
+    unit_sales = np.round(unit_list * rng.uniform(0.5, 1.0, n_sales), 2)
+    ext_discount = np.round(quantity * (unit_list - unit_sales), 2)
+    ext_sales = np.round(quantity * unit_sales, 2)
+    ext_wholesale = np.round(quantity * unit_wholesale, 2)
+    ext_list = np.round(quantity * unit_list, 2)
+    tax_rate = store["tax_percentage"]
+    st_sk = np.minimum(_zipf(rng, 1.1, n_sales), n_stores) - 1
+    ext_tax = np.round(ext_sales * tax_rate[st_sk], 2)
+    coupon = np.round(ext_sales * np.where(rng.random(n_sales) < 0.1,
+                                           rng.uniform(0.05, 0.5, n_sales),
+                                           0.0), 2)
+    net_paid = np.round(ext_sales - coupon, 2)
+    store_sales = {
+        "item_sk": it_sk,
+        "customer_sk": np.minimum(_zipf(rng, 1.15, n_sales), n_custs) - 1,
+        "store_sk": st_sk,
+        "promo_sk": np.minimum(_zipf(rng, 1.5, n_sales), n_promos) - 1,
+        "quantity": quantity, "wholesale_cost": unit_wholesale,
+        "list_price": unit_list, "sales_price": unit_sales,
+        "ext_discount_amt": ext_discount, "ext_sales_price": ext_sales,
+        "ext_wholesale_cost": ext_wholesale, "ext_list_price": ext_list,
+        "ext_tax": ext_tax, "ext_coupon_amt": coupon, "net_paid": net_paid,
+        "net_paid_inc_tax": np.round(net_paid + ext_tax, 2),
+        "net_profit": np.round(net_paid - ext_wholesale, 2),
+    }
+    return {"store_sales.csv": store_sales, "store.csv": store,
+            "item.csv": item, "customer.csv": customer,
+            "promotion.csv": promotion}
+
+
+def write_csvs(tables, csv_dir):
+    """`make_synth{tpch,tpcds}.write_csvs`: `;`-separated, with a header."""
+    import csv
+    import os
+
+    os.makedirs(csv_dir, exist_ok=True)
+    for fname, cols in tables.items():
+        names = list(cols)
+        rows = np.column_stack([np.asarray(cols[c], dtype=object)
+                                for c in names])
+        with open(os.path.join(csv_dir, fname), "w", newline="") as f:
+            w = csv.writer(f, delimiter=";")
+            w.writerow(names)
+            w.writerows(rows.tolist())
+
+
+# family -> (schema, raw tables, sampler seed, queries per arity), as
+# `workloads/make_synth{tpch,tpcds}.py` make the committed files
+DATA_FAMILIES = {"synthtpch": ("tpch", tpch_tables, 61, 3000),
+                 "synthtpcds": ("tpcds", tpcds_tables, 71, 2400)}
+# sha256 of the raw CSVs `write_csvs` writes from the tables above: the
+# generators' CSVs (`python workloads/make_synth{tpch,tpcds}.py` with
+# numpy 2.0)
+RAW_SHA256 = {
+    "synthtpch": {
+        "lineitem.csv":
+            "910e9d0ae274cc96ed29871667a6fa746d0716f97afe28e128af687467bd7e23",
+        "orders.csv":
+            "dd39c87a797228d92cab3be088fa834fdc3c8721ef26826062b7742f58b1796b",
+        "part.csv":
+            "19b1f03dea5e922b1d7a236baa4a715ca5f999e4a314e111223af0deb179005b",
+        "supplier.csv":
+            "719e622ba213f83e53ab2cec3d4847c9606b4fb3078588efdae5a2f7f7485eee",
+    },
+    "synthtpcds": {
+        "customer.csv":
+            "1e59b7146f12289a0c03bac6f1aa97d052a2488860de5520da635495566dd207",
+        "item.csv":
+            "96b16637f199bb780f14e54d3f21fb0034f4daf3824d52722a0e667c23703169",
+        "promotion.csv":
+            "74b48e4cc67a8e140c197e9b7b37c5affc70c05e14623e9d1db918371e7ec439",
+        "store.csv":
+            "dbd6d440bdc28764a6cd88d8d7941edb338d514af813a073a10abc84e42889ab",
+        "store_sales.csv":
+            "c334145e90db8bd5adfe305a475e1a6d602b94e468106d441c8c0ace4307f896",
+    },
+}
+# sha256 of the JAX package's offline CLIs' output files on the CPU, on the
+# full-scale synthtpch tables (`tpch_tables()` written by `write_csvs`):
+#   python -m nngp_tpu.cli.clean_schema --schema_name tpch \
+#       --data_path <csv dir> --out_dir <out>
+#   python -m nngp_tpu.cli.sample_queries --schema_name tpch \
+#       --data_path <csv dir> --save_path <out> --serial --mini_batch 200
+CLEAN_SHA256 = {
+    "lineitem.csv": "f0da994257bd544fbc8995a04d2c5d3f951778e61da6240c809f637cce0c65e0",
+    "orders.csv": "5bbf5da4a80c4cde8c2389e77978785c55227ff606dce42e5ceacf0dfa5a0f50",
+    "part.csv": "fc71548097aeb60cd7c1d239a90e38ac2b542aab287fd352d9a37305706e9d47",
+    "supplier.csv": "9217a376ef227a924928c3fa3bac6174205f3b5d670ff3b745b6796327def159",
+}
+SAMPLE_SHA256 = {
+    "join_query_1.txt": "4b330a3da084a5357b462d397bea53c93c17ab0d869c2223e026902daba631c8",
+    "join_query_2.txt": "cba8a74111d610bc71e7e559afc27477df8dbec9dce5abc7559de3e7cf439371",
+    "join_query_3.txt": "fb7ff8cdcc5272cdd0c33a213f32ae3a49c2869bc3ca01cb0acdb0c19a4ec273",
+    "join_query_4.txt": "28b85c120edf96c190efe160aeb43a9fdf82d961d21cd5e6a32423d61835c7ac",
+}
+# The forest sweep (`cli.sweep` defaults: 10,800 / 3,600, Dense(512)) on
+# the CPU: (depth, activation, kernel) -> (median, p95). SWEEP_ANCHORS is
+# the JAX package's sweep loop on fp64 arrays
+# (`pytest -m slow -s tests/test_torch_sweep_full.py`); SWEEP_JAX_FP32 its
+# CLI as it stands, `python -m nngp_tpu.cli.sweep` (fp32), printed beside
+# for reference: fp32 rounding moves a relu nngp row by up to ~5% there
+# (depth 1: +2.2% / -4.8%), so an fp32 row is held to the fp64 rows.
+SWEEP_ANCHORS = {
+    (1, "relu", "nngp"): (2.5962, 22.3311), (1, "relu", "ntk"): (2.6333, 26.162),
+    (1, "erf", "nngp"): (2.7979, 31.6955), (1, "erf", "ntk"): (5.2046, 68.5816),
+    (2, "relu", "nngp"): (2.5907, 22.4407), (2, "relu", "ntk"): (2.6618, 27.1899),
+    (2, "erf", "nngp"): (2.8006, 32.1032), (2, "erf", "ntk"): (5.1608, 66.8689),
+    (4, "relu", "nngp"): (2.625, 24.4114), (4, "relu", "ntk"): (2.6848, 28.491),
+    (4, "erf", "nngp"): (2.8158, 31.9258), (4, "erf", "ntk"): (5.078, 69.0096),
+    (8, "relu", "nngp"): (2.6562, 26.6097), (8, "relu", "ntk"): (2.7837, 31.9248),
+    (8, "erf", "nngp"): (2.8244, 32.1474), (8, "erf", "ntk"): (4.9014, 67.3507)}
+SWEEP_JAX_FP32 = {
+    (1, "relu", "nngp"): (2.654, 21.2699), (1, "relu", "ntk"): (2.627, 26.2423),
+    (1, "erf", "nngp"): (2.797, 31.6761), (1, "erf", "ntk"): (5.2046, 68.5817),
+    (2, "relu", "nngp"): (2.5621, 22.5394), (2, "relu", "ntk"): (2.6603, 27.152),
+    (2, "erf", "nngp"): (2.8008, 32.1539), (2, "erf", "ntk"): (5.1608, 66.8696),
+    (4, "relu", "nngp"): (2.627, 24.6504), (4, "relu", "ntk"): (2.689, 28.4359),
+    (4, "erf", "nngp"): (2.8165, 31.913), (4, "erf", "ntk"): (5.0778, 69.0071),
+    (8, "relu", "nngp"): (2.6657, 26.6079), (8, "relu", "ntk"): (2.7833, 31.9152),
+    (8, "erf", "nngp"): (2.8239, 32.166), (8, "erf", "ntk"): (4.9014, 67.3496)}
+# the Gram kernel's template name in a trace: gram_kernel<T, SYM, ...>
+GRAM_KERNEL_NAME = re.compile(r"gram_kernel<\w+, (true|false)")
+
+
+def sha256_dir(path):
+    import hashlib
+    import os
+
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def same_files(label, got_dir, want_dir):
+    """Fail unless both directories hold the same files, byte for byte."""
+    import filecmp
+    import os
+
+    names = sorted(os.listdir(want_dir))
+    if sorted(os.listdir(got_dir)) != names:
+        raise AssertionError(f"{label}: files {sorted(os.listdir(got_dir))}"
+                             f", committed {names}")
+    for name in names:
+        if not filecmp.cmp(os.path.join(got_dir, name),
+                           os.path.join(want_dir, name), shallow=False):
+            raise AssertionError(f"{label}: {name} differs from the "
+                                 f"committed {want_dir}/{name}")
+    return len(names)
+
+
+def regenerate_families(tmp):
+    """Both families from their raw tables through the port's loaders,
+    `DBSchema` and sampler, as `workloads/make_synth{tpch,tpcds}.py` run
+    them (one process per arity, both families' processes at once), held
+    byte for byte to the committed query and stats files. Returns the
+    directories and the seconds of each step."""
+    import os
+    from multiprocessing.connection import wait
+
+    from nngp_tpu_torch.data.loaders import load_schema
+    from nngp_tpu_torch.data.sampler import MultiJoinSampler
+    from nngp_tpu_torch.featurize.schema import DBSchema
+
+    secs, dirs, running = {}, {}, {}
+    for family, (schema_name, build, seed, per_arity) in DATA_FAMILIES.items():
+        s = secs[family] = {}
+        csv_dir, out_dir, stats_dir = (os.path.join(tmp, f"{family}_{k}")
+                                       for k in ("csv", "data", "stats"))
+        t0 = time.perf_counter()
+        write_csvs(build(), csv_dir)
+        t1 = time.perf_counter()
+        if sha256_dir(csv_dir) != RAW_SHA256[family]:
+            raise AssertionError(
+                f"{family}: the raw CSVs {sha256_dir(csv_dir)} are not the "
+                f"generator's {RAW_SHA256[family]}: the tables differ before "
+                "the data layer reads them")
+        tables, col_types, pks, names = load_schema(schema_name, csv_dir)
+        t2 = time.perf_counter()
+        schema = DBSchema(tables, col_types, names, pks, chunk_size=64)
+        t3 = time.perf_counter()
+        os.makedirs(stats_dir)
+        for i, st in enumerate(schema.stats):
+            st.save(os.path.join(stats_dir, f"{i}_{st.table_name}.json"))
+        s.update(rows=sum(len(t) for t in tables), write_raw_csv_s=t1 - t0,
+                 load_s=t2 - t1, schema_s=t3 - t2,
+                 save_stats_s=time.perf_counter() - t3)
+        sampler = MultiJoinSampler(schema.dfs, schema.stats, seed=seed)
+        # the sampler appends: clear stale files first, as the generators do
+        os.makedirs(out_dir, exist_ok=True)
+        for k in range(1, len(names) + 1):
+            path = os.path.join(out_dir, f"join_query_{k}.txt")
+            if os.path.exists(path):
+                os.remove(path)
+        # the children inherit unflushed output; they run numpy only and
+        # never touch the CUDA context
+        sys.stdout.flush()
+        sys.stderr.flush()
+        t0 = time.perf_counter()
+        procs = sampler.parallel_sampler(per_arity, out_dir,
+                                         data_centric=True)
+        for k, p in enumerate(procs, 1):
+            running[p.sentinel] = (family, k, p, t0)
+        dirs[family] = (schema_name, csv_dir, out_dir, stats_dir)
+    while running:
+        for sentinel in wait(list(running)):
+            family, k, p, t0 = running.pop(sentinel)
+            p.join()
+            if p.exitcode != 0:
+                raise AssertionError(f"{family}: the sampler of arity {k} "
+                                     f"exited with {p.exitcode}")
+            secs[family][f"label_arity_{k}_s"] = time.perf_counter() - t0
+    for family, (_, _, out_dir, stats_dir) in dirs.items():
+        n_q = same_files(f"{family} queries", out_dir,
+                         f"workloads/{family}_data")
+        n_s = same_files(f"{family} stats", stats_dir,
+                         f"workloads/{family}_stats")
+        print(f"  {family}: {n_q} query files and {n_s} stats files "
+              f"regenerated from {secs[family]['rows']} raw rows, equal to "
+              "the committed ones byte for byte; seconds "
+              + json.dumps(secs[family]))
+    return dirs, secs
+
+
+def fit_from_csvs(dirs, total):
+    """The training CLI on each regenerated family, its stats from the raw
+    CSVs (--data_path), fp64, held to `FAMILY_ANCHORS` at rel 2e-3."""
+    for family, (schema_name, csv_dir, out_dir, _) in dirs.items():
+        anchor = FAMILY_ANCHORS[family]
+        print(f"slice {family} from CSVs, fp64 nngp:")
+        med, p95, _, launches, _ = run_slice(
+            ["--device", "cuda", "--schema_name", schema_name,
+             "--query_path", out_dir, "--data_path", csv_dir, "--x64"])
+        if (abs(med / anchor[0] - 1) > 2e-3
+                or abs(p95 / anchor[1] - 1) > 2e-3):
+            raise AssertionError(
+                f"{family} from CSVs: median {med} / p95 {p95} outside rel "
+                f"2e-3 of {anchor[0]} / {anchor[1]}")
+        for key in total:
+            total[key] += launches[key]
+
+
+def offline_clis(csv_dir, tmp):
+    """`cli.clean_schema` and `cli.sample_queries` on the synthtpch
+    tables: every output file's sha256 must be the JAX CLIs'."""
+    import os
+
+    from nngp_tpu_torch.cli import clean_schema, sample_queries
+
+    runs = {"clean_schema": (clean_schema, ["--schema_name", "tpch",
+                                            "--data_path", csv_dir,
+                                            "--out_dir"], CLEAN_SHA256),
+            "sample_queries": (sample_queries, [
+                "--schema_name", "tpch", "--data_path", csv_dir, "--serial",
+                "--mini_batch", "200", "--save_path"], SAMPLE_SHA256)}
+    out = {}
+    for name, (cli, argv, want) in runs.items():
+        dest = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main([*argv, dest])
+        out[f"{name}_s"] = time.perf_counter() - t0
+        got = sha256_dir(dest)
+        if got != want:
+            raise AssertionError(f"cli.{name}: sha256 {got}, the JAX CLI's "
+                                 f"{want}")
+        print(f"  cli.{name}: {len(got)} files, sha256 equal to the JAX "
+              f"CLI's ({out[f'{name}_s']:.2f} s)")
+    return out
+
+
+def check_sweep(total):
+    """`cli.sweep` at its defaults on forest (depths 1, 2, 4, 8; relu, erf;
+    nngp, ntk: 16 fits of 10,800 / 3,600 in fp32), each row held to
+    `SWEEP_ANCHORS` at median 1% / p95 3% (the forest fp32 bounds). A row
+    that misses is printed in full beside its fp64 run on the card, which
+    must then hold the anchor at rel 2e-3 (the fp64 bound): the miss is
+    fp32 rounding and stays reported as a miss, or it is a fault and the
+    check fails. Returns the rows and the missed rows."""
+    from nngp_tpu_torch.cli import sweep
+    from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
+
+    # the kernels at the sweep's depths beyond phase 3's, at the forest
+    # shapes, against their plain twins
+    device = torch.device("cuda")
+    x = inputs(FOREST_N, 2, torch.float32, device)
+    x1 = inputs(FOREST_M, 3, torch.float32, device)
+    for depth in (2, 4, 8):
+        for act in ("relu", "erf"):
+            spec = KernelSpec(mlp(depth, 512, act))
+            label = f"sweep depth {depth} {act}"
+            e_sym = compare_sym(spec, x, label)
+            e_cross = compare_cross(spec, x1, x, label)
+            print(f"  {label}: gram_sym max|k-plain| {e_sym!r}, gram_cross "
+                  f"{e_cross!r}")
+    del x, x1
+    torch.cuda.empty_cache()
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = sweep.main(["--device", "cuda"])
+    launches = read_launches()
+    if min(launches.values()) < 1:
+        raise AssertionError(f"sweep: a Gram kernel never launched: "
+                             f"{launches}")
+    for key in total:
+        total[key] += launches[key]
+    misses = []
+    for row in rows:
+        key = (row["depth"], row["activation"], row["kernel"])
+        (med, p95), (j_med, j_p95) = SWEEP_ANCHORS[key], SWEEP_JAX_FP32[key]
+        d_med, d_p95 = row["median_q"] / med - 1, row["p95_q"] / p95 - 1
+        print(f"  sweep {key}: median {row['median_q']} ({d_med:+.2%}; JAX "
+              f"fp32 {row['median_q'] / j_med - 1:+.2%}) p95 {row['p95_q']} "
+              f"({d_p95:+.2%}; {row['p95_q'] / j_p95 - 1:+.2%}) fit "
+              f"{row['fit_s']} s")
+        if abs(d_med) > 0.01 or abs(d_p95) > 0.03:
+            misses.append(row)
+    for row in misses:
+        key = (row["depth"], row["activation"], row["kernel"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            fp64 = sweep.main([
+                "--device", "cuda", "--x64", "--depths", str(row["depth"]),
+                "--activations", row["activation"],
+                "--kernel_types", row["kernel"]])[0]
+        med, p95 = SWEEP_ANCHORS[key]
+        print(f"  MISSED median 1% / p95 3%: fp32 {json.dumps(row)}\n"
+              f"    fp64 on the card {json.dumps(fp64)}\n"
+              f"    JAX CPU fp64 {med} / {p95}")
+        if (abs(fp64["median_q"] / med - 1) > 2e-3
+                or abs(fp64["p95_q"] / p95 - 1) > 2e-3):
+            raise AssertionError(f"sweep {key}: the fp64 run misses the JAX "
+                                 "fp64 row too: a fault, not fp32 rounding")
+    print(f"  sweep: {len(rows) - len(misses)} of {len(rows)} fp32 rows "
+          f"within median 1% / p95 3%, {len(misses)} missed with their fp64 "
+          f"runs within rel 2e-3; launches {launches}")
+    return rows, misses
+
+
+def check_profile_dir(tmp, total):
+    """`cli.train --profile_dir`: one Chrome trace whose device kernels
+    name both Gram kernels."""
+    import os
+
+    from nngp_tpu_torch.utils.profiling import device_kernels
+
+    prof = os.path.join(tmp, "profile")
+    print("slice fp32 nngp with --profile_dir:")
+    *_, launches, _ = run_slice(["--device", "cuda", "--query_path", FOREST,
+                                 "--profile_dir", prof])
+    traces = [f for f in os.listdir(prof) if f.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"--profile_dir wrote {traces}")
+    kernels = device_kernels(os.path.join(prof, traces[0]))
+    seen = {}
+    for name, (n, ms) in kernels.items():
+        m = GRAM_KERNEL_NAME.search(name)
+        if m:
+            key = "sym" if m.group(1) == "true" else "cross"
+            seen[key] = seen.get(key, 0) + n
+    if set(seen) != {"sym", "cross"}:
+        raise AssertionError(
+            f"the trace names no Gram kernel of {set(KERNELS) - set(seen)}; "
+            f"its kernels: {json.dumps({n[:70]: v for n, v in kernels.items()})}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:4]
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    first = {cat: min(e["ts"] for e in events if e.get("cat") == cat)
+             for cat in ("cpu_op", "kernel")}
+    print(f"  trace {traces[0]}: {len(kernels)} kernel names, gram launches "
+          f"{seen}; top device ms {[(n[:48], round(v[1], 3)) for n, v in top]}"
+          f"; first kernel {(first['kernel'] - first['cpu_op']) / 1e3!r} ms "
+          "after the first host op")
+    for key in total:
+        total[key] += launches[key]
+
+
+def check_config(tmp, total):
+    """`cli.train --config <forest preset JSON>` prints the q-error and
+    MSE of the same run by flags."""
+    import os
+
+    from nngp_tpu_torch.utils.config import forest_preset
+
+    path = os.path.join(tmp, "forest_preset.json")
+    with open(path, "w") as f:
+        f.write(forest_preset().to_json())
+    print("slice fp32 nngp from --config (forest preset) and by flags:")
+    by_config = run_slice(["--device", "cuda", "--config", path])
+    by_flags = run_slice(["--device", "cuda"])
+    if by_config[:3] != by_flags[:3]:
+        raise AssertionError(f"--config gave {by_config[:3]}, the flags "
+                             f"{by_flags[:3]}")
+    for run in (by_config, by_flags):
+        for key in total:
+            total[key] += run[3][key]
+
+
+def check_serving_demo(total):
+    """`cli.production_serving_demo` on the card, to its end."""
+    from nngp_tpu_torch.cli import production_serving_demo
+
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        production_serving_demo.main(["--device", "cuda"])
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    if lines[-1] != "done" or not any(l.startswith("[10]") for l in lines):
+        raise AssertionError("the serving demo did not run to its end:\n"
+                             + buf.getvalue()[-2000:])
+    for line in lines:
+        print(f"  {line}")
+    launches = read_launches()
+    for key in total:
+        total[key] += launches[key]
+    print(f"  serving demo: {secs:.2f} s, launches {launches}")
+
+
+def data_slice(card, total, device):
+    """Phase 10: the data layer. Regenerate synthtpch and synthtpcds from
+    their raw tables byte for byte, fit both from their CSVs, run the two
+    offline CLIs, the kernel sweep, --profile_dir, --config and the
+    production serving demo. Adds every path's launches to `total`."""
+    import tempfile
+
+    del device
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dirs, secs = regenerate_families(tmp)
+        secs["regenerate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fit_from_csvs(dirs, total)
+        secs["fits_from_csv_s"] = time.perf_counter() - t0
+        secs.update(offline_clis(dirs["synthtpch"][1], tmp))
+        t0 = time.perf_counter()
+        _rows, misses = check_sweep(total)
+        secs["sweep_s"] = time.perf_counter() - t0
+        secs["sweep_missed_rows"] = len(misses)
+        t0 = time.perf_counter()
+        check_profile_dir(tmp, total)
+        check_config(tmp, total)
+        secs["profile_and_config_s"] = time.perf_counter() - t0
+        check_serving_demo(total)
+    print(f"data layer seconds on {card}: " + json.dumps(secs))
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2370,6 +2971,7 @@ def main():
     timed("7 learning slice", learn_slice, card, launches, device)
     panel = timed("8 Nystrom slice", nystrom_slice, card, launches, device)
     timed("9 baselines slice", baselines_slice, card, device)
+    timed("10 data-layer slice", data_slice, card, launches, device)
     print("phase seconds: " + json.dumps(phase_s))
 
     summary = {"kernels": [

@@ -9,11 +9,12 @@ front ends), each naming the file it copies. The tests hold each copy to
 its original.
 
 Layer map:
-  utils/      device and dtype policy (TF32 off), timing
-  featurize/  query-line parsing, table stats, single-table and join
-              encoders (copies of the JAX package's)
+  utils/      device and dtype policy (TF32 off), timing, run config,
+              profiling (Chrome traces), memory probes
+  featurize/  query-line parsing, table stats, PK/FK schema recoding,
+              single-table and join encoders (copies of the JAX package's)
   native/     the g++-built native query-line encoder (`csrc/fastenc.cpp`)
-  eval/       q-error profiles, splits, calibration (copies)
+  eval/       q-error profiles, splits, calibration, plots (copies)
   ops/        dual activations, input Gram, the hand-written CUDA Gram
               kernels (`csrc/gram.cu`) with their plain PyTorch twins, the
               Cholesky append
@@ -22,11 +23,13 @@ Layer map:
               ridge selection by evidence, kernel hyperparameters learned
               by evidence (`hyperopt.py`)
   active/     active learning: biased, top-k and greedy acquisition
-  data/       pandas-free single-table and multi-join workload assembly
+  data/       the pandas-free data layer: `Table`, CSV loaders, schema
+              cleaning, the true-cardinality sampler, workload assembly
   serve/      the exact-tier Estimator, streaming batcher, TCP server,
               drift monitor, aux-query feedback merge
-  cli/        training, active-learning, serving demo and profiling entry
-              points
+  cli/        training, active-learning, baselines, serving demos, the
+              offline query sampler and schema cleaner, the kernel sweep
+              and profiling entry points
   convert.py  layer specs and posterior state to and from the JAX package
 
 Importing this package imports nothing heavy; `torch` loads with the

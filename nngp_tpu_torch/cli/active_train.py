@@ -18,7 +18,8 @@ import numpy as np
 
 from nngp_tpu_torch.eval.splits import train_test_val_split
 from nngp_tpu_torch.active import ActiveLearner
-from nngp_tpu_torch.data.workload import (load_multi_join_workload,
+from nngp_tpu_torch.data.workload import (load_binary_join_workload,
+                                          load_multi_join_workload,
                                           load_single_table_workload)
 from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
 from nngp_tpu_torch.utils.device import resolve_device
@@ -67,7 +68,8 @@ def build_parser():
                         "<query_path>/../<schema_name>_stats/")
     p.add_argument("--query_path", type=str, default="workloads/forest_data")
     p.add_argument("--data_path", type=str, default=None,
-                   help="raw CSV dir (not ported yet)")
+                   help="raw CSV dir (optional; stats fall back to the "
+                        "query scan / stats JSON)")
     p.add_argument("--chunk_norm", action="store_true",
                    help="rescale packed categorical chunk slots onto the "
                         "[0,1000] numeric scale")
@@ -120,9 +122,6 @@ def reject_unported(p, args):
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag) != p.get_default(flag):
             p.error(f"--{flag} is not ported yet (ROADMAP {item})")
-    if not args.schema_name and len(args.relations.split(",")) > 1:
-        p.error("binary-join workloads (a comma in --relations) are not "
-                "ported yet (ROADMAP Queue A #7: they need the CSV loaders)")
 
 
 def load_split(args):
@@ -134,12 +133,19 @@ def load_split(args):
     if args.schema_name:
         x, y, infos, _ = load_multi_join_workload(
             args.query_path, schema_name=args.schema_name,
-            data_path=args.data_path, dtype=dtype, chunk_norm=args.chunk_norm)
-    else:
-        x, y, infos, _ = load_single_table_workload(
-            args.query_path, name=args.names.split(",")[0],
             data_path=args.data_path, chunk_size=args.chunk_size,
             dtype=dtype, chunk_norm=args.chunk_norm)
+    elif len(args.relations.split(",")) > 1:
+        x, y, infos, _ = load_binary_join_workload(
+            args.query_path, relations=args.relations, names=args.names,
+            data_path=args.data_path, chunk_size=args.chunk_size,
+            dtype=dtype, chunk_norm=args.chunk_norm)
+    else:
+        x, y, infos, _ = load_single_table_workload(
+            args.query_path, relation=args.relations.split(",")[0],
+            name=args.names.split(",")[0], data_path=args.data_path,
+            chunk_size=args.chunk_size, dtype=dtype,
+            chunk_norm=args.chunk_norm)
     print(f"number of query: {x.shape[0]}")
     (x_tr, y_tr, _i1, x_pool, y_pool, _i2,
      x_val, y_val, infos_val) = train_test_val_split(
@@ -198,6 +204,8 @@ def main(argv=None):
             x_tr = x_tr * s.astype(x_tr.dtype)
             x_pool = x_pool * s.astype(x_pool.dtype)
             x_val = x_val * s.astype(x_val.dtype)
+    join_workload = (bool(args.schema_name)
+                     or len(args.relations.split(",")) > 1)
     learner = ActiveLearner(
         spec, budget=args.budget, active_iters=args.active_iters,
         kernel_type=args.kernel_type, biased_sample=args.biased_sample,
@@ -206,7 +214,7 @@ def main(argv=None):
         nystrom_moments=args.nystrom_moments, input_scale=input_scale,
         relearn_hyper=hyper_res,
         hyper_points=args.hyper_points or None, hyper_ard=args.ard,
-        partition_keys="num_table" if args.schema_name else "num_predicates",
+        partition_keys="num_table" if join_workload else "num_predicates",
         device=device)
     _post, history = learner.active_train(x_tr, y_tr, x_pool, y_pool,
                                           x_val, y_val, infos_val)

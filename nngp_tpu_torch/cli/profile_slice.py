@@ -158,8 +158,11 @@ def main(argv=None):
                    help="timed calls per phase (the median is reported)")
     p.add_argument("--phases", type=str, default="fit,predict",
                    help="comma-separated subset of " + ",".join(PHASES))
-    args = p.parse_args(argv)
-    train.reject_unported(p, args)
+    args = train.parse_args(p, argv)
+    if args.profile_dir:
+        p.error("--profile_dir: this tool traces each phase itself; write "
+                "a trace of the training CLI's run with "
+                "nngp_tpu_torch.cli.train --profile_dir")
     for flag in ("learn_hyper", "select_kernel", "hyper_file"):
         if getattr(args, flag) != p.get_default(flag):
             p.error(f"--{flag}: the fit and predict phases profile the "

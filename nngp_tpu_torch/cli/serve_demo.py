@@ -53,7 +53,8 @@ def build_parser():
                    help="torch device; cuda raises when no GPU is present")
     p.add_argument("--schema_name", type=str, required=True)
     p.add_argument("--data_path", type=str, default=None,
-                   help="raw CSV dir (not ported yet; use --stats_dir)")
+                   help="raw CSV dir: the schema's stats from its CSVs "
+                        "(or pass --stats_dir)")
     p.add_argument("--stats_dir", type=str, default=None,
                    help="dir of TableStats JSONs (serving without CSVs)")
     p.add_argument("--train_query_path", type=str, required=True)
@@ -164,9 +165,6 @@ def reject_unported(p, args):
     if args.tier in _TIER_ITEMS:
         p.error(f"--tier {args.tier} is not ported yet "
                 f"(ROADMAP {_TIER_ITEMS[args.tier]})")
-    if args.data_path:
-        p.error("--data_path is not ported yet (ROADMAP Queue A #7, the "
-                "pandas CSV loaders); use --stats_dir")
 
 
 def stream(est, lines, clients, wait_ms):
@@ -212,7 +210,8 @@ def main(argv=None):
             from nngp_tpu_torch.gp.hyperopt import HyperoptResult
             learn_hyper = HyperoptResult.load(args.hyper_file)
             print(f"serving with hyperparameters from {args.hyper_file}")
-        est = Estimator(args.schema_name, None, args.train_query_path,
+        est = Estimator(args.schema_name, args.data_path,
+                        args.train_query_path,
                         chunk_size=args.chunk_size, use_aux=args.use_aux,
                         q_error_threshold=args.q_error_threshold,
                         coef_var_threshold=args.coef_var_threshold,

@@ -3,7 +3,9 @@
     python -m nngp_tpu_torch.cli.train --kernel_type nngp \
         --query_path workloads/forest_data --device cuda
 
-Load the single-table or multi-join (--schema_name) workload -> seed-10
+Load the single-table, binary-join (--relations a,b) or multi-join
+(--schema_name) workload, with table stats from the raw CSVs under
+--data_path where given -> seed-10
 60/20/20 split -> [--learn_hyper / --select_kernel / --hyper_file
 hyperparameters by evidence] -> [--select_reg ridge by evidence] -> fit
 the exact GP (or with --nystrom_m the streaming Nystrom/DTC tier) on the
@@ -11,19 +13,22 @@ NNGP or NTK kernel, or with --kernel_type gp the trainable RBF GP baseline
 (models/gp_rbf.py) -> report MSE, the partitioned q-error profile
 and the symmetric q-error line. Same flags and printed lines as the JAX
 CLI, plus --device (default cuda; no fallback to the CPU). fp32 by default,
-fp64 with --x64 on either device.
-
-Paths not ported yet stop with an error naming their ROADMAP item.
+fp64 with --x64 on either device. --config seeds the defaults from a
+RunConfig JSON (`utils/config.py`, either package's); --profile_dir writes
+a torch.profiler Chrome trace of the warm fit and the predicts
+(`utils/profiling.py`), where the JAX CLI writes a TensorBoard trace.
 """
 
 import argparse
 import os
 import sys
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
-from nngp_tpu_torch.data.workload import (load_multi_join_workload,
+from nngp_tpu_torch.data.workload import (load_binary_join_workload,
+                                          load_multi_join_workload,
                                           load_single_table_workload)
 from nngp_tpu_torch.eval.qerror import (PredictionStatistics,
                                         qerror_profile, symmetric_qerror)
@@ -31,14 +36,9 @@ from nngp_tpu_torch.eval.splits import train_test_val_split
 from nngp_tpu_torch.gp import fit_gp, fit_nystrom, select_diag_reg
 from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
 from nngp_tpu_torch.utils.device import resolve_device, working_dtype
+from nngp_tpu_torch.utils.memory import memory_usage_gb
+from nngp_tpu_torch.utils.profiling import annotate, trace
 from nngp_tpu_torch.utils.timing import Timer
-
-# flag -> ROADMAP item that ports its path; setting one to anything but its
-# default stops the CLI
-_NOT_PORTED = {
-    "profile_dir": "Queue A #13 (utils/profiling.py)",
-    "config": "Queue A #13 (utils/config.py)",
-}
 
 
 def build_parser():
@@ -59,12 +59,12 @@ def build_parser():
     p.add_argument("--relations", type=str, default="forest")
     p.add_argument("--names", type=str, default="forest")
     p.add_argument("--schema_name", type=str, default=None,
-                   help="multi-join schema; stats from "
-                        "<query_path>/../<schema_name>_stats/")
+                   help="multi-join schema (tpch/tpcds/imdb_simple/...); "
+                        "switches to the multi-join workload path")
     p.add_argument("--query_path", type=str, default="workloads/forest_data")
     p.add_argument("--data_path", type=str, default=None,
-                   help="raw CSV dir (not ported yet; stats come from the "
-                        "query scan / stats JSON)")
+                   help="raw CSV dir (optional; stats fall back to query scan "
+                        "/ stats JSON)")
     p.add_argument("--diag_reg", type=float, default=1e-3)
     p.add_argument("--select_reg", type=str, default=None,
                    help="comma-separated diag_reg candidates: fit each, keep "
@@ -120,8 +120,8 @@ def build_parser():
     p.add_argument("--max_num_train", type=int, default=None)
     p.add_argument("--seed", type=int, default=10)
     p.add_argument("--partition_keys", type=str, default=None,
-                   help="q-error partition attributes (default: "
-                        "num_predicates)")
+                   help="q-error partition attributes (default: num_table "
+                        "for join workloads, num_predicates for single-table)")
     p.add_argument("--calibration", action="store_true",
                    help="print expected-vs-observed confidence levels")
     p.add_argument("--uneven_split", type=str, default=None,
@@ -129,35 +129,45 @@ def build_parser():
                         "(e.g. num_predicates)")
     p.add_argument("--skew_ratio", type=float, default=0.5)
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="not ported yet")
+                   help="write a torch.profiler Chrome trace of the warm fit "
+                        "+ inference here (view in Perfetto)")
     p.add_argument("--config", type=str, default=None,
-                   help="not ported yet")
+                   help="JSON RunConfig file (utils.config) providing the "
+                        "defaults; explicit flags still override")
     return p
 
 
-def reject_unported(p, args):
-    if not args.schema_name and len(args.relations.split(",")) > 1:
-        p.error("binary-join workloads (a comma in --relations) are not "
-                "ported yet (ROADMAP Queue A #7: they need the CSV loaders)")
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag) != p.get_default(flag):
-            p.error(f"--{flag} is not ported yet (ROADMAP {item})")
+def _apply_config_defaults(p, config_path):
+    """Seed the parser defaults from a RunConfig JSON, as the JAX CLI does
+    (`nngp_tpu/cli/train.py:132-155`)."""
+    from nngp_tpu_torch.utils.config import RunConfig
+    with open(config_path) as f:
+        cfg = RunConfig.from_json(f.read())
+    p.set_defaults(
+        kernel_type=cfg.kernel.kernel_type, depth=cfg.kernel.depth,
+        width=cfg.kernel.width, activation=cfg.kernel.activation,
+        w_std=cfg.kernel.w_std, b_std=cfg.kernel.b_std,
+        diag_reg=cfg.kernel.diag_reg,
+        learn_hyper=cfg.kernel.learn_hyper,
+        hyper_steps=cfg.kernel.hyper_steps,
+        hyper_points=cfg.kernel.hyper_points,
+        ard=cfg.kernel.hyper_ard,
+        relations=cfg.workload.relations, names=cfg.workload.names,
+        schema_name=cfg.workload.schema_name,
+        query_path=cfg.workload.query_path, data_path=cfg.workload.data_path,
+        chunk_size=cfg.workload.chunk_size,
+        train_frac=cfg.split.train_frac, test_frac=cfg.split.test_frac,
+        seed=cfg.split.seed, max_num_train=cfg.split.max_num_train,
+        x64=cfg.x64,
+    )
 
 
-def _memory_usage_gb(device) -> dict:
-    """Host RSS (when psutil is installed) and, on CUDA, the device memory
-    held by tensors: the keys of `nngp_tpu.utils.memory.memory_usage_gb`."""
-    out = {}
-    try:
-        import psutil
-        out["host_rss_gb"] = psutil.Process().memory_info().rss / 1024 ** 3
-    except ImportError:
-        pass
-    if device.type == "cuda":
-        name = torch.cuda.get_device_name(device)
-        out[f"{name}:{device.index or 0}_gb"] = (
-            torch.cuda.memory_allocated(device) / 1024 ** 3)
-    return out
+def parse_args(p, argv=None):
+    """The flags of `argv`, with defaults seeded from --config first."""
+    pre, _ = p.parse_known_args(argv)
+    if pre.config:
+        _apply_config_defaults(p, pre.config)
+    return p.parse_args(argv)
 
 
 def load_split(args):
@@ -168,12 +178,21 @@ def load_split(args):
     if args.schema_name:
         x, y, infos, _enc = load_multi_join_workload(
             args.query_path, schema_name=args.schema_name,
-            data_path=args.data_path, dtype=dtype, chunk_norm=args.chunk_norm)
+            data_path=args.data_path, chunk_size=args.chunk_size, dtype=dtype,
+            chunk_norm=args.chunk_norm)
+    elif len(args.relations.split(",")) > 1:
+        # binary-join path, derived from the comma as the reference does
+        # (`reference/train.py:295-296`)
+        x, y, infos, _enc = load_binary_join_workload(
+            args.query_path, relations=args.relations, names=args.names,
+            data_path=args.data_path, chunk_size=args.chunk_size, dtype=dtype,
+            chunk_norm=args.chunk_norm)
     else:
         x, y, infos, _enc = load_single_table_workload(
-            args.query_path, name=args.names.split(",")[0],
-            data_path=args.data_path, chunk_size=args.chunk_size,
-            dtype=dtype, chunk_norm=args.chunk_norm)
+            args.query_path, relation=args.relations.split(",")[0],
+            name=args.names.split(",")[0], data_path=args.data_path,
+            chunk_size=args.chunk_size, dtype=dtype,
+            chunk_norm=args.chunk_norm)
     print(f"number of query: {x.shape[0]}  feature dim: {x.shape[1]}")
 
     if args.uneven_split:
@@ -243,7 +262,11 @@ def learn_hyperparams(p, args, x_tr, y_tr, timer, device):
             dtc_m=dtc_m, device=device)
 
 
-def fit_predict_rbf_gp(x_tr, y_tr, x_te, timer, device, torch_dtype):
+def _profiler(args):
+    return trace(args.profile_dir) if args.profile_dir else nullcontext()
+
+
+def fit_predict_rbf_gp(args, x_tr, y_tr, x_te, timer, device, torch_dtype):
     """--kernel_type gp: MLL hyperparameter descent of the RBF GP baseline,
     then a timed posterior predict; (mean, std) on the device."""
     from nngp_tpu_torch.models import gp_rbf
@@ -252,12 +275,16 @@ def fit_predict_rbf_gp(x_tr, y_tr, x_te, timer, device, torch_dtype):
     y_tr_d = torch.as_tensor(y_tr, dtype=torch_dtype,
                              device=device).reshape(-1, 1)
     x_te_d = torch.as_tensor(x_te, dtype=torch_dtype, device=device)
-    with timer.measure("GP hyperparameter training (10 MLL steps)"):
-        params = gp_rbf.train(x_tr_d, y_tr_d)
-    with timer.measure("GP inference (cold, incl. compile)"):
-        mean, cov = gp_rbf.predict(params, x_tr_d, y_tr_d, x_te_d)
-    with timer.measure("GP inference (warm)"):
-        mean, cov = gp_rbf.predict(params, x_tr_d, y_tr_d, x_te_d)
+    with _profiler(args):
+        with timer.measure("GP hyperparameter training (10 MLL steps)"), \
+                annotate("gp_mll_train"):
+            params = gp_rbf.train(x_tr_d, y_tr_d)
+        with timer.measure("GP inference (cold, incl. compile)"):
+            mean, cov = gp_rbf.predict(params, x_tr_d, y_tr_d, x_te_d)
+        with timer.measure("GP inference (warm)"), annotate("gp_infer_warm"):
+            mean, cov = gp_rbf.predict(params, x_tr_d, y_tr_d, x_te_d)
+    if args.profile_dir:
+        print(f"profiler trace written to {args.profile_dir}")
     timer.report()
     return mean, torch.sqrt(torch.diagonal(cov).clamp_min(0.0))
 
@@ -286,7 +313,7 @@ def fit_predict_nngp(p, args, x_tr, y_tr, x_te, timer, device, torch_dtype):
         if args.hyper_file and not os.path.exists(args.hyper_file):
             res.save(args.hyper_file)
             print(f"saved hyperparameter artifact to {args.hyper_file}")
-    print("memory:", _memory_usage_gb(device))
+    print("memory:", memory_usage_gb(device))
 
     def _fit():
         # x_tr stays host numpy: the fp32 prescale probe is free there
@@ -322,21 +349,23 @@ def fit_predict_nngp(p, args, x_tr, y_tr, x_te, timer, device, torch_dtype):
                   "--select_reg sweep)")
     with timer.measure(cold_label):
         post = _fit()
-    with timer.measure("fit (warm)"):
-        post = _fit()
-    with timer.measure("inference (cold, incl. compile)"):
-        mean, std = post.predict_mean_std(x_te_dev)
-    with timer.measure("inference (warm)"):
-        mean, std = post.predict_mean_std(x_te_dev)
+    with _profiler(args):
+        with timer.measure("fit (warm)"), annotate("fit_warm"):
+            post = _fit()
+        with timer.measure("inference (cold, incl. compile)"):
+            mean, std = post.predict_mean_std(x_te_dev)
+        with timer.measure("inference (warm)"), annotate("infer_warm"):
+            mean, std = post.predict_mean_std(x_te_dev)
+    if args.profile_dir:
+        print(f"profiler trace written to {args.profile_dir}")
     timer.report()
-    print("memory:", _memory_usage_gb(device))
+    print("memory:", memory_usage_gb(device))
     return mean, std
 
 
 def main(argv=None):
     p = build_parser()
-    args = p.parse_args(argv)
-    reject_unported(p, args)
+    args = parse_args(p, argv)
     device = resolve_device(args.device)
     torch_dtype = working_dtype(args.x64)
 
@@ -344,7 +373,7 @@ def main(argv=None):
 
     timer = Timer(device)
     if args.kernel_type == "gp":
-        mean, std = fit_predict_rbf_gp(x_tr, y_tr, x_te, timer, device,
+        mean, std = fit_predict_rbf_gp(args, x_tr, y_tr, x_te, timer, device,
                                        torch_dtype)
     else:
         mean, std = fit_predict_nngp(p, args, x_tr, y_tr, x_te, timer,
@@ -357,8 +386,11 @@ def main(argv=None):
 
     errors = mean - y_true
     stat = PredictionStatistics()
-    stat.get_prediction_details(
-        errors, infos_te, partition_keys=args.partition_keys or "num_predicates")
+    join_workload = (bool(args.schema_name)
+                     or len(args.relations.split(",")) > 1)
+    part_keys = args.partition_keys or (
+        "num_table" if join_workload else "num_predicates")
+    stat.get_prediction_details(errors, infos_te, partition_keys=part_keys)
     q = symmetric_qerror(errors)
     print(f"symmetric q-error: median={np.median(q):.4f} "
           f"p95={np.quantile(q, 0.95):.4f} p99={np.quantile(q, 0.99):.4f} "

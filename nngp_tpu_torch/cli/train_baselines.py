@@ -15,8 +15,8 @@ fallback to the CPU) and --seed (initial weights, minibatch order, dropout
 masks and probes; 0, the trainers' default, is what the JAX CLI always
 uses: some of these models land far apart from seed to seed, and a spread
 over seeds is the only fair reading of them). The sklearn model types run
-on the host with their own fixed seeds. --data_path
-(raw CSVs) is not ported yet and raises naming its ROADMAP item.
+on the host with their own fixed seeds. --data_path takes the table
+stats from the relation's raw CSV (`data/loaders.py`).
 """
 
 import argparse
@@ -58,7 +58,8 @@ def build_parser():
     p.add_argument("--names", type=str, default="forest")
     p.add_argument("--query_path", type=str, default="workloads/forest_data")
     p.add_argument("--data_path", type=str, default=None,
-                   help="raw CSV dir (not ported yet)")
+                   help="raw CSV dir (optional; stats fall back to the "
+                        "query scan / stats JSON)")
     p.add_argument("--chunk_size", type=int, default=64)
     p.add_argument("--num_hid", type=int, default=256)
     p.add_argument("--max_classes", type=int, default=10)
@@ -86,7 +87,8 @@ def _run_mscn(args, device):
     from nngp_tpu_torch.featurize.mscn import MSCNSingleEncoder
     from nngp_tpu_torch.featurize.parser import load_single_table_queries
 
-    stats = single_table_stats(args.names.split(",")[0], args.query_path,
+    stats = single_table_stats(args.relations.split(",")[0],
+                               args.names.split(",")[0], args.query_path,
                                args.data_path, chunk_size=args.chunk_size)
     queries, cards, infos = load_single_table_queries(args.query_path, stats)
     enc = MSCNSingleEncoder(stats)
@@ -135,9 +137,9 @@ def main(argv=None):
         _report("MSCN", *_run_mscn(args, device))
         return
     x, y, infos, _ = load_single_table_workload(
-        args.query_path, name=args.names.split(",")[0],
-        data_path=args.data_path, chunk_size=args.chunk_size,
-        dtype=np.float32)
+        args.query_path, relation=args.relations.split(",")[0],
+        name=args.names.split(",")[0], data_path=args.data_path,
+        chunk_size=args.chunk_size, dtype=np.float32)
     print(f"number of query: {x.shape[0]}")
     (x_tr, y_tr, _i1, x_te, y_te, infos_te, *_rest) = train_test_val_split(
         x, y, train_frac=0.6, test_frac=0.2, all_query_infos=infos,

@@ -8,8 +8,8 @@
 Same flags and printed lines as the JAX CLI, plus --device (default cuda; no
 fallback to the CPU). The table stats come from --stats_dir, laid out in the
 table order of --schema_name where the port knows the schema
-(`data/workload.py::SCHEMA_TABLES`); the raw-CSV branch (--data_path) is not
-ported yet and raises naming its ROADMAP item.
+(`data/workload.py::SCHEMA_TABLES`), or from the schema's raw CSVs under
+--data_path.
 """
 
 import argparse
@@ -23,7 +23,7 @@ from nngp_tpu_torch.baselines.mscn_trainer import (plans_to_arrays,
                                                    to_device,
                                                    train_mscn_multi,
                                                    train_tree_lstm)
-from nngp_tpu_torch.data.workload import schema_stats
+from nngp_tpu_torch.data.workload import schema_stats, schema_stats_from_csvs
 from nngp_tpu_torch.eval.qerror import PredictionStatistics, symmetric_qerror
 from nngp_tpu_torch.featurize.mscn import MSCNMultiEncoder
 from nngp_tpu_torch.utils.device import resolve_device
@@ -41,7 +41,7 @@ def build_parser():
     p.add_argument("--stats_dir", type=str, default=None)
     p.add_argument("--schema_name", type=str, default=None)
     p.add_argument("--data_path", type=str, default=None,
-                   help="raw CSV dir (not ported yet)")
+                   help="raw CSV dir of --schema_name's tables")
     p.add_argument("--chunk_size", type=int, default=10)
     p.add_argument("--num_hid", type=int, default=64)
     p.add_argument("--epochs", type=int, default=40)
@@ -58,10 +58,8 @@ def _load_stats(args):
     if args.stats_dir:
         return schema_stats(args.schema_name, args.stats_dir)
     if args.data_path and args.schema_name:
-        raise NotImplementedError(
-            "CSV loading not ported yet (ROADMAP Queue A #7: the CSV loaders "
-            "and featurize/schema.py); pass --stats_dir with the schema's "
-            "TableStats JSONs")
+        return schema_stats_from_csvs(args.schema_name, args.data_path,
+                                      args.chunk_size)
     raise SystemExit("pass --stats_dir or (--schema_name and --data_path)")
 
 

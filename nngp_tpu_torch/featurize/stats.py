@@ -1,10 +1,12 @@
 """Table statistics + feature address layout.
 
-A copy of `nngp_tpu/featurize/stats.py` without `TableStats.from_dataframe`
-(stats from a raw-CSV dataframe, which needs pandas; the port's CSV data
-layer is not written yet). Otherwise its code differs only in its imports: the port
-imports nothing of the JAX package. `tests/test_torch_featurize.py` holds
-the copy to the original.
+A copy of `nngp_tpu/featurize/stats.py`. `TableStats.from_dataframe` takes
+the port's pandas-free `Table` (`nngp_tpu_torch.data.table`) where the
+original takes a DataFrame, and takes its categories the way
+`pd.Categorical` does (`data.table.categorical`). Otherwise the code
+differs only in its imports: the port imports nothing of the JAX package.
+`tests/test_torch_featurize.py` and `tests/test_torch_loaders.py` hold the
+copy to the original.
 
 One featurization library replacing the reference's three copies of the same
 logic (`reference/QuerySampler.py:24-56`,
@@ -132,6 +134,39 @@ class TableStats:
         return (value - col.min) / col.denominator * 1000.0
 
     # ------------------------------------------------------------ builders
+    @classmethod
+    def from_dataframe(cls, df, col_types: Sequence[str], table_name: str,
+                       chunk_size: int = 64,
+                       fk_code_dicts: Optional[Dict[str, Dict]] = None
+                       ) -> "TableStats":
+        """Exact reference semantics incl. NaN -> -1 fill before stats
+        (`reference/JoinQuerySampler.py:35,42-68`) and FK columns reusing
+        their PK's code dict (`:52-56`). `df` is a `data.table.Table`."""
+        from nngp_tpu_torch.data.table import categorical
+
+        df = df.fillna(-1)
+        cols = []
+        for i, name in enumerate(df.columns):
+            series = df[name]
+            if col_types[i] == CATEGORICAL:
+                if fk_code_dicts and name in fk_code_dicts:
+                    code_dict = fk_code_dicts[name]
+                    cats = tuple(sorted(code_dict, key=code_dict.get))
+                else:
+                    # pd.Categorical's categories, like the reference
+                    # (`JoinQuerySampler.py:49`), also on mixed-type object
+                    # columns (string ids whose NaNs the fill above turned
+                    # into int -1: numbers sort before strings)
+                    cats = tuple(categorical(series)[0])
+                cols.append(ColumnStats(name=name, kind=CATEGORICAL, categories=cats))
+            else:
+                cols.append(ColumnStats(
+                    name=name, kind=NUMERICAL,
+                    min=float(np.min(series)), max=float(np.max(series)),
+                ))
+        return cls(table_name=table_name, columns=tuple(cols),
+                   chunk_size=chunk_size, num_rows=len(df))
+
     @classmethod
     def from_query_files(cls, query_path: str, col_names: Sequence[str],
                          table_name: str, chunk_size: int = 64) -> "TableStats":

@@ -48,7 +48,7 @@ LAUNCHES = {"sym": 0, "cross": 0}
 # Output tile (rows, columns) of both kernels per dtype: the fp64 tile is
 # half as wide, so its staging fits the same shared memory.
 TILE_SHAPE = {torch.float32: (128, 128), torch.float64: (128, 64)}
-MAX_LAYERS = 16   # layer-program capacity of the kernels
+MAX_LAYERS = 32   # layer-program capacity of the kernels (gram.cu kMaxLayers)
 _KINDS = {"relu": 1, "erf": 2, "sin": 3, "abs": 4}  # 0 = Dense
 _INT32_MAX = 2 ** 31 - 1
 

@@ -50,7 +50,7 @@ from nngp_tpu_torch.featurize.join import MultiJoinEncoder
 from nngp_tpu_torch.featurize.stats import TableStats
 from nngp_tpu_torch.convert import (nystrom_from_numpy, nystrom_to_numpy,
                                     posterior_from_numpy, posterior_to_numpy)
-from nngp_tpu_torch.data.workload import schema_stats
+from nngp_tpu_torch.data.workload import schema_stats, schema_stats_from_csvs
 from nngp_tpu_torch.gp.nystrom import (NystromPosterior, _resolve_finalize,
                                        fit_nystrom)
 from nngp_tpu_torch.gp.posterior import fit_gp
@@ -217,9 +217,10 @@ class Estimator:
         learn_hyper=True with hyper_ard=True, and calibrate_frac=0.1. An
         explicit learn_hyper=False is kept.
 
-        stats / stats_dir: the schema's TableStats, or a directory of
-        TableStats JSONs laid out in the schema's table order. The raw-CSV
-        path (data_path) needs pandas and is not ported.
+        stats / stats_dir / data_path: the schema's TableStats, or a
+        directory of TableStats JSONs laid out in the schema's table order,
+        or else the schema's raw CSVs under data_path (`data/loaders.py`
+        SCHEMAS, PK/FK codes shared through `featurize/schema.py`).
 
         calibrate_frac: hold out this seeded fraction of the training
         queries and calibrate uncertainty on them after the fit (std
@@ -271,12 +272,11 @@ class Estimator:
         self.nystrom_moments = nystrom_moments or "fp32"
         self.spec = spec if spec is not None else reference_kernel()
         if stats is None:
-            if stats_dir is None:
-                raise NotImplementedError(
-                    "building stats from the raw CSVs (data_path) is not "
-                    "ported yet (ROADMAP Queue A #7, the pandas CSV "
-                    "loaders); pass stats= or stats_dir=")
-            stats = schema_stats(schema_name, stats_dir)
+            if stats_dir is not None:
+                stats = schema_stats(schema_name, stats_dir)
+            else:
+                stats = schema_stats_from_csvs(schema_name, data_path,
+                                               chunk_size)
         self.stats = list(stats)
         self._init_encoders()
 

@@ -1,13 +1,34 @@
-"""Structured timing with the report format of `nngp_tpu.utils.timing`.
+"""Structured timing: the counterparts of `nngp_tpu/utils/timing.py`
+(`Timer`, `sync`, `timed`) with its report format.
 
-CUDA work is asynchronous, so on a CUDA device the timer synchronizes the
-device before reading the clock at both ends of a measured block.
+CUDA work is asynchronous, so a measurement must wait for it: `sync`
+synchronizes the CUDA device of every tensor it finds in a (nested tuple,
+list or dict) tree, where the JAX package fetches one element per leaf;
+`Timer` synchronizes its device at both ends of a measured block.
 """
 
 import time
 from contextlib import contextmanager
 
 import torch
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (list, tuple)):
+        for leaf in tree:
+            yield from _tensors(leaf)
+    elif isinstance(tree, dict):
+        for leaf in tree.values():
+            yield from _tensors(leaf)
+
+
+def sync(tree):
+    """Block until every tensor in `tree` is computed; returns `tree`."""
+    for device in {t.device for t in _tensors(tree) if t.is_cuda}:
+        torch.cuda.synchronize(device)
+    return tree
 
 
 class Timer:
@@ -32,3 +53,14 @@ class Timer:
     def report(self, printer=print):
         for label, secs in self.records.items():
             printer(f"[timing] {label}: {secs:.4f}s")
+
+
+def timed(fn, *args, repeats: int = 1, **kwargs):
+    """Run fn `repeats` times, sync each; return (result, best_seconds)."""
+    best = float("inf")
+    out = None
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = sync(fn(*args, **kwargs))
+        best = min(best, time.perf_counter() - t0)
+    return out, best

@@ -92,7 +92,6 @@ def test_cli_nystrom_flags_match_jax_cli(flags, jax_flags, rtol, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh_devices", "4"], "Queue A #12"),
     (["--pad_acquisitions"], "'Not to port'"),
-    (["--relations", "title,cast_info"], "Queue A #7"),
 ])
 def test_cli_unported_flags_name_their_item(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -150,19 +150,6 @@ def test_multijoin_schema_name_orders_the_tables(tmp_path, capsys):
         train_multijoin.main(["--device", "cpu", "--query_path", SYNTH])
 
 
-def test_data_path_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue A #7"):
-        train_baselines.main(["--device", "cpu", "--model_type", "DNN",
-                              "--data_path", "raw_csvs", *SMALL])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue A #7"):
-        train_baselines.main(["--device", "cpu", "--model_type", "MSCN",
-                              "--data_path", "raw_csvs", *SMALL])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue A #7"):
-        train_multijoin.main(["--device", "cpu", "--query_path", SYNTH,
-                              "--schema_name", "tpch", "--data_path",
-                              "raw_csvs"])
-
-
 @pytest.mark.parametrize("argv", [
     ["--model_type", "DNN"],
     ["--model_type", "DKL-SKI"],

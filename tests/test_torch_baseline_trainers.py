@@ -150,7 +150,7 @@ def forest_sets():
     from nngp_tpu_torch.data.workload import single_table_stats
     from nngp_tpu_torch.featurize.parser import load_single_table_queries
 
-    stats = single_table_stats("forest", FOREST)
+    stats = single_table_stats("forest", "forest", FOREST)
     queries, cards, _ = load_single_table_queries(FOREST, stats)
     js = jstats("forest", "forest", FOREST, None)
     jqueries, _, _ = jload(FOREST, js)

@@ -312,7 +312,6 @@ def test_explicit_learn_hyper_false_survives_quality_best():
     ({"dist_block_size": 64}, "Queue A #12"),
     ({"tier": "distributed"}, "Queue A #12"),
     ({"pad_slots": 8}, "Not to port"),
-    ({"stats": None}, "Queue A #7"),
 ])
 def test_unported_arguments_name_their_roadmap_item(toy, kw, item):
     stats, qdir = toy

@@ -263,7 +263,8 @@ def _imports_of_the_jax_package(path):
             continue
         found += [(node.lineno, n) for n in names
                   if n.split(".")[0] in ("nngp_tpu", "jax", "jaxlib", "flax",
-                                         "optax", "pandas")]
+                                         "optax", "pandas", "workloads")
+                  or n.split(".")[0].startswith("make_synth")]
     return found
 
 
@@ -276,7 +277,13 @@ def test_the_port_imports_nothing_of_the_jax_package():
                 "models/tree_lstm.py", "baselines/trainer.py",
                 "baselines/mscn_trainer.py", "featurize/mscn.py",
                 "cli/train_baselines.py", "cli/train_multijoin.py",
-                "cli/deep_ensemble_demo.py", "active/baseline_learner.py"):
+                "cli/deep_ensemble_demo.py", "active/baseline_learner.py",
+                "data/table.py", "data/loaders.py", "data/clean.py",
+                "data/sampler.py", "featurize/schema.py",
+                "cli/sample_queries.py", "cli/clean_schema.py",
+                "cli/sweep.py", "cli/production_serving_demo.py",
+                "utils/config.py", "utils/profiling.py", "utils/memory.py",
+                "eval/plots.py"):
         assert os.path.join(REPO, "nngp_tpu_torch", *new.split("/")) in sources
     offenders = {os.path.relpath(p, REPO): _imports_of_the_jax_package(p)
                  for p in sources}
@@ -298,6 +305,14 @@ def test_the_import_scan_finds_an_import_of_jax(tmp_path):
                    "from jaxlib import xla_client\n")
     assert _imports_of_the_jax_package(str(bad)) == [
         (2, "jax.numpy"), (3, "jaxlib")]
+
+
+def test_the_import_scan_finds_the_workload_generators(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import make_synthtpch\nfrom workloads import x\n"
+                   "import make_synthtpcds as g\nimport makefile\n")
+    assert _imports_of_the_jax_package(str(bad)) == [
+        (1, "make_synthtpch"), (2, "workloads"), (3, "make_synthtpcds")]
 
 
 def test_the_import_scan_finds_flax_optax_and_pandas(tmp_path):

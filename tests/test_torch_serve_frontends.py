@@ -688,7 +688,6 @@ def test_serve_demo_nystrom_flags(toy, tmp_path, capsys, flags, m):
     (["--mesh_devices", "4"], "Queue A #12"),
     (["--pad_slots", "8"], "'Not to port'"),
     (["--tier", "distributed"], "Queue A #12"),
-    (["--data_path", "csvs"], "Queue A #7"),
 ])
 def test_serve_demo_unported_flags_name_their_item(flags, item, capsys):
     from nngp_tpu_torch.cli import serve_demo
@@ -722,8 +721,15 @@ sys.meta_path.insert(0, _Block())
 def test_serving_imports_and_runs_with_jax_and_pandas_blocked(tmp_path):
     """A fresh interpreter in which importing jax, pandas or the JAX
     package `nngp_tpu` raises: every module of the port imports; a short
-    learn and the active-learning CLI run, and the demo serves the
-    committed synth workload on the CPU."""
+    learn and the active-learning CLI run, the demo serves the committed
+    synth workload on the CPU, and the offline data CLIs label and clean
+    tiny raw tpch tables."""
+    from tests.test_loader_onramp import _make_schema_csvs
+
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    _make_schema_csvs("tpch", raw)
+    labeled, cleaned = str(tmp_path / "labeled"), str(tmp_path / "cleaned")
     code = _BLOCK_HOOK + (
         "import importlib, pkgutil\n"
         "import numpy as np\n"
@@ -759,6 +765,12 @@ def test_serving_imports_and_runs_with_jax_and_pandas_blocked(tmp_path):
         "           '--test_query_file',\n"
         "           'workloads/synth_join_data/join_query_2.txt',\n"
         "           '--limit', '50'])\n"
+        "from nngp_tpu_torch.cli import clean_schema, sample_queries\n"
+        "sample_queries.main(['--schema_name', 'tpch', '--data_path',\n"
+        f"    {str(raw)!r}, '--save_path', {labeled!r}, '--mini_batch',\n"
+        "    '5', '--data_centric'])\n"
+        "clean_schema.main(['--schema_name', 'tpch', '--data_path',\n"
+        f"    {str(raw)!r}, '--out_dir', {cleaned!r}, '--int_cast'])\n"
         "loaded = [m for m in ('jax', 'jaxlib', 'flax', 'optax', 'pandas',\n"
         "                      'nngp_tpu') "
         "if m in sys.modules]\n"
@@ -769,3 +781,8 @@ def test_serving_imports_and_runs_with_jax_and_pandas_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "predicted 50 queries" in proc.stdout
     assert "LOADED []" in proc.stdout
+    for k in range(1, 5):
+        with open(os.path.join(labeled, f"join_query_{k}.txt")) as f:
+            assert len(f.read().split()) == 5
+    assert sorted(os.listdir(cleaned)) == ["lineitem.csv", "orders.csv",
+                                           "part.csv", "supplier.csv"]

@@ -98,19 +98,6 @@ def test_cli_device_cuda_raises_without_a_gpu():
                     "--max_num_train", "50"])
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--relations", "title,cast_info"], "Queue A #7"),
-    (["--profile_dir", "trace"], "Queue A #13"),
-    (["--config", "run.json"], "Queue A #13"),
-])
-def test_unported_flags_name_their_roadmap_item(flags, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        train.main(["--device", "cpu", *flags])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP {item}" in err
-
-
 @pytest.mark.parametrize("flags,jax_flags,rel", [
     (["--x64", "--nystrom_m", "64"], ["--x64", "--nystrom_m", "64"], 1e-6),
     (["--nystrom_m", "64", "--nystrom_moments", "df64"],
@@ -212,16 +199,6 @@ def test_full_n_exact_hyperopt_is_refused(capsys):
                     "--learn_hyper", "--hyper_points", "0"])
     assert exc.value.code == 2
     assert "requires the DTC objective" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("schema", [None, "synth"])
-def test_data_path_is_not_ported_yet(schema):
-    query_path = SYNTH if schema else FOREST
-    extra = ["--schema_name", schema] if schema else []
-    with pytest.raises(NotImplementedError, match="CSV loading not ported"):
-        train.main(["--device", "cpu", "--query_path", query_path,
-                    "--data_path", "raw_csvs", "--max_num_train", "50",
-                    *extra])
 
 
 def test_slice_imports_neither_jax_nor_pandas():

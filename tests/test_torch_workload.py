@@ -55,11 +55,7 @@ def test_stats_dir_order_follows_the_schema(tmp_path):
         ["supplier", "part", "orders", "lineitem"]
 
 
-def test_data_path_and_missing_stats_raise(tmp_path):
-    path = os.path.join(WORKLOADS, "synth_join_data")
-    with pytest.raises(NotImplementedError, match="CSV loading not ported"):
-        load_multi_join_workload(path, schema_name="synth",
-                                 data_path="raw_csvs")
+def test_missing_stats_raise(tmp_path):
     qdir = tmp_path / "queries"
     qdir.mkdir()
     with pytest.raises(FileNotFoundError, match="stats dir"):
