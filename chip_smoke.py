@@ -78,7 +78,19 @@ exits nonzero; nothing is caught and retried:
      (16 fp32 fits at 10,800 / 3,600, depths 1-8) against the JAX package's
      fp64 rows; `cli.train --profile_dir` (a Chrome trace naming both Gram
      kernels) and `--config` (the flags' result); and
-     `cli.production_serving_demo` to its end.
+     `cli.production_serving_demo` to its end;
+ 11. the distributed slice (`parallel/`) at world size 1 over NCCL, then
+     4 gloo CPU ranks: forest 10,800 / 3,600 fp64 at block size 256 (43
+     panels), nngp and ntk, against the fp64 anchors and beside the exact
+     tier, an extend of 900 rows against a refit, a checkpoint round trip;
+     synth6_big's first 50,000 train rows in fp32 at block 1,024 with the
+     fit's peak in (n, n) shards, the panel loop's device time beside
+     cuSOLVER's potrf of the same Gram, the exact tier at the same n
+     (q-error within 1% / 3%), predict-30k and an extend;
+     `fit_nystrom(mesh=)` at 90k against the mesh-less fit and the df64
+     anchor; a DTC learn with mesh= against the one without; 4 gloo CPU
+     ranks through `python -m nngp_tpu_torch.parallel.dryrun 4`;
+     `gram_cross` at the tier's row-block shapes against its twin, timed.
 
 Phase 4 also runs the training CLI in fp64 on the synthimdb, synthtpch and
 synthtpcds join workloads against the JAX package's fp64 q-error.
@@ -1895,7 +1907,8 @@ def nystrom_learn(total, device):
 
 def nystrom_slice(card, total, device):
     """Phase 8: the Nystrom tier. Returns the fp32 nngp figures of
-    gram_cross at the panel shape."""
+    gram_cross at the panel shape, and the encoded synth6_big split
+    (x_tr, y_tr, x_te, y_te, inducing rows) that phase 11 reuses."""
     import tempfile
 
     from nngp_tpu_torch.gp.nystrom import select_inducing
@@ -1915,7 +1928,7 @@ def nystrom_slice(card, total, device):
     learn = nystrom_learn(total, device)
     print(f"Nystrom serving and learning times on {card}: "
           + json.dumps({**est_times, **learn}))
-    return panel
+    return panel, big
 
 
 # ------------------------------------- the other committed workload families
@@ -2917,6 +2930,515 @@ def data_slice(card, total, device):
     print(f"data layer seconds on {card}: " + json.dumps(secs))
 
 
+# ------------------------------------------------ phase 11: distributed
+# The distributed tier (`parallel/`) at world size 1 on the card (NCCL): the
+# multi-rank paths run as on p ranks (panel loop, owner broadcasts, gathers,
+# inert padding, extend, checkpoint), through the Estimator in (f) and
+# under torchrun in (g); p > 1 runs as gloo CPU ranks in (e).
+DIST_FOREST_BLOCK = 256       # 10,800 rows pad to 11,008: 43 panels
+DIST_BIG_N, DIST_BIG_BLOCK = 50000, 1024   # pads to 50,176: 49 panels
+# the 50,000-row fits' relative ridge: at the default 1e-3 this fp32 Gram
+# is not positive definite to fp32 (kappa ~ n / ridge ~ 5e7 > 1 / eps;
+# cuSOLVER's potrf failed at order 39,484 on the H100), so
+# both tiers take 0.1, as phase 8's exact-tier peaks do
+DIST_BIG_RIDGE = 0.1
+DIST_EXT = 900
+# gram_cross is checked on the rows of the launches the tier makes on the
+# card (p = 1): the forest fit's 11,008 x 11,008 fp64 pair, the 50,176-row
+# fit's 50,176 x 50,176 fp32 Gram and one of its CHUNK x 50,176 predict
+# chunks. The plain twin of the whole 50,176-row Gram would need several
+# (n, n) temporaries beside it, so that launch is checked on two row blocks
+# of DIST_CHECK_ROWS (the first, and the last, which holds the inert pad
+# rows) and the plain twin is timed in CHUNK-row blocks over all rows.
+DIST_CHECK_ROWS = 2048
+# the Estimator's distributed tier on synth6 fp64: 10,800 rows pad to
+# 11,264 (11 panels)
+DIST_EST_BLOCK = 1024
+# distributed vs the exact tier on the forest split, fp64: the generic vs
+# the exact Gram diagonal. experiments/torch_dist_vs_exact.py on the CPU
+# (2,048 and 4,096 rows, both packages) gives max|d mean|/max|mean| ~1e-11
+# nngp and ~4e-8 ntk, max|d std|/max|std| ~1e-12 and ~2e-8; the bounds
+# leave 100x for n and for cuSOLVER's order against the panel loop.
+DIST_VS_EXACT = {"nngp": 1e-9, "ntk": 1e-6}
+# the fit's peak above what was allocated before it, in (n, n) shards of
+# the padded n: the bound the JAX package asserts for its compiled fit
+DIST_PEAK_SHARDS = 3.5
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64).ravel()
+    want = np.asarray(want, np.float64).ravel()
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def dist_forest(total, device, mesh):
+    """(a) forest 10,800 / 3,600, fp64, block size 256: nngp and ntk against
+    the fp64 anchors and beside the exact tier; an extend of 900 rows
+    against a refit with the fit's ridge; a checkpoint round trip through
+    the JAX package's distributed layout; gram_cross at the fit's launch.
+    Returns (times, kernel rows)."""
+    import tempfile
+
+    from nngp_tpu_torch.cli import train
+    from nngp_tpu_torch.convert import (distributed_from_numpy,
+                                        distributed_to_numpy)
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.models.kernel_spec import diag_eval, reference_kernel
+    from nngp_tpu_torch.parallel import distributed_fit
+
+    args = train.build_parser().parse_args(["--query_path", FOREST, "--x64"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        x_tr, y_tr, _, x_te, y_te, _ = train.load_split(args)
+    yv = np.asarray(y_te, np.float64).ravel()
+    spec = reference_kernel()
+    times, rows = {}, {}
+    for get in ("nngp", "ntk"):
+        def fit(x=x_tr, y=y_tr, **kw):
+            return distributed_fit(spec, x, y, mesh, get=get,
+                                   block_size=DIST_FOREST_BLOCK, **kw)
+
+        reset_launches()
+        post = fit()
+        mean, std = post.predict_mean_std_chunked(x_te, chunk=CHUNK)
+        torch.cuda.synchronize()
+        expect_launches(f"distributed forest {get} fit + predict",
+                        read_launches(), {"sym": 0, "cross": 2}, total)
+        quantum = DIST_FOREST_BLOCK
+        if (post.num_train != len(x_tr) or post.num_padded
+                != quantum * -(-len(x_tr) // quantum)):
+            raise AssertionError(f"layout {post.num_padded} / "
+                                 f"{post.num_train}")
+        hold_q(f"distributed forest fp64 {get} (block {DIST_FOREST_BLOCK},"
+               f" {post.num_padded // DIST_FOREST_BLOCK} panels)", mean, yv,
+               ANCHORS[get], (2e-3, 2e-3))
+        exact = fit_gp(spec, x_tr, y_tr, get=get, device=device)
+        e_mean, e_std = exact.predict_mean_std_chunked(x_te, chunk=CHUNK)
+        d_mean, d_std = _rel(mean, e_mean), _rel(std, e_std)
+        print(f"  distributed vs exact tier {get}: max|d mean|/max|mean| "
+              f"{d_mean!r}, max|d std|/max|std| {d_std!r} (bound "
+              f"{DIST_VS_EXACT[get]})")
+        if max(d_mean, d_std) > DIST_VS_EXACT[get]:
+            raise AssertionError(f"distributed vs exact {get}: {d_mean} / "
+                                 f"{d_std}")
+        if get == "ntk":
+            # the fit's launch: storage rows against the padded natural
+            # rows, the same rows at p = 1
+            rows["forest fit 11008x11008x20 fp64 nngp+ntk (p = 1)"] = \
+                check_dist_kernel("forest fit", spec, post.x_storage,
+                                  post.x_storage, ("nngp", "ntk"))
+        times[get] = {"fit_ms": host_ms(fit, reps=3),
+                      "predict_ms": host_ms(lambda: post.predict_mean_std(
+                          x_te), reps=3),
+                      "exact_fit_ms": host_ms(lambda: fit_gp(
+                          spec, x_tr, y_tr, get=get, device=device), reps=3)}
+        del exact
+        if get != "nngp":
+            continue
+        # extend 900 rows against a refit on the same 10,800 with the
+        # fit's ridge (the single-device tier's bound)
+        head = fit(x_tr[:-DIST_EXT], y_tr[:-DIST_EXT])
+        reset_launches()
+        ext = head.extend(x_tr[-DIST_EXT:], y_tr[-DIST_EXT:])
+        torch.cuda.synchronize()
+        expect_launches("distributed forest extend", read_launches(),
+                        {"sym": 0, "cross": 2}, total)
+        ridge = float(head.reg) / float(torch.mean(diag_eval(
+            spec.layers, torch.as_tensor(x_tr, device=device), get)))
+        refit = fit(diag_reg=ridge)
+        same_means(f"distributed forest extend-{DIST_EXT} vs refit",
+                   ext.predict_mean_std_chunked(x_te)[0],
+                   refit.predict_mean_std_chunked(x_te)[0])
+        times[get]["extend_ms"] = host_ms(
+            lambda: head.extend(x_tr[-DIST_EXT:], y_tr[-DIST_EXT:]), reps=3)
+        # checkpoint: gathered into the JAX package's layout, written,
+        # read back and sharded again predicts the same, bit for bit
+        with tempfile.TemporaryDirectory() as tmp:
+            arrs, meta = distributed_to_numpy(post)
+            np.savez(f"{tmp}/posterior.npz", **arrs)
+            with np.load(f"{tmp}/posterior.npz") as back:
+                again = distributed_from_numpy(
+                    back, spec, get, mesh, meta["block_size"],
+                    meta["n_real"], meta["input_scale"])
+        m2, s2 = again.predict_mean_std_chunked(x_te, chunk=CHUNK)
+        if not (np.array_equal(m2, mean) and np.array_equal(s2, std)):
+            raise AssertionError("distributed checkpoint round trip changed "
+                                 "the predictions")
+        print("  distributed forest checkpoint round trip: identical "
+              "predictions")
+        del head, ext, refit, again
+    torch.cuda.empty_cache()
+    return times, rows
+
+
+def dist_big(total, device, mesh, big):
+    """(b) synth6_big, fp32 chunk_norm, d = 61: the distributed fit of the
+    first 50,000 train rows (block size 1,024, ridge DIST_BIG_RIDGE) with
+    its peak, its panel loop on the device beside cuSOLVER's factor of the
+    same Gram, the exact tier at the same n, both predicting the 30,000
+    test rows, an extend of 1,000 rows; gram_cross at the fit's and a
+    predict chunk's launches on the fit's storage rows. Returns (times,
+    kernel rows)."""
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+    from nngp_tpu_torch.parallel import distributed_cholesky, distributed_fit
+    from nngp_tpu_torch.parallel.cholesky import cyclic_storage_order
+    from nngp_tpu_torch.parallel.sharded import _gram_storage, _ridge
+
+    spec = reference_kernel()
+    x_tr, y_tr, x_te, y_te, _ = big
+    x, y = x_tr[:DIST_BIG_N], y_tr[:DIST_BIG_N]
+    yv = y_te.ravel().astype(np.float64)
+
+    def fit():
+        return distributed_fit(spec, x, y, mesh, diag_reg=DIST_BIG_RIDGE,
+                               block_size=DIST_BIG_BLOCK, input_scale=1.0)
+
+    reset_launches()
+    post, peak = peak_gib(fit, device)
+    torch.cuda.synchronize()
+    expect_launches("distributed synth6_big fit", read_launches(),
+                    {"sym": 0, "cross": 1}, total)
+    n = post.num_padded
+    shard_gib = n * n * 4 / 2 ** 30
+    print(f"  distributed synth6_big fit: n {DIST_BIG_N} padded to {n} "
+          f"({n // DIST_BIG_BLOCK} panels), peak {peak!r} GiB = "
+          f"{peak / shard_gib!r} shards of {shard_gib!r} GiB (bound "
+          f"{DIST_PEAK_SHARDS})")
+    if peak > DIST_PEAK_SHARDS * shard_gib + 1.0:
+        raise AssertionError(f"distributed fit peak {peak} GiB")
+    times = {"n": DIST_BIG_N, "n_padded": n, "block": DIST_BIG_BLOCK,
+             "fit_peak_gib": peak, "fit_peak_shards": peak / shard_gib}
+    t0 = time.perf_counter()
+    reset_launches()
+    mean, _ = post.predict_mean_std_chunked(x_te, chunk=CHUNK)
+    torch.cuda.synchronize()
+    times["predict_30k_ms"] = (time.perf_counter() - t0) * 1e3
+    expect_launches("distributed synth6_big predict", read_launches(),
+                    {"sym": 0, "cross": -(-x_te.shape[0] // CHUNK)}, total)
+    t0 = time.perf_counter()
+    ext = post.extend(x_tr[DIST_BIG_N:DIST_BIG_N + NY_EXT],
+                      y_tr[DIST_BIG_N:DIST_BIG_N + NY_EXT])
+    torch.cuda.synchronize()
+    times["extend_1000_ms"] = (time.perf_counter() - t0) * 1e3
+    if not ext.is_finite():
+        raise AssertionError("distributed synth6_big extend is not finite")
+    del ext
+    torch.cuda.empty_cache()
+    # the panel loop alone on the device, and cuSOLVER on the same Gram
+    # (at p = 1 the storage order is the natural one)
+    xs = torch.as_tensor(np.concatenate(
+        [x, np.repeat(x[-1:], n - DIST_BIG_N, 0)]), device=device)
+    reg = _ridge(xs[:DIST_BIG_N], spec.layers, "nngp", DIST_BIG_RIDGE)
+    if not np.array_equal(cyclic_storage_order(n, DIST_BIG_BLOCK, 1),
+                          np.arange(n)):
+        raise AssertionError("p = 1 storage order is not the identity")
+    gram = _gram_storage(spec, xs, xs, reg, 1, 0, DIST_BIG_BLOCK, False,
+                         DIST_BIG_N)
+    x_sto = post.x_storage          # the rows of the fit's Gram launch
+    del post
+    torch.cuda.empty_cache()
+    work = gram.clone()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    distributed_cholesky(work, mesh, block_size=DIST_BIG_BLOCK,
+                         overwrite=True)
+    end.record()
+    torch.cuda.synchronize()
+    times["panel_loop_ms"] = start.elapsed_time(end)
+    del work
+    start.record()
+    l_ref = torch.linalg.cholesky(gram)
+    end.record()
+    torch.cuda.synchronize()
+    times["cusolver_cholesky_ms"] = start.elapsed_time(end)
+    del l_ref, gram, xs
+    torch.cuda.empty_cache()
+    x_chunk = torch.as_tensor(x_te[:CHUNK], device=device)
+    rows = {
+        "synth6_big fit 50176x50176x61 fp32 nngp (p = 1)": check_dist_kernel(
+            "synth6_big fit", spec, x_sto, x_sto, "nngp",
+            [(0, DIST_CHECK_ROWS), (n - DIST_CHECK_ROWS, n)]),
+        "synth6_big predict 8192x50176x61 fp32 nngp (p = 1)":
+            check_dist_kernel("synth6_big predict chunk", spec, x_chunk,
+                              x_sto, "nngp")}
+    del x_sto, x_chunk
+    torch.cuda.empty_cache()
+    times["fit_ms"] = host_ms(fit, reps=1)
+    torch.cuda.empty_cache()
+    def exact_fit():
+        return fit_gp(spec, x, y, diag_reg=DIST_BIG_RIDGE, input_scale=1.0,
+                      device=device)
+
+    exact = exact_fit()
+    t0 = time.perf_counter()
+    e_mean, _ = exact.predict_mean_std_chunked(x_te, chunk=CHUNK)
+    torch.cuda.synchronize()
+    times["exact_predict_30k_ms"] = (time.perf_counter() - t0) * 1e3
+    times["exact_fit_ms"] = host_ms(exact_fit, reps=1)
+    del exact
+    torch.cuda.empty_cache()
+    med, p95 = qerror(mean, yv)
+    e_med, e_p95 = qerror(e_mean, yv)
+    print(f"  distributed synth6_big 50k fp32: q-error {med!r} / {p95!r}, "
+          f"exact tier {e_med!r} / {e_p95!r} (bounds 1% / 3%)")
+    if abs(med / e_med - 1) > 0.01 or abs(p95 / e_p95 - 1) > 0.03:
+        raise AssertionError("distributed vs exact q-error at 50k")
+    times.update(median=med, p95=p95, exact_median=e_med, exact_p95=e_p95)
+    return times, rows
+
+
+def dist_nystrom(total, device, mesh, big):
+    """(c) fit_nystrom(mesh=) at synth6_big 90k / m = 2048, df64 moments:
+    the df64 anchor, and the mesh-less fit's predictions to 1e-10."""
+    from nngp_tpu_torch.gp import fit_nystrom
+    from nngp_tpu_torch.gp import nystrom as TN
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+
+    x_tr, y_tr, x_te, y_te, rows = big
+    kw = dict(num_inducing=NY_M, inducing_rows=rows, input_scale=1.0,
+              moments="df64")
+    TN._BASES_CACHE.clear()      # phase 8's bases would skip K_mm's launch
+    reset_launches()
+    post = fit_nystrom(reference_kernel(), x_tr, y_tr, mesh=mesh, **kw)
+    mean, std = post.predict_mean_std_chunked(x_te, chunk=CHUNK)
+    torch.cuda.synchronize()
+    expect_launches("Nystrom mesh fit + predict", read_launches(),
+                    {"sym": 0, "cross": 1 + panels(BIG_TRAIN)
+                     + -(-x_te.shape[0] // CHUNK)}, total)
+    hold_q("Nystrom with mesh= 90k df64", mean, y_te.ravel(),
+           NY_ANCHORS["df64"], NY_TOL["df64"])
+    plain = fit_nystrom(reference_kernel(), x_tr, y_tr, device=device, **kw)
+    m0, s0 = plain.predict_mean_std_chunked(x_te, chunk=CHUNK)
+    d = max(_rel(mean, m0), _rel(std, s0))
+    print(f"  Nystrom mesh vs mesh-less: max rel {d!r} (bound 1e-10)")
+    if d > 1e-10:
+        raise AssertionError(f"Nystrom mesh vs mesh-less: {d}")
+    return {"fit_ms": host_ms(lambda: fit_nystrom(
+        reference_kernel(), x_tr, y_tr, mesh=mesh, **kw), reps=1)}
+
+
+def dist_hyperopt(device, mesh):
+    """(d) the DTC learn with mesh= on the forest split's first 2,048 rows,
+    fp64, 5 steps: the same values as without the mesh."""
+    from nngp_tpu_torch.cli import train
+    from nngp_tpu_torch.gp.hyperopt import fit_kernel_hyperparams
+
+    args = train.build_parser().parse_args(["--query_path", FOREST, "--x64"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        x_tr, y_tr, *_ = train.load_split(args)
+    kw = dict(objective="dtc", steps=5, max_points=2048, dtc_m=512)
+    t0 = time.perf_counter()
+    got = fit_kernel_hyperparams(x_tr, y_tr, mesh=mesh, **kw)
+    mesh_s = time.perf_counter() - t0
+    want = fit_kernel_hyperparams(x_tr, y_tr, device=device, **kw)
+    pairs = {k: (getattr(got, k), getattr(want, k)) for k in
+             ("w0", "w", "b", "diag_reg", "log_evidence")}
+    pairs["history"] = (got.nll_history.tolist(), want.nll_history.tolist())
+    print(f"  DTC learn with mesh= vs without: {json.dumps(pairs)}")
+    if any(a != b for a, b in pairs.values()):
+        raise AssertionError("the DTC learn with mesh= differs")
+    return {"learn_s": mesh_s}
+
+
+def dist_dryrun():
+    """(e) 4 gloo CPU ranks: `python -m nngp_tpu_torch.parallel.dryrun 4`;
+    a non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nngp_tpu_torch.parallel.dryrun", "4"],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun 4 exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    print(f"  dryrun 4 gloo ranks: {line}")
+    return {"dryrun_s": time.perf_counter() - t0, **json.loads(line)}
+
+
+def dist_estimator(total, device, mesh):
+    """(f) the Estimator on the distributed tier over the NCCL mesh: synth6
+    fp64 at full size, block DIST_EST_BLOCK; fit and predict at the synth6
+    anchor, an extend of DIST_EXT validation lines, then a checkpoint saved
+    over the mesh and restored with restore(mesh=) that predicts the same,
+    bit for bit. Returns seconds."""
+    import os
+    import tempfile
+
+    from nngp_tpu_torch.parallel import DistributedPosterior
+    from nngp_tpu_torch.serve import Estimator
+
+    train, test_labeled, val = synth6_lines()
+    test, test_y = synth6_test(test_labeled)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir = write_train_dir(tmp, train)
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            est = Estimator("synth6", None, train_dir,
+                            stats_dir=SYNTH6_STATS, dtype=np.float64,
+                            tier="distributed", mesh=mesh,
+                            dist_block_size=DIST_EST_BLOCK, device=device)
+        fit_s = time.perf_counter() - t0
+        post = est.posterior
+        padded = DIST_EST_BLOCK * -(-len(train) // DIST_EST_BLOCK)
+        if (not isinstance(post, DistributedPosterior)
+                or post.num_padded != padded):
+            raise AssertionError(f"distributed Estimator: {type(post)}, "
+                                 f"{post.num_padded} rows")
+        mean, _ = est.predict(test)
+        torch.cuda.synchronize()
+        expect_launches("distributed Estimator fit + predict",
+                        read_launches(), {"sym": 0, "cross": 2}, total)
+        hold_q(f"Estimator tier='distributed' fp64 synth6 (block "
+               f"{DIST_EST_BLOCK}, {padded // DIST_EST_BLOCK} panels)", mean,
+               test_y, SYNTH6_ANCHOR, (2e-3, 2e-3))
+        reset_launches()
+        est.extend_with_lines(val[:DIST_EXT])
+        want = est.predict(test)
+        torch.cuda.synchronize()
+        expect_launches("distributed Estimator extend + predict",
+                        read_launches(), {"sym": 0, "cross": 3}, total)
+        ckpt = os.path.join(tmp, "ckpt")
+        est.save(ckpt)
+        with contextlib.redirect_stdout(io.StringIO()):
+            back = Estimator.restore(ckpt, mesh=mesh, device=device)
+        got = back.predict(test)
+        if (not isinstance(back.posterior, DistributedPosterior)
+                or back.posterior.num_train != len(train) + DIST_EXT):
+            raise AssertionError("distributed Estimator restore: "
+                                 f"{type(back.posterior)}")
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("distributed Estimator checkpoint predicts "
+                                 "differently")
+        print(f"  distributed Estimator: extend {DIST_EXT} lines, save, "
+              f"restore(mesh=) of {back.posterior.num_train} rows: "
+              "predictions identical")
+        del est, back
+    torch.cuda.empty_cache()
+    return {"construction_s": fit_s}
+
+
+def dist_torchrun(device, mesh):
+    """(g) the launcher path as documented: `torchrun --standalone
+    --nproc_per_node 1 -m nngp_tpu_torch.cli.serve_demo --mesh_devices 1
+    --tier distributed` on synth (an NCCL group from env://): a fit, a
+    checkpoint saved over that group and the streaming front end. It must
+    exit 0, and the checkpoint restored here with restore(mesh=) must
+    predict what it printed. Returns seconds."""
+    import tempfile
+
+    from nngp_tpu_torch.cli.serve_demo import load_query_lines_without_card
+    from nngp_tpu_torch.parallel import DistributedPosterior
+    from nngp_tpu_torch.serve import Estimator
+
+    test_file = "workloads/synth_join_data/join_query_2.txt"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "nngp_tpu_torch.cli.serve_demo",
+             "--mesh_devices", "1", "--tier", "distributed",
+             "--schema_name", "synth", "--stats_dir",
+             "workloads/synth_stats", "--train_query_path",
+             "workloads/synth_join_data", "--test_query_file", test_file,
+             "--ckpt", f"{tmp}/ckpt", "--streaming"],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0 or "streamed" not in proc.stdout:
+            raise AssertionError(
+                f"torchrun serve_demo exited {proc.returncode}: "
+                f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+        run_s = time.perf_counter() - t0
+        with contextlib.redirect_stdout(io.StringIO()):
+            back = Estimator.restore(f"{tmp}/ckpt", mesh=mesh, device=device)
+    if not isinstance(back.posterior, DistributedPosterior):
+        raise AssertionError(f"torchrun checkpoint: {type(back.posterior)}")
+    mean, std = back.predict(load_query_lines_without_card(test_file))
+    # the demo's own format for its first 5 predictions
+    want = [f"  {m:.3f}  {s:.3f}   (card ~ {2**float(m):.1f})"
+            for m, s in list(zip(mean, std))[:5]]
+    lines = proc.stdout.splitlines()
+    i = lines.index("first 5 (log2-card mean, std):")
+    if lines[i + 1:i + 6] != want:
+        raise AssertionError(f"torchrun serve_demo printed {lines[i + 1:i + 6]}"
+                             f", its checkpoint predicts {want}")
+    print("  torchrun serve_demo --mesh_devices 1 --tier distributed: exit 0 "
+          f"in {run_s!r} s, its checkpoint restored with the mesh predicts "
+          f"what it printed ({want[0].strip()} ...)")
+    return {"torchrun_s": run_s}
+
+
+def check_dist_kernel(label, spec, x1, x2, get, row_blocks=None):
+    """gram_cross on the rows of one of the tier's launches (x1 against x2,
+    as the path calls it) against its plain twin, timed beside it, its
+    bound and torch.matmul (dot only). row_blocks: None checks and times
+    the plain twin on the whole output; else the (start, stop) row ranges
+    to check, and the plain twin is timed in CHUNK-row blocks over all
+    rows. Returns the row."""
+    from nngp_tpu_torch.cli.gram_bench import device_ms
+    from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_cross_plain
+
+    (m, d), n, dtype = x1.shape, x2.shape[0], x1.dtype
+    outputs = 2 if isinstance(get, tuple) else 1
+    k = gram_cross(spec, x1, x2, get)
+    torch.cuda.synchronize()
+    k = k if outputs == 2 else (k,)
+    err = 0.0
+    for s, e in ([(0, m)] if row_blocks is None else row_blocks):
+        want = gram_cross_plain(spec, x1[s:e], x2, get)
+        want = want if outputs == 2 else (want,)
+        err = max([err] + [check_close(f"distributed {label} rows {s}:{e}",
+                                       g[s:e], w, dtype,
+                                       "nngp" if i == 0 else "ntk")
+                           for i, (g, w) in enumerate(zip(k, want))])
+        del want
+    del k
+    torch.cuda.empty_cache()
+    step = m if row_blocks is None else CHUNK
+
+    def plain():
+        for s in range(0, m, step):
+            gram_cross_plain(spec, x1[s:s + step], x2, get)
+
+    k_ms, p_ms = paired_ms(lambda: gram_cross(spec, x1, x2, get), plain,
+                           reps=3)
+    row = {"ms": k_ms,
+           "device_ms": device_ms(lambda: gram_cross(spec, x1, x2, get), 3),
+           "plain_ms": p_ms,
+           "library_ms": _event_ms(lambda: torch.matmul(x1, x2.mT), 3),
+           "max_abs_err": err}
+    row["bound_ms"], row["bound_by"] = pair_bound(m, n, d, dtype, outputs)
+    row["share"] = row["bound_ms"] / row["device_ms"]
+    print(f"time gram_cross distributed {label} {m}x{n}x{d}: "
+          + json.dumps(row))
+    torch.cuda.empty_cache()
+    return row
+
+
+def distributed_slice(card, total, device, big):
+    """Phase 11: the distributed tier at world size 1 (NCCL) on the card,
+    its Estimator and its torchrun launch, then 4 gloo CPU ranks. Returns
+    the gram_cross rows at its launches."""
+    from nngp_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, device="cuda")
+    print(f"distributed slice: mesh {mesh}, backend "
+          f"{torch.distributed.get_backend()}")
+    times, rows = {}, {}
+    times["forest"], more = dist_forest(total, device, mesh)
+    rows.update(more)
+    times["synth6_big"], more = dist_big(total, device, mesh, big)
+    rows.update(more)
+    times["nystrom_mesh"] = dist_nystrom(total, device, mesh, big)
+    times["hyperopt_mesh"] = dist_hyperopt(device, mesh)
+    times["estimator"] = dist_estimator(total, device, mesh)
+    times["dryrun"] = dist_dryrun()
+    times["torchrun"] = dist_torchrun(device, mesh)
+    print(f"distributed times on {card} (ms unless noted): "
+          + json.dumps(times))
+    torch.distributed.destroy_process_group()
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2969,9 +3491,12 @@ def main():
     time_slice(device)
     timed("6 serving slice", serve_slice, card, launches, device)
     timed("7 learning slice", learn_slice, card, launches, device)
-    panel = timed("8 Nystrom slice", nystrom_slice, card, launches, device)
+    panel, big = timed("8 Nystrom slice", nystrom_slice, card, launches,
+                       device)
     timed("9 baselines slice", baselines_slice, card, device)
     timed("10 data-layer slice", data_slice, card, launches, device)
+    dist_rows = timed("11 distributed slice", distributed_slice, card,
+                      launches, device, big)
     print("phase seconds: " + json.dumps(phase_s))
 
     summary = {"kernels": [
@@ -2981,8 +3506,10 @@ def main():
          "library": "torch.matmul(x1, x2.mT) fp32: dot only, not the same "
                     "function"}
         for key in ("sym", "cross")]}
-    # the cross kernel at the Nystrom panel shape, fp32 nngp
+    # the cross kernel at the Nystrom panel shape, fp32 nngp, and at the
+    # distributed tier's row-block shapes
     summary["kernels"][1]["nystrom_panel"] = panel
+    summary["kernels"][1]["distributed"] = dist_rows
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -21,12 +21,16 @@ Layer map:
   models/     kernel specs (Dense/activation serial -> nngp/ntk recursion)
   gp/         exact GP posterior fit/predict/extend (nngp + ntk semantics),
               ridge selection by evidence, kernel hyperparameters learned
-              by evidence (`hyperopt.py`)
+              by evidence (`hyperopt.py`), the Nystrom/DTC tier
   active/     active learning: biased, top-k and greedy acquisition
   data/       the pandas-free data layer: `Table`, CSV loaders, schema
               cleaning, the true-cardinality sampler, workload assembly
-  serve/      the exact-tier Estimator, streaming batcher, TCP server,
-              drift monitor, aux-query feedback merge
+  parallel/   the multi-device tier on torch.distributed (SPMD over a
+              1-D DeviceMesh): row-sharded Gram, block-cyclic distributed
+              Cholesky and solves, DistributedPosterior, a gloo dry run
+  serve/      the Estimator (exact, Nystrom and distributed tiers),
+              streaming batcher, TCP server, drift monitor, aux-query
+              feedback merge
   cli/        training, active-learning, baselines, serving demos, the
               offline query sampler and schema cleaner, the kernel sweep
               and profiling entry points

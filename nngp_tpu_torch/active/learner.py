@@ -21,8 +21,13 @@ What differs from the JAX learner:
   - a relearn round refits with the learned spec itself, whose layer
     program reaches the CUDA Gram kernels by value at every launch (the
     JAX learner passes traced `spec_params` so jit compiles once);
-  - the mesh tier waits for ROADMAP Queue A #12, and pad_acquisitions is
-    not ported (ROADMAP 'Not to port').
+  - pad_acquisitions is not ported (ROADMAP 'Not to port').
+
+With mesh= (a `parallel.make_mesh` DeviceMesh) the loop runs on the
+row-sharded distributed posterior (`parallel.distributed_fit`, rounds by
+`DistributedPosterior.extend`), or with nystrom_m on moments streamed over
+the mesh. It is collective: every rank runs the same learner on the same
+data, and the selections agree because every prediction is replicated.
 """
 
 import numpy as np
@@ -31,6 +36,8 @@ import torch
 from nngp_tpu_torch.eval.qerror import PredictionStatistics
 from nngp_tpu_torch.gp import GPPosterior, fit_gp, fit_nystrom
 from nngp_tpu_torch.models.kernel_spec import Activation, Dense, KernelSpec
+from nngp_tpu_torch.parallel.mesh import check_mesh_device
+from nngp_tpu_torch.parallel.sharded import distributed_fit
 from nngp_tpu_torch.utils.device import resolve_device
 
 
@@ -77,13 +84,12 @@ class ActiveLearner:
         acquired batch (`NystromPosterior.grow_inducing`, a streamed
         refit).
 
-        mesh, dist_block_size (ROADMAP Queue A #12) and pad_acquisitions
-        ('Not to port') raise NotImplementedError when set off their
-        default."""
-        if mesh is not None or dist_block_size is not None:
-            raise NotImplementedError(
-                "ActiveLearner(mesh=...) is not ported yet (ROADMAP Queue A "
-                "#12, parallel/)")
+        mesh: fit and update the row-sharded distributed posterior over
+        this DeviceMesh (`dist_block_size` its panel width), or with
+        nystrom_m stream the Nystrom moments over it; the learner's device
+        must be the mesh's type. refit defaults to 'incremental' on every
+        tier. pad_acquisitions ('Not to port') raises NotImplementedError
+        when set."""
         if pad_acquisitions:
             raise NotImplementedError(
                 "pad_acquisitions is not ported (ROADMAP 'Not to port': it "
@@ -118,6 +124,12 @@ class ActiveLearner:
         self.nystrom_grow = int(nystrom_grow)
         self._grow_rng = np.random.default_rng(seed)
         self.device = resolve_device(device)
+        check_mesh_device(mesh, self.device)
+        if dist_block_size is not None and mesh is None:
+            raise ValueError("dist_block_size is the distributed tier's "
+                             "panel width; it needs mesh=")
+        self.mesh = mesh
+        self.dist_block_size = dist_block_size
         self.selection = selection
         self.spec = spec
         self.budget = budget
@@ -176,7 +188,8 @@ class ActiveLearner:
                   width=next(l.width for l in self.spec.layers
                              if isinstance(l, Dense)),
                   objective="dtc" if self.nystrom_m is not None else "exact",
-                  dtc_m=min(512, self.nystrom_m or 512), device=self.device)
+                  dtc_m=min(512, self.nystrom_m or 512), device=self.device,
+                  mesh=self.mesh if self.nystrom_m is not None else None)
         prev = self._hyper
         if prev is None:                 # cold start: full restarts
             res = fit_kernel_hyperparams(x_train, y_train,
@@ -197,7 +210,16 @@ class ActiveLearner:
                                num_inducing=self.nystrom_m,
                                diag_reg=self.diag_reg, get=self.kernel_type,
                                input_scale=self.input_scale,
-                               moments=self.nystrom_moments)
+                               moments=self.nystrom_moments, mesh=self.mesh)
+        if self.mesh is not None:
+            # any n: the distributed layout pads with inert rows
+            return distributed_fit(self.spec,
+                                   self._hscale(self._dev(x_train)),
+                                   self._dev(y_train), self.mesh,
+                                   diag_reg=self.diag_reg,
+                                   get=self.kernel_type,
+                                   block_size=self.dist_block_size,
+                                   input_scale=self.input_scale)
         return fit_gp(self.spec, self._hscale(self._dev(x_train)),
                       self._dev(y_train), diag_reg=self.diag_reg,
                       get=self.kernel_type, input_scale=self.input_scale)

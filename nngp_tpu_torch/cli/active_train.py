@@ -7,10 +7,15 @@ pool, 20% validation, seed 10.
 
 Same flags and printed lines as the JAX CLI, plus --device (default cuda;
 no fallback to the CPU). fp32 by default, fp64 with --x64. Flags whose path
-is not ported stop with an error naming their ROADMAP item.
+is not ported stop with an error naming their ROADMAP item. --mesh_devices N
+runs the loop over an N-rank mesh (the row-sharded distributed posterior,
+or Nystrom moments streamed over it): under `torchrun --nproc_per_node N`
+(N must be the world size; without a launcher only N = 1), and only rank 0
+prints.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -27,7 +32,6 @@ from nngp_tpu_torch.utils.device import resolve_device
 # flag -> ROADMAP item that ports its path; setting one to anything but its
 # default stops the CLI
 _NOT_PORTED = {
-    "mesh_devices": "Queue A #12 (parallel/)",
     "pad_acquisitions": "'Not to port' (shape buckets: a CUDA launch "
                         "takes any shape)",
 }
@@ -105,7 +109,9 @@ def build_parser():
                         "dtc when --nystrom_m is set, else exact")
     p.add_argument("--x64", action="store_true", help="fp64")
     p.add_argument("--mesh_devices", type=int, default=0,
-                   help="not ported yet")
+                   help="run over an N-rank mesh (0 = one device): the "
+                        "row-sharded distributed posterior, or Nystrom "
+                        "moments streamed over it with --nystrom_m")
     p.add_argument("--nystrom_m", type=int, default=None,
                    help="run the loop on the streaming Nystrom/DTC tier "
                         "with this many inducing rows (O(m^2) device "
@@ -159,6 +165,24 @@ def main(argv=None):
     args = p.parse_args(argv)
     reject_unported(p, args)
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh_devices:
+        from nngp_tpu_torch.parallel import make_mesh
+        try:
+            mesh = make_mesh(args.mesh_devices, device=args.device)
+        except ValueError as e:           # N is not the world size
+            p.error(f"--mesh_devices: {e}")
+    from nngp_tpu_torch.parallel.mesh import is_lead
+
+    # every rank runs the same program; only rank 0 prints
+    with contextlib.ExitStack() as stack:
+        if not is_lead(mesh):
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        return run(args, device, mesh)
+
+
+def run(args, device, mesh):
     x_tr, y_tr, x_pool, y_pool, x_val, y_val, infos_val = load_split(args)
 
     spec = KernelSpec(mlp(args.depth, args.width, args.activation))
@@ -184,7 +208,7 @@ def main(argv=None):
                 max_points=args.hyper_points or None,  # 0 -> full n (dtc)
                 width=args.width, ard=args.ard,
                 objective=objective, dtc_m=min(512, args.nystrom_m or 512),
-                device=device)
+                device=device, mesh=mesh if objective == "dtc" else None)
             if args.hyper_file:
                 res.save(args.hyper_file)
                 print(f"saved hyperparameter artifact to {args.hyper_file}")
@@ -210,7 +234,7 @@ def main(argv=None):
         spec, budget=args.budget, active_iters=args.active_iters,
         kernel_type=args.kernel_type, biased_sample=args.biased_sample,
         selection=args.selection, diag_reg=args.diag_reg, refit=args.refit,
-        nystrom_m=args.nystrom_m, nystrom_grow=args.nystrom_grow,
+        mesh=mesh, nystrom_m=args.nystrom_m, nystrom_grow=args.nystrom_grow,
         nystrom_moments=args.nystrom_moments, input_scale=input_scale,
         relearn_hyper=hyper_res,
         hyper_points=args.hyper_points or None, hyper_ard=args.ard,

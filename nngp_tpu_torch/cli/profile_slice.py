@@ -12,6 +12,9 @@ predict, and a training epoch of two baselines.
         --phases nystrom_fit,nystrom_predict
     python -m nngp_tpu_torch.cli.profile_slice --device cuda \
         --query_path workloads/forest_data --phases baseline_dnn,baseline_ski
+    python -m nngp_tpu_torch.cli.profile_slice --device cuda --x64 \
+        --query_path workloads/forest_data --phases dist_fit,dist_predict \
+        [--dist_block_size 256]
 
 Takes the training CLI's flags (same workload, split, kernel and fit) plus
 --reps and --phases. The phases:
@@ -36,7 +39,11 @@ Takes the training CLI's flags (same workload, split, kernel and fit) plus
   baseline_ski   one epoch (one full-batch Adam step: two SKI products
                  under autograd, one batched CG, one SLQ) of `train_dkl_ski`
                  at its defaults (256 hidden units, 100 x 100 grid, 8
-                 probes, fp32).
+                 probes, fp32);
+  dist_fit       distributed_fit over a world-size-1 mesh (NCCL on a card,
+                 gloo on the CPU) at --dist_block_size: the panel loop,
+                 its broadcasts and all-gathers (NCCL kernels in `top`);
+  dist_predict   its predict_mean_std of the test split.
 
 After one cold call of each phase, for each phase:
 
@@ -81,8 +88,9 @@ TOP_KERNELS = 8
 HYPER_RESTARTS = {"hyperopt": (3e-2, 0.3), "hyperopt_warm": ()}
 NYSTROM_PHASES = ("nystrom_fit", "nystrom_predict")
 BASELINE_PHASES = ("baseline_dnn", "baseline_ski")
+DIST_PHASES = ("dist_fit", "dist_predict")
 PHASES = ("fit", "predict", *HYPER_RESTARTS, "greedy", *NYSTROM_PHASES,
-          *BASELINE_PHASES)
+          *BASELINE_PHASES, *DIST_PHASES)
 # the DNN baseline's default minibatch
 BASELINE_BATCH = 128
 # the greedy phase's size: the active learner's pre-filtered slice and its
@@ -158,6 +166,8 @@ def main(argv=None):
                    help="timed calls per phase (the median is reported)")
     p.add_argument("--phases", type=str, default="fit,predict",
                    help="comma-separated subset of " + ",".join(PHASES))
+    p.add_argument("--dist_block_size", type=int, default=256,
+                   help="the dist_* phases' panel width")
     args = train.parse_args(p, argv)
     if args.profile_dir:
         p.error("--profile_dir: this tool traces each phase itself; write "
@@ -220,6 +230,21 @@ def main(argv=None):
     if "nystrom_predict" in phases:
         ny = fit_ny()
         fns["nystrom_predict"] = lambda: ny.predict_mean_std_chunked(x_te)
+    if set(phases) & set(DIST_PHASES):
+        from nngp_tpu_torch.parallel import distributed_fit, make_mesh
+
+        mesh = make_mesh(1, device=args.device)
+
+        def fit_dist():
+            return distributed_fit(spec, x_tr, y_tr, mesh,
+                                   diag_reg=args.diag_reg,
+                                   get=args.kernel_type,
+                                   block_size=args.dist_block_size)
+
+        fns["dist_fit"] = fit_dist
+        if "dist_predict" in phases:
+            dpost = fit_dist()
+            fns["dist_predict"] = lambda: dpost.predict_mean_std(x_te)
     if "greedy" in phases:
         _, std = post.predict_mean_std(x_te)
         top = torch.argsort(std, stable=True)[-GREEDY_POOL:]

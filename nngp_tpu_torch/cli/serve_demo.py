@@ -10,13 +10,16 @@ print shapes and latency.
 
 Same flags as the JAX demo plus --device (default cuda; no fallback to the
 CPU). Flags whose path is not ported stop with an error naming their
-ROADMAP item. --quality best fills chunk_norm, ARD hyperparameters learned
+ROADMAP item. --mesh_devices N fits and serves the row-sharded distributed
+tier over N ranks: run it under `torchrun --nproc_per_node N` (N must be
+the world size; without a launcher only N = 1), and only rank 0 prints. --quality best fills chunk_norm, ARD hyperparameters learned
 by evidence (the DTC evidence on the Nystrom tier), df64 Nystrom moments
 in fp32 and a 10% calibration holdout for flags left unset. --nystrom_m
 or --tier auto|nystrom serve from the streaming Nystrom/DTC tier.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import threading
@@ -25,10 +28,8 @@ import time
 # flag -> ROADMAP item that ports its path; setting one to anything but its
 # default stops the demo
 _NOT_PORTED = {
-    "mesh_devices": "Queue A #12 (parallel/)",
     "pad_slots": "'Not to port' (shape buckets)",
 }
-_TIER_ITEMS = {"distributed": "Queue A #12 (parallel/)"}
 
 
 def load_query_lines_without_card(path: str, limit=None):
@@ -73,7 +74,8 @@ def build_parser():
     p.add_argument("--stream_clients", type=int, default=8)
     p.add_argument("--stream_wait_ms", type=float, default=5.0)
     p.add_argument("--mesh_devices", type=int, default=0,
-                   help="not ported yet")
+                   help="fit + serve row-sharded over an N-rank mesh (the "
+                        "world size under torchrun; 1 without a launcher)")
     p.add_argument("--nystrom_m", type=int, default=None,
                    help="serve from the streaming Nystrom/DTC tier with "
                         "this many inducing rows (O(m^2) device state at "
@@ -141,10 +143,11 @@ def build_parser():
                    choices=["auto", "exact", "nystrom", "distributed"],
                    help="posterior-tier routing: 'auto' keeps the exact "
                         "tier while the train set fits the device "
-                        "(Estimator exact_max_n) and serves from the "
-                        "streaming Nystrom tier beyond; explicit values "
-                        "force a tier ('distributed' is not ported yet). "
-                        "Default: derive from --nystrom_m")
+                        "(Estimator exact_max_n), distributed with "
+                        "--mesh_devices, and serves from the streaming "
+                        "Nystrom tier beyond; explicit values force a tier "
+                        "('distributed' needs --mesh_devices). Default: "
+                        "derive from --nystrom_m / --mesh_devices")
     p.add_argument("--calibrate_frac", type=float, default=None,
                    help="hold out this fraction of the training queries "
                         "and auto-calibrate uncertainty on them")
@@ -162,9 +165,6 @@ def reject_unported(p, args):
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag) != p.get_default(flag):
             p.error(f"--{flag} is not ported yet (ROADMAP {item})")
-    if args.tier in _TIER_ITEMS:
-        p.error(f"--tier {args.tier} is not ported yet "
-                f"(ROADMAP {_TIER_ITEMS[args.tier]})")
 
 
 def stream(est, lines, clients, wait_ms):
@@ -195,12 +195,31 @@ def main(argv=None):
     if not args.test_query_file and not args.listen:
         p.error("--test_query_file is required unless --listen is given")
     reject_unported(p, args)
+    if args.tier == "distributed" and not args.mesh_devices:
+        p.error("--tier distributed needs --mesh_devices")
+    mesh = None
+    if args.mesh_devices:
+        from nngp_tpu_torch.parallel import make_mesh
+        try:
+            mesh = make_mesh(args.mesh_devices, device=args.device)
+        except ValueError as e:           # N is not the world size
+            p.error(f"--mesh_devices: {e}")
+    from nngp_tpu_torch.parallel.mesh import is_lead
 
+    # every rank runs the same program; only rank 0 prints
+    with contextlib.ExitStack() as stack:
+        if not is_lead(mesh):
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        run(args, mesh)
+
+
+def run(args, mesh):
     from nngp_tpu_torch.serve import Estimator
 
     if args.ckpt and os.path.exists(os.path.join(args.ckpt, "meta.json")):
         print("restoring from checkpoint ...")
-        est = Estimator.restore(args.ckpt, device=args.device)
+        est = Estimator.restore(args.ckpt, mesh=mesh, device=args.device)
     else:
         print("loading schema and training data ... This may take seconds ...")
         # None, not False, when --learn_hyper is absent: --quality best
@@ -223,7 +242,7 @@ def main(argv=None):
                         nystrom_moments=args.nystrom_moments,
                         quality=args.quality,
                         calibrate_frac=args.calibrate_frac, tier=args.tier,
-                        device=args.device)
+                        mesh=mesh, device=args.device)
         if (args.hyper_file and est.hyper_result is not None
                 and not os.path.exists(args.hyper_file)):
             est.hyper_result.save(args.hyper_file)

@@ -3,6 +3,11 @@ package. Works on attributes and numpy arrays only, so it never imports
 jax: a JAX posterior's arrays are handed over as numpy
 (`np.asarray(post.l)`, ...).
 
+A distributed posterior travels as the JAX package's distributed
+checkpoint holds it: whole arrays in block-cyclic storage order, with the
+layout (block size, real row count) beside them; each rank keeps its own
+rows (`distributed_from_numpy`).
+
 A Nystrom posterior travels in the JAX package's field layout (the fields
 of its `NystromPosterior`, the arrays of its checkpoints): with
 moments='df64' the JAX package keeps each fp64 quantity as an fp32 (hi,
@@ -161,6 +166,59 @@ def nystrom_from_numpy(arrs, meta: dict, spec: KernelSpec, get: str,
         panel_size=int(meta["panel_size"]),
         finalize=finalize or meta.get("finalize", "host"),
         moments=moments, **fields)
+
+
+def distributed_from_numpy(arrs, spec: KernelSpec, get: str, mesh,
+                           block_size: int, n_real: int,
+                           input_scale: float = 1.0, g2e=None,
+                           axis_name: str = "data"):
+    """The port's DistributedPosterior from a JAX one's arrays: numpy
+    x_storage, y_storage, l, alpha, reg and (get='ntk') k_tt, whole and in
+    storage order (`np.asarray(post.l)`, or a distributed checkpoint's
+    npz). Collective: every rank passes the same arrays and keeps its rows.
+    The layout must fit this mesh: n tiles into p * block_size, and g2e,
+    when given (the JAX posterior's), is `cyclic_storage_order(n,
+    block_size, p)`."""
+    from nngp_tpu_torch.parallel.cholesky import (_layout,
+                                                  cyclic_storage_order)
+    from nngp_tpu_torch.parallel.mesh import mesh_device, topology
+    from nngp_tpu_torch.parallel.sharded import DistributedPosterior
+
+    _, p, d = topology(mesh, axis_name)
+    n = int(np.asarray(arrs["l"]).shape[0])
+    b, _, m = _layout(n, p, int(block_size))
+    order = cyclic_storage_order(n, b, p)
+    if g2e is not None and not np.array_equal(np.asarray(g2e), order):
+        raise ValueError("the arrays' storage order is not the cyclic order "
+                         f"of n={n}, block_size={b} on a {p}-rank mesh")
+    dev = mesh_device(mesh)
+
+    def mine(name):  # a copy: the arrays may be read-only views
+        a = np.array(np.asarray(arrs[name])[d * m:(d + 1) * m])
+        return torch.as_tensor(a, device=dev).contiguous()
+
+    y = mine("y_storage")
+    return DistributedPosterior(
+        x_storage=mine("x_storage"),
+        y_storage=y if y.dim() == 2 else y[:, None], l=mine("l"),
+        alpha=mine("alpha").reshape(m, -1),
+        reg=torch.as_tensor(np.array(arrs["reg"]), device=dev),
+        k_tt=mine("k_tt") if get == "ntk" else None, spec=spec, get=get,
+        mesh=mesh, axis_name=axis_name, block_size=b, g2e=order,
+        n_real=int(n_real), input_scale=float(input_scale))
+
+
+def distributed_to_numpy(post):
+    """(arrays, meta): a DistributedPosterior gathered into the JAX
+    package's distributed checkpoint layout, the arrays in rank 0's host
+    memory (None on the other ranks). Collective."""
+    arrs = post.gather_state()
+    meta = {"block_size": int(post.block_size),
+            "axis_name": post.axis_name,
+            "mesh_size": int(post.mesh.size()),
+            "n_real": int(post.num_train),
+            "input_scale": float(post.input_scale)}
+    return arrs, meta
 
 
 # ---------------------------------------------------------------- baselines

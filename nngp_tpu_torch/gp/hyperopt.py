@@ -49,12 +49,15 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nngp_tpu_torch.models.kernel_spec import (Activation, Dense, KernelSpec,
                                                apply_diag_recursion,
                                                apply_recursion)
 from nngp_tpu_torch.ops.dual_activations import (erf_diag, sin_diag, sin_nngp,
                                                  sin_ntk_mult)
+from nngp_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                          all_reduce_sum_many)
 from nngp_tpu_torch.gp.posterior import _as_tensor
 from nngp_tpu_torch.ops.gram import input_diag, input_gram
 from nngp_tpu_torch.utils.device import resolve_device
@@ -186,17 +189,46 @@ def _nll_ard(theta, x, y, depth, activation, width, get, duals):
                              get, duals, reg_rel)
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """all_reduce(SUM) of a rank's row moments; the backward is the
+    identity, so each rank backpropagates only its own rows' share and the
+    parameter gradients are summed over ranks afterwards.
+    `torch.distributed.nn.functional.all_reduce` is no substitute: its
+    backward all-reduces the incoming gradient, and a loss replicated on
+    every rank would get p times its gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def _nll_dtc(theta, x, y, m, depth, activation, width, get, duals,
-             mm_jitter_rel=None):
+             mask=None, mm_jitter_rel=None, x_m=None, group=None):
     """Exact negative log evidence of the DTC/Nystrom model: y ~ N(0,
     Q + r I) with Q = K_nm K_mm^-1 K_mn over the FIRST m rows as inducing
     points (`fit_kernel_hyperparams` permutes the rows once so the prefix
     is a uniform draw). Scalar or ARD by the keys of theta. Cost per step
     O(n m^2 + m^3). K_mm's diagonal is the exact recursion; both factors
     are jittered relative to the model's own scales, and a failed one
-    gives NaN. Returns (R,)."""
+    gives NaN. Returns (R,).
+
+    mask: (n,) 0/1 row weights; a row with mask 0 contributes nothing (its
+    kernel row, its y, its share of the ridge's trace and of the n in the
+    evidence). Every term but the m x m stage is then a sum over rows, so
+    the loss shards by rows: with `group` (the mesh path), x, y and mask
+    are this rank's rows, x_m the inducing rows (on every rank), and the
+    row sums go through one all-reduce before the m x m stage."""
+    if x_m is None:
+        x_m = x[..., :m, :]
     if "log_s" in theta:
-        x = x * torch.exp(theta["log_s"])[:, None, :]
+        s = torch.exp(theta["log_s"])[:, None, :]
+        x, x_m = x * s, x_m * s
         w0 = 1.0
     else:
         w0 = _per_restart(torch.exp(theta["log_w0"]))
@@ -204,19 +236,20 @@ def _nll_dtc(theta, x, y, m, depth, activation, width, get, duals,
                      ("log_w", "log_b", "log_reg"))
     layers = _build_layers(depth, activation, width, w0, _per_restart(w),
                            _per_restart(b))
-    n = x.shape[-2]
-    x_m = x[..., :m, :]
-    d_all = input_diag(x)
-    d_m = d_all[..., :m]
-    dvec = _diag_kernel(d_all, layers, get)
-    r = reg_rel * torch.sum(dvec, dim=-1) / n
+    d_all, d_m = input_diag(x), input_diag(x_m)
+    dvec, dvec_m = (_diag_kernel(v, layers, get) for v in (d_all, d_m))
+    if mask is None:
+        n_eff, ym, tr = x.shape[-2], y, torch.sum(dvec, dim=-1)
+    else:
+        n_eff, ym = torch.sum(mask), y * mask[:, None]
+        tr = torch.sum(dvec * mask, dim=-1)
 
     k0_mm = input_gram(x_m, x_m)
     nngp_mm, ntk_mm = apply_recursion(k0_mm, torch.zeros_like(k0_mm),
                                       d_m[..., :, None], d_m[..., None, :],
                                       layers, duals=duals)
     k_mm = ntk_mm if get == "ntk" else nngp_mm
-    k_mm = torch.diagonal_scatter(k_mm, dvec[:, :m], dim1=-2, dim2=-1)
+    k_mm = torch.diagonal_scatter(k_mm, dvec_m, dim1=-2, dim2=-1)
     # fp32 needs a far larger relative jitter than fp64: near-duplicate
     # rows make kappa(K_mm) exceed 1/eps_fp32 (the JAX package measured
     # 1e-6 -> NaN factor, 1e-4 stable on synth6_big chunk_norm); the shift
@@ -224,7 +257,7 @@ def _nll_dtc(theta, x, y, m, depth, activation, width, get, duals,
     if mm_jitter_rel is None:
         mm_jitter_rel = 1e-10 if x.dtype == torch.float64 else 1e-4
     eye = torch.eye(m, dtype=k_mm.dtype, device=k_mm.device)
-    jitter = mm_jitter_rel * torch.mean(dvec[:, :m], dim=-1)
+    jitter = mm_jitter_rel * torch.mean(dvec_m, dim=-1)
     l_mm, info_mm = torch.linalg.cholesky_ex(k_mm + _per_restart(jitter)
                                              * eye)
 
@@ -233,16 +266,32 @@ def _nll_dtc(theta, x, y, m, depth, activation, width, get, duals,
                                       d_all[..., :, None],
                                       d_m[..., None, :], layers, duals=duals)
     k_nm = ntk_nm if get == "ntk" else nngp_nm
+    if mask is not None:
+        # a masked row's kernel values are nonzero whenever b > 0 (the bias
+        # enters every layer): mask after the recursion
+        k_nm = k_nm * mask[:, None]
     psi = torch.linalg.solve_triangular(l_mm, k_nm.mT, upper=False)
     c = psi @ psi.mT
-    b_m = psi @ y
+    b_m = psi @ ym
+    rtr = reg_rel * tr
+    yy = torch.sum(ym * ym)
+    if group is not None:
+        rr = c.shape[0]
+        packed = _SumOverRanks.apply(
+            torch.cat([c.reshape(rr, -1), b_m.reshape(rr, -1),
+                       rtr[:, None]], dim=1), group)
+        c = packed[:, :m * m].reshape(rr, m, m)
+        b_m = packed[:, m * m:m * m + m].reshape(rr, m, 1)
+        rtr = packed[:, -1]
+        n_eff, yy = all_reduce_sum(torch.stack([n_eff, yy]).detach(), group)
+    r = rtr / n_eff
     l_c, info_c = torch.linalg.cholesky_ex(c + _per_restart(r) * eye)
     t = torch.linalg.solve_triangular(l_c, b_m, upper=False)
-    quad = (torch.sum(y * y) - torch.sum(t * t, dim=(-2, -1))) / r
-    logdet = ((n - m) * torch.log(r)
+    quad = (yy - torch.sum(t * t, dim=(-2, -1))) / r
+    logdet = ((n_eff - m) * torch.log(r)
               + 2.0 * torch.sum(torch.log(torch.diagonal(
                   l_c, dim1=-2, dim2=-1)), dim=-1))
-    nll = 0.5 * (quad + logdet + n * _LOG_2PI)
+    nll = 0.5 * (quad + logdet + n_eff * _LOG_2PI)
     return torch.where((info_mm > 0) | (info_c > 0), torch.nan, nll)
 
 
@@ -296,16 +345,20 @@ class _GuardedAdam:
 
 
 def _optimize(x, y, theta0s, depth, activation, width, get, steps, lr, eps,
-              ard=False, objective="exact", dtc_m=0, mm_jitter_rel=None):
+              ard=False, objective="exact", dtc_m=0, mm_jitter_rel=None,
+              mask=None, x_m=None, group=None):
     """`steps` guarded Adam iterations of the loss for every restart at
     once (leading dimension R of every entry of theta0s). Returns the
     restart with the lowest finite final loss: (its theta, its per-step
-    loss history (steps,), its final loss)."""
+    loss history (steps,), its final loss). With `group` (the mesh path of
+    the DTC loss) x, y and mask are this rank's rows; the loss is the same
+    on every rank, the gradients are summed over ranks, and every rank
+    takes the same step."""
     duals = _grad_safe_duals(eps)
     if objective == "dtc":
         def loss(th):
             return _nll_dtc(th, x, y, dtc_m, depth, activation, width, get,
-                            duals, mm_jitter_rel)
+                            duals, mask, mm_jitter_rel, x_m, group)
     elif ard:
         def loss(th):
             return _nll_ard(th, x, y, depth, activation, width, get, duals)
@@ -324,6 +377,9 @@ def _optimize(x, y, theta0s, depth, activation, width, get, steps, lr, eps,
         val = loss(theta)
         grads = dict(zip(theta, torch.autograd.grad(val.sum(),
                                                     list(theta.values()))))
+        if group is not None:     # each rank's share, summed
+            grads = dict(zip(grads, all_reduce_sum_many(
+                list(grads.values()), group)))
         hist.append(val.detach())
         # a failed factor's NaN loss rejects the step: its backward can
         # still return finite garbage
@@ -479,15 +535,25 @@ def fit_kernel_hyperparams(x, y, depth: int = 1, activation: str = "relu",
         overrides its K_mm jitter.
       * max_points=None disables the subsample (sensible with 'dtc',
         whose cost is linear in n).
-      * mesh is not ported (ROADMAP Queue A #12).
+      * mesh (a `parallel.make_mesh` DeviceMesh; objective='dtc' only):
+        the rows are split over the ranks, padded to a multiple of the
+        mesh size with mask-0 rows, and the DTC loss's row sums and the
+        gradients are summed over ranks. Collective: every rank passes the
+        same x and y; the device is the mesh's.
 
     The subsample and the DTC permutation come from numpy generators
     seeded as in the JAX package, so both score the same rows. Raises
     FloatingPointError when every restart diverged."""
     if mesh is not None:
-        raise NotImplementedError(
-            "fit_kernel_hyperparams(mesh=...) is not ported yet (ROADMAP "
-            "Queue A #12, parallel/)")
+        if objective != "dtc":
+            raise ValueError(
+                "mesh-sharded hyperopt requires objective='dtc': the exact "
+                "O(n^3) loss is not row-shardable")
+        from nngp_tpu_torch.parallel.mesh import (check_mesh_device,
+                                                  mesh_device)
+        if device is not None:
+            check_mesh_device(mesh, device)
+        device = mesh_device(mesh)
     if device is None:
         if not isinstance(x, torch.Tensor):
             raise ValueError("fit_kernel_hyperparams needs device= for "
@@ -550,10 +616,25 @@ def fit_kernel_hyperparams(x, y, depth: int = 1, activation: str = "relu",
         raise ValueError(
             f"objective must be 'exact' or 'dtc', got {objective!r}")
     dtc_m = min(int(dtc_m), int(x.shape[0])) if objective == "dtc" else 0
+    n_scored = int(x.shape[0])
+    shard = {}
+    if mesh is not None:
+        group = mesh.get_group()
+        p, rank = dist.get_world_size(group), dist.get_rank(group)
+        pad = (-n_scored) % p
+        shard["x_m"] = x[:dtc_m].contiguous()
+        mask = torch.cat([torch.ones(n_scored, **full),
+                          torch.zeros(pad, **full)])
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+        y = torch.cat([y, y.new_zeros((pad, y.shape[1]))])
+        rows = slice(rank * (x.shape[0] // p), (rank + 1) * (x.shape[0] // p))
+        x, y = x[rows].contiguous(), y[rows].contiguous()
+        shard.update(mask=mask[rows].contiguous(), group=group)
     theta, hist, final = _optimize(x, y, theta0s, depth, activation, width,
                                    get, steps, float(lr), float(eps),
                                    ard=ard, objective=objective,
-                                   dtc_m=dtc_m, mm_jitter_rel=mm_jitter_rel)
+                                   dtc_m=dtc_m, mm_jitter_rel=mm_jitter_rel,
+                                   **shard)
     final = float(final)
     if not math.isfinite(final):
         # every restart diverged: argmin over all-inf picks restart 0,
@@ -576,7 +657,7 @@ def fit_kernel_hyperparams(x, y, depth: int = 1, activation: str = "relu",
     return HyperoptResult(
         spec=spec, diag_reg=reg, log_evidence=-final,
         nll_history=hist.cpu().numpy(), w0=w0, w=w, b=b,
-        num_points=int(x.shape[0]), depth=depth, activation=activation,
+        num_points=n_scored, depth=depth, activation=activation,
         feature_scale=feature_scale, objective=objective,
         get=get, num_features=int(x.shape[1]))
 

@@ -48,8 +48,13 @@ What differs from the JAX module:
     host basis does (JAX's emulated-fp64 device basis floors pivots);
   - finalize='auto' resolves to 'device' for a posterior on a CUDA device
     (fp32 or fp64: the device path is native fp64), 'host' on the CPU;
+  - with mesh= (`_sharded_panel_fn` in JAX) every rank streams its share
+    of each panel (the panel length rounded up to a multiple of the mesh
+    size; the rows past n are dropped, where JAX masks its zero-padded
+    tail) and one all-reduce a panel sums the (k, k)-sized deltas; every
+    rank holds the whole, replicated posterior;
   - not ported: inducing='rpchol' and `select_inducing_rpchol`, and
-    precision='high' (ROADMAP 'Not to port'); mesh= (ROADMAP Queue A #12).
+    precision='high' (ROADMAP 'Not to port').
 """
 
 import dataclasses
@@ -66,10 +71,10 @@ from nngp_tpu_torch.models.kernel_spec import (KernelSpec,
                                                diag_eval)
 from nngp_tpu_torch.ops.gram import input_diag
 from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
+from nngp_tpu_torch.parallel.mesh import all_reduce_sum_many
 from nngp_tpu_torch.utils.device import resolve_device
 
 _DEFAULT_PANEL = 16384
-_PARALLEL = "ROADMAP Queue A #12 (parallel/)"
 
 
 def _default_rank_rtol(dtype, moments: str = "fp32") -> float:
@@ -237,14 +242,35 @@ def _finalize(c_raw, b_w, reg, dtype, mode: str):
 
 
 # ------------------------------------------------------------ streaming
+def _panel_deltas(spec, get, x_me, w_solve, w_kmm, x_p, y_p):
+    """The whitened moments of one panel's rows: (dC, db, dM1 or None,
+    d diag_sum, d yty)."""
+    if get == "ntk":
+        nngp_pm, solve_pm = gram_cross(spec, x_p, x_me, ("nngp", "ntk"))
+    else:
+        solve_pm = gram_cross(spec, x_p, x_me, "nngp")
+    psi = (solve_pm @ w_solve).mT                 # (k, p)
+    dm1 = (nngp_pm @ w_kmm).mT @ psi.mT if get == "ntk" else None
+    # the relative ridge's trace: the exact solve-kernel diagonal
+    dn, dt = apply_diag_recursion(input_diag(x_p), spec.layers)
+    return (psi @ psi.mT, psi @ y_p, dm1, torch.sum(dt if get == "ntk"
+                                                    else dn),
+            torch.sum(y_p * y_p))
+
+
 def _stream_moments(spec, get, x_m, w_solve, w_kmm, x, y, panel_size,
                     c_raw=None, b_w=None, m1_w=None, diag_sum=None,
-                    yty=None):
+                    yty=None, mesh=None, mesh_axis="data"):
     """Panel loop over the (n, d) rows x and (n, 1) labels y (tensors on
     x_m's device, prescaled): the whitened moments of every panel added to
     the given accumulators, or to zeros. The moments run in the bases'
     dtype (fp64 for moments='df64'); the last panel is ragged. Returns
-    (c_raw, b_w, m1_w or None, diag_sum, yty)."""
+    (c_raw, b_w, m1_w or None, diag_sum, yty).
+
+    With `mesh` (collective: every rank passes the same rows) the panel
+    length rounds up to a multiple of the mesh size q, rank r streams rows
+    [r p/q, (r + 1) p/q) of each panel (the rows past n add nothing), and
+    the deltas are summed over ranks before they are added."""
     mdt = w_solve.dtype
     dev = x_m.device
     k = w_solve.shape[1]
@@ -259,22 +285,30 @@ def _stream_moments(spec, get, x_m, w_solve, w_kmm, x, y, panel_size,
         yty = torch.zeros((), dtype=mdt, device=dev)
     n = x.shape[0]
     p = min(panel_size, max(n, 1))
+    q, rank = 1, 0
+    if mesh is not None:
+        q, rank = int(mesh.size()), int(mesh.get_local_rank(mesh_axis))
+        p = -(-p // q) * q
+    share = p // q
     for s in range(0, n, p):
-        x_p = x[s:s + p].to(mdt).contiguous()
-        y_p = y[s:s + p].to(mdt)
+        lo, hi = s + rank * share, min(s + (rank + 1) * share, n)
+        if lo < hi:
+            deltas = _panel_deltas(spec, get, x_me, w_solve, w_kmm,
+                                   x[lo:hi].to(mdt).contiguous(),
+                                   y[lo:hi].to(mdt))
+        else:                 # this rank's share lies past the last row
+            deltas = (torch.zeros_like(c_raw), torch.zeros_like(b_w),
+                      None if m1_w is None else torch.zeros_like(m1_w),
+                      torch.zeros_like(diag_sum), torch.zeros_like(yty))
+        if mesh is not None:
+            deltas = all_reduce_sum_many(deltas, mesh.get_group(mesh_axis))
+        dc, db, dm1, dd, dy2 = deltas
+        c_raw = c_raw + dc
+        b_w = b_w + db
         if get == "ntk":
-            nngp_pm, solve_pm = gram_cross(spec, x_p, x_me, ("nngp", "ntk"))
-        else:
-            solve_pm = gram_cross(spec, x_p, x_me, "nngp")
-        psi = (solve_pm @ w_solve).mT                 # (k, p)
-        c_raw = c_raw + psi @ psi.mT
-        b_w = b_w + psi @ y_p
-        if get == "ntk":
-            m1_w = m1_w + (nngp_pm @ w_kmm).mT @ psi.mT
-        # the relative ridge's trace: the exact solve-kernel diagonal
-        dn, dt = apply_diag_recursion(input_diag(x_p), spec.layers)
-        diag_sum = diag_sum + torch.sum(dt if get == "ntk" else dn)
-        yty = yty + torch.sum(y_p * y_p)
+            m1_w = m1_w + dm1
+        diag_sum = diag_sum + dd
+        yty = yty + dy2
     return c_raw, b_w, m1_w, diag_sum, yty
 
 
@@ -312,6 +346,10 @@ class NystromPosterior:
     # posteriors restored from checkpoints that predate it
     yty: Optional[torch.Tensor] = None
     moments: str = "fp32"
+    # runtime only, not checkpoint state: extend / forget / grow stream
+    # their rows over this mesh (collective: every rank calls them)
+    mesh: Optional[object] = None
+    mesh_axis: str = "data"
 
     @property
     def device(self) -> torch.device:
@@ -445,7 +483,7 @@ class NystromPosterior:
             x = x * (1.0 / self.input_scale)
         return x.shape[0], _stream_moments(
             self.spec, self.get, self.x_m, self.w_solve, self.w_kmm, x, y,
-            self.panel_size, **acc)
+            self.panel_size, mesh=self.mesh, mesh_axis=self.mesh_axis, **acc)
 
     def extend(self, x_new, y_new) -> "NystromPosterior":
         """Add labeled rows (raw units): their moments are accumulated and
@@ -496,8 +534,8 @@ class NystromPosterior:
             get=self.get, panel_size=self.panel_size,
             rank_rtol=self.rank_rtol, input_scale=self.input_scale,
             precision=self.precision, inducing_rows=rows,
-            finalize=self.finalize, moments=self.moments,
-            device=self.device)
+            finalize=self.finalize, moments=self.moments, mesh=self.mesh,
+            mesh_axis=self.mesh_axis, device=self.device)
 
     # ---------------------------------------------------- model evidence
     def log_evidence(self) -> float:
@@ -560,12 +598,19 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
     (the hook `grow_inducing` uses). finalize: 'host', 'device' or 'auto'.
     moments: 'fp32' or 'df64' (fp32 posteriors only: the kernel entries,
     bases, projections and accumulators in fp64, with the rank cut 1e-12).
+    mesh: a `parallel.make_mesh` DeviceMesh: every panel's rows are split
+    over its ranks and the moment deltas summed over them (collective:
+    every rank passes the same rows and gets the same posterior, which
+    keeps the mesh for extend and forget). The device is then the mesh's.
     """
     if get not in ("nngp", "ntk"):
         raise ValueError(f"get must be 'nngp' or 'ntk', got {get!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            f"fit_nystrom(mesh=...) is not ported yet ({_PARALLEL})")
+        from nngp_tpu_torch.parallel.mesh import (check_mesh_device,
+                                                  mesh_device)
+        if device is not None:
+            check_mesh_device(mesh, device)
+        device = mesh_device(mesh)
     if precision == "high":
         raise NotImplementedError(
             "precision='high' is not ported (ROADMAP 'Not to port': the "
@@ -619,7 +664,8 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
         spec, get, float(rank_rtol), x_m, whiten=whiten,
         device=(finalize == "device" and whiten == "chol"), entries=moments)
     c_raw, b_w, m1_w, diag_sum, yty = _stream_moments(
-        spec, get, x_m, w_solve, w_kmm, x, y, panel_size)
+        spec, get, x_m, w_solve, w_kmm, x, y, panel_size, mesh=mesh,
+        mesh_axis=mesh_axis)
     if diag_reg_absolute_scale:
         reg = torch.tensor(diag_reg, dtype=x.dtype, device=device)
     else:
@@ -631,4 +677,5 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
         spec=spec, get=get, diag_reg=diag_reg, num_train=n,
         input_scale=float(input_scale), precision=precision,
         rank_rtol=float(rank_rtol), panel_size=panel_size,
-        finalize=finalize, yty=yty, moments=moments)
+        finalize=finalize, yty=yty, moments=moments, mesh=mesh,
+        mesh_axis=mesh_axis)

@@ -20,9 +20,13 @@ tier that serves (DTC on the Nystrom tier); `relearn_hyperparams`
 relearns them on a live server, warm-started, and rolls back on any
 failure.
 
+The distributed tier (`mesh=`, a `parallel.make_mesh` DeviceMesh) fits
+and serves the row-sharded posterior of `parallel/`. Every rank then
+builds the same Estimator and calls every method with the same arguments
+(SPMD); checkpoints are written by rank 0 in the JAX package's distributed
+format.
+
 What differs from the JAX Estimator:
-  - the distributed tier (mesh) raises `NotImplementedError` naming its
-    ROADMAP item;
   - `exact_max_n`, the train-set size up to which `tier='auto'` keeps the
     exact tier, defaults to a bound derived from the card's memory
     (`default_exact_max_n`); 55,000 on the CPU;
@@ -48,7 +52,9 @@ import torch
 
 from nngp_tpu_torch.featurize.join import MultiJoinEncoder
 from nngp_tpu_torch.featurize.stats import TableStats
-from nngp_tpu_torch.convert import (nystrom_from_numpy, nystrom_to_numpy,
+from nngp_tpu_torch.convert import (distributed_from_numpy,
+                                    distributed_to_numpy,
+                                    nystrom_from_numpy, nystrom_to_numpy,
                                     posterior_from_numpy, posterior_to_numpy)
 from nngp_tpu_torch.data.workload import schema_stats, schema_stats_from_csvs
 from nngp_tpu_torch.gp.nystrom import (NystromPosterior, _resolve_finalize,
@@ -56,6 +62,9 @@ from nngp_tpu_torch.gp.nystrom import (NystromPosterior, _resolve_finalize,
 from nngp_tpu_torch.gp.posterior import fit_gp
 from nngp_tpu_torch.models.kernel_spec import (Activation, Dense, KernelSpec,
                                                reference_kernel)
+from nngp_tpu_torch.parallel.mesh import check_mesh_device, is_lead
+from nngp_tpu_torch.parallel.sharded import (DistributedPosterior,
+                                             distributed_fit)
 from nngp_tpu_torch.utils.device import resolve_device
 
 # Scaled-feature magnitude ceiling for incremental extends, mirroring the
@@ -63,14 +72,6 @@ from nngp_tpu_torch.utils.device import resolve_device
 # squared fp32 Gram entries head toward overflow.
 _EXTEND_MAX_SCALED_ABS = 2.0 ** 20
 
-_PARALLEL = "ROADMAP Queue A #12 (parallel/)"
-
-# constructor argument -> (its default, what ports its path)
-_NOT_PORTED = {
-    "mesh": (None, _PARALLEL),
-    "dist_block_size": (None, _PARALLEL),
-    "pad_slots": (None, "ROADMAP 'Not to port' (shape buckets)"),
-}
 
 # tier='auto' keeps the exact tier while its largest device-memory peak
 # stays within this share of the card's memory. The peaks, in bytes per
@@ -183,9 +184,15 @@ class Estimator:
                  auto_nystrom_m: int = 2048,
                  exact_max_n: Optional[int] = None, *, device):
         """The arguments of the JAX Estimator, plus `device` (required;
-        'cuda' without a GPU raises). Those whose path is not ported raise
-        NotImplementedError naming their ROADMAP item when set off their
-        default: mesh, dist_block_size, pad_slots, and tier='distributed'.
+        'cuda' without a GPU raises). pad_slots is not ported and raises
+        NotImplementedError when set (ROADMAP 'Not to port').
+
+        mesh: a `parallel.make_mesh` DeviceMesh on `device`'s type: fit and
+        serve with the row-sharded distributed posterior
+        (`parallel.distributed_fit`, panel width dist_block_size), or with
+        nystrom_m the Nystrom tier's moments streamed over the mesh.
+        Collective: every rank constructs the Estimator with the same
+        arguments.
 
         nystrom_m: fit the streaming Nystrom/DTC tier (`gp.nystrom`) with
         this many inducing rows instead of the exact posterior: O(m^2)
@@ -194,11 +201,14 @@ class Estimator:
         projections and accumulators on an fp32 posterior).
 
         tier: None derives the tier from the flags (nystrom_m set ->
-        Nystrom, else exact). 'auto' keeps the exact tier while the fitted
-        row count is at most exact_max_n (None: `default_exact_max_n` of
-        the device, dtype and kernel_type) and routes larger train sets to the Nystrom
-        tier with auto_nystrom_m inducing rows (and moments 'df64' under
-        quality='best' in fp32). 'exact' and 'nystrom' force a tier.
+        Nystrom, mesh set -> distributed, else exact). 'auto' keeps the
+        exact tier (the distributed one with a mesh) while the fitted row
+        count is at most exact_max_n (None: `default_exact_max_n` of the
+        device, dtype and kernel_type), then the distributed tier with a
+        mesh, and routes larger train sets to the Nystrom tier with
+        auto_nystrom_m inducing rows (and moments 'df64' under
+        quality='best' in fp32). 'exact', 'nystrom' and 'distributed'
+        force a tier ('distributed' requires mesh).
 
         learn_hyper: True learns (w0, w, b, diag_reg) by exact-evidence
         gradient descent on (a subsample of) the training queries before
@@ -235,17 +245,11 @@ class Estimator:
             hyper_ard=hyper_ard, nystrom_m=nystrom_m,
             nystrom_moments=nystrom_moments, dtype=dtype,
             calibrate_frac=calibrate_frac)
-        given = dict(mesh=mesh, dist_block_size=dist_block_size,
-                     pad_slots=pad_slots)
-        for name, value in given.items():
-            default, item = _NOT_PORTED[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"Estimator({name}=...) is not ported yet ({item})")
-        if tier == "distributed":
+        if pad_slots is not None:
             raise NotImplementedError(
-                f"tier='distributed' is not ported yet ({_PARALLEL})")
-        if tier not in (None, "auto", "exact", "nystrom"):
+                "Estimator(pad_slots=...) is not ported (ROADMAP 'Not to "
+                "port': shape buckets)")
+        if tier not in (None, "auto", "exact", "nystrom", "distributed"):
             raise ValueError("tier must be 'auto', 'exact', 'nystrom' or "
                              f"'distributed'; got {tier!r}")
         if nystrom_moments not in (None, "fp32", "df64"):
@@ -259,6 +263,12 @@ class Estimator:
             raise ValueError(
                 f"calibrate_frac must be in [0, 1), got {calibrate_frac}")
         self.device = resolve_device(device)
+        check_mesh_device(mesh, self.device)
+        if dist_block_size is not None and mesh is None:
+            raise ValueError("dist_block_size is the distributed tier's "
+                             "panel width; it needs mesh=")
+        self.mesh = mesh
+        self.dist_block_size = dist_block_size
         self.quality = quality
         self.schema_name = schema_name
         self.chunk_size = chunk_size
@@ -369,18 +379,30 @@ class Estimator:
 
     def _route_tier(self, tier: str, n: int, auto_m: int, exact_max_n,
                     verbose: bool):
-        """Resolve tier='auto'/'exact'/'nystrom' into nystrom_m (None for
-        the exact tier) before the fit. 'auto': the exact tier while n <=
-        exact_max_n, the Nystrom tier beyond."""
+        """Resolve tier='auto'/'exact'/'nystrom'/'distributed' into
+        nystrom_m (None for the exact tiers) before the fit. 'auto': the
+        exact tier (the distributed one with a mesh) while n <=
+        exact_max_n, then the distributed tier with a mesh, the Nystrom
+        tier beyond."""
         if exact_max_n is None:
             exact_max_n = default_exact_max_n(self.device, self.dtype,
                                               self.kernel_type)
         if tier == "auto":
-            if self.nystrom_m is not None or n > exact_max_n:
+            if self.nystrom_m is not None:
                 tier = "nystrom"
+            elif self.mesh is not None:
+                tier = "distributed"
             else:
-                tier = "exact"
+                tier = "exact" if n <= exact_max_n else "nystrom"
         if tier == "exact":
+            if self.mesh is not None:
+                raise ValueError(
+                    "tier='exact' is the single-device tier; drop mesh= or "
+                    "use tier='distributed'")
+            self.nystrom_m = None
+        elif tier == "distributed":
+            if self.mesh is None:
+                raise ValueError("tier='distributed' requires mesh=")
             self.nystrom_m = None
         else:
             if self.nystrom_m is None:
@@ -459,7 +481,8 @@ class Estimator:
             get=self.kernel_type, steps=steps,
             max_points=max_points or None,   # 0 -> full n (dtc is O(n m^2))
             width=denses[0].width, ard=ard, objective=objective,
-            dtc_m=self._dtc_m(objective), device=self.device)
+            dtc_m=self._dtc_m(objective), device=self.device,
+            mesh=self.mesh if objective == "dtc" else None)
         if res.feature_scale is not None:
             self.feature_scale = np.asarray(res.feature_scale, np.float64)
         if verbose:
@@ -546,8 +569,12 @@ class Estimator:
                     "relearn_hyperparams: the streaming Nystrom tier does "
                     "not retain its training rows (O(m^2) state) — pass "
                     "labeled_lines (e.g. the serving feedback log)")
-            x_fs = p.x_train.cpu().numpy() * float(p.input_scale)
-            y = p.y_train.cpu().numpy()
+            if isinstance(p, DistributedPosterior):   # real rows, gathered
+                x_tr, y_tr = p.x_natural(), p.y_natural()
+            else:
+                x_tr, y_tr = p.x_train, p.y_train
+            x_fs = x_tr.cpu().numpy() * float(p.input_scale)
+            y = y_tr.cpu().numpy()
         # back to raw feature units: the relearn may produce a new scale
         x_raw = (x_fs / self.feature_scale.astype(x_fs.dtype)
                  if self.feature_scale is not None else x_fs)
@@ -564,7 +591,8 @@ class Estimator:
             width=denses[0].width, init=(w0, w, b, self.diag_reg),
             reg_restarts=(), ard=self.feature_scale is not None,
             init_feature_scale=self.feature_scale, objective=objective,
-            dtc_m=self._dtc_m(objective), device=self.device)
+            dtc_m=self._dtc_m(objective), device=self.device,
+            mesh=self.mesh if objective == "dtc" else None)
         if verbose:
             self._print_hyper("relearned", res)
         old = (self.spec, self.diag_reg, self.feature_scale, self.posterior)
@@ -590,8 +618,14 @@ class Estimator:
         if self.nystrom_m is not None:
             return fit_nystrom(self.spec, x, y, num_inducing=self.nystrom_m,
                                diag_reg=self.diag_reg, get=self.kernel_type,
-                               moments=self.nystrom_moments,
+                               moments=self.nystrom_moments, mesh=self.mesh,
                                device=self.device)
+        if self.mesh is not None:
+            # any n: the layout pads to its quantum with inert rows
+            return distributed_fit(self.spec, x, y, self.mesh,
+                                   diag_reg=self.diag_reg,
+                                   get=self.kernel_type,
+                                   block_size=self.dist_block_size)
         return fit_gp(self.spec, x, y, diag_reg=self.diag_reg,
                       get=self.kernel_type, device=self.device)
 
@@ -609,6 +643,14 @@ class Estimator:
                     f"{bool(ok[0])}, ic finite: {bool(ok[1])}). Check "
                     "training cards > 0 and feature encodings.")
             return
+        if isinstance(p, DistributedPosterior):
+            # pivots at l[s, g2e[s]]; every rank gets the same verdict
+            if not p.is_finite():
+                raise FloatingPointError(
+                    "distributed GP fit produced a non-finite alpha or "
+                    "factor pivot. Check training cards > 0 and feature "
+                    "encodings.")
+            return
         ok = torch.stack([torch.isfinite(p.alpha).all(),
                           torch.isfinite(torch.diagonal(p.l)).all()]).cpu()
         ok_alpha, ok_l = bool(ok[0]), bool(ok[1])
@@ -623,20 +665,19 @@ class Estimator:
     def restore(cls, ckpt_dir: str, spec: Optional[KernelSpec] = None,
                 mesh=None, *, device):
         """An Estimator from a checkpoint directory (`meta.json` +
-        `posterior.npz`) written by this package or by the JAX package's
-        single-chip exact or Nystrom tier, on `device`. A JAX column-block
-        factor is assembled into one dense factor and a padded posterior is
-        cut to its real rows; distributed checkpoints raise. A Nystrom
-        posterior's solve stage runs where finalize='auto' puts it on
-        `device`."""
-        if mesh is not None:
-            raise NotImplementedError(
-                f"restore(mesh=...) is not ported yet ({_PARALLEL})")
+        `posterior.npz`) written by this package or by the JAX package
+        (single-chip exact, Nystrom or distributed tier), on `device`. A
+        JAX column-block factor is assembled into one dense factor and a
+        padded posterior is cut to its real rows. A Nystrom posterior's
+        solve stage runs where finalize='auto' puts it on `device`.
+
+        mesh: required for a distributed checkpoint, whose storage order
+        is a function of the fit's mesh size: a mesh of another size, or
+        a layout that does not tile it, raises. Collective then. On a
+        Nystrom checkpoint the mesh is reattached for extends; a
+        single-device exact checkpoint refuses one."""
         with open(os.path.join(ckpt_dir, "meta.json")) as f:
             meta = json.load(f)
-        if "distributed" in meta:
-            raise NotImplementedError("a distributed checkpoint cannot be "
-                                      f"restored yet ({_PARALLEL})")
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.schema_name = meta["schema_name"]
@@ -660,18 +701,50 @@ class Estimator:
         self.hyper_result = None
         self._init_encoders()
         self.nystrom_m, self.nystrom_moments = None, "fp32"
+        self.mesh, self.dist_block_size = None, None
+        check_mesh_device(mesh, self.device)
         with np.load(os.path.join(ckpt_dir, "posterior.npz")) as arrs:
             self._conformal_scores = (np.asarray(arrs["conformal_scores"])
                                       if "conformal_scores" in arrs
                                       else None)
             if "nystrom" in meta:
-                self.posterior = nystrom_from_numpy(
+                post = nystrom_from_numpy(
                     arrs, meta["nystrom"], self.spec, self.kernel_type,
                     self.diag_reg, self.device,
                     finalize=_resolve_finalize("auto", self.device))
-                self.nystrom_m = self.posterior.num_inducing
-                self.nystrom_moments = self.posterior.moments
+                post.mesh = self.mesh = mesh
+                self.posterior = post
+                self.nystrom_m = post.num_inducing
+                self.nystrom_moments = post.moments
                 return self
+            if "distributed" in meta:
+                if mesh is None:
+                    raise ValueError(
+                        "the checkpoint holds a distributed (row-sharded) "
+                        "posterior; pass mesh= to restore it over a mesh")
+                d = meta["distributed"]
+                saved_p = int(d.get("mesh_size", 0))
+                if saved_p and int(mesh.size()) != saved_p:
+                    # the block-cyclic storage order is a function of the
+                    # fit's mesh size: another p would mispermute every row
+                    raise ValueError(
+                        f"checkpoint was fit on a {saved_p}-device mesh; "
+                        f"the restore mesh has {int(mesh.size())}")
+                n = int(arrs["l"].shape[0])
+                self.posterior = distributed_from_numpy(
+                    arrs, self.spec, self.kernel_type, mesh,
+                    block_size=int(d["block_size"]),
+                    n_real=int(d.get("n_real", n)),
+                    input_scale=float(d.get("input_scale", 1.0)),
+                    axis_name=d.get("axis_name", "data"))
+                self.mesh = mesh
+                self.dist_block_size = int(d["block_size"])
+                return self
+            if mesh is not None:
+                raise ValueError(
+                    "the checkpoint holds a single-device posterior but "
+                    "mesh= was passed; refit with Estimator(mesh=...) for a "
+                    "row-sharded model, or restore without mesh")
             n = int(meta.get("n_real", arrs["x_train"].shape[0]))
             k_tt = arrs["k_tt_nngp"] if "k_tt_nngp" in arrs else None
             state = {
@@ -688,8 +761,10 @@ class Estimator:
 
     def save(self, ckpt_dir: str):
         """Persist the posterior, the encoder stats and the calibration:
-        the JAX package's single-chip or Nystrom checkpoint format."""
-        os.makedirs(ckpt_dir, exist_ok=True)
+        the JAX package's single-chip, Nystrom or distributed checkpoint
+        format. With a mesh it is collective: a distributed posterior's
+        shards are gathered into rank 0's host memory, rank 0 writes, and
+        the ranks meet at a barrier before returning."""
         p = self.posterior
         meta = {
             "schema_name": self.schema_name,
@@ -708,6 +783,8 @@ class Estimator:
             meta["std_scale"] = float(self.std_scale)
         if isinstance(p, NystromPosterior):
             arrs, meta["nystrom"] = nystrom_to_numpy(p)
+        elif isinstance(p, DistributedPosterior):
+            arrs, meta["distributed"] = distributed_to_numpy(p)
         else:
             # x_train is stored divided by input_scale; the scale must ride
             # along or a restored posterior would mis-scale every query
@@ -717,11 +794,16 @@ class Estimator:
                                           "alpha", "reg")}
             if state["k_tt_nngp"] is not None:
                 arrs["k_tt_nngp"] = state["k_tt_nngp"]
-        if self._conformal_scores is not None:
-            arrs["conformal_scores"] = np.asarray(self._conformal_scores)
-        with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
-            json.dump(meta, f)
-        np.savez(os.path.join(ckpt_dir, "posterior.npz"), **arrs)
+        if is_lead(self.mesh):    # a distributed gather is rank 0's only
+            if self._conformal_scores is not None:
+                arrs["conformal_scores"] = np.asarray(self._conformal_scores)
+            os.makedirs(ckpt_dir, exist_ok=True)
+            with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
+                json.dump(meta, f)
+            np.savez(os.path.join(ckpt_dir, "posterior.npz"), **arrs)
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self.mesh.get_group())
 
     # --------------------------------------------------------- warm-up
     def load_model(self, verbose: bool = True):
@@ -729,7 +811,12 @@ class Estimator:
         estimator's `load_model`), chunked so the cross Gram stays
         8,192 x n; on the Nystrom tier on the inducing rows."""
         p = self.posterior
-        rows = p.x_m if isinstance(p, NystromPosterior) else p.x_train
+        if isinstance(p, NystromPosterior):
+            rows = p.x_m
+        elif isinstance(p, DistributedPosterior):
+            rows = p.x_natural()      # every rank predicts the same rows
+        else:
+            rows = p.x_train
         mean, std = p.predict_mean_std_chunked(rows * p.input_scale)
         if verbose:
             print(mean.shape, std.shape)
@@ -750,9 +837,14 @@ class Estimator:
         return dt
 
     def _feature_dim(self) -> int:
+        """The encoded feature width, whatever the tier (exact: x_train;
+        Nystrom: x_m; distributed: this rank's x_storage)."""
         p = self.posterior
-        rows = p.x_m if isinstance(p, NystromPosterior) else p.x_train
-        return int(rows.shape[1])
+        for name in ("x_train", "x_m", "x_storage"):
+            if hasattr(p, name):
+                return int(getattr(p, name).shape[1])
+        raise AttributeError("posterior has none of x_train, x_m, "
+                             "x_storage")
 
     # -------------------------------------------------------- encoding
     def _apply_chunk_norm(self, x: np.ndarray) -> np.ndarray:

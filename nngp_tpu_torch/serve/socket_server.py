@@ -26,7 +26,8 @@ Concurrency: every connection gets a reader (submits lines to the shared
 `StreamingBatcher`) and a writer (resolves futures in request order), so
 requests from ALL connections coalesce into single predicts. A malformed
 line poisons only its own future: the batcher bisects failed batches
-(serve/streaming.py).
+(serve/streaming.py). One process only: at a torch.distributed world size
+above 1 the constructor raises (`streaming.refuse_multi_rank`).
 """
 
 import json
@@ -37,7 +38,8 @@ import threading
 import time
 from typing import Optional
 
-from nngp_tpu_torch.serve.streaming import StreamingBatcher
+from nngp_tpu_torch.serve.streaming import (StreamingBatcher,
+                                            refuse_multi_rank)
 
 
 def _is_labeled(line: str) -> bool:
@@ -156,6 +158,7 @@ class EstimatorSocketServer:
                  feedback_mode: str = "off", feedback_batch: int = 64,
                  feedback_flush_s: float = 2.0, train_log=None,
                  **batcher_kwargs):
+        refuse_multi_rank("EstimatorSocketServer")
         if feedback_mode not in ("off", "monitor", "online", "auto"):
             raise ValueError(
                 "feedback_mode must be off|monitor|online|auto, got "

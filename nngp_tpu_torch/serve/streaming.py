@@ -45,6 +45,10 @@ under one condition-variable acquisition.
 Generic over the request payload: `predict_fn(items) -> (mean, std)` — pass
 `Estimator.predict` for query-line items, or any row-wise batch function.
 
+One process only: at a `torch.distributed` world size above 1 (an SPMD
+distributed Estimator) every rank would have to replay rank 0's batches,
+and the constructor raises NotImplementedError naming FOLLOWER_ITEM.
+
 PIPELINED MODE (opt-in): pass `dispatch_fn(items) -> handle` +
 `fetch_fn(handle) -> (mean, std)` instead of `predict_fn` to dispatch
 batch k+1 before blocking on batch k's fetch, overlapping device work
@@ -54,6 +58,7 @@ serving path.
 """
 
 import queue
+import sys
 import threading
 import time
 from collections import deque
@@ -63,6 +68,23 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 _PENDING, _RESULT, _EXC, _CANCELLED = 0, 1, 2, 3
+
+
+FOLLOWER_ITEM = ("ROADMAP Queue A #14: a follower loop that broadcasts "
+                 "rank 0's batches to the other ranks")
+
+
+def refuse_multi_rank(what: str):
+    """Raise NotImplementedError when this process is one rank of a
+    torch.distributed group of more than one (read without importing
+    torch: no group exists unless torch.distributed was imported)."""
+    dist = sys.modules.get("torch.distributed")
+    if (dist is not None and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        raise NotImplementedError(
+            f"{what} is a single-process loop; at world size "
+            f"{dist.get_world_size()} the other ranks would have to replay "
+            f"rank 0's batches ({FOLLOWER_ITEM})")
 
 
 class SlimFuture:
@@ -161,6 +183,7 @@ class StreamingBatcher:
                  fetch_fn: Optional[Callable[[object], Tuple]] = None,
                  backlog_ship: bool = True,
                  name: str = "nngp-stream"):
+        refuse_multi_rank("StreamingBatcher")
         if (dispatch_fn is None) != (fetch_fn is None):
             raise ValueError(
                 "pipelined mode needs BOTH dispatch_fn and fetch_fn")

@@ -258,13 +258,20 @@ def test_nystrom_arguments_run_the_nystrom_tier(kw, rtol):
                                [h["val_mse"] for h in jhist], rtol=rtol)
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "Queue A #12"),
-    ({"dist_block_size": 64}, "Queue A #12"),
-    ({"pad_acquisitions": True}, "Not to port"),
+class _CudaMesh:
+    device_type = "cuda"
+
+
+@pytest.mark.parametrize("kw,err,match", [
+    ({"mesh": _CudaMesh()}, ValueError, "mesh is a cuda mesh"),
+    ({"dist_block_size": 64}, ValueError, "needs mesh="),
+    ({"pad_acquisitions": True}, NotImplementedError, "Not to port"),
 ])
-def test_unported_arguments_name_their_roadmap_item(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_arguments_name_their_roadmap_item(kw, err, match):
+    """pad_acquisitions names its ROADMAP item; the mesh arguments are
+    ported (tests/test_torch_parallel_learn.py) and checked: a mesh of
+    another device type, or a panel width without a mesh, raise."""
+    with pytest.raises(err, match=match):
         ActiveLearner(KernelSpec(mlp(1)), device="cpu", **kw)
 
 

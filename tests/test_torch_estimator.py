@@ -196,9 +196,11 @@ def test_ard_feature_scale_rides_a_jax_checkpoint(pair64, tmp_path):
 
 
 def test_nystrom_and_distributed_checkpoints_raise(toy, tmp_path):
-    """A JAX Nystrom checkpoint now restores (it predicts what the JAX
+    """A JAX Nystrom checkpoint restores (it predicts what the JAX
     Estimator predicts; the cross-package cases are in
-    test_torch_nystrom_serve.py); a distributed one still raises."""
+    test_torch_nystrom_serve.py); a distributed one needs a mesh of its
+    fit's size (the restores that work are in
+    test_torch_parallel_serve.py)."""
     stats, qdir = toy
     jest = JaxEstimator("toy", None, qdir, stats=stats, dtype=np.float64,
                         nystrom_m=20, verbose=False)
@@ -209,13 +211,15 @@ def test_nystrom_and_distributed_checkpoints_raise(toy, tmp_path):
     with open(tmp_path / "ny" / "meta.json") as f:
         meta = json.load(f)
     del meta["nystrom"]
-    meta["distributed"] = {"block_size": 8}
+    meta["distributed"] = {"block_size": 8, "mesh_size": 2}
     with open(tmp_path / "ny" / "meta.json", "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="Queue A #12"):
+    from nngp_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="pass mesh="):
         Estimator.restore(str(tmp_path / "ny"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A #12"):
-        Estimator.restore(str(tmp_path / "ny"), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="fit on a 2-device mesh"):
+        Estimator.restore(str(tmp_path / "ny"),
+                          mesh=make_mesh(1, device="cpu"), device="cpu")
 
 
 def test_online_learning_and_uncertainty_match_jax(toy):
@@ -307,17 +311,25 @@ def test_explicit_learn_hyper_false_survives_quality_best():
                                                        None, 0.1)
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "Queue A #12"),
-    ({"dist_block_size": 64}, "Queue A #12"),
-    ({"tier": "distributed"}, "Queue A #12"),
-    ({"pad_slots": 8}, "Not to port"),
+class _CudaMesh:
+    device_type = "cuda"
+
+
+@pytest.mark.parametrize("kw,err,item", [
+    ({"mesh": _CudaMesh()}, ValueError, "mesh is a cuda mesh"),
+    ({"dist_block_size": 64}, ValueError, "needs mesh="),
+    ({"tier": "distributed"}, ValueError, "requires mesh="),
+    ({"pad_slots": 8}, NotImplementedError, "Not to port"),
 ])
-def test_unported_arguments_name_their_roadmap_item(toy, kw, item):
+def test_unported_arguments_name_their_roadmap_item(toy, kw, err, item):
+    """pad_slots names its ROADMAP item; the mesh arguments are ported
+    (tests/test_torch_parallel_serve.py) and checked: a mesh of another
+    device type, a panel width or tier='distributed' without a mesh
+    raise."""
     stats, qdir = toy
     args = dict(stats=stats, verbose=False, device="cpu")
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=item):
         Estimator("toy", None, qdir, **args)
 
 

@@ -385,9 +385,12 @@ def test_guards_raise_like_jax():
         init_feature_scale=np.full(x.shape[1], 2.0 ** -12), device="cpu")
     assert res.feature_scale.dtype == np.float64
     assert res.nll_history.dtype == np.float32
-    with pytest.raises(NotImplementedError, match="Queue A #12"):
-        H.fit_kernel_hyperparams(x, y, objective="dtc", mesh=object(),
-                                 device="cpu")
+    # the mesh path takes the DTC objective only, in both packages
+    from nngp_tpu.parallel import make_mesh as jax_mesh
+    with pytest.raises(ValueError, match="requires objective='dtc'"):
+        JH.fit_kernel_hyperparams(x, y, steps=2, mesh=jax_mesh(2))
+    with pytest.raises(ValueError, match="requires objective='dtc'"):
+        H.fit_kernel_hyperparams(x, y, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="objective must be"):
         H.fit_kernel_hyperparams(x, y, objective="elbo", device="cpu")
     with pytest.raises(ValueError, match="device="):

@@ -295,6 +295,10 @@ def test_df64_moments_match_jax_df64_on_a_tiny_case():
         _close(got, want, 1e-4)
 
 
+class _CudaMesh:
+    device_type = "cuda"
+
+
 def test_errors():
     spec = reference_kernel()
     x, y, _ = _data(n_rows=32)
@@ -306,7 +310,7 @@ def test_errors():
             (dict(inducing="rpchol"), NotImplementedError, "Not to port"),
             (dict(precision="high"), NotImplementedError, "Not to port"),
             (dict(precision="default"), ValueError, "precision"),
-            (dict(mesh=object()), NotImplementedError, "Queue A #12"),
+            (dict(mesh=_CudaMesh()), ValueError, "mesh is a cuda mesh"),
             (dict(moments="bf16"), ValueError, "moments"),
             (dict(moments="df64"), ValueError, "df64"),
             (dict(finalize="tpu"), ValueError, "finalize")):

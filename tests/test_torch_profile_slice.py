@@ -78,6 +78,22 @@ def test_profile_nystrom_phases_run_on_the_cpu(moments, capsys):
         assert rec["busy_ms"] is None
 
 
+def test_profile_distributed_phases_run_on_the_cpu(capsys):
+    """The distributed tier's fit and predict over a world-size-1 gloo
+    mesh: one JSON line each, no exact fit needed."""
+    phases = ["dist_fit", "dist_predict"]
+    records = profile_slice.main([
+        "--device", "cpu", "--query_path", FOREST, "--max_num_train", "300",
+        "--x64", "--phases", ",".join(phases), "--dist_block_size", "32",
+        "--reps", "1"])
+    capsys.readouterr()
+    assert [r["phase"] for r in records] == phases
+    for rec in records:
+        assert rec["dtype"] == "float64" and rec["wall_ms"] > 0
+        assert (rec["n_train"], rec["n_test"]) == (300, 3600)
+        assert rec["busy_ms"] is None
+
+
 def test_profile_baseline_phases_run_on_the_cpu(capsys):
     """One epoch of the DNN baseline (ceil(300 / 128) = 3 optimizer steps)
     and one full-batch step of DKL-SKI: one JSON line each, fp32 whatever
