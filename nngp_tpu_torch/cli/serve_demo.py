@@ -12,8 +12,12 @@ Same flags as the JAX demo plus --device (default cuda; no fallback to the
 CPU). Flags whose path is not ported stop with an error naming their
 ROADMAP item. --mesh_devices N fits and serves the row-sharded distributed
 tier over N ranks: run it under `torchrun --nproc_per_node N` (N must be
-the world size; without a launcher only N = 1), and only rank 0 prints. --quality best fills chunk_norm, ARD hyperparameters learned
-by evidence (the DTC evidence on the Nystrom tier), df64 Nystrom moments
+the world size; without a launcher only N = 1), and only rank 0 prints.
+Every rank fits or restores, calibrates and predicts the test file; for
+--listen and --streaming rank 0 then serves through a
+`serve.follower.LeadEstimator` while the other ranks replay its calls in
+`serve.follower.follow`, until rank 0 stops them. --quality best fills
+chunk_norm, ARD hyperparameters learned by evidence (the DTC evidence on the Nystrom tier), df64 Nystrom moments
 in fp32 and a 10% calibration holdout for flags left unset. --nystrom_m
 or --tier auto|nystrom serve from the streaming Nystrom/DTC tier.
 """
@@ -189,6 +193,56 @@ def stream(est, lines, clients, wait_ms):
     return dt, st, results
 
 
+def lead_or_follow(est, mesh, serve):
+    """Rank 0 runs `serve(lead)` on a `LeadEstimator(est)` and then stops
+    the followers; every other rank replays the lead's calls until then."""
+    from nngp_tpu_torch.parallel.mesh import is_lead
+    from nngp_tpu_torch.serve import LeadEstimator, follow
+
+    if not is_lead(mesh):
+        follow(est)
+        return
+    with LeadEstimator(est) as lead:
+        serve(lead)
+    if lead.replayed:
+        print(f"lead sent {lead.calls} calls; the followers replayed "
+              f"{lead.replayed}", flush=True)
+
+
+def listen(args, est):
+    """Serve over TCP until --listen_max_requests requests (or Ctrl-C)."""
+    from nngp_tpu_torch.serve import EstimatorSocketServer
+    host, _, port = args.listen.rpartition(":")
+    alpha = args.interval_alpha if args.calibrate_file else None
+    # train_log: the Nystrom tier's growth refits on the training queries
+    # (read only when a growth runs)
+    with EstimatorSocketServer(est, host=host or "127.0.0.1", port=int(port),
+                               alpha=alpha, feedback_mode=args.feedback_mode,
+                               train_log=args.train_query_path) as srv:
+        print(f"serving on {srv.host}:{srv.port} "
+              f"(newline-delimited queries; JSON replies"
+              f"{'; conformal intervals' if alpha else ''}) — Ctrl-C "
+              "to stop", flush=True)
+        try:
+            last_report = time.monotonic()
+            while True:
+                time.sleep(0.5)
+                st = srv.stats()
+                if (args.listen_max_requests is not None
+                        and st["requests"] >= args.listen_max_requests):
+                    break
+                if st["requests"] and time.monotonic() - last_report > 60:
+                    last_report = time.monotonic()
+                    print(f"served {st['requests']} requests over "
+                          f"{st['batches']} batches "
+                          f"(p95 {st['p95_latency_ms']:.1f} ms)", flush=True)
+        except KeyboardInterrupt:
+            pass
+        st = srv.stats()
+        print(f"shutting down: served {st['requests']} requests over "
+              f"{st['batches']} batches", flush=True)
+
+
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
@@ -259,40 +313,9 @@ def run(args, mesh):
             est.save(args.ckpt)     # calibration artifacts ride the ckpt
 
     if args.listen:
-        from nngp_tpu_torch.serve import EstimatorSocketServer
-        host, _, port = args.listen.rpartition(":")
-        alpha = args.interval_alpha if args.calibrate_file else None
         if args.warmup_batch:
             est.warmup(max_batch=args.warmup_batch)
-        # train_log: the Nystrom tier's growth refits on the training
-        # queries (read only when a growth runs)
-        with EstimatorSocketServer(est, host=host or "127.0.0.1",
-                                   port=int(port), alpha=alpha,
-                                   feedback_mode=args.feedback_mode,
-                                   train_log=args.train_query_path) as srv:
-            print(f"serving on {srv.host}:{srv.port} "
-                  f"(newline-delimited queries; JSON replies"
-                  f"{'; conformal intervals' if alpha else ''}) — Ctrl-C "
-                  "to stop", flush=True)
-            try:
-                last_report = time.monotonic()
-                while True:
-                    time.sleep(0.5)
-                    st = srv.stats()
-                    if (args.listen_max_requests is not None
-                            and st["requests"] >= args.listen_max_requests):
-                        break
-                    if st["requests"] and time.monotonic() - last_report > 60:
-                        last_report = time.monotonic()
-                        print(f"served {st['requests']} requests over "
-                              f"{st['batches']} batches "
-                              f"(p95 {st['p95_latency_ms']:.1f} ms)",
-                              flush=True)
-            except KeyboardInterrupt:
-                pass
-            st = srv.stats()
-            print(f"shutting down: served {st['requests']} requests over "
-                  f"{st['batches']} batches", flush=True)
+        lead_or_follow(est, mesh, lambda lead: listen(args, lead))
         return
 
     lines = load_query_lines_without_card(args.test_query_file, args.limit)
@@ -318,14 +341,19 @@ def run(args, mesh):
     if args.streaming:
         print(f"\nstreaming load: {args.stream_clients} concurrent clients, "
               f"coalescing window {args.stream_wait_ms} ms")
-        dt, st, _ = stream(est, lines, args.stream_clients,
-                           args.stream_wait_ms)
-        total = args.stream_clients * len(lines)
-        print(f"streamed {total} requests in {dt:.3f}s "
-              f"({total/dt:.1f} q/s) over {st['batches']} device batches "
-              f"(mean batch {st['mean_batch']:.0f})")
-        print(f"latency p50 {st['p50_latency_ms']:.1f} ms  "
-              f"p95 {st['p95_latency_ms']:.1f} ms")
+        lead_or_follow(est, mesh, lambda lead: stream_and_report(
+            args, lead, lines))
+
+
+def stream_and_report(args, est, lines):
+    """`stream` the lines from --stream_clients clients; print the rate."""
+    dt, st, _ = stream(est, lines, args.stream_clients, args.stream_wait_ms)
+    total = args.stream_clients * len(lines)
+    print(f"streamed {total} requests in {dt:.3f}s "
+          f"({total/dt:.1f} q/s) over {st['batches']} device batches "
+          f"(mean batch {st['mean_batch']:.0f})")
+    print(f"latency p50 {st['p50_latency_ms']:.1f} ms  "
+          f"p95 {st['p95_latency_ms']:.1f} ms")
 
 
 if __name__ == "__main__":

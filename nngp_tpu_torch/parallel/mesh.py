@@ -69,6 +69,22 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data",
     return init_device_mesh(dev_type, (world,), mesh_dim_names=(axis_name,))
 
 
+def control_group(mesh, timeout: Optional[datetime.timedelta] = None):
+    """A gloo group over the mesh's ranks on which rank 0 and the others
+    exchange pickled host objects (`serve/follower.py`), with `timeout`
+    (default the process group's) on each of its operations; None when the
+    mesh has one rank. Collective: every rank calls it at the same point.
+
+    Not the mesh's NCCL group: a rank waiting in an NCCL collective for an
+    idle server's next request holds a pending collective that the
+    watchdog kills after its timeout, and query strings have no reason to
+    go through the card."""
+    if mesh is None or int(mesh.size()) == 1:
+        return None
+    return dist.new_group(dist.get_process_group_ranks(mesh.get_group()),
+                          timeout=timeout or _TIMEOUT, backend="gloo")
+
+
 def check_mesh_device(mesh, device):
     """Raise unless `device` (a name or torch.device) is of the mesh's
     device type: a cuda mesh serves cuda tensors, a cpu mesh cpu ones."""

@@ -38,6 +38,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from nngp_tpu_torch.serve.follower import collective
+
 __all__ = ["DriftMonitor", "DriftReport"]
 
 # E|z| under a correctly-specified Gaussian posterior.
@@ -86,6 +88,7 @@ class DriftMonitor:
         self.std_floor = float(std_floor)
         self.reset()
 
+    @collective
     def reset(self):
         """Forget everything — call after a remediation so the detector
         evaluates the NEW posterior from scratch."""

@@ -65,6 +65,7 @@ from nngp_tpu_torch.models.kernel_spec import (Activation, Dense, KernelSpec,
 from nngp_tpu_torch.parallel.mesh import check_mesh_device, is_lead
 from nngp_tpu_torch.parallel.sharded import (DistributedPosterior,
                                              distributed_fit)
+from nngp_tpu_torch.serve.follower import collective
 from nngp_tpu_torch.utils.device import resolve_device
 
 # Scaled-feature magnitude ceiling for incremental extends, mirroring the
@@ -537,6 +538,7 @@ class Estimator:
         self.diag_reg = res.diag_reg
         self.hyper_result = res
 
+    @collective
     def relearn_hyperparams(self, labeled_lines: Optional[Sequence[str]] =
                             None, steps: int = 40,
                             max_points: Optional[int] = 2048,
@@ -759,6 +761,7 @@ class Estimator:
                                               self.kernel_type, self.device)
         return self
 
+    @collective
     def save(self, ckpt_dir: str):
         """Persist the posterior, the encoder stats and the calibration:
         the JAX package's single-chip, Nystrom or distributed checkpoint
@@ -806,6 +809,7 @@ class Estimator:
             dist.barrier(group=self.mesh.get_group())
 
     # --------------------------------------------------------- warm-up
+    @collective
     def load_model(self, verbose: bool = True):
         """Warm-up prediction on the training rows (the reference
         estimator's `load_model`), chunked so the cross Gram stays
@@ -822,6 +826,7 @@ class Estimator:
             print(mean.shape, std.shape)
             print("Model construction complete.")
 
+    @collective
     def warmup(self, max_batch: int = 4096, verbose: bool = True) -> float:
         """One predict of `max_batch` synthetic rows, so that the first
         request pays neither the kernel library's build and load nor the
@@ -924,6 +929,7 @@ class Estimator:
             self.posterior = old
             raise
 
+    @collective
     def extend_with_lines(self, labeled_lines: Sequence[str]) -> int:
         """Online learning: fold freshly-labeled `query@...@card` lines into
         the posterior, keeping the fit's ridge: an O(n^2 k) block-Cholesky
@@ -937,6 +943,7 @@ class Estimator:
         self._install_posterior(self.posterior.extend(x, y))
         return x.shape[0]
 
+    @collective
     def forget_with_lines(self, labeled_lines: Sequence[str]) -> int:
         """Online forgetting (Nystrom tier only): remove labeled lines
         trained or extended in before (expired feedback, a sliding window)
@@ -954,6 +961,7 @@ class Estimator:
         self._install_posterior(self.posterior.forget(x, y))
         return x.shape[0]
 
+    @collective
     def grow_inducing(self, labeled_lines: Sequence[str],
                       num_new: int = 512, seed: int = 0) -> int:
         """Grow the Nystrom tier's capacity: enlarge the inducing set by
@@ -1020,6 +1028,7 @@ class Estimator:
         out = np.asarray(pairs, dtype=self.dtype)
         return out[:, 0].copy(), out[:, 1].copy()
 
+    @collective
     def predict(self, query_lines: Sequence[str]
                 ) -> Tuple[np.ndarray, np.ndarray]:
         """(pred_mean, pred_std) in log2-card space, one entry per line.
@@ -1031,6 +1040,7 @@ class Estimator:
         return mean, std
 
     # ------------------------------------------------------- uncertainty
+    @collective
     def calibrate_uncertainty(self, labeled_lines: Sequence[str],
                               verbose: bool = True) -> float:
         """Post-hoc uncertainty calibration on HELD-OUT labeled lines: the
@@ -1054,6 +1064,7 @@ class Estimator:
                   f"{self.std_scale:.4f}")
         return self.std_scale
 
+    @collective
     def predict_interval(self, query_lines: Sequence[str],
                          alpha: float = 0.1):
         """(mean, lo, hi) in log2-card space: split-conformal central
@@ -1068,6 +1079,7 @@ class Estimator:
         mean, std = self._predict_raw(query_lines)
         return mean, mean - qhat * std, mean + qhat * std
 
+    @collective
     def record_feedback(self, labeled_lines: Sequence[str]):
         """Fold labeled serving feedback into the workload-drift monitor
         and return a `serve.drift.DriftReport`: whether the model still

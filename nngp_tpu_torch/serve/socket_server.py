@@ -26,8 +26,11 @@ Concurrency: every connection gets a reader (submits lines to the shared
 `StreamingBatcher`) and a writer (resolves futures in request order), so
 requests from ALL connections coalesce into single predicts. A malformed
 line poisons only its own future: the batcher bisects failed batches
-(serve/streaming.py). One process only: at a torch.distributed world size
-above 1 the constructor raises (`streaming.refuse_multi_rank`).
+(serve/streaming.py). At a torch.distributed world size above 1 the server
+runs on rank 0 over a `serve.follower.LeadEstimator`: every predict, feedback
+call and drift-monitor reset reaches the other ranks through it (a plain
+Estimator raises ValueError). The model lock is always taken outside the
+lead's lock.
 """
 
 import json
@@ -38,8 +41,7 @@ import threading
 import time
 from typing import Optional
 
-from nngp_tpu_torch.serve.streaming import (StreamingBatcher,
-                                            refuse_multi_rank)
+from nngp_tpu_torch.serve.streaming import StreamingBatcher, require_lead
 
 
 def _is_labeled(line: str) -> bool:
@@ -158,7 +160,7 @@ class EstimatorSocketServer:
                  feedback_mode: str = "off", feedback_batch: int = 64,
                  feedback_flush_s: float = 2.0, train_log=None,
                  **batcher_kwargs):
-        refuse_multi_rank("EstimatorSocketServer")
+        require_lead(estimator, "EstimatorSocketServer")
         if feedback_mode not in ("off", "monitor", "online", "auto"):
             raise ValueError(
                 "feedback_mode must be off|monitor|online|auto, got "
@@ -185,11 +187,8 @@ class EstimatorSocketServer:
         self._recal_pending = False
         self._fb_running = feedback_mode != "off"
 
-        def locked_predict(lines):
-            with self._model_lock:
-                return estimator.predict(list(lines))
-
-        self.batcher = StreamingBatcher(locked_predict, **batcher_kwargs)
+        self.batcher = StreamingBatcher(self._locked_predict,
+                                        **batcher_kwargs)
         self._tcp = _TCPServer((host, port), _Handler)
         self._tcp.owner = self  # type: ignore[attr-defined]
         self.host, self.port = self._tcp.server_address[:2]
@@ -202,6 +201,12 @@ class EstimatorSocketServer:
                 target=self._feedback_loop, daemon=True,
                 name="nngp-sock-feedback")
             self._fb_thread.start()
+
+    def _locked_predict(self, lines):
+        """The batcher's predict: under the model lock, which the feedback
+        worker takes around every model update."""
+        with self._model_lock:
+            return self.estimator.predict(list(lines))
 
     # ------------------------------------------------------ feedback loop
     def _submit_feedback(self, line: str) -> dict:

@@ -45,9 +45,11 @@ under one condition-variable acquisition.
 Generic over the request payload: `predict_fn(items) -> (mean, std)` — pass
 `Estimator.predict` for query-line items, or any row-wise batch function.
 
-One process only: at a `torch.distributed` world size above 1 (an SPMD
-distributed Estimator) every rank would have to replay rank 0's batches,
-and the constructor raises NotImplementedError naming FOLLOWER_ITEM.
+At a `torch.distributed` world size above 1 (an SPMD distributed
+Estimator) the batcher runs on rank 0 with a `serve.follower.LeadEstimator`'s
+predict as predict_fn, which the other ranks replay in `follow`; any other
+predict_fn, and the pipelined mode, raise ValueError, since one rank's
+collective alone would wait forever.
 
 PIPELINED MODE (opt-in): pass `dispatch_fn(items) -> handle` +
 `fetch_fn(handle) -> (mean, std)` instead of `predict_fn` to dispatch
@@ -70,21 +72,23 @@ import numpy as np
 _PENDING, _RESULT, _EXC, _CANCELLED = 0, 1, 2, 3
 
 
-FOLLOWER_ITEM = ("ROADMAP Queue A #14: a follower loop that broadcasts "
-                 "rank 0's batches to the other ranks")
-
-
-def refuse_multi_rank(what: str):
-    """Raise NotImplementedError when this process is one rank of a
-    torch.distributed group of more than one (read without importing
-    torch: no group exists unless torch.distributed was imported)."""
+def require_lead(estimator, what: str):
+    """At a torch.distributed world size above 1, raise ValueError unless
+    `estimator` is a `serve.follower.LeadEstimator`, or a front end whose
+    `estimator` is one. Read without importing torch: no group exists
+    unless torch.distributed was imported."""
     dist = sys.modules.get("torch.distributed")
-    if (dist is not None and dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            f"{what} is a single-process loop; at world size "
-            f"{dist.get_world_size()} the other ranks would have to replay "
-            f"rank 0's batches ({FOLLOWER_ITEM})")
+    if not (dist is not None and dist.is_available()
+            and dist.is_initialized() and dist.get_world_size() > 1):
+        return
+    from nngp_tpu_torch.serve.follower import LeadEstimator
+    if not isinstance(getattr(estimator, "estimator", estimator),
+                      LeadEstimator):
+        raise ValueError(
+            f"{what} at world size {dist.get_world_size()} serves a "
+            "distributed Estimator from rank 0 through "
+            "nngp_tpu_torch.serve.follower.LeadEstimator, the other ranks "
+            f"in serve.follower.follow; got {estimator!r}")
 
 
 class SlimFuture:
@@ -183,7 +187,10 @@ class StreamingBatcher:
                  fetch_fn: Optional[Callable[[object], Tuple]] = None,
                  backlog_ship: bool = True,
                  name: str = "nngp-stream"):
-        refuse_multi_rank("StreamingBatcher")
+        # at world size > 1 only a lead's predict (or the socket server's
+        # locked one over a lead): the pipelined mode has no predict_fn
+        require_lead(getattr(predict_fn, "__self__", None),
+                     "StreamingBatcher")
         if (dispatch_fn is None) != (fetch_fn is None):
             raise ValueError(
                 "pipelined mode needs BOTH dispatch_fn and fetch_fn")

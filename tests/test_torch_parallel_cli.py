@@ -1,14 +1,18 @@
 """The distributed tier's command lines on the CPU: `--mesh_devices` and
 `--tier distributed` of the serving demo and the active-learning CLI (one
-rank in this process, and two under torchrun), the multi-rank dry run
+rank in this process, and two under torchrun, also serving `--listen`
+through the lead and its follower), the multi-rank dry run
 `python -m nngp_tpu_torch.parallel.dryrun`. (The scan that no mesh
 surface still raises as unported is in test_torch_serve_frontends.py.)
 """
 
 import json
 import os
+import socket
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -102,3 +106,112 @@ def test_dryrun_exit_code(args, ok):
         assert line["max_rel_err"] < 1e-8
     else:
         assert proc.returncode != 0
+
+
+def _listen_session(port, queries, labeled):
+    """A socket client of `serve_demo --listen --feedback_mode online`:
+    the queries and a malformed line, the labeled lines (one feedback
+    batch of 64), `\\stats` until the extend is in, the queries again.
+    Returns (replies before, replies after)."""
+    def send(lines):
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as sk:
+            f = sk.makefile("rwb")
+            f.write("".join(ln + "\n" for ln in lines).encode())
+            f.flush()
+            sk.shutdown(socket.SHUT_WR)
+            return [json.loads(raw.decode()) for raw in f]
+
+    deadline = time.monotonic() + 120
+    while True:
+        try:
+            before = send(queries + ["ta,tb@zz,5.0,1.0@@ta,tb,id"])
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.1)
+    assert all(a["feedback"] == "queued" for a in send(labeled))
+    while send(["\\stats"])[0]["extends"] < 1:
+        assert time.monotonic() < deadline
+        time.sleep(0.1)
+    return before, send(queries)
+
+
+def test_serve_demo_listens_over_two_ranks(tmp_path, capsys):
+    """torchrun of two ranks: serve_demo restores an fp64 distributed
+    checkpoint written over two ranks and serves `--listen` with online
+    feedback from rank 0 through the lead, rank 1 replaying its calls. It
+    exits 0, prints once, and replies as the world-size-1 demo does on its
+    own checkpoint of the same rows (1e-9: sums over ranks in another
+    order); the malformed line's reply is an error."""
+    from nngp_tpu_torch.parallel import make_mesh
+    from tests.test_active_serve import _toy_schema_files
+    from tests.torch_parallel_cases import on_ranks, save_estimator
+
+    stats, qdir = _toy_schema_files(tmp_path)
+    rng = np.random.default_rng(4)
+    queries, labeled = [], []
+    for i in range(72):
+        xu = rng.uniform(-10, 10)
+        xl = rng.uniform(-10, xu)
+        line = f"ta,tb@x,{xu:.3f},{xl:.3f}@@ta,tb,id"
+        if i < 8:
+            queries.append(line)
+        else:
+            labeled.append(f"{line}@{max(1, int(1000 * (xu - xl)))}")
+    pl = {"stats": [s.to_json() for s in stats], "qdir": qdir, "b": 4}
+    ck1, ck2 = str(tmp_path / "ck1"), str(tmp_path / "ck2")
+    save_estimator(make_mesh(1, device="cpu"), dict(pl, ckpt=ck1))
+    on_ranks(2, "save_estimator", dict(pl, ckpt=ck2))
+    flags = ["--device", "cpu", "--schema_name", "toy", "--train_query_path",
+             qdir, "--feedback_mode", "online", "--listen_max_requests",
+             str(2 * len(queries)), "--warmup_batch", "16"]
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "nngp_tpu_torch.cli.serve_demo",
+         *flags, "--ckpt", ck2, "--mesh_devices", "2", "--listen",
+         "127.0.0.1:0"], cwd=REPO, env=ENV, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        printed = []
+        for line in proc.stdout:
+            printed.append(line)
+            if line.startswith("serving on"):
+                break
+        port = int(printed[-1].split()[2].rsplit(":", 1)[1])
+        got = _listen_session(port, queries, labeled)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, err[-3000:]
+    out = "".join(printed) + out
+    assert out.count("serving on") == out.count("shutting down") == 1
+    assert "the followers replayed [" in out
+
+    want = []
+    port = _free_port()
+    client = threading.Thread(target=lambda: want.extend(
+        _listen_session(port, queries, labeled)))
+    client.start()
+    serve_demo.main(flags + ["--ckpt", ck1, "--mesh_devices", "1",
+                             "--listen", f"127.0.0.1:{port}"])
+    client.join(timeout=120)
+    capsys.readouterr()
+    assert len(want) == 2
+    assert "ValueError" in got[0][-1]["error"]
+    assert [r["mean"] for r in got[0][:-1]] != [r["mean"] for r in got[1]]
+    for g, w in zip(got, want):
+        g = [r for r in g if "error" not in r]
+        w = [r for r in w if "error" not in r]
+        assert len(g) == len(w) == len(queries)
+        for key in ("mean", "std"):
+            a = np.asarray([r[key] for r in g])
+            b = np.asarray([r[key] for r in w])
+            assert np.max(np.abs(a - b)) < 1e-9 * np.max(np.abs(b))
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]

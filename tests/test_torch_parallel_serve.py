@@ -2,8 +2,8 @@
 tier='distributed')`) at p = 1, 2 and 4 gloo ranks
 (`tests/torch_parallel_cases.py`), against the JAX package's Estimator,
 on the toy two-table schema of tests/test_active_serve.py, fp64 on the
-CPU; checkpoints in both directions; the front ends at world size 1 and
-above it.
+CPU; checkpoints in both directions; the front ends at world size 1
+(above it: test_torch_parallel_follower.py).
 
 Tolerances (max |port - JAX| / max |JAX|): predictions against the JAX
 single-device Estimator (whose small-n fit, like the distributed tier,
@@ -158,16 +158,6 @@ def test_restore_checks_the_mesh_size(runs):
                           mesh=make_mesh(1, device="cpu"), device="cpu")
     with pytest.raises(ValueError, match="pass mesh="):
         Estimator.restore(os.path.join(pl["out"], "nngp-p1"), device="cpu")
-
-
-@pytest.mark.parametrize("p", [2, 4])
-def test_front_ends_refuse_world_sizes_above_one(runs, p):
-    """Both single-process front ends name the follower-loop item."""
-    _, res = runs
-    for r in res[p]:
-        assert len(r["frontends"]) == 2
-        for msg in r["frontends"]:
-            assert f"world size {p}" in msg and "Queue A #14" in msg
 
 
 def test_front_ends_serve_a_distributed_estimator_at_world_size_one(toy):

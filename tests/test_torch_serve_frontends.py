@@ -802,9 +802,9 @@ def test_serving_imports_and_runs_with_jax_and_pandas_blocked(tmp_path):
 
 
 def test_no_mesh_surface_raises_as_unported():
-    """No 'Queue A #12' (the parallel/ item) is left in the port; the one
-    refusal that remains, the front ends at world size > 1, cites its own
-    item, once, in serve/streaming.py."""
+    """No 'Queue A #12' (the parallel/ item) and no 'Queue A #14' (the
+    front ends at world size > 1, served through serve/follower.py) is
+    left in the port."""
     hits = {"Queue A #12": [], "Queue A #14": []}
     pkg = os.path.join(REPO, "nngp_tpu_torch")
     for root, _, files in os.walk(pkg):
@@ -817,4 +817,4 @@ def test_no_mesh_surface_raises_as_unported():
                     if key in text:
                         hits[key].append(os.path.relpath(path, pkg))
     assert hits["Queue A #12"] == []
-    assert hits["Queue A #14"] == [os.path.join("serve", "streaming.py")]
+    assert hits["Queue A #14"] == []

@@ -9,6 +9,8 @@ on a world-size-1 `HashStore` group; p > 1 spawns p processes (gloo, a
 workers never share one) that unpickle the payload, run the program and
 pickle their results into that directory. Each test file calls it once per
 p from a module-scoped fixture: spawning costs a few seconds.
+`spawn_ranks` starts the ranks and returns at once, so that several worlds
+and the test process's own work run together.
 
 This module imports no jax: the spawned ranks import it.
 """
@@ -65,16 +67,33 @@ def on_ranks(world: int, name: str, payload):
         from nngp_tpu_torch.parallel import make_mesh
 
         return [_numpy(_program(name)(make_mesh(1, device="cpu"), payload))]
+    return spawn_ranks(world, name, payload)()
+
+
+def spawn_ranks(world: int, name: str, payload):
+    """Start name(mesh, payload) on `world` spawned ranks and return a
+    function that waits for them and returns on_ranks' list, so that
+    several worlds (and work in this process) can run at once."""
     import torch.multiprocessing as mp
 
-    with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank_main, args=(world, tmp, name, payload), nprocs=world,
-                 join=True)
-        out = []
-        for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
-                out.append(pickle.load(f))
-    return out
+    tmp = tempfile.TemporaryDirectory()
+    ctx = mp.start_processes(_rank_main, args=(world, tmp.name, name,
+                                               payload),
+                             nprocs=world, join=False, start_method="spawn")
+
+    def results():
+        try:
+            while not ctx.join():
+                pass
+            out = []
+            for r in range(world):
+                with open(os.path.join(tmp.name, f"rank{r}.pkl"), "rb") as f:
+                    out.append(pickle.load(f))
+            return out
+        finally:
+            tmp.cleanup()
+
+    return results
 
 
 def shard(a, mesh):
@@ -308,11 +327,10 @@ def active(mesh, pl):
 def estimator(mesh, pl):
     """Estimator(tier='distributed') on the toy two-table schema for both
     kernels: predictions, an online extend, a checkpoint written and
-    restored over the mesh, a JAX checkpoint restored (pl['jax_ckpt']),
-    and, at world size > 1, the front ends' refusal."""
+    restored over the mesh, and a JAX checkpoint restored
+    (pl['jax_ckpt'])."""
     from nngp_tpu_torch.featurize.stats import TableStats
-    from nngp_tpu_torch.serve import (Estimator, EstimatorSocketServer,
-                                      StreamingBatcher)
+    from nngp_tpu_torch.serve import Estimator
     stats = [TableStats.from_json(s) for s in pl["stats"]]
     p = int(mesh.size())
     out = {}
@@ -339,15 +357,129 @@ def estimator(mesh, pl):
                                      device="cpu")
             r["from_jax"] = jest.predict(pl["lines"])
         out[get] = r
-    if p > 1:
+    return out
+
+
+def _socket_client(srv, lines):
+    """The server's replies to `lines`, sent on one connection."""
+    import json
+    import socket
+
+    with socket.create_connection((srv.host, srv.port), timeout=120) as sk:
+        f = sk.makefile("rwb")
+        f.write("".join(ln + "\n" for ln in lines).encode())
+        f.flush()
+        sk.shutdown(socket.SHUT_WR)
+        return [json.loads(raw.decode()) for raw in f]
+
+
+def _until(cond, seconds=120.0):
+    import time
+
+    deadline = time.monotonic() + seconds
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError("the server did not get there in time")
+        time.sleep(0.02)
+
+
+def _serve(lead, pl, idle_s):
+    """Rank 0's session: calibrate; 4 batcher clients (client 0 adds
+    pl['bad']); the socket server, feedback_mode='auto', with the queries
+    and pl['bad'], then the feedback batches pl['feedback'] (one batch
+    each: feedback_batch is their size and the flush never fires first),
+    then the queries again; an idle period of idle_s; one predict.
+    The intervals come from predict_interval: the socket's would overflow
+    2 ** hi at the toy's stds."""
+    import threading
+    import time
+
+    from nngp_tpu_torch.serve import EstimatorSocketServer, StreamingBatcher
+
+    lines, bad = pl["lines"], pl["bad"]
+    lead.calibrate_uncertainty(pl["cal"], verbose=False)
+    interval = lead.predict_interval(lines, alpha=0.1)
+    batcher = [None] * 4
+    with StreamingBatcher(lead.predict, max_wait_ms=5.0) as b:
+        def client(c):
+            futs = [b.submit(ln) for ln in lines + [bad] * (c == 0)]
+            out = []
+            for f in futs:
+                try:
+                    out.append(f.result(timeout=120))
+                except ValueError as e:
+                    out.append(f"error: {e}")
+            batcher[c] = out
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+    fb = pl["feedback"]
+    with EstimatorSocketServer(lead, port=0, feedback_mode="auto",
+                               feedback_batch=len(fb[0]),
+                               feedback_flush_s=600.0) as srv:
+        first = _socket_client(srv, lines + [bad] + lines[:1])
+        for k, batch in enumerate(fb):
+            acks = _socket_client(srv, batch)
+            assert all(a.get("feedback") == "queued" for a in acks)
+            # counted under the model lock: a later predict waits for the
+            # rest of this batch's feedback, remediation included
+            _until(lambda: srv.stats()["feedback_lines"]
+                   >= (k + 1) * len(batch))
+        after = _socket_client(srv, lines)
+        stats = srv.stats()
+    time.sleep(idle_s)
+    return {"interval": interval, "batcher": batcher, "first": first,
+            "after": after,
+            "stats": stats, "after_idle": lead.predict(lines),
+            "keepalives": lead.keepalives}
+
+
+def frontends(mesh, pl):
+    """The front ends over a distributed Estimator, for both kernels, on
+    the toy schema in fp64: rank 0 serves through a LeadEstimator (`_serve`,
+    idle for pl['idle_s'][get] seconds) and the other ranks follow; then, on every rank, the predictions of
+    pl['lines'], the train count and the calls replayed (on rank 0 the
+    lead's count, its followers' and what it served). At world size > 1,
+    also the error a plain Estimator gets from each front end (and the
+    batcher's pipelined mode)."""
+    from nngp_tpu_torch.featurize.stats import TableStats
+    from nngp_tpu_torch.parallel.mesh import is_lead
+    from nngp_tpu_torch.serve import (DriftMonitor, Estimator,
+                                      EstimatorSocketServer, LeadEstimator,
+                                      StreamingBatcher, follow)
+    stats = [TableStats.from_json(s) for s in pl["stats"]]
+    out = {}
+    for get in ("nngp", "ntk"):
+        est = Estimator("toy", None, pl["qdir"], stats=stats,
+                        dtype=np.float64, verbose=False, kernel_type=get,
+                        tier="distributed", mesh=mesh,
+                        dist_block_size=pl["b"], device="cpu")
+        est.drift_monitor = DriftMonitor(warmup=pl["warmup"])
+        r = {}
+        if is_lead(mesh):
+            with LeadEstimator(est, timeout=pl["timeout_s"]) as lead:
+                r["served"] = _serve(lead, pl, pl["idle_s"].get(get, 0.0))
+            r["calls"], r["replayed"] = lead.calls, lead.replayed
+        else:
+            r["replayed"] = follow(est, timeout=pl["timeout_s"])
+        r["final"] = est.predict(pl["lines"])
+        r["num_train"] = est.posterior.num_train
+        out[get] = r
+    if int(mesh.size()) > 1:
         refused = []
         for build in (lambda: StreamingBatcher(est.predict),
+                      lambda: StreamingBatcher(dispatch_fn=est.predict,
+                                               fetch_fn=lambda h: h),
                       lambda: EstimatorSocketServer(est)):
             try:
-                build()
-            except NotImplementedError as e:
+                build().close()
+            except ValueError as e:
                 refused.append(str(e))
-        out["frontends"] = refused
+        out["refused"] = refused
     return out
 
 
@@ -399,3 +531,16 @@ def estimator_learn(mesh, pl):
                            "predict": est.predict(pl["lines"])}
     out["relearn"] = relearned
     return out
+
+
+def save_estimator(mesh, pl):
+    """An fp64 Estimator(tier='distributed') on the toy schema, saved to
+    pl['ckpt'] (the serving demo restores it over a mesh of this size)."""
+    from nngp_tpu_torch.featurize.stats import TableStats
+    from nngp_tpu_torch.serve import Estimator
+    est = Estimator("toy", None, pl["qdir"],
+                    stats=[TableStats.from_json(s) for s in pl["stats"]],
+                    dtype=np.float64, verbose=False, tier="distributed",
+                    mesh=mesh, dist_block_size=pl["b"], device="cpu")
+    est.save(pl["ckpt"])
+    return est.posterior.num_train
