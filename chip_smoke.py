@@ -104,10 +104,17 @@ exits nonzero; nothing is caught and retried:
      MAE, conformal coverage), and synth6_big's full-n ARD x DTC learn
      then the m = 4,096 df64 Nystrom fit of
      `experiments/nystrom_90k_push.py` (learn, cold and warm fit, predict,
-     peak), against those logs' anchors (the fp32 learn's miss on the card
-     is printed as one, and the same learn in fp64 is held to the bounds);
+     peak), against those logs' anchors (q-error, the learn's log
+     evidence, and its 1e-3-ridge restart finite at every evaluation);
      `gram_sym` on the fit's rows and `gram_cross` at the m = 4,096 panel
-     against their twins.
+     against their twins;
+ 13. RPCholesky inducing selection (`fit_nystrom(inducing='rpchol')`),
+     fp32 nngp: forest and synth6 (chunk_norm) 10,800 / 3,600, m = 512
+     and 2,048, uniform and rpchol, seeds 0-2, against
+     `experiments/nystrom_rpchol_ab.log` (the JAX package's fp32 rows),
+     each selection's launches; synth6_big's 90k at m = 2,048 (the
+     65,536-row candidate subsample); `gram_cross` at the proposal-panel
+     shapes against its twin.
 
 Phase 4 also runs the training CLI in fp64 on the synthimdb, synthtpch and
 synthtpcds join workloads against the JAX package's fp64 q-error.
@@ -3429,21 +3436,23 @@ def write_listen_ckpt(ckpt, device):
     import tempfile
 
     from nngp_tpu_torch.parallel import make_mesh
-    from nngp_tpu_torch.parallel.mesh import is_lead
+    from nngp_tpu_torch.parallel.mesh import is_lead, owned_group
     from nngp_tpu_torch.serve import LeadEstimator, follow
 
-    mesh = make_mesh(int(os.environ["WORLD_SIZE"]), device=device)
-    train, queries, _ = listen_split()
-    with tempfile.TemporaryDirectory() as tmp:
-        est = listen_estimator(mesh, device, write_train_dir(tmp, train))
-        est.save(ckpt)
-    est.predict(queries[:1])      # on every rank: the memo holds the line
-    if not is_lead(mesh):
-        follow(est)
-        return
-    with LeadEstimator(est) as lead:
-        extra, plain = lead_cost_us(est, lead, queries[0], LEAD_REPS_GLOO)
-    print(f"LEAD_COST {extra!r} {plain!r} {lead.calls}", flush=True)
+    with owned_group():     # the world group ends before the process
+        mesh = make_mesh(int(os.environ["WORLD_SIZE"]), device=device)
+        train, queries, _ = listen_split()
+        with tempfile.TemporaryDirectory() as tmp:
+            est = listen_estimator(mesh, device, write_train_dir(tmp, train))
+            est.save(ckpt)
+        est.predict(queries[:1])  # on every rank: the memo holds the line
+        if not is_lead(mesh):
+            follow(est)
+            return
+        with LeadEstimator(est) as lead:
+            extra, plain = lead_cost_us(est, lead, queries[0],
+                                        LEAD_REPS_GLOO)
+        print(f"LEAD_COST {extra!r} {plain!r} {lead.calls}", flush=True)
 
 
 def torchrun(p, *argv):
@@ -3796,6 +3805,7 @@ BEST_TOL, BEST_COVERAGE = 0.03, 0.9
 # 30,000 chunk_norm fp32 split. Anchor: experiments/nystrom_90k_push.log,
 # an fp32 learn on a TPU (log evidence -200198.0).
 BIG_BEST_ANCHOR, BIG_BEST_TOL, BIG_BEST_M = (2.0858, 19.45), (0.03, 0.05), 4096
+BIG_BEST_LOGEV, BIG_BEST_LOGEV_TOL = -200198.0, 1e-3
 
 
 def held_out_split(name, train_dir):
@@ -3912,20 +3922,42 @@ def best_learn(x_tr, y_tr, device, **kw):
     return res, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def dtc_losses():
+    """Records every evaluation of the DTC loss inside the block: yields a
+    list that receives each evaluation's (R,) loss values, as numpy."""
+    from nngp_tpu_torch.gp import hyperopt
+
+    real, seen = hyperopt._nll_dtc, []
+
+    def loss(*args, **kw):
+        val = real(*args, **kw)
+        seen.append(val.detach().cpu().numpy())
+        return val
+
+    hyperopt._nll_dtc = loss
+    try:
+        yield seen
+    finally:
+        hyperopt._nll_dtc = real
+
+
 def best_big(total, device, big):
     """(b) synth6_big's best configuration: the fp32 learn, a cold and a
     warm m = 4,096 df64 fit, predict-30k; gram_cross at its panel shape
-    against its twin. A miss of the anchor is printed as one, not raised:
-    on the card the learn's 1e-3-ridge restart goes NaN and it ends on the
-    3e-2 one, a worse optimum than the TPU's (PERF.md section 6,
-    experiments/torch_dtc_learn_nan.py). Returns (figures, the kernel
-    row)."""
+    against its twin. Raises unless the learn's 1e-3-ridge restart is
+    finite at every one of its loss evaluations, the log evidence is within
+    BIG_BEST_LOGEV_TOL of the TPU log's and the q-error within
+    BIG_BEST_TOL of its anchor. Returns (figures, the kernel row)."""
     from nngp_tpu_torch.gp import fit_nystrom
 
     x_tr, y_tr, x_te, y_te, _ = big
     yv = y_te.ravel().astype(np.float64)
-    res, learn_s = best_learn(x_tr, y_tr, device)
-    out = {"learn_s": learn_s, "log_evidence": float(res.log_evidence)}
+    with dtc_losses() as seen:
+        res, learn_s = best_learn(x_tr, y_tr, device)
+    bad = (~np.isfinite(np.stack(seen))).sum(axis=0).tolist()
+    out = {"learn_s": learn_s, "log_evidence": float(res.log_evidence),
+           "evaluations": len(seen), "nonfinite_per_restart": bad}
     xs_tr, xs_te = res.scale_inputs(x_tr), res.scale_inputs(x_te)
 
     def fit():
@@ -3965,13 +3997,18 @@ def best_big(total, device, big):
     del x_p
     out["median"], out["p95"] = qerror(mean, yv)
     a_med, a_p95 = BIG_BEST_ANCHOR
-    hit = (abs(out["median"] / a_med - 1) <= BIG_BEST_TOL[0]
-           and abs(out["p95"] / a_p95 - 1) <= BIG_BEST_TOL[1])
+    logev_rel = abs(out["log_evidence"] / BIG_BEST_LOGEV - 1)
     print(f"  best synth6_big m={BIG_BEST_M} df64, fp32 learn: symmetric "
           f"q-error median={out['median']!r} p95={out['p95']!r} (anchor "
           f"{a_med} / {a_p95}, rel bounds {BIG_BEST_TOL[0]} / "
-          f"{BIG_BEST_TOL[1]}): {'hit' if hit else 'MISS'}")
-    out["anchor_hit"] = hit
+          f"{BIG_BEST_TOL[1]}); log evidence rel {logev_rel!r} of "
+          f"{BIG_BEST_LOGEV} (bound {BIG_BEST_LOGEV_TOL}); non-finite "
+          f"evaluations per restart {bad} of {len(seen)} (restart 0, ridge "
+          "1e-3, must have none)")
+    if (bad[0] != 0 or len(seen) != 101 or logev_rel > BIG_BEST_LOGEV_TOL
+            or abs(out["median"] / a_med - 1) > BIG_BEST_TOL[0]
+            or abs(out["p95"] / a_p95 - 1) > BIG_BEST_TOL[1]):
+        raise AssertionError(f"best synth6_big missed: {out}")
     del post
     torch.cuda.empty_cache()
     return out, row
@@ -3987,6 +4024,234 @@ def best_slice(card, total, device, big):
     times["synth6_big"], rows[f"synth6_big m={BIG_BEST_M} df64 panel"] = \
         best_big(total, device, big)
     print(f"best configurations on {card}: " + json.dumps(times))
+    return rows
+
+
+# ---------------------------------- phase 13: RPCholesky inducing selection
+# experiments/nystrom_rpchol_ab.log: the JAX package in fp32 on the CPU
+# (BASELINE.md, "Inducing selection A/B"), forest and synth6 (chunk_norm),
+# the seed-10 split's 10,800 train / 3,600 test rows, nngp, seeds 0-2. Per
+# (workload, m, inducing): the mean over the seeds of the q-error median and
+# p95, each with the log's +- spread (their std over the seeds). A row is
+# held to |mean - anchor| <= spread + RPCHOL_WIDEN * anchor.
+RPCHOL_AB = {
+    ("forest", 512, "uniform"): ((3.1129, 0.0419), (32.9545, 0.2628)),
+    ("forest", 512, "rpchol"): ((3.1820, 0.0105), (33.2186, 0.8557)),
+    ("forest", 2048, "uniform"): ((2.7115, 0.0135), (24.4534, 0.5994)),
+    ("forest", 2048, "rpchol"): ((2.8054, 0.0455), (26.0623, 0.8557)),
+    ("synth6", 512, "uniform"): ((2.8944, 0.0174), (31.6631, 0.4091)),
+    ("synth6", 512, "rpchol"): ((3.0135, 0.0160), (36.1165, 1.4698)),
+    ("synth6", 2048, "uniform"): ((2.7716, 0.0152), (31.2616, 1.1153)),
+    ("synth6", 2048, "rpchol"): ((2.8302, 0.0138), (33.2936, 0.3254)),
+}
+RPCHOL_WIDEN, RPCHOL_SEEDS, RPCHOL_BLOCK, RPCHOL_TRAIN = 0.03, 3, 64, 10800
+# synth6_big: phase 8's 90,000 rows, past max_candidates = 65,536
+RPCHOL_BIG_M = 2048
+
+
+def rpchol_workload(name):
+    """experiments/nystrom_rpchol_ab.py's fp32 rows: (x_tr, y_tr, x_te,
+    y_te as a vector)."""
+    from nngp_tpu_torch.data.workload import (load_multi_join_workload,
+                                              load_single_table_workload)
+    from nngp_tpu_torch.eval.splits import train_test_val_split
+
+    if name == "forest":
+        x, y, infos, _ = load_single_table_workload(
+            FOREST, relation="forest", name="forest", dtype=np.float32)
+    else:
+        x, y, infos, _ = load_multi_join_workload(
+            SYNTH6, schema_name="synth6", dtype=np.float32, chunk_norm=True)
+    x_tr, y_tr, _, x_te, y_te, *_ = train_test_val_split(
+        x, y, 0.6, 0.2, max_num_train=RPCHOL_TRAIN, all_query_infos=infos)
+    return x_tr, y_tr, x_te, np.asarray(y_te, np.float64).ravel()
+
+
+def prescaled(spec, x, device):
+    """x as `fit_nystrom` selects on it: on the device, over its automatic
+    input scale."""
+    from nngp_tpu_torch.gp.posterior import _auto_input_scale
+
+    xt = torch.as_tensor(x, device=device)
+    return xt * (1.0 / _auto_input_scale(x, spec.layers))
+
+
+def rpchol_select(spec, x_s, m, seed, get="nngp"):
+    """`select_inducing_rpchol` on prescaled device rows, alone: (indices,
+    seconds, gram_cross launches). A round that reaches its proposal panel
+    launches one cross; there are at least ceil(k / block) of them for k
+    indices, and at most the selection's round limit."""
+    from nngp_tpu_torch.gp.nystrom import select_inducing_rpchol
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = select_inducing_rpchol(spec, x_s, m, get=get, seed=seed,
+                                 block=RPCHOL_BLOCK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = read_launches()
+    rounds = 4 * (-(-m // RPCHOL_BLOCK)) + 4
+    if (got["sym"] != 0 or not 0 < len(idx) <= m
+            or not -(-len(idx) // RPCHOL_BLOCK) <= got["cross"] <= rounds):
+        raise AssertionError(f"rpchol selection of {m}: {len(idx)} indices, "
+                             f"launches {got}")
+    return idx, secs, got["cross"]
+
+
+def rpchol_ab(spec, data, m, inducing, device, total, get="nngp"):
+    """One row of experiments/nystrom_rpchol_ab.py on the port: for seeds
+    0-2, fit_nystrom(inducing=...) (an rpchol fit after its selection alone,
+    which it must repeat: the same indices, its launches beside the fit's
+    K_mm, panels and predict chunks), predict the test rows, the q-error
+    and log evidence. Returns the means and spreads over the seeds."""
+    from nngp_tpu_torch.gp import fit_nystrom
+    from nngp_tpu_torch.gp import nystrom as TN
+
+    x_tr, y_tr, x_te, yv = data
+    x_s = prescaled(spec, x_tr, device) if inducing == "rpchol" else None
+    meds, p95s, evs, fits, sels, per_sel = [], [], [], [], [], []
+    for seed in range(RPCHOL_SEEDS):
+        sel = 0
+        if inducing == "rpchol":
+            idx, sel_s, sel = rpchol_select(spec, x_s, m, seed, get)
+            sels.append(sel_s)
+            per_sel.append(sel)
+        TN._BASES_CACHE.clear()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post = fit_nystrom(spec, x_tr, y_tr, num_inducing=m, get=get,
+                           seed=seed, inducing=inducing, device=device)
+        torch.cuda.synchronize()
+        fits.append(time.perf_counter() - t0)
+        mean, std = post.predict_mean_std_chunked(x_te, chunk=CHUNK)
+        expect_launches(f"rpchol A/B {inducing} m={m} seed {seed}",
+                        read_launches(),
+                        {"sym": 0, "cross": sel + 1 + panels(len(x_tr))
+                         + -(-len(x_te) // CHUNK)}, total)
+        if inducing == "rpchol" and not torch.equal(post.x_m,
+                                                   x_s[torch.as_tensor(
+                                                       idx, device=device)]):
+            raise AssertionError("rpchol: the fit's inducing rows are not "
+                                 "those its selection gives alone")
+        if not (np.all(np.isfinite(std)) and post.rank <= m):
+            raise AssertionError(f"rpchol A/B {inducing} m={m}: std or rank")
+        med, p95 = qerror(mean, yv)
+        meds.append(med)
+        p95s.append(p95)
+        evs.append(post.log_evidence())
+        del post
+    torch.cuda.empty_cache()
+    return {"median": float(np.mean(meds)), "median_sd": float(np.std(meds)),
+            "p95": float(np.mean(p95s)), "p95_sd": float(np.std(p95s)),
+            "log_ev": float(np.mean(evs)), "fit_s": float(np.mean(fits)),
+            "select_s": float(np.mean(sels)) if sels else None,
+            "launches_per_selection": per_sel}
+
+
+def ab_line(m, inducing, row):
+    """experiments/nystrom_rpchol_ab.py's print format."""
+    return (f"m={m} inducing={inducing}: median q "
+            f"{row['median']:.4f}+-{row['median_sd']:.4f} "
+            f"p95 {row['p95']:.4f}+-{row['p95_sd']:.4f} "
+            f"log_ev {row['log_ev']:.1f} fit {row['fit_s']:.2f}s "
+            f"(seeds={RPCHOL_SEEDS})")
+
+
+def rpchol_big(spec, device, big, total):
+    """synth6_big's 90,000 rows at m = 2,048: the selection alone takes the
+    candidate subsample (65,536 rows, F 65,536 x 2,112 fp32), then the fit
+    with inducing='rpchol' and predict-30k; the std must be finite and the
+    rank <= m. Returns the figures and the selection's indices."""
+    from nngp_tpu_torch.gp import fit_nystrom
+    from nngp_tpu_torch.gp import nystrom as TN
+
+    x_tr, y_tr, x_te, y_te, _ = big
+    x_s = prescaled(spec, x_tr, device)
+    idx, sel_s, sel = rpchol_select(spec, x_s, RPCHOL_BIG_M, 0)
+    del x_s
+    TN._BASES_CACHE.clear()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = fit_nystrom(spec, x_tr, y_tr, num_inducing=RPCHOL_BIG_M,
+                       inducing="rpchol", device=device)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    mean, std = post.predict_mean_std_chunked(x_te, chunk=CHUNK)
+    expect_launches(f"rpchol synth6_big m={RPCHOL_BIG_M} fit and predict",
+                    read_launches(),
+                    {"sym": 0, "cross": sel + 1 + panels(len(x_tr))
+                     + -(-len(x_te) // CHUNK)}, total)
+    if not (np.all(np.isfinite(std)) and post.rank <= RPCHOL_BIG_M
+            and len(idx) <= RPCHOL_BIG_M):
+        raise AssertionError(f"rpchol synth6_big: rank {post.rank}, "
+                             f"{len(idx)} indices")
+    med, p95 = qerror(mean, y_te.ravel().astype(np.float64))
+    out = {"select_s": sel_s, "fit_s": fit_s, "indices": len(idx),
+           "rank": post.rank, "launches_per_selection": sel, "median": med,
+           "p95": p95, "log_evidence": post.log_evidence()}
+    print(f"  rpchol synth6_big 90k, m={RPCHOL_BIG_M}, fp32: "
+          + json.dumps(out))
+    del post
+    torch.cuda.empty_cache()
+    return out, idx
+
+
+def rpchol_slice(card, total, device, big):
+    """Phase 13: fit_nystrom(inducing='rpchol') in fp32 nngp against
+    experiments/nystrom_rpchol_ab.log, uniform beside it, on forest and
+    synth6 (m = 512 and 2,048, seeds 0-2), and at synth6_big's 90k;
+    gram_cross at the proposal-panel shapes against its twin. Returns the
+    gram_cross rows."""
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+
+    spec = reference_kernel()
+    out, rows, missed = {}, {}, []
+    for name in ("forest", "synth6"):
+        data = rpchol_workload(name)
+        print(f"rpchol A/B: workload={name} n_train={len(data[0])} "
+              f"n_test={len(data[2])} get=nngp (fp32)")
+        for m in (512, 2048):
+            for inducing in ("uniform", "rpchol"):
+                row = rpchol_ab(spec, data, m, inducing, device, total)
+                (a_med, sd_med), (a_p95, sd_p95) = RPCHOL_AB[name, m,
+                                                             inducing]
+                ok = (abs(row["median"] - a_med) <= sd_med
+                      + RPCHOL_WIDEN * a_med
+                      and abs(row["p95"] - a_p95) <= sd_p95
+                      + RPCHOL_WIDEN * a_p95)
+                print(f"  {ab_line(m, inducing, row)}; select "
+                      f"{row['select_s']!r} s, launches per selection "
+                      f"{row['launches_per_selection']} (log {a_med}+-"
+                      f"{sd_med} / {a_p95}+-{sd_p95}, widened by "
+                      f"{RPCHOL_WIDEN} of the anchor: "
+                      f"{'in' if ok else 'OUT OF'} band)")
+                out[f"{name} m={m} {inducing}"] = row
+                if not ok:
+                    missed.append((name, m, inducing))
+        # the proposal panel: the candidates against 64 selected rows
+        x_s = prescaled(spec, data[0], device)
+        idx = torch.as_tensor(rpchol_select(spec, x_s, 512, 0)[0][
+            :RPCHOL_BLOCK], device=device)
+        rows[f"{name} proposal panel"] = check_cross_rows(
+            f"rpchol {name} proposal panel", spec, x_s, x_s[idx].contiguous(),
+            "nngp")
+        del x_s
+    out["synth6_big"], idx = rpchol_big(spec, device, big, total)
+    x_s = prescaled(spec, big[0], device)
+    cand = torch.as_tensor(np.sort(np.random.default_rng(0).choice(
+        len(x_s), size=65536, replace=False)), device=device)
+    rows["synth6_big candidate panel"] = check_cross_rows(
+        "rpchol synth6_big candidate panel", spec, x_s[cand].contiguous(),
+        x_s[torch.as_tensor(idx[:RPCHOL_BLOCK], device=device)].contiguous(),
+        "nngp")
+    del x_s, cand
+    torch.cuda.empty_cache()
+    print(f"rpchol selection on {card}: " + json.dumps(out))
+    if missed:
+        raise AssertionError(f"rpchol A/B rows out of band: {missed}")
     return rows
 
 
@@ -4050,6 +4315,8 @@ def main():
                       launches, device, big)
     best_rows = timed("12 best configurations", best_slice, card, launches,
                       device, big)
+    rpchol_rows = timed("13 RPCholesky selection", rpchol_slice, card,
+                        launches, device, big)
     print("phase seconds: " + json.dumps(phase_s))
 
     summary = {"kernels": [
@@ -4064,6 +4331,7 @@ def main():
     summary["kernels"][1]["nystrom_panel"] = panel
     summary["kernels"][1]["distributed"] = dist_rows
     summary["kernels"][1]["best"] = best_rows
+    summary["kernels"][1]["rpchol"] = rpchol_rows
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -251,21 +251,23 @@ def main(argv=None):
     reject_unported(p, args)
     if args.tier == "distributed" and not args.mesh_devices:
         p.error("--tier distributed needs --mesh_devices")
-    mesh = None
-    if args.mesh_devices:
-        from nngp_tpu_torch.parallel import make_mesh
-        try:
-            mesh = make_mesh(args.mesh_devices, device=args.device)
-        except ValueError as e:           # N is not the world size
-            p.error(f"--mesh_devices: {e}")
-    from nngp_tpu_torch.parallel.mesh import is_lead
+    from nngp_tpu_torch.parallel.mesh import is_lead, owned_group
 
-    # every rank runs the same program; only rank 0 prints
-    with contextlib.ExitStack() as stack:
-        if not is_lead(mesh):
-            stack.enter_context(contextlib.redirect_stdout(
-                stack.enter_context(open(os.devnull, "w"))))
-        run(args, mesh)
+    with owned_group():
+        mesh = None
+        if args.mesh_devices:
+            from nngp_tpu_torch.parallel import make_mesh
+            try:
+                mesh = make_mesh(args.mesh_devices, device=args.device)
+            except ValueError as e:       # N is not the world size
+                p.error(f"--mesh_devices: {e}")
+
+        # every rank runs the same program; only rank 0 prints
+        with contextlib.ExitStack() as stack:
+            if not is_lead(mesh):
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            run(args, mesh)
 
 
 def run(args, mesh):

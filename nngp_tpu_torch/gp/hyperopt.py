@@ -134,6 +134,15 @@ def _per_restart(v):
     return v[:, None, None]
 
 
+def _each_restart(fn, t):
+    """fn(t[r:r+1]) for each restart r of the batched tensor t, each of
+    fn's outputs concatenated over the restarts: one launch per restart
+    instead of one batched launch, so that each restart's products are
+    those of its own R = 1 call."""
+    outs = [fn(t[r:r + 1]) for r in range(t.shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 def _diag_kernel(d, layers, get):
     """Exact (R, n) diagonal of the solve kernel from the ([R,] n) input
     diagonal d (the recursion broadcasts it to (R, 1, n))."""
@@ -271,8 +280,13 @@ def _nll_dtc(theta, x, y, m, depth, activation, width, get, duals,
         # enters every layer): mask after the recursion
         k_nm = k_nm * mask[:, None]
     psi = torch.linalg.solve_triangular(l_mm, k_nm.mT, upper=False)
-    c = psi @ psi.mT
-    b_m = psi @ ym
+    # C and b restart by restart: on a card the GEMM over all restarts at
+    # once takes another cuBLAS kernel than one restart's, and with
+    # kappa(C + rI) near n / reg_rel > 1/eps_fp32 its rounding left the
+    # 90k fp32 learn's 1e-3 restart with an indefinite C at 98 of 101
+    # evaluations, where alone it never failed
+    # (experiments/torch_dtc_learn_nan.py)
+    c, b_m = _each_restart(lambda p: (p @ p.mT, p @ ym), psi)
     rtr = reg_rel * tr
     yy = torch.sum(ym * ym)
     if group is not None:

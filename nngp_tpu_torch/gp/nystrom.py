@@ -3,7 +3,8 @@ counterpart of `nngp_tpu/gp/nystrom.py`).
 
     K  ~=  Q = K_nm K_mm^+ K_mn          (Nystrom, m inducing rows)
 
-with the inducing set a seeded uniform subset of the training rows. The fit
+with the inducing set a seeded uniform subset of the training rows, or
+one chosen by randomly pivoted Cholesky (`select_inducing_rpchol`). The fit
 streams row panels, so device state is O(m^2 + panel * m) at any n:
 
   1. K_mm comes from `gram_cross(x_m, x_m)` (the same function JAX
@@ -53,8 +54,9 @@ What differs from the JAX module:
     size; the rows past n are dropped, where JAX masks its zero-padded
     tail) and one all-reduce a panel sums the (k, k)-sized deltas; every
     rank holds the whole, replicated posterior;
-  - not ported: inducing='rpchol' and `select_inducing_rpchol`, and
-    precision='high' (ROADMAP 'Not to port').
+  - with mesh= and inducing='rpchol', rank 0 selects and broadcasts the
+    indices;
+  - not ported: precision='high' (ROADMAP 'Not to port').
 """
 
 import dataclasses
@@ -95,12 +97,134 @@ def select_inducing(n: int, m: int, seed: int = 0) -> np.ndarray:
     return np.sort(rng.choice(n, size=m, replace=False))
 
 
-def select_inducing_rpchol(*args, **kwargs):
-    """Not ported: randomly pivoted Cholesky selection lost to uniform
-    selection on predictive q-error on forest and synth6."""
-    raise NotImplementedError(
-        "select_inducing_rpchol is not ported (ROADMAP 'Not to port': it "
-        "lost to uniform selection on q-error on forest and synth6)")
+def _check_precision(precision: str):
+    """Only 'highest' (TF32 off); 'high' raises 'Not to port'."""
+    if precision == "high":
+        raise NotImplementedError(
+            "precision='high' is not ported (ROADMAP 'Not to port': the "
+            "TPU's 3-pass MXU mode; its counterpart here would be TF32, "
+            "which utils/device.py forbids)")
+    if precision != "highest":
+        raise ValueError(f"precision must be 'highest', got {precision!r}")
+
+
+def _rpchol_panel(spec, get, x_c, x_s, sel, f):
+    """One proposal panel's residual columns: g = K(x_c, x_S) - F F_S^T,
+    and its proposal rows g[sel]. Unfilled F columns are zero, so the
+    full-width product is exact."""
+    if get == "ntk":
+        _, k_cs = gram_cross(spec, x_c, x_s, ("nngp", "ntk"))
+    else:
+        k_cs = gram_cross(spec, x_c, x_s, "nngp")
+    g = k_cs - f @ f[sel].mT
+    return g, g[sel]
+
+
+def _rpchol_update(g, perm, inv_lt, f, d, j):
+    """Accept a round's pivots: F[:, j:j+B] = g[:, perm] @ invL^T (columns
+    past the accepted rank are zero in inv_lt: they land as zeros and
+    later rounds overwrite them), residual diagonal -= row norms."""
+    f_new = g[:, perm] @ inv_lt
+    f[:, j:j + f_new.shape[1]] = f_new
+    return torch.clamp_min(d - torch.sum(f_new * f_new, dim=1), 0.0)
+
+
+def select_inducing_rpchol(spec: KernelSpec, x, m: int, get: str = "nngp",
+                           seed: int = 0, block: int = 64,
+                           max_candidates: int = 65536,
+                           precision: str = "highest",
+                           device=None) -> np.ndarray:
+    """Block randomly pivoted Cholesky (RPCholesky) inducing selection: the
+    counterpart of `nngp_tpu/gp/nystrom.py::select_inducing_rpchol`, with
+    the same host algorithm and random draws, so the same rows give the
+    same indices.
+
+    Pivots are drawn with probability proportional to the RESIDUAL kernel
+    diagonal d_i = K_ii - |F_i|^2 after projecting out the chosen columns:
+    near trace-optimal column Nystrom (Chen, Epperly, Tropp & Webber,
+    "Randomly pivoted Cholesky", 2022). It beats uniform selection on the
+    trace error, but uniform wins on predictive q-error where the held-out
+    queries follow the train density (forest and synth6,
+    experiments/nystrom_rpchol_ab.log): opt in when the serving
+    distribution will not follow it.
+
+    Each round: one `gram_cross` of the candidates against the B proposals
+    and the residual g = K(x_c, x_S) - F F_S^T on the device; the B x B
+    proposal block factored on the host in fp64 (LAPACK dpstrf, pivoted,
+    and dtrtri) to accept the linearly independent proposals; one update
+    on the device appends the accepted columns to F and downdates d. F
+    (n_c, m + B) and d stay on the device; the host reads d and the B x B
+    block once a round.
+
+    x: (n, d) rows (numpy or a tensor) as the fit sees them (prescaled);
+    device: where the work runs (required for numpy input, a tensor's own
+    device by default). With n > max_candidates the pivots come from a
+    seeded uniform subsample of the candidates. May return fewer than m
+    indices when the kernel is numerically rank-deficient on the
+    candidates. precision: only 'highest' (TF32 stays off)."""
+    from scipy.linalg import lapack
+
+    _check_precision(precision)
+    if device is None:
+        if not isinstance(x, torch.Tensor):
+            raise ValueError("select_inducing_rpchol needs device= for "
+                             "numpy input")
+        device = x.device
+    device = resolve_device(device)
+    n = x.shape[0]
+    if m >= n:
+        return np.arange(n)
+    rng = np.random.default_rng(seed)
+    if n > max_candidates:
+        cand = np.sort(rng.choice(n, size=max_candidates, replace=False))
+    else:
+        cand = np.arange(n)
+    nc = cand.shape[0]
+    x = _as_tensor(x, device)
+    x_c = x[torch.as_tensor(cand, device=device)].contiguous()
+    d = spec.diag_fn(x_c, get)
+    trace0 = float(torch.sum(d))
+    f = torch.zeros((nc, m + block), dtype=x_c.dtype, device=device)
+    chosen: list = []
+    taken = np.zeros(nc, dtype=bool)
+    j = 0
+    max_rounds = 4 * (-(-m // block)) + 4
+    for _ in range(max_rounds):
+        if j >= m:
+            break
+        d_host = d.cpu().numpy().astype(np.float64)
+        d_host[taken] = 0.0
+        tot = float(d_host.sum())
+        if tot <= 1e-12 * max(trace0, 1.0):
+            break                       # numerically exhausted
+        sel = rng.choice(nc, size=block, p=d_host / tot)
+        sel_t = torch.as_tensor(sel, device=device)
+        g, h_small = _rpchol_panel(spec, get, x_c, x_c[sel_t], sel_t, f)
+        h64 = h_small.cpu().numpy().astype(np.float64)
+        h64 = 0.5 * (h64 + h64.T)
+        # pivoted Cholesky of the proposal block: P^T H P = L L^T, rank r
+        c_fact, piv, r, info = lapack.dpstrf(h64, lower=1)
+        if info < 0 or r == 0:
+            continue                    # all proposals dependent; resample
+        r = min(int(r), m - j)
+        perm = sel[piv[:r] - 1]         # dpstrf pivots are 1-based
+        li, tinfo = lapack.dtrtri(np.tril(c_fact[:r, :r]), lower=1)
+        if tinfo != 0:
+            continue
+        inv_lt = np.zeros((block, block), np.float64)
+        inv_lt[:r, :r] = li.T           # cols >= r stay zero (rejected)
+        d = _rpchol_update(
+            g, torch.as_tensor(piv[:block] - 1, device=device),
+            torch.as_tensor(inv_lt, dtype=x_c.dtype, device=device), f, d, j)
+        # taken[] guards the sampler, so the accepted pivots are fresh
+        chosen.extend(int(p) for p in perm)
+        taken[perm] = True
+        j += r
+    if not chosen:
+        raise ValueError(
+            "RPCholesky selected no pivots — degenerate kernel diagonal "
+            "(all-zero rows?)")
+    return np.sort(cand[np.asarray(chosen[:m])])
 
 
 # ------------------------------------------------------- whitening bases
@@ -576,6 +700,29 @@ class NystromPosterior:
 
 
 # ------------------------------------------------------------------- fit
+def _rpchol_indices(spec, x, m, get, seed, mesh, mesh_axis):
+    """`select_inducing_rpchol` on the prescaled rows x, as a tensor of
+    indices on x's device. With a mesh (collective) coordinate 0 selects
+    and broadcasts the count, then the indices, so every rank holds the
+    same inducing rows."""
+    if mesh is None:
+        return torch.as_tensor(select_inducing_rpchol(
+            spec, x, m, get=get, seed=seed), device=x.device)
+    import torch.distributed as dist
+
+    from nngp_tpu_torch.parallel.mesh import owner_broadcast
+
+    group = mesh.get_group(mesh_axis)
+    idx = None
+    if dist.get_rank(group) == 0:
+        idx = torch.as_tensor(select_inducing_rpchol(spec, x, m, get=get,
+                                                     seed=seed),
+                              device=x.device)
+    like = torch.zeros(1, dtype=torch.int64, device=x.device)
+    count = owner_broadcast(lambda: like + idx.numel(), 0, (1,), like, group)
+    return owner_broadcast(lambda: idx, 0, (int(count),), like, group)
+
+
 def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
                 diag_reg: float = 1e-3, get: str = "nngp",
                 diag_reg_absolute_scale: bool = False, seed: int = 0,
@@ -595,7 +742,11 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
     whiten: 'chol' (jittered Cholesky basis, rank m) or 'eigh' (the
     eigenvalue-truncated basis, rank <= m). inducing_rows: explicit (m, d)
     inducing rows in raw units, overriding the seeded uniform selection
-    (the hook `grow_inducing` uses). finalize: 'host', 'device' or 'auto'.
+    (the hook `grow_inducing` uses). inducing: 'uniform' (the seeded
+    subset) or 'rpchol' (`select_inducing_rpchol` on the prescaled rows,
+    with the fit's spec, get and seed; may give fewer than num_inducing
+    rows; with mesh= rank 0 selects and broadcasts the indices).
+    finalize: 'host', 'device' or 'auto'.
     moments: 'fp32' or 'df64' (fp32 posteriors only: the kernel entries,
     bases, projections and accumulators in fp64, with the rank cut 1e-12).
     mesh: a `parallel.make_mesh` DeviceMesh: every panel's rows are split
@@ -611,16 +762,8 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
         if device is not None:
             check_mesh_device(mesh, device)
         device = mesh_device(mesh)
-    if precision == "high":
-        raise NotImplementedError(
-            "precision='high' is not ported (ROADMAP 'Not to port': the "
-            "TPU's 3-pass MXU mode; its counterpart here would be TF32, "
-            "which utils/device.py forbids)")
-    if precision != "highest":
-        raise ValueError(f"precision must be 'highest', got {precision!r}")
-    if inducing == "rpchol":
-        select_inducing_rpchol()
-    if inducing != "uniform":
+    _check_precision(precision)
+    if inducing not in ("uniform", "rpchol"):
         raise ValueError(
             f"inducing must be 'uniform' or 'rpchol', got {inducing!r}")
     if whiten not in ("chol", "eigh"):
@@ -653,10 +796,12 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
         x_m = _as_tensor(inducing_rows, device, x.dtype)
         if input_scale != 1.0:
             x_m = x_m * (1.0 / input_scale)
+    elif inducing == "uniform":
+        x_m = x[torch.as_tensor(select_inducing(n, num_inducing, seed),
+                                device=device)]
     else:
-        idx = torch.as_tensor(select_inducing(n, num_inducing, seed),
-                              device=device)
-        x_m = x[idx]
+        x_m = x[_rpchol_indices(spec, x, num_inducing, get, seed, mesh,
+                                mesh_axis)]
     x_m = x_m.contiguous()
     if rank_rtol is None:
         rank_rtol = _default_rank_rtol(x.dtype, moments)

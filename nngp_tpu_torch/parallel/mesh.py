@@ -17,6 +17,7 @@ The collectives the tier's modules share (`parallel/cholesky.py`,
 every rank or onto rank 0's host, and sums over ranks.
 """
 
+import contextlib
 import datetime
 import os
 from typing import Optional
@@ -67,6 +68,19 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "data",
             f"launch with torchrun --nproc_per_node {n_devices} (without a "
             "launcher only 1 is possible)")
     return init_device_mesh(dev_type, (world,), mesh_dim_names=(axis_name,))
+
+
+@contextlib.contextmanager
+def owned_group():
+    """For a command line's run: a process group started inside the block
+    (by `make_mesh`) is destroyed when the block ends without an
+    exception. A gloo group left to the interpreter's exit can abort the
+    process after its work is done (SIGABRT, "terminate called without an
+    active exception"), which fails the launcher's run."""
+    started = not dist.is_initialized()
+    yield
+    if started and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def control_group(mesh, timeout: Optional[datetime.timedelta] = None):

@@ -163,6 +163,48 @@ def test_losses_and_gradients_match_jax(kind, get, act, depth):
         _close_tree({k: n(g[r]) for k, g in grads.items()}, jgrad, 1e-8)
 
 
+@pytest.mark.parametrize("kind", ["dtc", "dtc-ard"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["fp32", "fp64"])
+def test_batched_dtc_loss_equals_each_restart_alone(kind, dtype):
+    """The DTC loss of three restarts at once (the ridges 1e-3, 3e-2 and
+    0.3 of `fit_kernel_hyperparams`) and its gradient equal each restart's
+    own R = 1 loss and gradient: rel 1e-5 in fp32 (the batch may take other
+    summation orders than R = 1), 1e-12 in fp64; and, in fp64, JAX's
+    `_nll_dtc` at each restart's theta (rtol 1e-10, gradients 1e-8)."""
+    x, y = _data()
+    x, y = np.roll(x, -20, axis=0), np.roll(y, -20, axis=0)
+    x, y = x.astype(dtype) / 1000.0, y.astype(dtype)
+    th = _theta(kind, x.shape[1])
+    pts = [dict(th, log_reg=np.log(r)) for r in (1e-3, 3e-2, 0.3)]
+    pts = [{k: v + 0.03 * i for k, v in p.items()} for i, p in enumerate(pts)]
+    loss = _port_loss("dtc", "nngp", "relu", 1, x, y)
+    rtol = 1e-5 if dtype == np.float32 else 1e-12
+
+    def value_grad(points):
+        tth = {k: torch.tensor(np.stack([p[k] for p in points]).astype(
+            dtype), requires_grad=True) for k in th}
+        val = loss(tth)
+        return val, dict(zip(tth, torch.autograd.grad(val.sum(),
+                                                      list(tth.values()))))
+
+    val, grads = value_grad(pts)
+    assert bool(torch.all(torch.isfinite(val)))
+    for r, point in enumerate(pts):
+        one, one_g = value_grad([point])
+        np.testing.assert_allclose(float(val[r].detach()),
+                                   float(one[0].detach()), rtol=rtol)
+        _close_tree({k: n(g[r]) for k, g in grads.items()},
+                    {k: n(g[0]) for k, g in one_g.items()}, rtol)
+    if dtype == np.float64:
+        jloss = _jax_loss("dtc", "nngp", "relu", 1, x, y)
+        for r, point in enumerate(pts):
+            jval, jgrad = jloss({k: jnp.asarray(v) for k, v in point.items()})
+            np.testing.assert_allclose(float(val[r].detach()), float(jval),
+                                       rtol=1e-10)
+            _close_tree({k: n(g[r]) for k, g in grads.items()}, jgrad, 1e-8)
+
+
 def test_loss_at_pinned_values_equals_log_marginal_likelihood():
     """With the hyperparameters pinned, -loss is the fitted posterior's
     exact log evidence, nngp and ntk, on rows without a duplicated pair

@@ -307,7 +307,6 @@ def test_errors():
             (dict(get="gp"), ValueError, "get"),
             (dict(whiten="qr"), ValueError, "whiten"),
             (dict(inducing="kmeans"), ValueError, "inducing"),
-            (dict(inducing="rpchol"), NotImplementedError, "Not to port"),
             (dict(precision="high"), NotImplementedError, "Not to port"),
             (dict(precision="default"), ValueError, "precision"),
             (dict(mesh=_CudaMesh()), ValueError, "mesh is a cuda mesh"),
@@ -319,7 +318,8 @@ def test_errors():
     with pytest.raises(ValueError, match="device="):
         fit_nystrom(spec, x, y, num_inducing=16)
     with pytest.raises(NotImplementedError, match="Not to port"):
-        TN.select_inducing_rpchol(spec, x, 8)
+        TN.select_inducing_rpchol(spec, x, 8, precision="high",
+                                  device="cpu")
     zeros = torch.zeros((4, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="no eigenvalue"):
         TN._whiten_basis(zeros, 1e-8)

@@ -8,6 +8,7 @@ surface still raises as unported is in test_torch_serve_frontends.py.)
 
 import json
 import os
+import queue
 import socket
 import subprocess
 import sys
@@ -137,14 +138,18 @@ def _listen_session(port, queries, labeled):
     return before, send(queries)
 
 
-def test_serve_demo_listens_over_two_ranks(tmp_path, capsys):
+def test_serve_demo_listens_over_two_ranks(tmp_path, capsys,
+                                           monkeypatch):
     """torchrun of two ranks: serve_demo restores an fp64 distributed
     checkpoint written over two ranks and serves `--listen` with online
     feedback from rank 0 through the lead, rank 1 replaying its calls. It
     exits 0, prints once, and replies as the world-size-1 demo does on its
     own checkpoint of the same rows (1e-9: sums over ranks in another
-    order); the malformed line's reply is an error."""
+    order); the malformed line's reply is an error. Both demos bind port
+    0; a failure raises with the torchrun child's stderr."""
+    import nngp_tpu_torch.serve as serve_pkg
     from nngp_tpu_torch.parallel import make_mesh
+    from nngp_tpu_torch.serve import EstimatorSocketServer
     from tests.test_active_serve import _toy_schema_files
     from tests.torch_parallel_cases import on_ranks, save_estimator
 
@@ -167,37 +172,74 @@ def test_serve_demo_listens_over_two_ranks(tmp_path, capsys):
              qdir, "--feedback_mode", "online", "--listen_max_requests",
              str(2 * len(queries)), "--warmup_batch", "16"]
 
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "2", "-m", "nngp_tpu_torch.cli.serve_demo",
-         *flags, "--ckpt", ck2, "--mesh_devices", "2", "--listen",
-         "127.0.0.1:0"], cwd=REPO, env=ENV, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+    err_path = tmp_path / "torchrun.err"
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", "-m", "nngp_tpu_torch.cli.serve_demo",
+             *flags, "--ckpt", ck2, "--mesh_devices", "2", "--listen",
+             "127.0.0.1:0"], cwd=REPO, env=ENV, stdout=subprocess.PIPE,
+            stderr=err_file, text=True)
+
+    def failed(what):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        return AssertionError(f"{what} (torchrun exit {proc.returncode}); "
+                              "its stderr ends: "
+                              + err_path.read_text()[-3000:])
+
     try:
         printed = []
         for line in proc.stdout:
             printed.append(line)
             if line.startswith("serving on"):
                 break
-        port = int(printed[-1].split()[2].rsplit(":", 1)[1])
-        got = _listen_session(port, queries, labeled)
-        out, err = proc.communicate(timeout=120)
+        else:
+            raise failed("the two ranks never served: "
+                         + "".join(printed)[-2000:])
+        port = int(line.split()[2].rsplit(":", 1)[1])
+        try:
+            got = _listen_session(port, queries, labeled)
+            out = proc.communicate(timeout=120)[0]
+        except (OSError, AssertionError, subprocess.TimeoutExpired) as e:
+            raise failed(f"the session on two ranks failed: {e!r}") from e
     finally:
-        proc.kill()
-    assert proc.returncode == 0, err[-3000:]
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise failed("torchrun of two ranks failed")
     out = "".join(printed) + out
     assert out.count("serving on") == out.count("shutting down") == 1
     assert "the followers replayed [" in out
 
-    want = []
-    port = _free_port()
-    client = threading.Thread(target=lambda: want.extend(
-        _listen_session(port, queries, labeled)))
-    client.start()
+    # the world-size-1 demo in this process binds port 0 too: the client
+    # learns the port from the server it starts
+    ports, want, errors = queue.Queue(), [], []
+
+    class Reporting(EstimatorSocketServer):
+        def __enter__(self):
+            srv = super().__enter__()
+            ports.put(srv.port)
+            return srv
+
+    def client():
+        try:
+            want.extend(_listen_session(ports.get(timeout=120), queries,
+                                        labeled))
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    monkeypatch.setattr(serve_pkg, "EstimatorSocketServer", Reporting)
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
     serve_demo.main(flags + ["--ckpt", ck1, "--mesh_devices", "1",
-                             "--listen", f"127.0.0.1:{port}"])
-    client.join(timeout=120)
+                             "--listen", "127.0.0.1:0"])
+    thread.join(timeout=120)
     capsys.readouterr()
+    if errors:
+        raise errors[0]
     assert len(want) == 2
     assert "ValueError" in got[0][-1]["error"]
     assert [r["mean"] for r in got[0][:-1]] != [r["mean"] for r in got[1]]
@@ -209,9 +251,3 @@ def test_serve_demo_listens_over_two_ranks(tmp_path, capsys):
             a = np.asarray([r[key] for r in g])
             b = np.asarray([r[key] for r in w])
             assert np.max(np.abs(a - b)) < 1e-9 * np.max(np.abs(b))
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]

@@ -307,6 +307,18 @@ def nystrom(mesh, pl):
     return out
 
 
+def rpchol(mesh, pl):
+    """fit_nystrom(inducing='rpchol', mesh=): the inducing rows this rank
+    holds (rank 0 selects and broadcasts), the predictions and an extend's."""
+    from nngp_tpu_torch.gp import fit_nystrom
+    post = fit_nystrom(pl["spec"], pl["x"], pl["y"], num_inducing=pl["m"],
+                       get=pl["get"], seed=pl["seed"], inducing="rpchol",
+                       mesh=mesh)
+    return {"x_m": post.x_m, "mean_std": post.predict_mean_std(pl["xt"]),
+            "ext": post.extend(pl["x_new"], pl["y_new"]).predict_mean_std(
+                pl["xt"])}
+
+
 def active(mesh, pl):
     """ActiveLearner(mesh=) runs: (validation MSE history, final train
     count, final padded count) per configuration of pl['learners']."""
