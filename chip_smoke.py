@@ -105,7 +105,8 @@ exits nonzero; nothing is caught and retried:
      then the m = 4,096 df64 Nystrom fit of
      `experiments/nystrom_90k_push.py` (learn, cold and warm fit, predict,
      peak), against those logs' anchors (q-error, the learn's log
-     evidence, and its 1e-3-ridge restart finite at every evaluation);
+     evidence, and its 1e-3-ridge restart finite at every evaluation with
+     the smallest eigenvalue of its C + rI at least half its ridge);
      `gram_sym` on the fit's rows and `gram_cross` at the m = 4,096 panel
      against their twins;
  13. RPCholesky inducing selection (`fit_nystrom(inducing='rpchol')`),
@@ -114,7 +115,20 @@ exits nonzero; nothing is caught and retried:
      `experiments/nystrom_rpchol_ab.log` (the JAX package's fp32 rows),
      each selection's launches; synth6_big's 90k at m = 2,048 (the
      65,536-row candidate subsample); `gram_cross` at the proposal-panel
-     shapes against its twin.
+     shapes against its twin;
+ 14. the port's fp32 faults (ROADMAP Queue C): C1, gram_sym and the
+     Cholesky factor of synth6_big's first 40,000-74,000 train rows in
+     fp32 at the default ridge (each factor's info, times, peaks; ntk at
+     its exact_max_n; gram_sym at 74,000 against its twin, timed), then
+     Estimator(float32, tier='auto', quality='best') on 50,000 lines,
+     whose failed exact factor must re-route the fit to the Nystrom tier
+     (printed, warned, the memory freed) and serve what tier='nystrom'
+     serves, and tier='exact', which must raise a FloatingPointError
+     naming diag_reg; C3, the synth6 fp32 std on the raw encoding
+     computed several ways against the fp64 Estimator's (conformal
+     coverage, zero stds, predict ms), the shipped one held to the rule;
+     C4, the forest_2048 and synth6_big Nystrom fits with K_mm from
+     gram_cross and from gram_sym.
 
 Phase 4 also runs the training CLI in fp64 on the synthimdb, synthtpch and
 synthtpcds join workloads against the JAX package's fp64 q-error.
@@ -692,12 +706,18 @@ def build_estimator(train_dir, dtype, device):
 
 def serve_and_check(est, label, test, test_y, tol_med, tol_p95, total):
     """Predict the test lines twice: the first predict launches one
-    gram_cross per 8,192-row chunk, the second is served from the memo and
-    launches nothing. Holds the q-error against the synth6 fp64 anchor."""
+    gram_cross per 8,192-row chunk (two for an fp32 posterior with an
+    input prescale: the variance's cross Gram runs in fp64 on the raw
+    rows), the second is served from the memo and launches nothing. Holds
+    the q-error against the synth6 fp64 anchor."""
+    from nngp_tpu_torch.gp.posterior import needs_raw_fp64
+
+    p = est.posterior
     reset_launches()
     mean, std = est.predict(test)
     torch.cuda.synchronize()
-    chunks = -(-len(test) // CHUNK)
+    chunks = -(-len(test) // CHUNK) * (
+        2 if needs_raw_fp64(p.input_scale, p.x_train.dtype) else 1)
     expect_launches(f"{label} predict", read_launches(),
                     {"sym": 0, "cross": chunks}, total)
     reset_launches()
@@ -1931,8 +1951,9 @@ def nystrom_learn(total, device):
 
 def nystrom_slice(card, total, device):
     """Phase 8: the Nystrom tier. Returns the fp32 nngp figures of
-    gram_cross at the panel shape, and the encoded synth6_big split
-    (x_tr, y_tr, x_te, y_te, inducing rows) that phase 11 reuses."""
+    gram_cross at the panel shape, the encoded synth6_big split (x_tr,
+    y_tr, x_te, y_te, inducing rows) that phases 11-14 reuse, and its
+    (train, test) lines for phase 14."""
     import tempfile
 
     from nngp_tpu_torch.gp.nystrom import select_inducing
@@ -1952,7 +1973,7 @@ def nystrom_slice(card, total, device):
     learn = nystrom_learn(total, device)
     print(f"Nystrom serving and learning times on {card}: "
           + json.dumps({**est_times, **learn}))
-    return panel, big
+    return panel, big, (train, test)
 
 
 # ------------------------------------- the other committed workload families
@@ -3806,6 +3827,9 @@ BEST_TOL, BEST_COVERAGE = 0.03, 0.9
 # an fp32 learn on a TPU (log evidence -200198.0).
 BIG_BEST_ANCHOR, BIG_BEST_TOL, BIG_BEST_M = (2.0858, 19.45), (0.03, 0.05), 4096
 BIG_BEST_LOGEV, BIG_BEST_LOGEV_TOL = -200198.0, 1e-3
+# restart 0's smallest eigenvalue of C + rI at every loss evaluation, in
+# units of its ridge r: fp64 C keeps it near r at any GEMM order
+BIG_BEST_MARGIN = 0.5
 
 
 def held_out_split(name, train_dir):
@@ -3924,22 +3948,35 @@ def best_learn(x_tr, y_tr, device, **kw):
 
 @contextlib.contextmanager
 def dtc_losses():
-    """Records every evaluation of the DTC loss inside the block: yields a
-    list that receives each evaluation's (R,) loss values, as numpy."""
+    """Records every evaluation of the DTC loss inside the block: yields
+    (losses, margins, probe): losses receives each evaluation's (R,) loss
+    values, as numpy; margins restart 0's (smallest, largest eigenvalue of
+    the C + rI its factor gets, r) at each evaluation, from an fp64
+    eigvalsh beside the loss; probe[0] the seconds those took."""
     from nngp_tpu_torch.gp import hyperopt
 
-    real, seen = hyperopt._nll_dtc, []
+    real, real_factor = hyperopt._nll_dtc, hyperopt._c_factor
+    seen, margins, probe = [], [], [0.0]
 
     def loss(*args, **kw):
         val = real(*args, **kw)
         seen.append(val.detach().cpu().numpy())
         return val
 
-    hyperopt._nll_dtc = loss
+    def factor(c, r):
+        t0 = time.perf_counter()
+        a, r0 = c[0].detach().double(), float(r[0].detach())
+        lam = torch.linalg.eigvalsh(
+            a + r0 * torch.eye(a.shape[0], dtype=a.dtype, device=a.device))
+        margins.append((float(lam[0]), float(lam[-1]), r0))
+        probe[0] += time.perf_counter() - t0
+        return real_factor(c, r)
+
+    hyperopt._nll_dtc, hyperopt._c_factor = loss, factor
     try:
-        yield seen
+        yield seen, margins, probe
     finally:
-        hyperopt._nll_dtc = real
+        hyperopt._nll_dtc, hyperopt._c_factor = real, real_factor
 
 
 def best_big(total, device, big):
@@ -3953,11 +3990,26 @@ def best_big(total, device, big):
 
     x_tr, y_tr, x_te, y_te, _ = big
     yv = y_te.ravel().astype(np.float64)
-    with dtc_losses() as seen:
+    with dtc_losses() as (seen, margins, probe):
         res, learn_s = best_learn(x_tr, y_tr, device)
     bad = (~np.isfinite(np.stack(seen))).sum(axis=0).tolist()
-    out = {"learn_s": learn_s, "log_evidence": float(res.log_evidence),
-           "evaluations": len(seen), "nonfinite_per_restart": bad}
+    lam = np.asarray(margins)
+    ratio = lam[:, 0] / lam[:, 2]
+    out = {"learn_s": learn_s, "learn_s_without_probe": learn_s - probe[0],
+           "log_evidence": float(res.log_evidence),
+           "evaluations": len(seen), "nonfinite_per_restart": bad,
+           "margin_evaluations": len(margins),
+           "min_lambda_min_over_r": float(ratio.min()),
+           "lambda_min_range": [float(lam[:, 0].min()),
+                                float(lam[:, 0].max())],
+           "lambda_max_range": [float(lam[:, 1].min()),
+                                float(lam[:, 1].max())]}
+    print(f"  best synth6_big fp32 learn: restart 0's C + rI (fp64 C) at "
+          f"each of {len(margins)} evaluations: min lambda_min / r "
+          f"{float(ratio.min())!r} (bound >= {BIG_BEST_MARGIN}); "
+          f"lambda_min / r by evaluation {[round(float(v), 4) for v in ratio]}; "
+          f"learn {learn_s!r} s, {learn_s - probe[0]!r} s without the "
+          f"eigenvalue probe (PR 10: 8.12 s)")
     xs_tr, xs_te = res.scale_inputs(x_tr), res.scale_inputs(x_te)
 
     def fit():
@@ -4005,7 +4057,9 @@ def best_big(total, device, big):
           f"{BIG_BEST_LOGEV} (bound {BIG_BEST_LOGEV_TOL}); non-finite "
           f"evaluations per restart {bad} of {len(seen)} (restart 0, ridge "
           "1e-3, must have none)")
-    if (bad[0] != 0 or len(seen) != 101 or logev_rel > BIG_BEST_LOGEV_TOL
+    if (bad[0] != 0 or len(seen) != 101 or len(margins) != 101
+            or ratio.min() < BIG_BEST_MARGIN
+            or logev_rel > BIG_BEST_LOGEV_TOL
             or abs(out["median"] / a_med - 1) > BIG_BEST_TOL[0]
             or abs(out["p95"] / a_p95 - 1) > BIG_BEST_TOL[1]):
         raise AssertionError(f"best synth6_big missed: {out}")
@@ -4255,6 +4309,524 @@ def rpchol_slice(card, total, device, big):
     return rows
 
 
+# ------------------------------------------ phase 14: the port's fp32 faults
+# C1: fp32 exact fits of synth6_big's train rows (chunk_norm, reference nngp)
+# at the default ridge, up to just under the 74,973 rows default_exact_max_n
+# admits on the 80 GB card; the ntk fit at its own exact_max_n
+FACTOR_N = (40000, 50000, 60000, 74000)
+FACTOR_BLOCKS = ((0, 2048), (72000, 74000))   # rows held against the twin
+# the Estimator's train lines, all of them fitted in file order: the 50,000
+# rows whose fp32 factor fails at order 38,963 in the first C1 fit (a 10%
+# calibration holdout permutes the rows, and 45,000 of them in that order
+# factored on the card, PERF.md)
+REROUTE_N = 50000
+# C3: conformal 90% coverage of the fp64 synth6 Estimator on the raw
+# encoding (PR 2), and the rule's slack around it
+STD_COVERAGE_FP64, STD_COVERAGE_TOL = 0.9036, 0.02
+# C4: the anchors' own relative bound; a K_mm diagonal that moves a pair's
+# median or p95 by less leaves the semantics as they are
+KMM_PAIR_TOL = 2e-3
+
+
+def factorability(total, device, x_tr):
+    """C1 (a): gram_sym then cholesky_ex of synth6_big's first n train
+    rows in fp32 at the default relative ridge 1e-3, as `fit_gp` forms
+    them: the factor's info (0, or the order that failed), the Gram and
+    potrf ms (CUDA events) and the peak GiB above what was allocated
+    before. Then gram_sym at the largest n against its twin, timed.
+    Returns (the rows, the gram_sym row)."""
+    from nngp_tpu_torch.gp.posterior import solve_ridge
+    from nngp_tpu_torch.models.kernel_spec import diag_eval, reference_kernel
+    from nngp_tpu_torch.ops.gram_cuda import gram_sym
+    from nngp_tpu_torch.serve.estimator import default_exact_max_n
+
+    spec = reference_kernel()
+    runs = [("nngp", n) for n in FACTOR_N]
+    runs.append(("ntk", default_exact_max_n(device, np.float32, "ntk")))
+    rows = []
+    for get, n in runs:
+        x = torch.as_tensor(x_tr[:n], device=device)
+        diag = diag_eval(spec.layers, x, ("nngp", "ntk"))
+        reg = solve_ridge(diag, get, 1e-3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        ev[0].record()
+        if get == "nngp":
+            k = gram_sym(spec, x, "nngp", diag_add=reg, diag=diag)
+        else:
+            k_nngp, k = gram_sym(spec, x, ("nngp", "ntk"), diag_add=reg,
+                                 diag=diag)
+        ev[1].record()
+        l, info = torch.linalg.cholesky_ex(k)
+        ev[2].record()
+        torch.cuda.synchronize()
+        expect_launches(f"fp32 {get} exact fit n={n}", read_launches(),
+                        {"sym": 1, "cross": 0}, total)
+        row = {"get": get, "n": n, "info": int(info),
+               "gram_ms": ev[0].elapsed_time(ev[1]),
+               "potrf_ms": ev[1].elapsed_time(ev[2]),
+               "peak_gib": (torch.cuda.max_memory_allocated(device) - base)
+               / 2 ** 30}
+        rows.append(row)
+        print(f"  C1 fp32 {get} n={n} diag_reg 1e-3: factor info "
+              f"{row['info']} ({'fails' if row['info'] else 'succeeds'}); "
+              f"gram_sym {row['gram_ms']!r} ms, potrf {row['potrf_ms']!r} "
+              f"ms, peak {row['peak_gib']!r} GiB")
+        del k, l, info
+        if get == "ntk":
+            del k_nngp
+        torch.cuda.empty_cache()
+    x = torch.as_tensor(x_tr[:FACTOR_N[-1]], device=device)
+    sym = check_sym_rows(f"C1 fp32 exact fit n={FACTOR_N[-1]}", spec, x,
+                         FACTOR_BLOCKS)
+    return rows, sym
+
+
+def check_sym_rows(label, spec, x, row_blocks):
+    """gram_sym on a fit's rows, called as `fit_gp` calls it, against its
+    plain twin on the (start, stop) row blocks (the cross twin with the
+    exact diagonal and the ridge written in), then timed beside the twin
+    (in CHUNK-row blocks over all rows), its bound and torch.matmul (dot
+    only). Returns the row."""
+    from nngp_tpu_torch.cli.gram_bench import bound, device_ms
+    from nngp_tpu_torch.gp.posterior import solve_ridge
+    from nngp_tpu_torch.models.kernel_spec import diag_eval
+    from nngp_tpu_torch.ops.gram_cuda import gram_cross_plain, gram_sym
+
+    (n, d), dtype = x.shape, x.dtype
+    diag = diag_eval(spec.layers, x, ("nngp", "ntk"))
+    reg = solve_ridge(diag)
+
+    def kernel():
+        return gram_sym(spec, x, "nngp", diag_add=reg, diag=diag)
+
+    k = kernel()
+    torch.cuda.synchronize()
+    err = 0.0
+    for s, e in row_blocks:
+        want = gram_cross_plain(spec, x[s:e], x, "nngp")
+        i = torch.arange(e - s, device=x.device)
+        want[i, i + s] = diag[0][s:e] + reg
+        err = max(err, check_close(f"{label} rows {s}:{e}", k[s:e], want,
+                                   dtype, "nngp"))
+        del want
+    del k
+    torch.cuda.empty_cache()
+
+    def plain():
+        for s in range(0, n, CHUNK):
+            gram_cross_plain(spec, x[s:s + CHUNK], x, "nngp")
+
+    k_ms, p_ms = paired_ms(kernel, plain, reps=3)
+    # the profiler has returned no record for this 22 GB launch once in a
+    # long run: ask again before giving up on the device time
+    dev_ms = device_ms(kernel, 3) or device_ms(kernel, 5)
+    row = {"ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+           "library_ms": _event_ms(lambda: torch.matmul(x, x.mT), 3),
+           "max_abs_err": err}
+    row["bound_ms"], row["bound_by"] = bound("sym", n, n, d, dtype)
+    row["share"] = row["bound_ms"] / (dev_ms or k_ms)
+    print(f"time gram_sym {label} {n}x{n}x{d}: " + json.dumps(row))
+    torch.cuda.empty_cache()
+    return row
+
+
+def reroute_estimator(total, device, big_lines, tmp):
+    """C1 (b): Estimator(float32, tier='auto', quality='best') on the
+    first REROUTE_N synth6_big train lines at the default ridge (no
+    calibration holdout, so the rows keep their order): its exact factor
+    fails, the fit goes to the Nystrom tier with a `tier routing`
+    line and a warning naming the reason, and it serves what
+    Estimator(tier='nystrom') serves on the same lines; the Nystrom fit's
+    peak and what is allocated when it starts, beside the plain Nystrom
+    Estimator's. tier='exact' on the same lines raises a
+    FloatingPointError naming diag_reg. Returns the figures."""
+    import warnings
+
+    from nngp_tpu_torch.gp import NystromPosterior
+    from nngp_tpu_torch.serve import Estimator
+    from nngp_tpu_torch.serve import estimator as est_mod
+
+    train, test_labeled = big_lines
+    test, test_y = synth6_test(test_labeled)
+    train_dir = write_train_dir(tmp, train[:REROUTE_N])
+    real, mem = est_mod.fit_nystrom, {}
+
+    def watched(*args, **kw):
+        torch.cuda.synchronize()
+        mem["held_gib"] = torch.cuda.memory_allocated(device) / 2 ** 30
+        torch.cuda.reset_peak_memory_stats(device)
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        mem["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        return out
+
+    def build(tier):
+        log = io.StringIO()
+        mem.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log), \
+                warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            est = Estimator("synth6", None, train_dir,
+                            stats_dir=SYNTH6_STATS, dtype=np.float32,
+                            quality="best", learn_hyper=False,
+                            calibrate_frac=0.0, tier=tier, device=device)
+        torch.cuda.synchronize()
+        routing = [l for l in log.getvalue().splitlines()
+                   if l.startswith("tier routing")]
+        return est, routing, warned, time.perf_counter() - t0, dict(mem)
+
+    out = {}
+    est_mod.fit_nystrom = watched
+    try:
+        base = torch.cuda.memory_allocated(device) / 2 ** 30
+        reset_launches()
+        est, routing, warned, out["construction_s"], out["auto"] = \
+            build("auto")
+        post = est.posterior
+        expect_launches(
+            f"Estimator tier='auto' fp32 (failed exact fit, Nystrom fit of "
+            f"{REROUTE_N})", read_launches(),
+            {"sym": 1, "cross": panels(REROUTE_N) + 1}, total)
+        print(f"  C1 Estimator tier='auto' fp32 quality='best' on "
+              f"{REROUTE_N} lines: {routing}; warnings "
+              f"{[str(w.message)[:60] for w in warned]}")
+        if not (isinstance(post, NystromPosterior) and est.nystrom_m == NY_M
+                and post.moments == "df64" and len(routing) == 2
+                and "exact -> nystrom" in routing[1]
+                and "diag_reg" in routing[1]
+                and any("exact -> nystrom" in str(w.message)
+                        for w in warned)):
+            raise AssertionError(f"tier='auto' did not re-route: {routing}")
+        reset_launches()
+        t0 = time.perf_counter()
+        mean, std = est.predict(test)
+        out["predict_ms"] = (time.perf_counter() - t0) * 1e3
+        expect_launches("re-routed Estimator predict", read_launches(),
+                        {"sym": 0, "cross": -(-len(set(test)) // CHUNK)},
+                        total)
+        if not (np.all(np.isfinite(mean)) and np.all(np.isfinite(std))
+                and np.all(std > 0)):
+            raise AssertionError("re-routed Estimator: means or stds not "
+                                 "finite and > 0")
+        out["median"], out["p95"] = qerror(mean, test_y)
+        del est, post
+        torch.cuda.empty_cache()
+        reset_launches()
+        ny, _, _, out["nystrom_construction_s"], out["nystrom"] = \
+            build("nystrom")
+        got = read_launches()
+        for key in total:
+            total[key] += got[key]
+        ny_mean, ny_std = ny.predict(test)
+        same_means("re-routed Estimator vs tier='nystrom', mean", mean,
+                   ny_mean)
+        same_means("re-routed Estimator vs tier='nystrom', std", std, ny_std)
+        del ny
+        torch.cuda.empty_cache()
+    finally:
+        est_mod.fit_nystrom = real
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            Estimator("synth6", None, train_dir, stats_dir=SYNTH6_STATS,
+                      dtype=np.float32, quality="best", learn_hyper=False,
+                      calibrate_frac=0.0, tier="exact", device=device)
+    except FloatingPointError as err:
+        out["exact_raises"] = str(err)
+    else:
+        raise AssertionError("tier='exact' fp32 at the default ridge did "
+                             "not raise")
+    expect_launches("Estimator tier='exact' fp32 (the failed fit)",
+                    read_launches(), {"sym": 1, "cross": 0}, total)
+    torch.cuda.synchronize()
+    out["after_raise_gib"] = torch.cuda.memory_allocated(device) / 2 ** 30
+    out["base_gib"] = base
+    print(f"  C1 tier='exact' raises FloatingPointError: "
+          f"{out['exact_raises']}")
+    print(f"  C1 re-routed Estimator: {len(test)} test lines, symmetric q-error "
+          f"median={out['median']!r} p95={out['p95']!r}; "
+          + json.dumps({k: v for k, v in out.items()
+                        if k != "exact_raises"}))
+    if "diag_reg" not in out["exact_raises"]:
+        raise AssertionError("the FloatingPointError does not name diag_reg")
+    if out["auto"]["held_gib"] > out["nystrom"]["held_gib"] + 0.5:
+        raise AssertionError(f"the failed exact fit's memory was still held "
+                             f"when the Nystrom fit started: {out}")
+    return out
+
+
+def coverage(mean_cal, std_cal, y_cal, mean, std, y):
+    """Conformal 90% coverage of (mean, std) on (y) from scores on the
+    calibration rows, as `predict_interval` computes it."""
+    from nngp_tpu_torch.eval.calibration import (conformal_quantile,
+                                                 conformal_scores)
+
+    qhat = conformal_quantile(conformal_scores(y_cal, mean_cal, std_cal),
+                              0.1)
+    return float(np.mean(np.abs(y - mean) <= qhat * std))
+
+
+def std_arms(total, device):
+    """C3: the synth6 fp32 Estimator on the raw encoding (phase 6's model,
+    input prescale 2^64), its std computed several ways beside the fp64
+    Estimator's: 'fp32 floored' (the fp32 kernels in prescaled units, the
+    posterior before this rule), '(a)' the fp32 factor kept and the
+    variance term in fp64 in prescaled units (gram_cross and diag K** in
+    fp64, v against l.double()), '(a) raw' the same with the fp64 kernels
+    on the raw rows times s^-2, '(a) raw, fp32 solve' those kernels
+    rounded to fp32 and solved in fp32, 'shipped' the posterior as it is
+    ('(a) raw' with the solve by block substitution against the fp32
+    factor), '(b)' an fp64 factor of the prescaled rows held for the
+    variance, '(b) raw' an fp64 factor of the raw rows. For each:
+    conformal 90% coverage on the 3,600
+    test lines calibrated on phase 6's 1,800 validation lines, the share
+    of zero stds, the median q-error and the predict ms of the 3,600 rows
+    (the mean included). Raises unless 'shipped' meets the rule: coverage
+    within STD_COVERAGE_TOL of fp64's, no zero std, at most twice 'fp32
+    floored''s predict ms. Returns the figures."""
+    import tempfile
+
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.models.kernel_spec import diag_eval
+    from nngp_tpu_torch.ops.gram_cuda import gram_cross
+
+    train, test_labeled, val = synth6_lines()
+    test, test_y = synth6_test(test_labeled)
+    cal, cal_y = synth6_test(val[len(val) // 2:])
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir = write_train_dir(tmp, train)
+        est64, _ = build_estimator(train_dir, np.float64, device)
+        est32, _ = build_estimator(train_dir, np.float32, device)
+    got = read_launches()
+    for key in total:
+        total[key] += got[key]
+    p32, spec, layers = est32.posterior, est32.spec, est32.spec.layers
+    scale = float(p32.input_scale)
+    x_tr = p32.x_train
+    f64 = torch.float64
+    b_pre = fit_gp(spec, x_tr.to(f64), p32.y_train.to(f64),
+                   diag_reg=p32.diag_reg, input_scale=1.0)
+    b_raw = fit_gp(spec, x_tr.to(f64) * scale, p32.y_train.to(f64),
+                   diag_reg=p32.diag_reg, input_scale=1.0)
+
+    def floored(x):
+        xs = x * (1.0 / scale)
+        cross = gram_cross(spec, xs, x_tr, "nngp")
+        v = torch.linalg.solve_triangular(p32.l, cross.mT, upper=False)
+        var = diag_eval(layers, xs, "nngp") - torch.sum(v * v, dim=0)
+        return cross @ p32.alpha, torch.sqrt(torch.clamp_min(var, 0.0)) * scale
+
+    def fp64_var(x, raw, solve=f64):
+        mean = gram_cross(spec, x * (1.0 / scale), x_tr, "nngp") @ p32.alpha
+        if raw:
+            s2 = 1.0 / (scale * scale)
+            xs = x.to(f64)
+            cross = gram_cross(spec, xs, x_tr.to(f64) * scale, "nngp") * s2
+            kss = diag_eval(layers, xs, "nngp") * s2
+        else:
+            xs = x.to(f64) * (1.0 / scale)
+            cross = gram_cross(spec, xs, x_tr.to(f64), "nngp")
+            kss = diag_eval(layers, xs, "nngp")
+        cross, kss = cross.to(solve), kss.to(solve)
+        v = torch.linalg.solve_triangular(p32.l.to(solve), cross.mT,
+                                          upper=False)
+        var = kss - torch.sum(v * v, dim=0)
+        return mean, torch.sqrt(torch.clamp_min(var, 0.0)) * scale
+
+    def fp64_factor(x, raw):
+        mean = gram_cross(spec, x * (1.0 / scale), x_tr, "nngp") @ p32.alpha
+        if raw:
+            return mean, b_raw.predict_mean_std(x.to(f64))[1]
+        return mean, b_pre.predict_mean_std(
+            x.to(f64) * (1.0 / scale))[1] * scale
+
+    x32 = {k: torch.as_tensor(est32.encode_lines(v), device=device)
+           for k, v in (("test", test), ("cal", cal))}
+    x64 = {k: torch.as_tensor(est64.encode_lines(v), device=device)
+           for k, v in (("test", test), ("cal", cal))}
+    arms = (("fp64", est64.posterior.predict_mean_std, x64),
+            ("fp32 floored", floored, x32),
+            ("(a)", lambda x: fp64_var(x, False), x32),
+            ("(a) raw", lambda x: fp64_var(x, True), x32),
+            ("(a) raw, fp32 solve",
+             lambda x: fp64_var(x, True, torch.float32), x32),
+            ("shipped", p32.predict_mean_std, x32),
+            ("(b)", lambda x: fp64_factor(x, False), x32),
+            ("(b) raw", lambda x: fp64_factor(x, True), x32))
+    out = {}
+    for name, fn, x in arms:
+        reset_launches()
+        mean, std = (t.reshape(-1).cpu().numpy().astype(np.float64)
+                     for t in fn(x["test"]))
+        if name == "shipped":
+            # the mean's fp32 cross Gram and the variance's fp64 one
+            expect_launches("C3 shipped fp32 predict of the test rows",
+                            read_launches(), {"sym": 0, "cross": 2}, total)
+        m_cal, s_cal = (t.reshape(-1).cpu().numpy().astype(np.float64)
+                        for t in fn(x["cal"]))
+        out[name] = {"coverage": coverage(m_cal, s_cal, cal_y, mean, std,
+                                          test_y),
+                     "zero_std_share": float(np.mean(std == 0.0)),
+                     "predict_ms": host_ms(lambda: fn(x["test"])),
+                     "median": qerror(mean, test_y)[0]}
+    base_ms = out["fp32 floored"]["predict_ms"]
+    for row in out.values():
+        row["qualifies"] = bool(
+            abs(row["coverage"] - STD_COVERAGE_FP64) <= STD_COVERAGE_TOL
+            and row["zero_std_share"] == 0.0
+            and row["predict_ms"] <= 2.0 * base_ms)
+    print(f"  C3 synth6 raw encoding, {len(test)} test / {len(cal)} "
+          f"calibration lines, input_scale {scale!r}: " + json.dumps(out))
+    if not out["shipped"]["qualifies"]:
+        raise AssertionError(f"C3: the shipped fp32 std misses the rule: "
+                             f"{out['shipped']}")
+    # the variance's launch: the test rows against the train rows, raw, fp64
+    row = check_cross_rows("C3 fp64 variance, synth6 raw rows", spec,
+                           x32["test"].to(f64), x_tr.to(f64) * scale,
+                           "nngp")
+    return out, row
+
+
+def raw64_predict_peak(total, device, x_tr, y_tr):
+    """C3's memory: an fp32 exact posterior of PEAK_N synth6_big rows on
+    the raw encoding (chunk_norm undone: the 2^64 prescale), ridge 0.1 as
+    phase 8's peaks, and one CHUNK-row predict, whose variance runs in
+    fp64 (the raw-row cross Gram, the block substitution): its peak above
+    the posterior, in bytes per n^2, beside the fit's and the constant
+    `exact_max_n` uses. Raises if the predict's peak with the posterior
+    exceeds that constant. Returns the figures."""
+    from nngp_tpu_torch.data.workload import schema_stats
+    from nngp_tpu_torch.featurize.join import MultiJoinEncoder
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+    from nngp_tpu_torch.serve.estimator import EXACT_PEAK_BYTES_PER_N2
+
+    scale = MultiJoinEncoder(schema_stats("synth6", SYNTH6_STATS),
+                             chunk_norm=True).col_scale.astype(np.float32)
+    n = PEAK_N
+    x = x_tr[:n + CHUNK] / scale
+    reset_launches()
+    post, fit_gib = peak_gib(lambda: fit_gp(
+        reference_kernel(), x[:n], y_tr[:n], diag_reg=0.1, device=device),
+        device)
+    (mean, std), pred_gib = peak_gib(
+        lambda: post.predict_mean_std(torch.as_tensor(x[n:],
+                                                      device=device)),
+        device)
+    torch.cuda.synchronize()
+    expect_launches(f"raw-encoding fp32 fit of {n} and predict of {CHUNK}",
+                    read_launches(), {"sym": 1, "cross": 2}, total)
+    post_gib = (post.l.numel() * 4 + post.x_train.numel() * 4) / 2 ** 30
+    out = {"n": n, "input_scale": post.input_scale, "fit_gib": fit_gib,
+           "predict_gib": pred_gib, "posterior_gib": post_gib,
+           "predict_bytes_per_n2": (pred_gib + post_gib) * 2 ** 30 / n ** 2,
+           "constant": EXACT_PEAK_BYTES_PER_N2["nngp", torch.float32],
+           "zero_stds": int((std == 0).sum())}
+    print("  C3 raw-encoding fp32 predict peak: " + json.dumps(out))
+    if (out["predict_bytes_per_n2"] > out["constant"] or out["zero_stds"]
+            or not bool(torch.isfinite(std).all())):
+        raise AssertionError(f"C3 predict peak: {out}")
+    del post
+    torch.cuda.empty_cache()
+    return out
+
+
+def kmm_pairs(total, device, big):
+    """C4: each Nystrom fit twice, K_mm from gram_cross (as both packages
+    build it) and from gram_sym (its exact diagonal): the forest_2048 pins
+    (m = 256, fp64) and synth6_big 90k (m = 2,048, df64 moments, nngp and
+    ntk). Prints each pair's median / p95 and max |d mean|; says whether a
+    pair moves beyond KMM_PAIR_TOL. Returns the figures."""
+    from nngp_tpu_torch.cli import train
+    from nngp_tpu_torch.gp import fit_nystrom
+    from nngp_tpu_torch.gp import nystrom as TN
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+    from nngp_tpu_torch.ops.gram_cuda import gram_sym
+
+    spec = reference_kernel()
+    real = TN.gram_cross
+
+    def kmm_sym(spec_, x1, x2, get):
+        return gram_sym(spec_, x1, get) if x1 is x2 else real(spec_, x1,
+                                                              x2, get)
+
+    def pair(label, fit, predict, y):
+        means = []
+        for gram in (real, kmm_sym):
+            TN._BASES_CACHE.clear()
+            TN.gram_cross = gram
+            try:
+                means.append(np.asarray(predict(fit()), np.float64))
+            finally:
+                TN.gram_cross = real
+        TN._BASES_CACHE.clear()
+        (m0, p0), (m1, p1) = qerror(means[0], y), qerror(means[1], y)
+        row = {"cross": [m0, p0], "sym": [m1, p1],
+               "max_abs_d_mean": float(np.max(np.abs(means[1] - means[0]))),
+               "rel_d": [abs(m1 / m0 - 1), abs(p1 / p0 - 1)]}
+        row["moves"] = max(row["rel_d"]) > KMM_PAIR_TOL
+        print(f"  C4 {label}: K_mm by gram_cross {m0!r} / {p0!r}, by "
+              f"gram_sym {m1!r} / {p1!r}; max|d mean| "
+              f"{row['max_abs_d_mean']!r}; rel d median / p95 "
+              f"{row['rel_d']}; {'moves' if row['moves'] else 'does not move'}"
+              f" beyond {KMM_PAIR_TOL}")
+        return row
+
+    args = train.build_parser().parse_args(["--query_path", FOREST, "--x64"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        xf_tr, yf_tr, _, xf_te, yf_te, _ = train.load_split(args)
+    xf_te = torch.as_tensor(xf_te, device=device)
+    reset_launches()
+    out = {"forest_2048 fp64": pair(
+        "forest_2048 m=256 fp64",
+        lambda: fit_nystrom(spec, xf_tr[:2048], yf_tr[:2048],
+                            num_inducing=256, seed=0, device=device),
+        lambda post: post.predict_mean_std(xf_te)[0].cpu().numpy().ravel(),
+        np.asarray(yf_te, np.float64).ravel())}
+    x_tr, y_tr, x_te, y_te, rows = big
+    for get in ("nngp", "ntk"):
+        out[f"synth6_big {get} df64"] = pair(
+            f"synth6_big 90k m={NY_M} {get} df64",
+            lambda: fit_nystrom(spec, x_tr, y_tr, inducing_rows=rows,
+                                input_scale=1.0, get=get, moments="df64",
+                                device=device),
+            lambda post: post.predict_mean_std_chunked(x_te, chunk=CHUNK)[0],
+            y_te.ravel().astype(np.float64))
+    got = read_launches()
+    for key in total:
+        total[key] += got[key]
+    return out
+
+
+def fp32_faults_slice(card, total, device, big, big_lines):
+    """Phase 14: the port's fp32 faults (ROADMAP Queue C): C1 the fp32
+    exact factor at the default ridge and the Estimator's re-route, C3 the
+    fp32 std on the raw synth6 encoding, C4 K_mm's diagonal. Returns the
+    gram_sym row at the largest fit and the gram_cross row of the fp64
+    variance."""
+    import tempfile
+
+    print("fp32 faults: synth6_big chunk_norm fp32, default ridge 1e-3")
+    rows, sym = factorability(total, device, big[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        reroute = reroute_estimator(total, device, big_lines, tmp)
+    arms, var_row = std_arms(total, device)
+    peak = raw64_predict_peak(total, device, big[0], big[1])
+    pairs = kmm_pairs(total, device, big)
+    print(f"fp32 faults on {card}: " + json.dumps(
+        {"factor": rows, "reroute": {k: v for k, v in reroute.items()
+                                     if k != "exact_raises"},
+         "std": arms, "predict_peak": peak, "kmm": pairs}))
+    return sym, var_row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4307,8 +4879,8 @@ def main():
     time_slice(device)
     timed("6 serving slice", serve_slice, card, launches, device)
     timed("7 learning slice", learn_slice, card, launches, device)
-    panel, big = timed("8 Nystrom slice", nystrom_slice, card, launches,
-                       device)
+    panel, big, big_lines = timed("8 Nystrom slice", nystrom_slice, card,
+                                  launches, device)
     timed("9 baselines slice", baselines_slice, card, device)
     timed("10 data-layer slice", data_slice, card, launches, device)
     dist_rows = timed("11 distributed slice", distributed_slice, card,
@@ -4317,6 +4889,8 @@ def main():
                       device, big)
     rpchol_rows = timed("13 RPCholesky selection", rpchol_slice, card,
                         launches, device, big)
+    fault_sym, fault_cross = timed("14 fp32 faults", fp32_faults_slice, card,
+                                   launches, device, big, big_lines)
     print("phase seconds: " + json.dumps(phase_s))
 
     summary = {"kernels": [
@@ -4332,6 +4906,8 @@ def main():
     summary["kernels"][1]["distributed"] = dist_rows
     summary["kernels"][1]["best"] = best_rows
     summary["kernels"][1]["rpchol"] = rpchol_rows
+    summary["kernels"][0]["exact_fit_74k"] = fault_sym
+    summary["kernels"][1]["fp64_variance"] = fault_cross
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

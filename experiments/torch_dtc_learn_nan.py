@@ -16,17 +16,26 @@ linear-algebra steps, in this order:
 
 This runs the same learn once per --arms entry and prints, for each
 restart, how many of its 101 loss evaluations (100 steps and the final
-one) were not finite, which factor failed first, its final loss, and the
-winner's log evidence:
+one) were not finite, which factor failed first, its final loss, the
+winner's log evidence, and restart 0's smallest and largest eigenvalue of
+the C + r I its factor gets (fp64 eigvalsh) at every evaluation, with r:
 
-  cuda          the loss as it stands (torch's default CUDA routes);
-  cuda-batched  every step batched, as the loss ran before its repair;
+  cuda          the loss as it stands: C and b formed in fp64 from the
+                fp32 psi, all restarts in one product, and the m x m
+                stage in fp64;
+  cuda-fp64-loop  the same, C and b restart by restart;
+  cuda-fp32c    C and b in fp32 restart by restart (the loss of PR 10);
+  cuda-batched  every step batched in fp32, as the loss ran before PR 10;
   loop-<step>   cuda-batched with that one step run as a Python loop over
                 the R = 1 slices (autograd keeps its gradient);
   loop-all      every batched op of the loss so, products included;
   cuda-magma    cuda-batched under preferred_linalg_library('magma');
-  cuda-r0       the 1e-3 restart alone (reg_restarts=());
+  cuda-r0       cuda-fp32c with the 1e-3 restart alone (reg_restarts=());
   cpu           cuda-batched on the host (LAPACK), rows and seeds unchanged.
+
+With --time_c it first times C = psi psi^T and b = psi y alone at the
+learn's shape (3, 512, 90,000), forward and forward + backward, in fp32
+and fp64, batched and restart by restart (CUDA events).
 
 In the first batched arm, at --diagnose (the evaluation where restart 0
 first failed on the card), it also prints:
@@ -40,8 +49,8 @@ first failed on the card), it also prints:
   - the CUDA kernels each of the two losses launched (torch.profiler),
     which name the routes the ops took.
 
-    python experiments/torch_dtc_learn_nan.py \\
-        --arms cuda,cuda-batched,loop-kmm,loop-psi,loop-c,loop-cfactor,loop-t
+    python experiments/torch_dtc_learn_nan.py --time_c \\
+        --arms cuda,cuda-fp64-loop,cuda-fp32c
 
 The cpu arm takes over 20 minutes on 8 cores; run it where the full
 90,000 rows fit in memory (about 10 GiB).
@@ -63,9 +72,39 @@ import chip_smoke  # noqa: E402
 from nngp_tpu_torch.gp import hyperopt  # noqa: E402
 
 STEPS = ("kmm", "psi", "c", "cfactor", "t")
-ARMS = (("cuda", "cuda-batched")
+ARMS = (("cuda", "cuda-fp64-loop", "cuda-fp32c", "cuda-batched")
         + tuple(f"loop-{s}" for s in STEPS + ("all",))
         + ("cuda-magma", "cuda-r0", "cpu"))
+
+
+def _each_restart(fn, t):
+    """fn(t[r:r+1]) for each restart r, each output concatenated over the
+    restarts: each restart's products are those of its own R = 1 call."""
+    outs = [fn(t[r:r + 1]) for r in range(t.shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def c_fp32_batched(psi, ym):
+    """C and b in fp32 over all restarts at once (before PR 10)."""
+    return psi @ psi.mT, psi @ ym
+
+
+def c_fp32_loop(psi, ym):
+    """C and b in fp32 restart by restart (PR 10's loss)."""
+    return _each_restart(lambda p: (p @ p.mT, p @ ym), psi)
+
+
+c_fp64_batched = hyperopt._c_moments     # the loss's own, as shipped
+
+
+def c_fp64_loop(psi, ym):
+    """The shipped fp64 C and b, restart by restart."""
+    return _each_restart(lambda p: c_fp64_batched(p, ym), psi)
+
+
+# the C and b each arm forms (None: the loss as it stands)
+C_MOMENTS = {"cuda": None, "cuda-fp64-loop": c_fp64_loop,
+             "cuda-fp32c": c_fp32_loop, "cuda-r0": c_fp32_loop}
 
 
 def _slice(t, r):
@@ -92,8 +131,9 @@ class Hooks:
 
     def __init__(self, loop=None, diagnose=None):
         self.loop, self.diagnose = loop, diagnose
-        self.losses, self.failed = [], []
+        self.losses, self.failed, self.margins = [], [], []
         self._loss = hyperopt._nll_dtc
+        self._c_factor = hyperopt._c_factor
         self._chol = torch.linalg.cholesky_ex
         self._solve = torch.linalg.solve_triangular
         self._mm = torch.Tensor.__matmul__
@@ -161,6 +201,14 @@ class Hooks:
         def matmul(a, b, **kw):
             return hooks._run("mm", hooks._matmul, (a, b), kw)
 
+        def c_factor(c, r):
+            a, r0 = c[0].detach().double(), float(r[0].detach())
+            lam = torch.linalg.eigvalsh(
+                a + r0 * torch.eye(a.shape[0], dtype=a.dtype,
+                                   device=a.device))
+            hooks.margins.append((float(lam[0]), float(lam[-1]), r0))
+            return hooks._c_factor(c, r)
+
         def loss(*args, **kw):
             ev = len(self.losses)
             capture = ev == self.diagnose
@@ -179,6 +227,7 @@ class Hooks:
             return val
 
         hyperopt._nll_dtc = loss
+        hyperopt._c_factor = c_factor
         torch.linalg.cholesky_ex = chol
         torch.linalg.solve_triangular = solve
         torch.Tensor.__matmul__ = mm
@@ -187,6 +236,7 @@ class Hooks:
 
     def __exit__(self, *exc):
         hyperopt._nll_dtc = self._loss
+        hyperopt._c_factor = self._c_factor
         torch.linalg.cholesky_ex = self._chol
         torch.linalg.solve_triangular = self._solve
         torch.Tensor.__matmul__ = self._mm
@@ -274,6 +324,16 @@ def _kernels(prof):
 
 
 def report(hooks, regs):
+    lam = np.asarray(hooks.margins)
+    ratio = lam[:, 0] / lam[:, 2]
+    print(f"    restart 0's C + rI at {len(lam)} evaluations: smallest "
+          f"eigenvalue / r min {float(ratio.min())!r}, below 0.5 at "
+          f"{int((ratio < 0.5).sum())}, below 0 at {int((lam[:, 0] < 0).sum())}"
+          f"; largest eigenvalue {float(lam[:, 1].min())!r} .. "
+          f"{float(lam[:, 1].max())!r}")
+    print("    (evaluation, smallest, largest, r): "
+          + "; ".join(f"{i} {a:.6g} {b:.6g} {c:.6g}"
+                      for i, (a, b, c) in enumerate(lam)))
     losses, failed = np.stack(hooks.losses), np.stack(hooks.failed)
     for r, reg in enumerate(regs):
         bad = ~np.isfinite(losses[:, r])
@@ -299,12 +359,13 @@ def run_arm(arm, x_tr, y_tr, diagnose):
             torch.backends.cuda.preferred_linalg_library("magma")
             stack.callback(torch.backends.cuda.preferred_linalg_library,
                            backend)
-        if arm != "cuda":
-            # every other arm starts from the batched loss of before the
-            # repair: C and b take the whole batch again
-            stack.callback(setattr, hyperopt, "_each_restart",
-                           hyperopt._each_restart)
-            hyperopt._each_restart = lambda fn, t: fn(t)
+        c_moments = C_MOMENTS.get(arm, c_fp32_batched)
+        if c_moments is not None:
+            # the other arms start from the batched fp32 loss of before
+            # PR 10 unless C_MOMENTS names theirs
+            stack.callback(setattr, hyperopt, "_c_moments",
+                           hyperopt._c_moments)
+            hyperopt._c_moments = c_moments
         hooks = stack.enter_context(Hooks(loop, diagnose))
         res, secs = chip_smoke.best_learn(x_tr, y_tr, device, **kw)
     print(f"  {arm}: {secs!r} s, log evidence {float(res.log_evidence)!r}, "
@@ -312,9 +373,46 @@ def run_arm(arm, x_tr, y_tr, diagnose):
     report(hooks, regs)
 
 
+def time_c(reps=20):
+    """C and b alone at the learn's shape, each variant's ms (CUDA events,
+    after a warm-up), forward and forward + backward: every variant timed
+    twice, in the order 1 2 3 4 4 3 2 1, and the two means averaged."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    psi = torch.randn((3, 512, 90000), generator=gen, device="cuda")
+    ym = torch.randn((90000, 1), generator=gen, device="cuda")
+    variants = (("fp32 batched", c_fp32_batched), ("fp32 loop", c_fp32_loop),
+                ("fp64 batched", c_fp64_batched), ("fp64 loop", c_fp64_loop))
+    for backward in (False, True):
+        p = psi.detach().requires_grad_(backward)
+        times = {name: [] for name, _ in variants}
+        for name, fn in variants + variants[::-1]:
+            def run():
+                c, b = fn(p, ym)
+                if backward:
+                    torch.autograd.grad((c.sum() + b.sum()), p)
+
+            run()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / reps)
+        for name, (t1, t2) in times.items():
+            print(f"  C and b {name}{' + backward' if backward else ''}: "
+                  f"{(t1 + t2) / 2!r} ms ({t1!r}, {t2!r})", flush=True)
+    del psi, ym
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arms", default=",".join(ARMS[:8]))
+    ap.add_argument("--arms", default="cuda,cuda-fp64-loop,cuda-fp32c")
+    ap.add_argument("--time_c", action="store_true",
+                    help="time C and b alone first")
     ap.add_argument("--diagnose", type=int, default=3,
                     help="the evaluation to diagnose in the first batched "
                          "arm (-1: none)")
@@ -328,6 +426,8 @@ def main(argv=None):
           else "no GPU", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.get_num_threads()} CPU threads", flush=True)
+    if args.time_c:
+        time_c()
     import tempfile
 
     t0 = time.perf_counter()
@@ -336,7 +436,7 @@ def main(argv=None):
         x_tr, y_tr = chip_smoke.encode_big(train)
     print(f"synth6_big train split {x_tr.shape} encoded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    first = next((a for a in arms if a in ("cuda-batched", "cuda")), None)
+    first = next((a for a in arms if a == "cuda-batched"), None)
     for arm in arms:
         run_arm(arm, x_tr, y_tr, args.diagnose if arm == first else None)
         sys.stdout.flush()

@@ -134,13 +134,23 @@ def _per_restart(v):
     return v[:, None, None]
 
 
-def _each_restart(fn, t):
-    """fn(t[r:r+1]) for each restart r of the batched tensor t, each of
-    fn's outputs concatenated over the restarts: one launch per restart
-    instead of one batched launch, so that each restart's products are
-    those of its own R = 1 call."""
-    outs = [fn(t[r:r + 1]) for r in range(t.shape[0])]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+def _c_moments(psi, ym):
+    """The DTC loss's C = psi psi^T and b = psi ym, in fp64 whatever psi's
+    dtype. C is positive semidefinite to fp64 rounding at any GEMM order,
+    so C + rI keeps a smallest eigenvalue near r. In fp32 the margin was
+    below eps_fp32 * lambda_max: at reg_rel 1e-3 on 90,000 rows
+    kappa(C + rI) ~ n / reg_rel > 1 / eps_fp32, and which cuBLAS kernel
+    formed C decided whether C + rI stayed positive definite
+    (experiments/torch_dtc_learn_nan.py). The JAX package forms C in fp32
+    at HIGHEST precision."""
+    p = psi.to(torch.float64)
+    return p @ p.mT, p @ ym.to(torch.float64)
+
+
+def _c_factor(c, r):
+    """cholesky_ex of C + r I, r per restart: (factor, info)."""
+    eye = torch.eye(c.shape[-1], dtype=c.dtype, device=c.device)
+    return torch.linalg.cholesky_ex(c + _per_restart(r) * eye)
 
 
 def _diag_kernel(d, layers, get):
@@ -225,7 +235,9 @@ def _nll_dtc(theta, x, y, m, depth, activation, width, get, duals,
     is a uniform draw). Scalar or ARD by the keys of theta. Cost per step
     O(n m^2 + m^3). K_mm's diagonal is the exact recursion; both factors
     are jittered relative to the model's own scales, and a failed one
-    gives NaN. Returns (R,).
+    gives NaN. The m x m stage after psi (C, b, the factor of C + rI, t
+    and the evidence) runs in fp64 (`_c_moments`), and the loss returns
+    in x's dtype. Returns (R,).
 
     mask: (n,) 0/1 row weights; a row with mask 0 contributes nothing (its
     kernel row, its y, its share of the ridge's trace and of the n in the
@@ -280,15 +292,12 @@ def _nll_dtc(theta, x, y, m, depth, activation, width, get, duals,
         # enters every layer): mask after the recursion
         k_nm = k_nm * mask[:, None]
     psi = torch.linalg.solve_triangular(l_mm, k_nm.mT, upper=False)
-    # C and b restart by restart: on a card the GEMM over all restarts at
-    # once takes another cuBLAS kernel than one restart's, and with
-    # kappa(C + rI) near n / reg_rel > 1/eps_fp32 its rounding left the
-    # 90k fp32 learn's 1e-3 restart with an indefinite C at 98 of 101
-    # evaluations, where alone it never failed
-    # (experiments/torch_dtc_learn_nan.py)
-    c, b_m = _each_restart(lambda p: (p @ p.mT, p @ ym), psi)
-    rtr = reg_rel * tr
-    yy = torch.sum(ym * ym)
+    c, b_m = _c_moments(psi, ym)
+    f64 = c.dtype
+    rtr = (reg_rel * tr).to(f64)
+    ym64 = ym.to(f64)
+    yy = torch.sum(ym64 * ym64)
+    n_eff = torch.as_tensor(n_eff, dtype=f64, device=c.device)
     if group is not None:
         rr = c.shape[0]
         packed = _SumOverRanks.apply(
@@ -299,13 +308,13 @@ def _nll_dtc(theta, x, y, m, depth, activation, width, get, duals,
         rtr = packed[:, -1]
         n_eff, yy = all_reduce_sum(torch.stack([n_eff, yy]).detach(), group)
     r = rtr / n_eff
-    l_c, info_c = torch.linalg.cholesky_ex(c + _per_restart(r) * eye)
+    l_c, info_c = _c_factor(c, r)
     t = torch.linalg.solve_triangular(l_c, b_m, upper=False)
     quad = (yy - torch.sum(t * t, dim=(-2, -1))) / r
     logdet = ((n_eff - m) * torch.log(r)
               + 2.0 * torch.sum(torch.log(torch.diagonal(
                   l_c, dim1=-2, dim2=-1)), dim=-1))
-    nll = 0.5 * (quad + logdet + n_eff * _LOG_2PI)
+    nll = (0.5 * (quad + logdet + n_eff * _LOG_2PI)).to(x.dtype)
     return torch.where((info_mm > 0) | (info_c > 0), torch.nan, nll)
 
 

@@ -19,7 +19,8 @@ CUDA) and two `torch.linalg.solve_triangular` calls give alpha. Predict:
 `gram_cross` gives K_*t; the solves are cuBLAS trsm. The 10.8k forest Gram
 is 467 MB in fp32, so the factor stays one dense tensor on an 80 GB card.
 Extend: `gram_cross` gives K21 and `gram_sym` K22, and
-`ops.linalg.cholesky_append_rows` appends them to the factor.
+`ops.linalg.cholesky_append_rows` appends them to the factor. A factor that
+fails (fit or extend) raises `ops.linalg.FactorError`.
 """
 
 import dataclasses
@@ -32,15 +33,52 @@ import torch
 from nngp_tpu_torch.models.kernel_spec import (KernelSpec, diag_eval,
                                                is_scale_equivariant)
 from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
-from nngp_tpu_torch.ops.linalg import cholesky_append_rows
+from nngp_tpu_torch.ops.linalg import FactorError, cholesky_append_rows
 from nngp_tpu_torch.utils.device import resolve_device
 
 
+# Rows (columns) of an fp32 factor converted to fp64 at a time by the
+# solves and products of an fp64 right-hand side (`_tri_solve`, `_mm_wide`)
+_WIDE_BLOCK = 4096
+
+
 def _tri_solve(l, b, transpose=False):
-    """L^-1 b, or L^-T b with transpose=True, for lower-triangular L."""
-    if transpose:
-        return torch.linalg.solve_triangular(l.mT, b, upper=True)
-    return torch.linalg.solve_triangular(l, b, upper=False)
+    """L^-1 b, or L^-T b with transpose=True, for lower-triangular L. A
+    right-hand side of a wider dtype than L's (fp64 against an fp32
+    factor) is solved in its own dtype by block substitution, L converted
+    one _WIDE_BLOCK-column panel at a time: no (n, n) fp64 copy."""
+    if b.dtype == l.dtype:
+        if transpose:
+            return torch.linalg.solve_triangular(l.mT, b, upper=True)
+        return torch.linalg.solve_triangular(l, b, upper=False)
+    x = b.clone(memory_format=torch.contiguous_format)
+    n = l.shape[0]
+    starts = range(0, n, _WIDE_BLOCK)
+    for s in (reversed(starts) if transpose else starts):
+        e = min(s + _WIDE_BLOCK, n)
+        diag = l[s:e, s:e].to(b.dtype)
+        if transpose:
+            x[s:e] = torch.linalg.solve_triangular(diag.mT, x[s:e],
+                                                   upper=True)
+            if s:
+                x[:s].sub_(l[s:e, :s].to(b.dtype).mT @ x[s:e])
+        else:
+            x[s:e] = torch.linalg.solve_triangular(diag, x[s:e],
+                                                   upper=False)
+            if e < n:
+                x[e:].sub_(l[e:, s:e].to(b.dtype) @ x[s:e])
+    return x
+
+
+def _mm_wide(a, b):
+    """a @ b in b's dtype for an a of a narrower one, a's rows converted
+    _WIDE_BLOCK at a time."""
+    if a.dtype == b.dtype:
+        return a @ b
+    out = b.new_empty((a.shape[0], b.shape[1]))
+    for s in range(0, a.shape[0], _WIDE_BLOCK):
+        out[s:s + _WIDE_BLOCK] = a[s:s + _WIDE_BLOCK].to(b.dtype) @ b
+    return out
 
 
 @dataclasses.dataclass
@@ -83,42 +121,72 @@ class GPPosterior:
                                device=self.device).contiguous()
 
     # -------------------------------------------------------------- predict
+    @property
+    def _raw64(self) -> bool:
+        """fp32 with an input prescale: the variance is computed in fp64,
+        its kernels on the raw rows (`raw_fp64`)."""
+        return needs_raw_fp64(self.input_scale, self.x_train.dtype)
+
     def _predict_scaled(self, x_test, compute_cov):
-        """Predict body in prescaled input units: the mean is exact in raw
-        units, var/cov come back divided by input_scale^2."""
-        x_test = self._as_input(x_test)
+        """Predict body for raw-unit x_test in prescaled units: the mean is
+        exact in raw units, var/cov come back divided by input_scale^2.
+
+        With an fp32 input prescale the variance runs in fp64: its kernels
+        through `raw_fp64`, the solves against the fp32 factor by block
+        substitution (`_tri_solve`), the result rounded to fp32. The mean
+        keeps the prescaled fp32 cross Gram."""
+        x_raw = self._as_input(x_test)
+        x_test = x_raw
         if self.input_scale != 1.0:
-            x_test = x_test * (1.0 / self.input_scale)
-        layers = self.spec.layers
+            x_test = x_raw * (1.0 / self.input_scale)
+        layers, spec, dtype = self.spec.layers, self.spec, self.x_train.dtype
+        wide = self._raw64
+
+        def var_kernels(fn):
+            if wide:
+                return raw_fp64(fn, x_raw, self.x_train, self.input_scale)
+            return fn(x_test, self.x_train)
+
+        def k_diag(xs, _):
+            return diag_eval(layers, xs, "nngp")
+
+        def k_ss(xs, _):
+            return gram_sym(spec, xs, "nngp")           # exact diagonal
+
         if self.get == "nngp":
-            cross = gram_cross(self.spec, x_test, self.x_train, "nngp")  # (m, n)
+            cross = gram_cross(spec, x_test, self.x_train, "nngp")  # (m, n)
             mean = cross @ self.alpha
             if compute_cov is False:
                 return mean
+            if wide:
+                cross = var_kernels(lambda a, b: gram_cross(spec, a, b,
+                                                            "nngp"))
             v = _tri_solve(self.l, cross.mT)  # (n, m)
             if compute_cov == "diag":
-                var = diag_eval(layers, x_test, "nngp") - torch.sum(v * v, dim=0)
-                return mean, torch.clamp_min(var, 0.0)
-            k_ss = gram_sym(self.spec, x_test, "nngp")  # exact diagonal
-            return mean, k_ss - v.mT @ v
+                var = var_kernels(k_diag) - torch.sum(v * v, dim=0)
+                return mean, torch.clamp_min(var, 0.0).to(dtype)
+            return mean, (var_kernels(k_ss) - v.mT @ v).to(dtype)
 
-        nngp_cross, ntk_cross = gram_cross(self.spec, x_test, self.x_train,
-                                           ("nngp", "ntk"))
+        pair = ("nngp", "ntk")
+        nngp_cross, ntk_cross = gram_cross(spec, x_test, self.x_train, pair)
         mean = ntk_cross @ self.alpha
         if compute_cov is False:
             return mean
+        if wide:
+            nngp_cross, ntk_cross = var_kernels(
+                lambda a, b: gram_cross(spec, a, b, pair))
         # w = (T + rI)^-1 T_t* via two triangular solves, shape (n, m)
         w = _tri_solve(self.l, _tri_solve(self.l, ntk_cross.mT),
                        transpose=True)
-        kw = self.k_tt_nngp @ w                      # K_tt T^-1 T_t*, (n, m)
+        kw = _mm_wide(self.k_tt_nngp, w)             # K_tt T^-1 T_t*, (n, m)
         if compute_cov == "diag":
-            var = (diag_eval(layers, x_test, "nngp")
+            var = (var_kernels(k_diag)
                    + torch.sum(w * kw, dim=0)
                    - 2.0 * torch.sum(nngp_cross.mT * w, dim=0))
-            return mean, torch.clamp_min(var, 0.0)
-        k_ss = gram_sym(self.spec, x_test, "nngp")   # exact diagonal
+            return mean, torch.clamp_min(var, 0.0).to(dtype)
         cross_term = nngp_cross @ w                  # K_*t T^-1 T_t*, (m, m)
-        return mean, k_ss + w.mT @ kw - cross_term - cross_term.mT
+        return mean, (var_kernels(k_ss) + w.mT @ kw - cross_term
+                      - cross_term.mT).to(dtype)
 
     def predict(self, x_test, compute_cov=True):
         """Posterior (mean, cov) at x_test, in raw input units.
@@ -200,7 +268,11 @@ class GPPosterior:
                                   ("nngp", "ntk"))
             n22, k22 = gram_sym(self.spec, x_new, ("nngp", "ntk"),
                                 diag_add=self.reg)
-        l = cholesky_append_rows(self.l, k21, k22)
+        try:
+            l = cholesky_append_rows(self.l, k21, k22)
+        except FactorError as err:
+            err.diag_reg = self.diag_reg
+            raise
         y = torch.cat([self.y_train, y_new])
         alpha = _tri_solve(l, _tri_solve(l, y), transpose=True)
         k_tt = None
@@ -215,6 +287,37 @@ class GPPosterior:
         return dataclasses.replace(
             self, x_train=torch.cat([self.x_train, x_new]), y_train=y, l=l,
             alpha=alpha, k_tt_nngp=k_tt)
+
+
+def needs_raw_fp64(input_scale: float, dtype) -> bool:
+    """Whether a posterior's variance reads its test kernels through
+    `raw_fp64`: fp32 with an input prescale."""
+    return input_scale != 1.0 and dtype == torch.float32
+
+
+def raw_fp64(fn, x_raw, x_train, input_scale: float):
+    """fn(test rows, train rows) evaluated in fp64 on the raw rows (x_raw
+    in raw units, x_train stored divided by input_scale), its fp64 outputs
+    multiplied by input_scale^-2 (exact: a power of two, and the spec is
+    scale-equivariant): the prescaled-unit kernels, without the
+    prescale's underflow.
+
+    In prescaled units two rows without a packed chunk (|x| <= 1000
+    against a 2^64 prescale) have k11 k22 ~ 1e-67, below the duals' 1e-36
+    floor (fp32 or fp64 alike), so their cross entries came out ~1e15
+    times too large and their variance negative: 13% of synth6's
+    raw-encoding test stds clamped to zero (PERF.md, PR 11). Raw rows keep
+    k11 k22 far above the floor. The posteriors use it for the variance
+    only, solved in fp64 too (an fp32 solve of these kernels left the
+    chunk-less rows' variance to fp32 noise on the card): the mean keeps
+    the prescaled cross Gram, and the train Gram its floored entries,
+    which lie 1e12 below the ridge."""
+    s2 = 1.0 / (input_scale * input_scale)
+    out = fn(x_raw.to(torch.float64),
+             x_train.to(torch.float64) * input_scale)
+    if isinstance(out, tuple):
+        return tuple(k * s2 for k in out)
+    return out * s2
 
 
 # Features beyond this magnitude trigger the automatic input prescale in
@@ -283,7 +386,12 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
     tensor's own device.
 
     input_scale: None picks an automatic power-of-two prescale when fp32
-    features would overflow the Gram; pass 1.0 to force raw features."""
+    features would overflow the Gram; pass 1.0 to force raw features.
+
+    A ridged Gram that is not positive definite in the working dtype
+    raises `ops.linalg.FactorError` (a FloatingPointError naming n, the
+    failing order, the dtype and diag_reg), after its n x n tensors are
+    freed; the JAX fit returns a NaN factor there."""
     if get not in ("nngp", "ntk"):
         raise ValueError(f"get must be 'nngp' or 'ntk', got {get!r}")
     if device is None:
@@ -310,8 +418,13 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
     else:
         k_tt_nngp, solve_k = gram_sym(spec, x, ("nngp", "ntk"), diag_add=reg,
                                       diag=diag)
-    l = torch.linalg.cholesky(solve_k)
+    l, info = torch.linalg.cholesky_ex(solve_k)
     del solve_k
+    if int(info):
+        # the traceback keeps this frame alive: drop the n x n tensors
+        # first, so that a caller's fallback fit has the memory
+        del l, k_tt_nngp
+        raise FactorError("fit", int(info), x.shape[0], x.dtype, diag_reg)
     alpha = _tri_solve(l, _tri_solve(l, y), transpose=True)
     return GPPosterior(
         x_train=x, y_train=y, l=l, alpha=alpha, reg=reg,
@@ -345,9 +458,9 @@ def select_diag_reg(spec: KernelSpec, x_train, y_train,
         try:
             post = fit_gp(spec, x, y, diag_reg=float(r), get=get,
                           input_scale=input_scale)
-        except torch.linalg.LinAlgError:
+        except FactorError:
             # not positive definite at this ridge: where the JAX factor
-            # comes out NaN, torch raises; either way no evidence
+            # comes out NaN, fit_gp raises; either way no evidence
             scores[float(r)] = math.nan
             continue
         scores[float(r)] = post.log_marginal_likelihood()

@@ -183,8 +183,8 @@ def _fwd(l_loc, rhs, group, p, d, b, nb, m):
         cols = slice(kb * b, (kb + 1) * b)
         # two broadcasts, not one packed buffer: at b = n / p the diagonal
         # block is a whole shard, and packing would copy it
-        lkk = owner_broadcast(lambda: l_loc[slot:slot + b, cols], owner,
-                              (b, b), y, group)
+        lkk = owner_broadcast(lambda: l_loc[slot:slot + b, cols].to(
+            y.dtype), owner, (b, b), y, group)
         yk = owner_broadcast(lambda: y[slot:slot + b], owner, (b, r), y,
                              group)
         xk = torch.linalg.solve_triangular(lkk, yk, upper=False)
@@ -193,7 +193,7 @@ def _fwd(l_loc, rhs, group, p, d, b, nb, m):
         # my rows below panel kb (elimination block > kb): a suffix
         s0 = ((kb - d) // p + 1) * b
         if s0 < m:
-            y[s0:].addmm_(l_loc[s0:, cols], xk, alpha=-1.0)
+            y[s0:].addmm_(l_loc[s0:, cols].to(y.dtype), xk, alpha=-1.0)
     return x
 
 
@@ -205,8 +205,8 @@ def _bwd(l_loc, rhs, group, p, d, b, nb, m):
     for kb in range(nb - 1, -1, -1):
         owner, slot = kb % p, (kb // p) * b
         # the owner's full row panel L[kb-block, :] and its rhs rows
-        rowpan = owner_broadcast(lambda: l_loc[slot:slot + b], owner,
-                                 (b, n), y, group)
+        rowpan = owner_broadcast(lambda: l_loc[slot:slot + b].to(y.dtype),
+                                 owner, (b, n), y, group)
         yk = owner_broadcast(lambda: y[slot:slot + b], owner, (b, r), y,
                              group)
         xk = torch.linalg.solve_triangular(
@@ -237,7 +237,9 @@ def _solve(body, l_local, rhs_local, mesh, axis_name, block_size):
 def distributed_tri_solve_lower(l_local, b_local, mesh,
                                 axis_name: str = "data", block_size=None):
     """Solve L x = b with L and b row-sharded in the same storage order;
-    returns this rank's rows of x. Collective."""
+    returns this rank's rows of x. Collective. A b of a wider dtype than
+    L's (fp64 against fp32) is solved in b's, L's panels converted as they
+    are used."""
     return _solve(_fwd, l_local, b_local, mesh, axis_name, block_size)
 
 

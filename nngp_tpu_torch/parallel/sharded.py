@@ -37,7 +37,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nngp_tpu_torch.gp.posterior import _auto_input_scale
+from nngp_tpu_torch.gp.posterior import (_auto_input_scale, _mm_wide,
+                                         needs_raw_fp64, raw_fp64)
 from nngp_tpu_torch.models.kernel_spec import (KernelSpec,
                                                apply_diag_recursion)
 from nngp_tpu_torch.ops.gram import input_diag
@@ -330,65 +331,92 @@ class DistributedPosterior:
         solves. Test rows lead, as in the single-device tier: the mean's
         fp32 dot then runs along contiguous rows (its transpose sums the
         same products with ~4x the rounding on the CPU)."""
-        out = gram_cross(self.spec, x_test, self.x_storage, get)
+        return self._mask_pad(gram_cross(self.spec, x_test, self.x_storage,
+                                         get))
+
+    def _mask_pad(self, out):
+        """Zero the pad columns of a cross Gram (or a pair) in place."""
         pad = torch.nonzero(~self._live_rows()).reshape(-1)
         for k in (out if isinstance(out, tuple) else (out,)):
             k.index_fill_(1, pad, 0.0)
         return out
+
 
     def _predict_scaled(self, x_test, compute_cov):
         """Predict body on raw-unit x_test; var / cov come back divided by
         input_scale^2, as `GPPosterior._predict_scaled`. Every contraction
         over the n axis is a local product and an all-reduce; the (te, te)
         results are the only replicated buffers."""
-        x_test = self._as_input(x_test)
+        x_raw = self._as_input(x_test)
+        x_test = x_raw
         if self.input_scale != 1.0:
-            x_test = x_test * (1.0 / self.input_scale)
+            x_test = x_raw * (1.0 / self.input_scale)
         mesh, ax, bs, group = (self.mesh, self.axis_name, self.block_size,
                                self._group)
-        layers = self.spec.layers
+        layers, spec, dtype = self.spec.layers, self.spec, self.dtype
+        wide = needs_raw_fp64(self.input_scale, dtype)
+
+        def var_kernels(fn):
+            """The kernels the variance reads; in fp64 on the raw rows for
+            an fp32 prescale, as `GPPosterior._predict_scaled`."""
+            if wide:
+                return raw_fp64(fn, x_raw, self.x_storage, self.input_scale)
+            return fn(x_test, self.x_storage)
+
+        def k_diag(xs, _):
+            return apply_diag_recursion(input_diag(xs), layers)[0]
+
+        def k_ss(xs, _):
+            return gram_sym(spec, xs, "nngp")            # exact diagonal
+
         if self.get == "nngp":
             cross = self._cross_grams(x_test, "nngp")         # (te, n/p)
             mean = all_reduce_sum(cross @ self.alpha, group)
             if compute_cov is False:
                 return mean
+            if wide:
+                cross = self._mask_pad(var_kernels(
+                    lambda a, b: gram_cross(spec, a, b, "nngp")))
             rhs = cross.mT.contiguous()                       # (n/p, te)
             del cross
             v = distributed_tri_solve_lower(self.l, rhs, mesh, ax, bs)
             del rhs
             if compute_cov == "diag":
-                diag_ss, _ = apply_diag_recursion(input_diag(x_test), layers)
                 vv = all_reduce_sum(torch.sum(v * v, dim=0), group)
-                return mean, torch.clamp_min(diag_ss - vv, 0.0)
-            k_ss = gram_sym(self.spec, x_test, "nngp")   # exact diagonal
-            return mean, k_ss - all_reduce_sum(v.mT @ v, group)
+                return mean, torch.clamp_min(var_kernels(k_diag) - vv,
+                                             0.0).to(dtype)
+            return mean, (var_kernels(k_ss)
+                          - all_reduce_sum(v.mT @ v, group)).to(dtype)
 
-        nngp_c, ntk_c = self._cross_grams(x_test, ("nngp", "ntk"))
+        pair = ("nngp", "ntk")
+        nngp_c, ntk_c = self._cross_grams(x_test, pair)
         mean = all_reduce_sum(ntk_c @ self.alpha, group)
         if compute_cov is False:
             return mean
+        if wide:
+            nngp_c, ntk_c = self._mask_pad(var_kernels(
+                lambda a, b: gram_cross(spec, a, b, pair)))
         w = distributed_cho_solve(self.l, ntk_c.mT.contiguous(), mesh, ax,
                                   bs)
         del ntk_c
         # K_tt's columns are in natural order: contract against w in
         # natural row order (the one gather this path needs, O(n te))
         w_natural = all_gather_rows(w, group)[self._e2s()]
-        kw = self.k_tt @ w_natural                           # (n/p, te)
+        kw = _mm_wide(self.k_tt, w_natural)                  # (n/p, te)
         del w_natural
         if compute_cov == "diag":
-            diag_ss, _ = apply_diag_recursion(input_diag(x_test), layers)
             sums = all_reduce_sum(torch.stack(
                 [torch.sum(w * kw, dim=0), torch.sum(nngp_c.mT * w, dim=0)]),
                 group)
-            return mean, torch.clamp_min(diag_ss + sums[0] - 2.0 * sums[1],
-                                         0.0)
-        k_ss = gram_sym(self.spec, x_test, "nngp")           # exact diagonal
+            return mean, torch.clamp_min(
+                var_kernels(k_diag) + sums[0] - 2.0 * sums[1], 0.0).to(dtype)
+        kss = var_kernels(k_ss)
         te = x_test.shape[0]
         # rows of w and kw and columns of nngp_c share the storage order,
         # which cancels inside every n-contraction
         both = all_reduce_sum(torch.cat([w.mT @ kw, nngp_c @ w]), group)
         cross_term = both[te:]
-        return mean, k_ss + both[:te] - cross_term - cross_term.mT
+        return mean, (kss + both[:te] - cross_term - cross_term.mT).to(dtype)
 
     def predict(self, x_test, compute_cov=True):
         """Posterior (mean, cov) in raw units: `GPPosterior.predict`

@@ -36,7 +36,22 @@ What differs from the JAX Estimator:
   - `learn_hyper` takes None as its unset sentinel, so an explicit False
     survives `quality='best'` (the JAX package turns it into True);
   - the encoder in use is named by `encoder_kind`, and a fall-back to the
-    Python encoder is printed.
+    Python encoder is printed;
+  - an exact factor that fails (the ridged Gram is not positive definite
+    in the working dtype) raises `ops.linalg.FactorError`, a
+    FloatingPointError naming n, the failing order, the dtype and
+    diag_reg, where the JAX Estimator's NaN factor fails `_validate_fit`
+    with a FloatingPointError that names neither; an extend that fails so
+    keeps the old posterior, as a non-finite one does;
+  - under tier='auto' an fp32 exact fit whose factor fails is refitted on
+    the Nystrom tier that 'auto' takes beyond exact_max_n, with a printed
+    and warned `tier routing:` line that gives the reason. On the card
+    the fp32 factor of synth6_big's rows fails at the default ridge at
+    orders from 32,897 (40k rows) to 66,541 (74k), where the memory rule
+    admits ~75k, and depends on the rows' order (PERF.md, PR 11), so no
+    cap by n would do. Hyperparameters learned against the exact evidence
+    are relearned against the DTC evidence first; `relearn_hyperparams`
+    never re-routes (it rolls back and raises).
 """
 
 import collections
@@ -45,6 +60,7 @@ import math
 import os
 import sys
 import time
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -62,6 +78,7 @@ from nngp_tpu_torch.gp.nystrom import (NystromPosterior, _resolve_finalize,
 from nngp_tpu_torch.gp.posterior import fit_gp
 from nngp_tpu_torch.models.kernel_spec import (Activation, Dense, KernelSpec,
                                                reference_kernel)
+from nngp_tpu_torch.ops.linalg import FactorError
 from nngp_tpu_torch.parallel.mesh import check_mesh_device, is_lead
 from nngp_tpu_torch.parallel.sharded import (DistributedPosterior,
                                              distributed_fit)
@@ -208,8 +225,11 @@ class Estimator:
         device, dtype and kernel_type), then the distributed tier with a
         mesh, and routes larger train sets to the Nystrom tier with
         auto_nystrom_m inducing rows (and moments 'df64' under
-        quality='best' in fp32). 'exact', 'nystrom' and 'distributed'
-        force a tier ('distributed' requires mesh).
+        quality='best' in fp32). An fp32 exact fit that 'auto' chose and
+        whose factor fails goes to that Nystrom tier too (printed and
+        warned, with the reason). 'exact', 'nystrom' and 'distributed'
+        force a tier ('distributed' requires mesh); a failed exact factor
+        raises `ops.linalg.FactorError` (a FloatingPointError).
 
         learn_hyper: True learns (w0, w, b, diag_reg) by exact-evidence
         gradient descent on (a subsample of) the training queries before
@@ -305,6 +325,7 @@ class Estimator:
         if calibrate_frac > 0.0 and x.shape[0] >= 20:
             n_cal = min(max(10, int(round(calibrate_frac * x.shape[0]))),
                         x.shape[0] // 2)
+        self._auto_nystrom_m = None     # set while 'auto' may re-route
         if tier is not None:
             self._route_tier(tier, x.shape[0] - n_cal, auto_nystrom_m,
                              exact_max_n, verbose)
@@ -325,11 +346,16 @@ class Estimator:
             if verbose:
                 print(f"calibration holdout: {n_cal} queries "
                       f"(fit on {x.shape[0]})")
+        relearn = None
         if learn_hyper:
             if isinstance(learn_hyper, bool):
-                self._learn_hyperparams(x, y, hyper_steps, hyper_points,
-                                        verbose, ard=bool(hyper_ard),
-                                        objective=hyper_objective)
+                def relearn():
+                    self._learn_hyperparams(x, y, hyper_steps, hyper_points,
+                                            verbose, ard=bool(hyper_ard),
+                                            objective=hyper_objective)
+                relearn()
+                if hyper_objective != "auto":
+                    relearn = None      # the caller chose the objective
             else:
                 if hyper_ard and learn_hyper.feature_scale is None:
                     raise ValueError(
@@ -337,10 +363,9 @@ class Estimator:
                         "mode (no feature_scale) — relearn it with ard=True "
                         "or drop hyper_ard")
                 self._apply_hyper_result(learn_hyper, x, verbose)
-            x = self._apply_feature_scale(x)
         elif hyper_ard:
             raise ValueError("hyper_ard requires learn_hyper=True")
-        self.posterior = self._fit(x, y)
+        self.posterior = self._fit_routed(x, y, relearn, verbose)
         self._validate_fit()
         if x_cal is not None:
             self._calibrate_arrays(self._apply_feature_scale(x_cal),
@@ -384,11 +409,12 @@ class Estimator:
         nystrom_m (None for the exact tiers) before the fit. 'auto': the
         exact tier (the distributed one with a mesh) while n <=
         exact_max_n, then the distributed tier with a mesh, the Nystrom
-        tier beyond."""
+        tier beyond (or when an fp32 exact factor fails: `_fit_routed`)."""
         if exact_max_n is None:
             exact_max_n = default_exact_max_n(self.device, self.dtype,
                                               self.kernel_type)
-        if tier == "auto":
+        auto = tier == "auto"
+        if auto:
             if self.nystrom_m is not None:
                 tier = "nystrom"
             elif self.mesh is not None:
@@ -401,23 +427,56 @@ class Estimator:
                     "tier='exact' is the single-device tier; drop mesh= or "
                     "use tier='distributed'")
             self.nystrom_m = None
+            if auto and np.dtype(self.dtype) == np.float32:
+                # an fp32 factor that fails re-routes (_fit_routed)
+                self._auto_nystrom_m = min(int(auto_m), n)
         elif tier == "distributed":
             if self.mesh is None:
                 raise ValueError("tier='distributed' requires mesh=")
             self.nystrom_m = None
         else:
-            if self.nystrom_m is None:
-                self.nystrom_m = min(int(auto_m), n)
-            if (self.quality == "best" and self._moments_unset
-                    and np.dtype(self.dtype) == np.float32):
-                # the decision table's rule, which the constructor could
-                # not apply before the tier was known
-                self.nystrom_moments = "df64"
+            self._use_nystrom(min(int(auto_m), n))
         if verbose:
             print(f"tier routing: n={n} -> {tier}"
                   + (f" (m={self.nystrom_m}, moments="
                      f"{self.nystrom_moments})" if tier == "nystrom" else "")
                   + f"; exact_max_n {exact_max_n}")
+
+    def _use_nystrom(self, m: int):
+        """Serve on the Nystrom tier with m inducing rows (unless nystrom_m
+        was given), moments 'df64' under quality='best' in fp32."""
+        if self.nystrom_m is None:
+            self.nystrom_m = m
+        if (self.quality == "best" and self._moments_unset
+                and np.dtype(self.dtype) == np.float32):
+            # the decision table's rule, which the constructor could not
+            # apply before the tier was known
+            self.nystrom_moments = "df64"
+
+    def _fit_routed(self, x, y, relearn, verbose: bool):
+        """The constructor's fit of the raw-unit rows x. Where tier='auto'
+        chose the exact tier in fp32 and its factor fails, the fit goes to
+        the Nystrom tier 'auto' takes beyond exact_max_n, after relearn()
+        (hyperparameters learned against the exact evidence are learned
+        again against the DTC evidence; None keeps them). The failed fit's
+        n x n tensors are freed before it raises."""
+        try:
+            return self._fit(self._apply_feature_scale(x), y)
+        except FactorError as err:
+            if self._auto_nystrom_m is None:
+                raise
+            reason = str(err)
+        self._use_nystrom(self._auto_nystrom_m)
+        self._auto_nystrom_m = None
+        line = (f"tier routing: n={x.shape[0]} exact -> nystrom (m="
+                f"{self.nystrom_m}, moments={self.nystrom_moments}) because "
+                f"{reason}")
+        if verbose:
+            print(line)
+        warnings.warn(line, RuntimeWarning, stacklevel=3)
+        if relearn is not None:
+            relearn()
+        return self._fit(self._apply_feature_scale(x), y)
 
     def _init_encoders(self):
         """The Python encoder (training files, fall-back) and, when g++
