@@ -16,7 +16,9 @@ exits nonzero; nothing is caught and retried:
      at learned-shaped specs (w0 != w, b = 62 and 80.5) on plain and
      ARD-scaled rows; and into outputs filled with NaN first, at ragged
      sizes and at n = 10,800, with the persistent grid capped at 1 and 7
-     blocks as well as uncapped, so every element must be written;
+     blocks as well as uncapped, so every element must be written, and
+     into the leading block of wider NaN-filled matrices (a padded
+     posterior's rows), which must stay NaN outside it;
   4. the training slice: the training CLI on the full forest workload
      (fp32 nngp, fp32 ntk, fp64 nngp) with the launch counters checked and
      the q-error held against the fp64 anchors of
@@ -128,13 +130,27 @@ exits nonzero; nothing is caught and retried:
      computed several ways against the fp64 Estimator's (conformal
      coverage, zero stds, predict ms), the shipped one held to the rule;
      C4, the forest_2048 and synth6_big Nystrom fits with K_mm from
-     gram_cross and from gram_sym.
+     gram_cross and from gram_sym;
+ 15. shape-stable serving (`serve/graphs.py`, padded posteriors): the
+     synth6 serving Estimator with pad_slots=4096 in fp32 and fp64, (a)
+     every serving bucket's CUDA graph (64-8,192) and a ragged 10,000-row
+     batch against the eager predict (bit equality, else the first op
+     that differs, printed), (b) feedback batches of 1-1,000 lines
+     extended in place (the storage and the captures kept) against a
+     dense Estimator, (d) a padded checkpoint, (c) the slots running out,
+     (e) the forest active learner with pad_acquisitions against the
+     dense one and the JAX anchors, (f) per bucket the eager predict's and
+     the replay's ms, busy, idle and device records, and the in-place
+     against the dense extend at 40,000 fp64 rows with the graphs' pool,
+     (g) gram_kernel in every replay's trace against the replay counter.
 
 Phase 4 also runs the training CLI in fp64 on the synthimdb, synthtpch and
 synthtpcds join workloads against the JAX package's fp64 q-error.
 
 Each path's launches are counted from 0 around it; the summary's
-`launches` are their sum over every path. The last three lines are the
+`launches` are their sum over every path: the wrappers' launches plus the
+launches that replays of the serving buckets' CUDA graphs ran (a graph's
+warm-up and capture count into its own tally, `serve/graphs.py`). The last three lines are the
 card line, one JSON object with a summary per kernel (its time per call,
 its own device time, the roofline bound and share, and the time of
 `torch.matmul` writing the same output, labelled "dot only": not the same
@@ -143,6 +159,7 @@ function, a yardstick), and the result line `{"ok": true, "device":
 printing any result.
 """
 
+import collections
 import contextlib
 import io
 import json
@@ -384,6 +401,51 @@ def check_every_element_written(device):
             torch.cuda.empty_cache()
     print(f"NaN-filled kernel checks: {n_cases} (dtype, n, spec, grid) cases "
           f"up to n={FOREST_N}: every element written, all within tolerance")
+
+
+def check_row_block_outputs(device):
+    """Both kernels into row blocks of wider NaN-filled matrices, as a
+    padded posterior's fit (the real block of its (N, N) Gram) and extend
+    (K21's real columns) write them: the block within tolerance of the
+    plain twin, everything outside it still NaN. fp32 and fp64, nngp and
+    the (nngp, ntk) pair, ragged n."""
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+    from nngp_tpu_torch.ops.gram_cuda import (gram_cross, gram_cross_plain,
+                                              gram_sym, gram_sym_plain)
+
+    spec, n, m, wide = reference_kernel(), RAGGED_N, RAGGED_M, RAGGED_N + 83
+    for dtype in (torch.float32, torch.float64):
+        x = inputs(n, 0, dtype, device)
+        x1 = inputs(m, 1, dtype, device)
+        for get in ("nngp", ("nngp", "ntk")):
+            label = f"row-block {str(dtype)[6:]} {get}"
+            k = torch.full((2, wide, wide), float("nan"), dtype=dtype,
+                           device=device)
+            c = torch.full((2, m, wide), float("nan"), dtype=dtype,
+                           device=device)
+            pair = isinstance(get, tuple)
+            gram_sym(spec, x, get, diag_add=0.5,
+                     out=(k[0, :n, :n], k[1, :n, :n]) if pair
+                     else k[0, :n, :n])
+            gram_cross(spec, x1, x, get,
+                       out=(c[0, :, :n], c[1, :, :n]) if pair
+                       else c[0, :, :n])
+            torch.cuda.synchronize()
+            pk = gram_sym_plain(spec, x, get, diag_add=0.5)
+            pc = gram_cross_plain(spec, x1, x, get)
+            for i, g in enumerate(get if pair else (get,)):
+                check_close(f"sym {label} {g}", k[i, :n, :n],
+                            pk[i] if pair else pk, dtype, g)
+                check_close(f"cross {label} {g}", c[i, :, :n],
+                            pc[i] if pair else pc, dtype, g)
+            outside = (k[:, n:].isnan().all() and k[:, :n, n:].isnan().all()
+                       and c[:, :, n:].isnan().all()
+                       and (pair or k[1].isnan().all()))
+            if not bool(outside):
+                raise AssertionError(f"{label}: wrote outside its block")
+    print(f"row-block kernel checks: gram_sym and gram_cross into the "
+          f"leading block of {wide}-column NaN-filled matrices, fp32/fp64, "
+          f"nngp and the pair: within tolerance, nothing written outside")
 
 
 def check_forest_shapes(device):
@@ -653,12 +715,18 @@ def reset_launches():
 
     for key in gram_cuda.LAUNCHES:
         gram_cuda.LAUNCHES[key] = 0
+        gram_cuda.REPLAYS[key] = 0
 
 
 def read_launches():
+    """The kernels run since the last reset: the wrappers' launches and
+    the launches that CUDA graph replays ran (a serving bucket's graph
+    runs its captured gram_cross at every replay; its warm-up and capture
+    count into the graph's own tally)."""
     from nngp_tpu_torch.ops import gram_cuda
 
-    return dict(gram_cuda.LAUNCHES)
+    return {key: gram_cuda.LAUNCHES[key] + gram_cuda.REPLAYS[key]
+            for key in gram_cuda.LAUNCHES}
 
 
 def expect_launches(label, got, want, total):
@@ -814,6 +882,20 @@ def sum_scales(est, lines):
     var_scale = (2.0 * diag_eval(p.spec.layers, x, "nngp")
                  * (p.input_scale * est.std_scale) ** 2)
     return mean_scale.cpu().numpy(), var_scale.cpu().numpy()
+
+
+def bucketed_eager(post, x):
+    """(mean, std) as 1-D numpy arrays of `post.predict_mean_std` called
+    eagerly on the rows x (at most the largest bucket) padded to their
+    serving bucket with copies of the last row, as `serve/graphs.py`
+    pads them: the same shapes as the Estimator's replay."""
+    from nngp_tpu_torch.serve.graphs import bucket_of
+
+    n = x.shape[0]
+    x = np.concatenate([x, np.repeat(x[-1:], bucket_of(n) - n, axis=0)])
+    mean, std = post.predict_mean_std(torch.as_tensor(x, device=post.device))
+    return (mean.reshape(-1)[:n].cpu().numpy(),
+            std.reshape(-1)[:n].cpu().numpy())
 
 
 def check_same_predictions(label, mean, std, want, scales):
@@ -1114,6 +1196,9 @@ LEARNED_RE = re.compile(
     r"learned hyperparameters: w0=([0-9.]+) w=([0-9.]+) b=([0-9.]+) "
     r"diag_reg=([0-9.e+-]+) \(exact log evidence ([0-9.e+-]+) on")
 GREEDY_P, GREEDY_K = 4096, 1000
+# the forest split and the cold-learned spec of `learn_active`, which
+# phase 15 (e) runs again with pad_acquisitions
+ACTIVE_RUN = {}
 
 
 def hold_to_anchor(label, got, want):
@@ -1191,6 +1276,8 @@ def learn_active(total, device):
     hold_to_anchor("cold learn", {"w0": cold.w0, "w": cold.w, "b": cold.b,
                                   "diag_reg": cold.diag_reg,
                                   "logev": cold.log_evidence}, ACTIVE_COLD)
+    ACTIVE_RUN.update(cold=cold, split=(x_tr, y_tr, x_pool, y_pool, x_val,
+                                        y_val))
     for arm, relearn in (("once", None), ("relearn", cold)):
         learner = ActiveLearner(cold.spec, budget=1000, active_iters=3,
                                 selection="topk", diag_reg=cold.diag_reg,
@@ -1361,13 +1448,14 @@ def learn_synth6(total, device):
     if not (np.all(np.isfinite(std)) and 0.0 < cover <= 1.0):
         raise AssertionError(f"best: std finite {np.isfinite(std).all()}, "
                              f"cover {cover}")
-    # the direct fit predicts the distinct lines, as the Estimator's
-    # deduplicated batch does
+    # the direct fit predicts the distinct lines padded to the serving
+    # bucket, as the Estimator's deduplicated batch runs: in fp32 another
+    # batch size sums |v|^2 in another order, ~1e-5 of the scale
     p = est.posterior
     direct = fit_gp(est.spec, p.x_train, p.y_train, diag_reg=est.diag_reg,
                     input_scale=1.0)
     uniq = list(dict.fromkeys(test))
-    dm, ds = direct.predict_mean_std_chunked(est.encode_lines(uniq))
+    dm, ds = bucketed_eager(direct, est.encode_lines(uniq))
     row = {line: i for i, line in enumerate(uniq)}
     pick = [row[line] for line in test]
     # the std scaled in the Estimator's dtype, as its predict scales it
@@ -1757,8 +1845,8 @@ def check_exact_peaks(x, y, device):
     peaks do not depend on it."""
     from nngp_tpu_torch.gp import fit_gp
     from nngp_tpu_torch.models.kernel_spec import reference_kernel
-    from nngp_tpu_torch.serve.estimator import (EXACT_PEAK_BYTES_PER_N2,
-                                                default_exact_max_n)
+    from nngp_tpu_torch.gp.posterior import (EXACT_PEAK_BYTES_PER_N2,
+                                             default_exact_max_n)
 
     spec = reference_kernel()
     out = {}
@@ -1812,7 +1900,7 @@ def nystrom_estimator(total, device, big_lines, big, tmp):
     import os
 
     from nngp_tpu_torch.serve import Estimator
-    from nngp_tpu_torch.serve.estimator import default_exact_max_n
+    from nngp_tpu_torch.gp.posterior import default_exact_max_n
 
     train, test_labeled = big_lines
     test, test_y = synth6_test(test_labeled)
@@ -4338,7 +4426,7 @@ def factorability(total, device, x_tr):
     from nngp_tpu_torch.gp.posterior import solve_ridge
     from nngp_tpu_torch.models.kernel_spec import diag_eval, reference_kernel
     from nngp_tpu_torch.ops.gram_cuda import gram_sym
-    from nngp_tpu_torch.serve.estimator import default_exact_max_n
+    from nngp_tpu_torch.gp.posterior import default_exact_max_n
 
     spec = reference_kernel()
     runs = [("nngp", n) for n in FACTOR_N]
@@ -4706,7 +4794,7 @@ def raw64_predict_peak(total, device, x_tr, y_tr):
     from nngp_tpu_torch.featurize.join import MultiJoinEncoder
     from nngp_tpu_torch.gp import fit_gp
     from nngp_tpu_torch.models.kernel_spec import reference_kernel
-    from nngp_tpu_torch.serve.estimator import EXACT_PEAK_BYTES_PER_N2
+    from nngp_tpu_torch.gp.posterior import EXACT_PEAK_BYTES_PER_N2
 
     scale = MultiJoinEncoder(schema_stats("synth6", SYNTH6_STATS),
                              chunk_norm=True).col_scale.astype(np.float32)
@@ -4827,6 +4915,509 @@ def fp32_faults_slice(card, total, device, big, big_lines):
     return sym, var_row
 
 
+# ---------------------------------------- phase 15: shape-stable serving
+PAD_SLOTS = 4096
+GRAPH_BUCKETS = [64 << i for i in range(8)]          # 64 ... 8,192
+RAGGED_BATCH = 10000
+FEEDBACK_BATCHES = (1, 10, 37, 100, 300, 1000)
+CKPT_FEEDBACK = 64
+FALLBACK_BATCH = 2100        # a 4,096-row bucket: more than the slots left
+GRAPH_REPS = 50
+# torch.profiler's device records of one traced call were now and then
+# incomplete on an H100 (a replay's gram_kernel records 1 or 0 of 2 while
+# the counter said 2, in two of seven runs of phase 15; PERF.md): a
+# replay's trace is taken up to this many times until its gram_kernel
+# records match, every miss printed
+TRACE_ATTEMPTS = 3
+# graph against eager: bit equality expected; otherwise the op that
+# differs is printed and this relative bound holds
+GRAPH_RTOL = {torch.float64: 1e-12, torch.float32: 1e-6}
+# a padded Estimator against the dense one given the same extends (the
+# JAX package's bounds, relative to the largest value)
+PAD_MEAN_RTOL, PAD_STD_RTOL = 1e-9, 1e-7
+
+
+def rows_of(x, n):
+    """n encoded rows: x's rows repeated in order."""
+    return np.ascontiguousarray(np.resize(x, (n, x.shape[1])))
+
+
+def rel_max(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)),
+                                                    1e-300))
+
+
+def predict_stages(post, x):
+    """The exact nngp predict_mean_std of `post` at the device rows x,
+    stage by stage (GPPosterior._predict_scaled's ops in its order), as a
+    list of (name, tensor): where a graph's result differs from the eager
+    one, the first stage that differs names the op."""
+    from nngp_tpu_torch.gp.posterior import _tri_solve, raw_fp64
+    from nngp_tpu_torch.models.kernel_spec import diag_eval
+    from nngp_tpu_torch.ops.gram_cuda import gram_cross
+
+    spec, mask = post.spec, post.row_mask
+    xs = x * (1.0 / post.input_scale) if post.input_scale != 1.0 else x
+    out = [("gram_cross", gram_cross(spec, xs, post.x_train, "nngp"))]
+    cross = out[-1][1] if mask is None else out[-1][1] * mask
+    out.append(("mask", cross))
+    out.append(("mean (cross @ alpha)", cross @ post.alpha))
+    if post._raw64:
+        cross = raw_fp64(lambda a, b: gram_cross(spec, a, b, "nngp"), x,
+                         post.x_train, post.input_scale)
+        if mask is not None:
+            cross = cross * mask.to(cross.dtype)
+        out.append(("raw fp64 gram_cross", cross))
+        kd = raw_fp64(lambda a, _: diag_eval(spec.layers, a, "nngp"), x,
+                      post.x_train, post.input_scale)
+    else:
+        kd = diag_eval(spec.layers, xs, "nngp")
+    v = _tri_solve(post.l, cross.mT)
+    out.append(("triangular solve", v))
+    out.append(("variance", kd - torch.sum(v * v, dim=0)))
+    return out
+
+
+def first_differing_stage(post, x):
+    """Capture `predict_stages` into a graph and replay it beside the
+    eager stages: the first stage that differs, with its max relative
+    difference, or None."""
+    eager = [(k, v.clone()) for k, v in predict_stages(post, x)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        predict_stages(post, x)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        staged = predict_stages(post, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    for (name, want), (_, got) in zip(eager, staged):
+        if not torch.equal(got, want):
+            return name, rel_max(got.cpu().numpy(), want.cpu().numpy())
+    return None
+
+
+def graph_against_eager(label, est, x_pool, device):
+    """(a): warmup captures every bucket from 64 to 8,192; each bucket's
+    replay, and a ragged 10,000-row batch (8,192 + 1,808 rows padded to
+    2,048), against `posterior.predict_mean_std` called directly on the
+    same rows. Returns the per-bucket results and the warm-up's figures."""
+    from nngp_tpu_torch.serve.graphs import pool_estimate
+
+    post = est.posterior
+    dtype = post.x_train.dtype
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buckets = est.warmup(max_batch=GRAPH_BUCKETS[-1], verbose=False)
+    warm_s = time.perf_counter() - t0
+    graphs = est._graphs
+    if buckets != GRAPH_BUCKETS or graphs.captured != GRAPH_BUCKETS:
+        raise AssertionError(f"{label}: warmup buckets {buckets}, captured "
+                             f"{graphs.captured}")
+    pool = graphs.pool_bytes()
+
+    def eager(x):
+        m, s = post.predict_mean_std(torch.as_tensor(x, device=device))
+        return m.reshape(-1).cpu().numpy(), s.reshape(-1).cpu().numpy()
+
+    rows = []
+    for b in GRAPH_BUCKETS + [RAGGED_BATCH]:
+        x = rows_of(x_pool, b)
+        got = est._bucketed_predict(x)
+        if b <= GRAPH_BUCKETS[-1]:
+            want = eager(x)
+            chunks = [x]
+        else:                  # the chunks as the buckets pad them
+            head, tail = x[:GRAPH_BUCKETS[-1]], x[GRAPH_BUCKETS[-1]:]
+            padded = np.concatenate(
+                [tail, np.repeat(tail[-1:], 2048 - tail.shape[0], axis=0)])
+            parts = [eager(head), eager(padded)]
+            want = tuple(np.concatenate([parts[0][i],
+                                         parts[1][i][:tail.shape[0]]])
+                         for i in (0, 1))
+            chunks = [head, padded]
+            unpadded = eager(tail)
+            d = max(rel_max(got[i][GRAPH_BUCKETS[-1]:], unpadded[i])
+                    for i in (0, 1))
+            if not d <= GRAPH_RTOL[dtype]:
+                raise AssertionError(f"{label} ragged tail vs its unpadded "
+                                     f"predict: {d}")
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        row = {"bucket": b, "bit_equal": same}
+        if not same:
+            row["rel"] = max(rel_max(g, w) for g, w in zip(got, want))
+            stage = None
+            for c in chunks:
+                stage = stage or first_differing_stage(
+                    post, torch.as_tensor(c, device=device))
+            row["op"] = stage
+            print(f"  {label} bucket {b}: graph differs from eager by "
+                  f"{row['rel']!r} (relative); first differing op {stage}")
+            if not row["rel"] <= GRAPH_RTOL[dtype]:
+                raise AssertionError(f"{label} bucket {b}: graph vs eager "
+                                     f"{row['rel']} > {GRAPH_RTOL[dtype]}")
+        rows.append(row)
+    print(f"  (a) {label}: {len(buckets)} buckets captured in {warm_s!r} s "
+          f"(capture ms {json.dumps(graphs.capture_ms)}), pool "
+          f"{pool!r} bytes (estimate {pool_estimate(post, buckets[-1])!r})"
+          f"; graph vs eager bit-equal at "
+          f"{[r['bucket'] for r in rows if r['bit_equal']]}")
+    return {"rows": rows, "warm_s": warm_s, "capture_ms": graphs.capture_ms,
+            "pool_bytes": pool, "largest": graphs.largest}
+
+
+def storage_ptrs(post):
+    return [t.data_ptr() for t in (post.x_train, post.y_train, post.l,
+                                   post.alpha, post.row_mask)]
+
+
+def hold_padded(label, est, ref, x):
+    """The padded Estimator's bucketed predict against the dense one's."""
+    got, want = est._bucketed_predict(x), ref._bucketed_predict(x)
+    d = (rel_max(got[0], want[0]), rel_max(got[1], want[1]))
+    if not (d[0] <= PAD_MEAN_RTOL and d[1] <= PAD_STD_RTOL):
+        raise AssertionError(f"{label}: padded vs dense (mean, std) {d}")
+    return d
+
+
+def feedback_extends(est, ref, val, x_test):
+    """(b): feedback batches of 1 ... 1,000 lines, bucketed into the slots:
+    each one launch of each kernel, the storage unmoved, no new capture,
+    the memo empty, and the dense Estimator's predictions."""
+    post, graphs = est.posterior, est._graphs
+    ptrs, captures = storage_ptrs(post), graphs.captures
+    n0, off, rows = post.num_train, 0, []
+    for m in FEEDBACK_BATCHES:
+        lines = val[off:off + m]
+        off += m
+        est.predict([lines[0].rsplit("@", 1)[0]])     # a memo entry
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.extend_with_lines(lines)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        t0 = time.perf_counter()
+        ref.extend_with_lines(lines)
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+        d = hold_padded(f"(b) feedback {m}", est, ref, x_test)
+        if (est.posterior is not post or storage_ptrs(post) != ptrs
+                or est._graphs is not graphs or graphs.captures != captures
+                or post.num_train != n0 + off or len(est._pred_cache)
+                or launches != {"sym": 1, "cross": 1}):
+            raise AssertionError(
+                f"(b) feedback {m}: in place {est.posterior is post}, "
+                f"storage kept {storage_ptrs(post) == ptrs}, captures "
+                f"{graphs.captures} (was {captures}), n_real "
+                f"{post.num_train}, memo {len(est._pred_cache)}, launches "
+                f"{launches}")
+        rows.append({"lines": m, "inplace_ms": ms, "dense_ms": dense_ms,
+                     "rel_mean": d[0], "rel_std": d[1]})
+    print(f"  (b) feedback extends {FEEDBACK_BATCHES}: in place, storage "
+          f"and {captures} captures kept, n_real {n0} -> {post.num_train}; "
+          + json.dumps(rows))
+    return rows, off
+
+
+def padded_checkpoint(est, ref, lines, x_test, tmp):
+    """(d): the padded Estimator saved and restored keeps its slots, and
+    both extend in place to the same predictions."""
+    import os
+
+    from nngp_tpu_torch.serve import Estimator
+
+    ckpt = os.path.join(tmp, "padded")
+    est.save(ckpt)
+    with contextlib.redirect_stdout(io.StringIO()):
+        back = Estimator.restore(ckpt, device=est.device)
+    bp = back.posterior
+    if (bp.n_real != est.posterior.n_real
+            or bp.num_padded != est.posterior.num_padded):
+        raise AssertionError(f"(d) restored n_real {bp.n_real} / "
+                             f"{bp.num_padded}")
+    ptrs = storage_ptrs(bp)
+    for e in (back, est, ref):
+        e.extend_with_lines(lines)
+    got, want = back._bucketed_predict(x_test), est._bucketed_predict(x_test)
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    if back.posterior is not bp or storage_ptrs(bp) != ptrs or not same:
+        raise AssertionError(f"(d) restored extend: in place "
+                             f"{back.posterior is bp}, predictions equal "
+                             f"{same}")
+    hold_padded("(d) after the checkpoint", est, ref, x_test)
+    print(f"  (d) checkpoint: restored n_real {bp.n_real - len(lines)} of "
+          f"{bp.num_padded} rows, extended in place by {len(lines)}, "
+          f"predictions equal to the original's")
+
+
+def slots_run_out(est, ref, lines, x_test):
+    """(c): a batch whose bucket exceeds the slots left falls back to the
+    dense extend, drops the graphs, and the next predict captures anew."""
+    post = est.posterior
+    left = post.num_padded - post.num_train
+    est.extend_with_lines(lines)
+    ref.extend_with_lines(lines)
+    new = est.posterior
+    if new is post or new.n_real is not None or est._graphs is not None:
+        raise AssertionError("(c) the slots ran out but the posterior "
+                             "stayed padded")
+    d = hold_padded("(c) dense fall-back", est, ref, x_test)
+    graphs = est._graphs
+    print(f"  (c) {len(lines)} lines (a 4096-row bucket) against {left} "
+          f"slots left: dense fall-back to {new.num_train} rows, the "
+          f"graphs dropped and captured again ({graphs.captured}); vs the "
+          f"dense Estimator (mean, std) {d!r}")
+
+
+def padded_active(device):
+    """(e): the forest active learner of phase 7 ('once': top-k, 3 rounds
+    of 1,000, fp64, the cold spec) with pad_acquisitions against the dense
+    learner's MSE trajectory (1e-9) and the JAX anchors (0.01)."""
+    from nngp_tpu_torch.active import ActiveLearner
+
+    if not ACTIVE_RUN:                       # phase 15 run on its own
+        with contextlib.redirect_stdout(io.StringIO()):
+            learn_active({"sym": 0, "cross": 0}, device)
+    run = ACTIVE_RUN
+    out = {}
+    for arm, pad in (("dense", False), ("padded", True)):
+        learner = ActiveLearner(run["cold"].spec, budget=1000,
+                                active_iters=3, selection="topk",
+                                diag_reg=run["cold"].diag_reg,
+                                input_scale=1.0, pad_acquisitions=pad,
+                                device=device)
+        lines = []
+        t0 = time.perf_counter()
+        post, _ = learner.active_train(*run["split"], printer=lines.append)
+        torch.cuda.synchronize()
+        out[arm] = ([float(l.split(":")[1]) for l in lines
+                     if l.startswith("Test MSE Loss:")],
+                    time.perf_counter() - t0, post)
+    mses, pad_s, post = out["padded"]
+    dense = out["dense"][0]
+    d = max(abs(a / b - 1) for a, b in zip(mses, dense))
+    a = max(abs(x - y) for x, y in zip(mses, ACTIVE_ANCHORS["once"]))
+    print(f"  (e) pad_acquisitions: validation MSE {mses!r}; vs the dense "
+          f"learner rel {d!r} (bound 1e-9), vs the JAX anchors {a!r} "
+          f"(bound 0.01); storage {post.num_padded} rows, n_real "
+          f"{post.num_train}; {pad_s!r} s (dense {out['dense'][1]!r} s)")
+    if not (len(mses) == 4 and d <= 1e-9 and a <= 0.01
+            and post.n_real == post.num_padded == 3600 + 3000):
+        raise AssertionError(f"(e) pad_acquisitions: {mses} vs {dense}")
+
+
+def trace_call(fn):
+    """One call of fn traced by torch.profiler, after two untraced calls
+    inside the same profiler session (its first records can be lost):
+    (wall ms, device busy ms, idle share, device activity records,
+    gram_kernel launches and their device ms, the replays' gram_cross
+    launches counted by `gram_cuda.REPLAYS` in that call, the top 4
+    device ms by name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, schedule
+
+    from nngp_tpu_torch.cli.profile_slice import union_length
+    from nngp_tpu_torch.ops import gram_cuda
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(3):
+            before = gram_cuda.REPLAYS["cross"]
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counted = gram_cuda.REPLAYS["cross"] - before
+            prof.step()
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    busy = union_length((s, e) for _, s, e in spans) / 1e3
+    per_name = collections.Counter()
+    for name, start, end in spans:
+        per_name[name[:60]] += (end - start) / 1e3
+    gram = [(s, e) for name, s, e in spans if "gram_kernel" in name]
+    return (wall, busy, 1.0 - busy / wall, len(spans), len(gram),
+            sum(e - s for s, e in gram) / 1e3, counted,
+            per_name.most_common(4))
+
+
+def bucket_timings(label, est, x_pool, dense=None):
+    """(f) and (g): per bucket, the eager predict (the posterior's chunked
+    predict, as the port served before the graphs) against the replay:
+    host ms (median of GRAPH_REPS), and one traced call each (busy, idle,
+    device records; the top kernels at the smallest and largest bucket);
+    the replay's gram_kernel launches in its trace against the replay
+    counter (TRACE_ATTEMPTS); with `dense`, an unpadded Estimator's replay
+    ms beside."""
+    post = est.posterior
+    rows = []
+    for b in GRAPH_BUCKETS:
+        x = rows_of(x_pool, b)
+
+        def eager():
+            return post.predict_mean_std_chunked(x)
+
+        def replay():
+            return est._bucketed_predict(x)
+
+        row = {"bucket": b}
+        for name, fn in (("eager", eager), ("replay", replay)):
+            row[f"{name}_ms"] = host_ms(fn, reps=GRAPH_REPS)
+            misses = []
+            for _ in range(TRACE_ATTEMPTS):
+                (_, row[f"{name}_busy_ms"], row[f"{name}_idle"],
+                 row[f"{name}_records"], kernels, row[f"{name}_gram_ms"],
+                 counted, top) = trace_call(fn)
+                if name == "eager" or 1 <= kernels == counted:
+                    break
+                misses.append({"gram_kernels": kernels, "counter": counted,
+                               "records": row[f"{name}_records"]})
+            if b in (GRAPH_BUCKETS[0], GRAPH_BUCKETS[-1]):
+                row[f"{name}_top"] = top
+            if name == "replay":
+                if misses:
+                    row["trace_misses"] = misses
+                    print(f"  (g) {label} bucket {b}: traces whose "
+                          f"gram_kernel records differ from the replay "
+                          f"counter: {misses}")
+                if not 1 <= kernels == counted:
+                    raise AssertionError(
+                        f"(g) {label} bucket {b}: in {TRACE_ATTEMPTS} "
+                        "traces of a replay the gram_kernel records never "
+                        f"matched the replay counter: {misses}")
+                row["replay_gram_kernels"] = kernels
+        if dense is not None:
+            row["dense_replay_ms"] = host_ms(
+                lambda: dense._bucketed_predict(x), reps=GRAPH_REPS)
+        rows.append(row)
+    print(f"  (f) {label} per bucket, eager vs replay: " + json.dumps(rows))
+    return rows
+
+
+def inplace_extend_memory(device, big):
+    """(f): an in-place extend of 1,000 rows into a padded 40,000-row fp64
+    posterior (+ 4,096 slots) against a dense extend at the same n: ms and
+    max_memory_allocated above what was allocated before; then the
+    padded posterior's buckets: their largest, their pool's bytes against
+    the exact tier's bytes per n^2 rule."""
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.gp.posterior import (EXACT_MEMORY_SHARE,
+                                             EXACT_PEAK_BYTES_PER_N2)
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+    from nngp_tpu_torch.serve.graphs import BucketGraphs, buckets_upto
+
+    x, y = big[0], big[1]
+    n, m = PEAK_N, NY_EXT
+    xt = torch.as_tensor(x[:n + m], dtype=torch.float64, device=device)
+    yt = torch.as_tensor(y[:n + m], dtype=torch.float64, device=device)
+    spec = reference_kernel()
+    out = {}
+    for arm, pad_to in (("padded", n + PAD_SLOTS), ("dense", None)):
+        warm = fit_gp(spec, xt[:m], yt[:m], input_scale=1.0,
+                      pad_to=None if pad_to is None else 2 * m)
+        warm.extend(xt[n:], yt[n:])
+        del warm
+        post = fit_gp(spec, xt[:n], yt[:n], pad_to=pad_to, input_scale=1.0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        ext = post.extend(xt[n:], yt[n:])
+        torch.cuda.synchronize()
+        out[f"{arm}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{arm}_peak_gib"] = ((torch.cuda.max_memory_allocated(device)
+                                   - base) / 2 ** 30)
+        if arm == "padded":
+            if ext is not post:
+                raise AssertionError("(f) the 40k padded extend was not "
+                                     "in place")
+            graphs = BucketGraphs(post)
+            for b in buckets_upto(GRAPH_BUCKETS[-1], graphs.largest):
+                graphs.predict(x[:b].astype(np.float64))
+            big_n = post.num_padded
+            pool = graphs.pool_bytes()
+            out["largest_bucket"] = graphs.largest
+            out["pool_bytes"] = pool
+            out["pool_bytes_per_n2"] = pool / big_n ** 2
+            total = torch.cuda.get_device_properties(device).total_memory
+            out["rule_plus_pool_share"] = EXACT_MEMORY_SHARE + pool / total
+            out["rule_bytes_per_n2"] = EXACT_PEAK_BYTES_PER_N2[
+                "nngp", torch.float64]
+            del graphs
+        del post, ext
+        torch.cuda.empty_cache()
+    del xt, yt
+    torch.cuda.empty_cache()
+    print(f"  (f) extend of {m} rows at n = {n} fp64 (+{PAD_SLOTS} slots): "
+          + json.dumps(out))
+    return out
+
+
+def shape_stable_slice(card, total, device, big):
+    """Phase 15: the synth6 serving Estimator (10,800 train rows, raw
+    packed chunks, d = 61) with pad_slots=4096 in fp64 and fp32: (a) every
+    bucket's CUDA graph against the eager predict, (b) feedback extends in
+    place, (d) a padded checkpoint, (c) the slots running out, (e) the
+    padded active learner, (f) per-bucket times and traces, the in-place
+    extend's time and memory at 40,000 rows, (g) the kernel in every
+    replay's trace. Adds the launches of (b) to `total`."""
+    import tempfile
+
+    from nngp_tpu_torch.serve import Estimator
+
+    train, test_labeled, val = synth6_lines()
+    test, _ = synth6_test(test_labeled)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir = write_train_dir(tmp, train)
+
+        def build(dtype, pad):
+            with contextlib.redirect_stdout(io.StringIO()):
+                return Estimator("synth6", None, train_dir,
+                                 stats_dir=SYNTH6_STATS, dtype=dtype,
+                                 pad_slots=PAD_SLOTS if pad else None,
+                                 device=device)
+
+        print(f"shape-stable serving: synth6 {len(train)} train rows, "
+              f"pad_slots {PAD_SLOTS}")
+        ref = build(np.float64, False)
+        for label, dtype in (("fp32", np.float32), ("fp64", np.float64)):
+            est = build(dtype, True)
+            x_pool = est.encode_lines(test + [l.rsplit("@", 1)[0]
+                                              for l in val])
+            out[label] = graph_against_eager(label, est, x_pool, device)
+            out[label]["timings"] = bucket_timings(
+                label, est, x_pool, ref if label == "fp64" else None)
+            if label == "fp32":
+                del est
+                torch.cuda.empty_cache()
+        x_test = est.encode_lines(test)
+        reset_launches()
+        out["feedback"], off = feedback_extends(est, ref, val, x_test)
+        got = read_launches()
+        for key in total:
+            total[key] += got[key]
+        padded_checkpoint(est, ref, test_labeled[:CKPT_FEEDBACK], x_test,
+                          tmp)
+        slots_run_out(est, ref, val[off:off + FALLBACK_BATCH], x_test)
+        del est, ref
+        torch.cuda.empty_cache()
+    padded_active(device)
+    out["extend_40k"] = inplace_extend_memory(device, big)
+    print(f"shape-stable serving on {card}: " + json.dumps(
+        {k: v for k, v in out.items() if k in ("extend_40k",)}))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4858,6 +5449,7 @@ def main():
 
     check_ragged(device)
     check_every_element_written(device)
+    check_row_block_outputs(device)
     errs = check_forest_shapes(device)
     check_join_widths(device)
     check_learned_specs(device)
@@ -4891,6 +5483,8 @@ def main():
                         launches, device, big)
     fault_sym, fault_cross = timed("14 fp32 faults", fp32_faults_slice, card,
                                    launches, device, big, big_lines)
+    stable = timed("15 shape-stable serving", shape_stable_slice, card,
+                   launches, device, big)
     print("phase seconds: " + json.dumps(phase_s))
 
     summary = {"kernels": [
@@ -4908,6 +5502,14 @@ def main():
     summary["kernels"][1]["rpchol"] = rpchol_rows
     summary["kernels"][0]["exact_fit_74k"] = fault_sym
     summary["kernels"][1]["fp64_variance"] = fault_cross
+    # the serving buckets' CUDA graphs: per bucket the eager predict's and
+    # the replay's ms, and gram_cross's device ms in each (one launch, two
+    # for fp32 with a prescale)
+    summary["kernels"][1]["graph_buckets"] = {
+        label: [{k: r[k] for k in ("bucket", "eager_ms", "replay_ms",
+                                   "eager_gram_ms", "replay_gram_ms")}
+                for r in stable[label]["timings"]]
+        for label in ("fp32", "fp64")}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,11 @@ What differs from the JAX learner:
     cannot change the selection;
   - a relearn round refits with the learned spec itself, whose layer
     program reaches the CUDA Gram kernels by value at every launch (the
-    JAX learner passes traced `spec_params` so jit compiles once);
-  - pad_acquisitions is not ported (ROADMAP 'Not to port').
+    JAX learner passes traced `spec_params` so jit compiles once).
+
+pad_acquisitions pads the exact posterior as the JAX learner does
+(`fit_gp(pad_to=n0 + budget * active_iters)`): incremental rounds write
+their rows into its slots in place, refit and relearn rounds pad again.
 
 With mesh= (a `parallel.make_mesh` DeviceMesh) the loop runs on the
 row-sharded distributed posterior (`parallel.distributed_fit`, rounds by
@@ -88,13 +91,21 @@ class ActiveLearner:
         this DeviceMesh (`dist_block_size` its panel width), or with
         nystrom_m stream the Nystrom moments over it; the learner's device
         must be the mesh's type. refit defaults to 'incremental' on every
-        tier. pad_acquisitions ('Not to port') raises NotImplementedError
-        when set."""
-        if pad_acquisitions:
-            raise NotImplementedError(
-                "pad_acquisitions is not ported (ROADMAP 'Not to port': it "
-                "pads storage so jit compiles once; a CUDA launch takes "
-                "any shape)")
+        tier.
+
+        pad_acquisitions (single-device exact nngp tier only): the initial
+        fit pads its storage to n0 + budget * active_iters rows
+        (`fit_gp(pad_to=)`), incremental rounds extend it in place, and
+        refit and relearn rounds pad again to the same size."""
+        if pad_acquisitions and (nystrom_m is not None or mesh is not None
+                                 or kernel_type != "nngp"):
+            raise ValueError(
+                "pad_acquisitions is the single-chip exact-nngp shape-"
+                "stability feature (fit_gp pad_to); the Nystrom tier is "
+                "already shape-stable (O(m^2) state) and the distributed "
+                "tier pads internally")
+        self.pad_acquisitions = bool(pad_acquisitions)
+        self._pad_to = None          # set per active_train run
         if refit is None:
             refit = "incremental"
         if refit not in ("incremental", "full"):
@@ -220,9 +231,13 @@ class ActiveLearner:
                                    get=self.kernel_type,
                                    block_size=self.dist_block_size,
                                    input_scale=self.input_scale)
+        pad_to = None
+        if self.pad_acquisitions and self._pad_to is not None:
+            pad_to = max(self._pad_to, x_train.shape[0])
         return fit_gp(self.spec, self._hscale(self._dev(x_train)),
                       self._dev(y_train), diag_reg=self.diag_reg,
-                      get=self.kernel_type, input_scale=self.input_scale)
+                      get=self.kernel_type, input_scale=self.input_scale,
+                      pad_to=pad_to)
 
     def test(self, post: GPPosterior, x_val, y_val, query_infos_val=None,
              printer=print):
@@ -325,6 +340,10 @@ class ActiveLearner:
         x_train, y_train = self._dev(x_train), self._dev(y_train)
         x_pool, y_pool = self._dev(x_pool), self._dev(y_pool)
         x_val, y_val = self._dev(x_val), self._dev(y_val)
+        if self.pad_acquisitions:
+            # one storage size for the whole run
+            self._pad_to = int(x_train.shape[0]
+                               + self.budget * self.active_iters)
         if printer:
             printer(f"# Initial Training samples: {x_train.shape[0]}")
         if self.relearn and self._hyper is None:

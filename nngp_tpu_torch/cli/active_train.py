@@ -6,8 +6,9 @@ pool, 20% validation, seed 10.
         --query_path workloads/forest_data --budget 1000 --active_iters 3
 
 Same flags and printed lines as the JAX CLI, plus --device (default cuda;
-no fallback to the CPU). fp32 by default, fp64 with --x64. Flags whose path
-is not ported stop with an error naming their ROADMAP item. --mesh_devices N
+no fallback to the CPU). fp32 by default, fp64 with --x64.
+--pad_acquisitions pads the exact posterior so that rounds extend it in
+place (single device, nngp; a usage error otherwise). --mesh_devices N
 runs the loop over an N-rank mesh (the row-sharded distributed posterior,
 or Nystrom moments streamed over it): under `torchrun --nproc_per_node N`
 (N must be the world size; without a launcher only N = 1), and only rank 0
@@ -28,14 +29,6 @@ from nngp_tpu_torch.data.workload import (load_binary_join_workload,
                                           load_single_table_workload)
 from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
 from nngp_tpu_torch.utils.device import resolve_device
-
-# flag -> ROADMAP item that ports its path; setting one to anything but its
-# default stops the CLI
-_NOT_PORTED = {
-    "pad_acquisitions": "'Not to port' (shape buckets: a CUDA launch "
-                        "takes any shape)",
-}
-
 
 def build_parser():
     p = argparse.ArgumentParser(
@@ -61,7 +54,10 @@ def build_parser():
                         "instead of the fixed-capacity moment extend)")
     p.add_argument("--active_iters", type=int, default=3)
     p.add_argument("--pad_acquisitions", action="store_true",
-                   help="not ported")
+                   help="shape-stable rounds (single device, exact nngp): "
+                        "pad the factor storage to n0 + budget*iters inert "
+                        "rows that incremental rounds fill in place "
+                        "(fit_gp pad_to)")
     p.add_argument("--budget", type=int, default=1000)
     p.add_argument("--refit", type=str, default="incremental",
                    choices=["incremental", "full"])
@@ -124,12 +120,6 @@ def build_parser():
     return p
 
 
-def reject_unported(p, args):
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag) != p.get_default(flag):
-            p.error(f"--{flag} is not ported yet (ROADMAP {item})")
-
-
 def load_split(args):
     """The workload of --query_path encoded and split 20% train, 60% pool,
     20% validation (seed 10): (x_tr, y_tr, x_pool, y_pool, x_val, y_val,
@@ -163,7 +153,11 @@ def load_split(args):
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    reject_unported(p, args)
+    if args.pad_acquisitions and (args.nystrom_m or args.mesh_devices
+                                  or args.kernel_type != "nngp"):
+        p.error("--pad_acquisitions pads the single-device exact nngp "
+                "posterior: drop --nystrom_m, --mesh_devices and "
+                "--kernel_type ntk")
     device = resolve_device(args.device)
     from nngp_tpu_torch.parallel.mesh import is_lead, owned_group
 
@@ -238,7 +232,7 @@ def run(args, device, mesh):
         selection=args.selection, diag_reg=args.diag_reg, refit=args.refit,
         mesh=mesh, nystrom_m=args.nystrom_m, nystrom_grow=args.nystrom_grow,
         nystrom_moments=args.nystrom_moments, input_scale=input_scale,
-        relearn_hyper=hyper_res,
+        relearn_hyper=hyper_res, pad_acquisitions=args.pad_acquisitions,
         hyper_points=args.hyper_points or None, hyper_ard=args.ard,
         partition_keys="num_table" if join_workload else "num_predicates",
         device=device)

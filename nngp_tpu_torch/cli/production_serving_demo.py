@@ -7,8 +7,8 @@ on a GPU:
 
   1.  fit + checkpoint            Estimator(...).load_model() / save()
   2.  restart from disk           Estimator.restore()  (no refit)
-  3.  warmup                      est.warmup()  (one predict: the kernel
-                                  library's load and first allocations)
+  3.  bucket warmup               est.warmup()  (every serving bucket's
+                                  CUDA graph captured before traffic)
   4.  TCP serving                 EstimatorSocketServer + a socket client
   5.  uncertainty calibration     est.calibrate_uncertainty(feedback)
   6.  conformal intervals         est.predict_interval(lines)
@@ -19,9 +19,9 @@ on a GPU:
 
     python -m nngp_tpu_torch.cli.production_serving_demo [--device cpu]
 
-The JAX example warms one compiled program per serving bucket at step 3;
-the port has no buckets (a CUDA launch takes any shape), so its warmup is
-one predict.
+Step 3 warms every serving bucket, as the JAX example does: there one
+compiled program per bucket, here one CUDA graph per bucket on the card
+(an eager predict per bucket on the CPU).
 """
 
 import argparse
@@ -97,9 +97,9 @@ def main(argv=None):
     est = Estimator.restore(ckpt, device=args.device)
     print("[2] restored from checkpoint")
 
-    # -- 3. one predict before traffic ---------------------------------------
-    est.warmup(max_batch=128, verbose=False)
-    print("[3] warm (one predict of 128 rows)")
+    # -- 3. run every serving bucket BEFORE traffic ------------------------
+    buckets = est.warmup(max_batch=128, verbose=False)
+    print(f"[3] buckets warm ({', '.join(map(str, buckets))})")
 
     # -- 4. TCP serving: newline queries in, JSON estimates out -------------
     test_lines = ["ta,tb@x,5.0,-5.0@@ta,tb,id", "ta,tb@@y,0.9,0.1@ta,tb,id"]

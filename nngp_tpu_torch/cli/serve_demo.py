@@ -9,8 +9,10 @@ print shapes and latency.
         --test_query_file workloads/synth_join_data/join_query_2.txt
 
 Same flags as the JAX demo plus --device (default cuda; no fallback to the
-CPU). Flags whose path is not ported stop with an error naming their
-ROADMAP item. --mesh_devices N fits and serves the row-sharded distributed
+CPU). --pad_slots N pads the exact posterior with N inert rows that online
+feedback fills in place, so the serving buckets' CUDA graphs stay valid
+(single device; a usage error with --nystrom_m or --mesh_devices).
+--mesh_devices N fits and serves the row-sharded distributed
 tier over N ranks: run it under `torchrun --nproc_per_node N` (N must be
 the world size; without a launcher only N = 1), and only rank 0 prints.
 Every rank fits or restores, calibrates and predicts the test file; for
@@ -28,13 +30,6 @@ import os
 import sys
 import threading
 import time
-
-# flag -> ROADMAP item that ports its path; setting one to anything but its
-# default stops the demo
-_NOT_PORTED = {
-    "pad_slots": "'Not to port' (shape buckets)",
-}
-
 
 def load_query_lines_without_card(path: str, limit=None):
     """Strip the trailing @card from labeled lines."""
@@ -90,7 +85,11 @@ def build_parser():
                         "entries, bases, projections and accumulators; "
                         "they ride through --ckpt)")
     p.add_argument("--pad_slots", type=int, default=None,
-                   help="not ported (shape buckets)")
+                   help="single-device exact tier: reserve this many inert "
+                        "rows so online feedback extends are bucketed "
+                        "in-place appends (the serving buckets' CUDA graphs "
+                        "stay valid; size to the expected feedback volume "
+                        "between refits)")
     p.add_argument("--learn_hyper", action="store_true",
                    help="learn (w0, w, b, diag_reg) by evidence before "
                         "fitting (gp/hyperopt.py); the learned spec rides "
@@ -135,9 +134,10 @@ def build_parser():
                         "inducing set on the training log) "
                         "(serve/socket_server.py)")
     p.add_argument("--warmup_batch", type=int, default=4096,
-                   help="with --listen: one predict of this many rows "
-                        "before accepting connections, so the first "
-                        "request pays no kernel build (0 disables)")
+                   help="with --listen: run every serving bucket up to "
+                        "this many rows before accepting connections, so "
+                        "the first request of a size pays no kernel build "
+                        "or graph capture (0 disables)")
     p.add_argument("--quality", type=str, default="reference",
                    choices=["reference", "best"],
                    help="'best' fills chunk_norm, ARD evidence-learned "
@@ -163,12 +163,6 @@ def build_parser():
                         "line in, one JSON estimate out "
                         "(serve/socket_server.py)")
     return p
-
-
-def reject_unported(p, args):
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag) != p.get_default(flag):
-            p.error(f"--{flag} is not ported yet (ROADMAP {item})")
 
 
 def stream(est, lines, clients, wait_ms):
@@ -248,7 +242,10 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not args.test_query_file and not args.listen:
         p.error("--test_query_file is required unless --listen is given")
-    reject_unported(p, args)
+    if args.pad_slots is not None and (args.nystrom_m or args.mesh_devices
+                                       or args.tier == "nystrom"):
+        p.error("--pad_slots pads the single-device exact posterior: drop "
+                "--nystrom_m, --mesh_devices and --tier nystrom")
     if args.tier == "distributed" and not args.mesh_devices:
         p.error("--tier distributed needs --mesh_devices")
     from nngp_tpu_torch.parallel.mesh import is_lead, owned_group
@@ -296,7 +293,7 @@ def run(args, mesh):
                         hyper_points=args.hyper_points,
                         nystrom_m=args.nystrom_m,
                         nystrom_moments=args.nystrom_moments,
-                        quality=args.quality,
+                        pad_slots=args.pad_slots, quality=args.quality,
                         calibrate_frac=args.calibrate_frac, tier=args.tier,
                         mesh=mesh, device=args.device)
         if (args.hyper_file and est.hyper_result is not None

@@ -25,7 +25,7 @@ from nngp_tpu_torch.models.kernel_spec import Activation, Dense, KernelSpec
 from nngp_tpu_torch.utils.device import resolve_device
 
 STATE_KEYS = ("x_train", "y_train", "l", "alpha", "reg", "k_tt_nngp",
-              "diag_reg", "input_scale")
+              "diag_reg", "input_scale", "n_real")
 
 
 def layers_from_jax(jax_layers):
@@ -47,7 +47,10 @@ def layers_from_jax(jax_layers):
 def posterior_from_numpy(state: dict, spec: KernelSpec, get: str,
                          device) -> GPPosterior:
     """A GPPosterior on `device` from the arrays named in STATE_KEYS
-    (k_tt_nngp may be None; diag_reg and input_scale are numbers)."""
+    (k_tt_nngp may be None; diag_reg and input_scale are numbers). A
+    padded posterior's n_real (the JAX posterior's `int(post.n_real)`, a
+    checkpoint's meta n_real) keeps it padded; None or absent, it is
+    exact-shape."""
     device = torch.device(device)
 
     def tensor(name):  # a copy: the arrays may be read-only JAX views
@@ -58,12 +61,19 @@ def posterior_from_numpy(state: dict, spec: KernelSpec, get: str,
     if y_train.dim() == 1:
         y_train = y_train[:, None]
     k_tt = state.get("k_tt_nngp")
+    n_real = state.get("n_real")
+    row_mask = None
+    if n_real is not None:
+        n_real = int(n_real)
+        row_mask = x_train.new_zeros(x_train.shape[0])
+        row_mask[:n_real] = 1.0
     return GPPosterior(
         x_train=x_train.contiguous(), y_train=y_train,
         l=tensor("l"), alpha=tensor("alpha"), reg=tensor("reg"),
         k_tt_nngp=None if k_tt is None else tensor("k_tt_nngp"),
         spec=spec, get=get, diag_reg=float(state["diag_reg"]),
-        input_scale=float(state["input_scale"]))
+        input_scale=float(state["input_scale"]), n_real=n_real,
+        row_mask=row_mask)
 
 
 def posterior_to_numpy(post: GPPosterior) -> dict:
@@ -75,7 +85,7 @@ def posterior_to_numpy(post: GPPosterior) -> dict:
         "x_train": arr(post.x_train), "y_train": arr(post.y_train),
         "l": arr(post.l), "alpha": arr(post.alpha), "reg": arr(post.reg),
         "k_tt_nngp": arr(post.k_tt_nngp), "diag_reg": float(post.diag_reg),
-        "input_scale": float(post.input_scale),
+        "input_scale": float(post.input_scale), "n_real": post.n_real,
     }
 
 

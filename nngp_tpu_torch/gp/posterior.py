@@ -21,6 +21,16 @@ is 467 MB in fp32, so the factor stays one dense tensor on an 80 GB card.
 Extend: `gram_cross` gives K21 and `gram_sym` K22, and
 `ops.linalg.cholesky_append_rows` appends them to the factor. A factor that
 fails (fit or extend) raises `ops.linalg.FactorError`.
+
+Padded posteriors (`fit_gp(pad_to=)`, as in the JAX package): the storage
+holds pad_to rows, the real ones first, then inert rows (copies of row 0,
+zero label, a unit row of the factor, masked out of every cross Gram), and
+`extend` writes new rows into the pad slots in place
+(`ops.linalg.padded_append_rows_`), so every tensor a predict reads keeps
+its storage and a CUDA graph captured over them stays valid
+(`serve/graphs.py`). On the card pad_to is capped by `default_exact_max_n`
+of the kernel and dtype (the JAX package caps it at its column-block
+layout, which the port has not).
 """
 
 import dataclasses
@@ -33,8 +43,43 @@ import torch
 from nngp_tpu_torch.models.kernel_spec import (KernelSpec, diag_eval,
                                                is_scale_equivariant)
 from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
-from nngp_tpu_torch.ops.linalg import FactorError, cholesky_append_rows
+from nngp_tpu_torch.ops.linalg import (FactorError, cholesky_append_rows,
+                                       padded_append_rows_)
 from nngp_tpu_torch.utils.device import resolve_device
+
+
+# The exact tier's memory rule: a train-set size is served exactly while
+# its largest device-memory peak stays within EXACT_MEMORY_SHARE of the
+# card's memory. The peaks, in bytes per element of the n x n Gram, by
+# kernel and dtype: a fit, an extend (with the posterior it extends), and a
+# refit while the live posterior is kept, as `relearn_hyperparams` refits;
+# the refit's is the largest. nngp: 8.00, 8.41 and 12.00 bytes in fp32,
+# 16.01, 16.82 and 24.01 in fp64; an ntk posterior also keeps the train
+# NNGP Gram, so it needs more. Measured on an NVIDIA H100 80GB HBM3 (700 W)
+# by `chip_smoke.py` (phase 8, which fails if a peak exceeds the constants
+# below; PERF.md). nngp: ~75k rows fp32 and ~53k fp64 on the 80 GB card.
+# On the CPU the JAX package's 55,000 stays.
+EXACT_MEMORY_SHARE = 0.8
+EXACT_PEAK_BYTES_PER_N2 = {("nngp", torch.float32): 12.1,
+                           ("nngp", torch.float64): 24.1,
+                           ("ntk", torch.float32): 20.1,
+                           ("ntk", torch.float64): 40.1}
+EXACT_MAX_N_CPU = 55000
+
+
+def default_exact_max_n(device, dtype, get: str = "nngp") -> int:
+    """The largest train-set size whose exact-tier peaks for kernel `get`
+    stay within EXACT_MEMORY_SHARE of `device`'s memory (EXACT_MAX_N_CPU on
+    the CPU). dtype: the working dtype, numpy or torch."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return EXACT_MAX_N_CPU
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.float64 if np.dtype(dtype) == np.float64 \
+            else torch.float32
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(math.sqrt(EXACT_MEMORY_SHARE * total
+                         / EXACT_PEAK_BYTES_PER_N2[get, dtype]))
 
 
 # Rows (columns) of an fp32 factor converted to fp64 at a time by the
@@ -99,6 +144,12 @@ class GPPosterior:
     # scale-equivariant specs the Grams scale by exactly scale^-2, so the
     # mean is invariant and std/cov are multiplied back on exit.
     input_scale: float = 1.0
+    # A padded posterior (`fit_gp(pad_to=)`): the count of real leading
+    # rows, and on the device their (N,) 1/0 mask, which every cross Gram
+    # is multiplied by; both None for an exact-shape posterior. `extend`
+    # advances both in place.
+    n_real: Optional[int] = None
+    row_mask: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -106,6 +157,13 @@ class GPPosterior:
 
     @property
     def num_train(self) -> int:
+        """The real training rows (the storage's on an exact-shape
+        posterior)."""
+        return self.x_train.shape[0] if self.n_real is None else self.n_real
+
+    @property
+    def num_padded(self) -> int:
+        """Storage rows, inert pad rows included."""
         return self.x_train.shape[0]
 
     def _as_input(self, x):
@@ -153,14 +211,21 @@ class GPPosterior:
         def k_ss(xs, _):
             return gram_sym(spec, xs, "nngp")           # exact diagonal
 
+        mask = self.row_mask
+
+        def masked(cross):
+            # inert pad rows give finite kernel values: zeroed, the unit
+            # factor rows and zero alpha rows see the dense system
+            return cross if mask is None else cross * mask.to(cross.dtype)
+
         if self.get == "nngp":
-            cross = gram_cross(spec, x_test, self.x_train, "nngp")  # (m, n)
-            mean = cross @ self.alpha
+            cross = masked(gram_cross(spec, x_test, self.x_train, "nngp"))
+            mean = cross @ self.alpha                    # (m, 1)
             if compute_cov is False:
                 return mean
             if wide:
-                cross = var_kernels(lambda a, b: gram_cross(spec, a, b,
-                                                            "nngp"))
+                cross = masked(var_kernels(
+                    lambda a, b: gram_cross(spec, a, b, "nngp")))
             v = _tri_solve(self.l, cross.mT)  # (n, m)
             if compute_cov == "diag":
                 var = var_kernels(k_diag) - torch.sum(v * v, dim=0)
@@ -226,7 +291,9 @@ class GPPosterior:
         """Exact GP log evidence log p(y | X) in raw input units:
         -0.5 (y^T alpha + 2 sum log diag L + n log 2 pi). With a prescale
         the stored system is the raw one divided by scale^2, so the logdet
-        gains n log scale^2 and the quadratic term is divided by scale^2."""
+        gains n log scale^2 and the quadratic term is divided by scale^2.
+        Pad rows add nothing: their label and alpha are zero, their factor
+        diagonal one; n counts the real rows."""
         n = self.num_train
         quad = float(torch.sum(self.y_train * self.alpha))
         logdet = float(2.0 * torch.sum(torch.log(torch.diagonal(self.l))))
@@ -237,16 +304,41 @@ class GPPosterior:
         return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
 
     # --------------------------------------------------------------- extend
-    def extend(self, x_new, y_new) -> "GPPosterior":
-        """A new posterior with m labeled rows appended by an O(n^2 m)
-        block-Cholesky update instead of a refit (`_extend_dense` of the
-        JAX package). x_new is in raw input units, like a predict input.
+    def extend(self, x_new, y_new, bucket: Optional[int] = None
+               ) -> "GPPosterior":
+        """m labeled rows appended by an O(n^2 m) block-Cholesky update
+        instead of a refit. x_new is in raw input units, like a predict
+        input.
+
+        An exact-shape posterior returns a new posterior and is not
+        modified (`_extend_dense` of the JAX package). A padded one
+        (`fit_gp(pad_to=)`) writes the rows into its pad slots in place and
+        returns itself; when the slots run out it returns the dense
+        extend of `strip_padding()` instead. bucket (padded only): round
+        the appended block up to max(bucket, the next power of two >= m)
+        with inert rows, which stay unit rows and reusable; only the m
+        real rows advance n_real, and the slot check is against the
+        bucketed size, as in the JAX package. A failed in-place extend
+        raises before anything is written.
 
         The fit's ridge is kept: a relative ridge is defined by the
         fit-time Gram, and deriving it again from the extended Gram would
         change the model the factor represents. K22 gets the exact
-        diagonal from `gram_sym`, as the fit's Gram did. This posterior is
-        not modified."""
+        diagonal from `gram_sym`, as the fit's Gram did."""
+        x_new, y_new = self._check_rows(x_new, y_new)
+        if self.n_real is None:
+            return self._extend_dense(x_new, y_new)
+        m = x_new.shape[0]
+        mb = m if bucket is None else max(int(bucket),
+                                          1 << (m - 1).bit_length())
+        if self.n_real + mb > self.num_padded:
+            return self.strip_padding()._extend_dense(x_new, y_new)
+        self._padded_append(x_new, y_new, mb)
+        return self
+
+    def _check_rows(self, x_new, y_new):
+        """(x_new, y_new (m, 1)) as tensors of the posterior's dtype on
+        its device, checked."""
         x_new = self._as_input(x_new)
         if x_new.dim() != 2 or x_new.shape[0] < 1 \
                 or x_new.shape[1] != self.x_train.shape[1]:
@@ -258,6 +350,47 @@ class GPPosterior:
         if y_new.shape != (x_new.shape[0], self.y_train.shape[1]):
             raise ValueError(f"y_new has shape {tuple(y_new.shape)} for "
                              f"{x_new.shape[0]} rows")
+        return x_new, y_new
+
+    def _padded_append(self, x_new, y_new, mb: int):
+        """Write the m rows, bucketed to mb, into the pad slots from
+        n_real on (`_padded_append` of the JAX package). Bucket-pad rows
+        are copies of the first new row with a zero label and no kernel
+        row: the Schur block comes out the identity there."""
+        r, m = self.n_real, x_new.shape[0]
+        if self.input_scale != 1.0:
+            x_new = x_new * (1.0 / self.input_scale)
+        if mb > m:
+            x_new = torch.cat([x_new, x_new[:1].expand(mb - m, -1)])
+            y_new = torch.cat([y_new, y_new.new_zeros((mb - m, 1))])
+        k21 = x_new.new_zeros((m, self.num_padded))
+        gram_cross(self.spec, x_new[:m], self.x_train[:r], "nngp",
+                   out=k21[:, :r])
+        k22 = torch.eye(mb, dtype=x_new.dtype, device=x_new.device)
+        gram_sym(self.spec, x_new[:m], "nngp", diag_add=self.reg,
+                 out=k22[:m, :m])
+        try:
+            padded_append_rows_(self.l, self.y_train, self.alpha, r, k21,
+                                k22, y_new)
+        except FactorError as err:
+            err.diag_reg = self.diag_reg
+            raise
+        self.x_train[r:r + mb].copy_(x_new)
+        self.row_mask[r:r + m] = 1
+        self.n_real = r + m
+
+    def strip_padding(self) -> "GPPosterior":
+        """The exact-shape posterior of a padded one: its real rows, in
+        new tensors (self when not padded)."""
+        if self.n_real is None:
+            return self
+        n = self.n_real
+        return dataclasses.replace(
+            self, x_train=self.x_train[:n].clone(),
+            y_train=self.y_train[:n].clone(), l=self.l[:n, :n].clone(),
+            alpha=self.alpha[:n].clone(), n_real=None, row_mask=None)
+
+    def _extend_dense(self, x_new, y_new) -> "GPPosterior":
         if self.input_scale != 1.0:
             x_new = x_new * (1.0 / self.input_scale)
         if self.get == "nngp":
@@ -377,7 +510,7 @@ def solve_ridge(diag, get: str = "nngp", diag_reg: float = 1e-3,
 def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
            get: str = "nngp", diag_reg_absolute_scale: bool = False,
            input_scale: Optional[float] = None,
-           device=None) -> GPPosterior:
+           pad_to: Optional[int] = None, device=None) -> GPPosterior:
     """Factorize the train Gram and return a ready posterior.
 
     x_train, y_train: numpy arrays or tensors (float32 or float64; the
@@ -387,6 +520,13 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
 
     input_scale: None picks an automatic power-of-two prescale when fp32
     features would overflow the Gram; pass 1.0 to force raw features.
+
+    pad_to (get='nngp' only): a padded posterior of pad_to storage rows,
+    n real and pad_to - n inert (copies of row 0, zero labels, unit factor
+    rows, masked out of every cross Gram), that `extend` fills in place.
+    The ridge is relative to the real rows' diagonal; the Gram kernel
+    writes the real block of the padded matrix. At most
+    `default_exact_max_n` of the device, dtype and kernel.
 
     A ridged Gram that is not positive definite in the working dtype
     raises `ops.linalg.FactorError` (a FloatingPointError naming n, the
@@ -409,10 +549,36 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
         y = y[:, None]
     if input_scale != 1.0:
         x = x * (1.0 / input_scale)
+    n = x.shape[0]
+    if pad_to is not None:
+        pad_to = int(pad_to)
+        cap = default_exact_max_n(device, x.dtype, get)
+        if get != "nngp":
+            raise ValueError("pad_to supports get='nngp' only (the padded "
+                             "NTK covariance needs a masked resident k_tt; "
+                             "not implemented)")
+        if pad_to < n:
+            raise ValueError(f"pad_to={pad_to} < n={n}")
+        if pad_to > cap:
+            raise ValueError(
+                f"pad_to={pad_to} exceeds the exact tier's "
+                f"default_exact_max_n {cap} for {get} in "
+                f"{str(x.dtype).replace('torch.', '')} on {device}")
 
     diag = diag_eval(spec.layers, x, ("nngp", "ntk"))
     reg = solve_ridge(diag, get, diag_reg, diag_reg_absolute_scale)
-    if get == "nngp":
+    row_mask = None
+    if pad_to is not None:
+        solve_k = x.new_zeros((pad_to, pad_to))
+        gram_sym(spec, x, "nngp", diag_add=reg, diag=diag,
+                 out=solve_k[:n, :n])
+        solve_k.diagonal()[n:] = 1.0
+        k_tt_nngp = None
+        x = torch.cat([x, x[:1].expand(pad_to - n, -1)])
+        y = torch.cat([y, y.new_zeros((pad_to - n, y.shape[1]))])
+        row_mask = x.new_zeros(pad_to)
+        row_mask[:n] = 1.0
+    elif get == "nngp":
         solve_k = gram_sym(spec, x, "nngp", diag_add=reg, diag=diag)
         k_tt_nngp = None
     else:
@@ -424,12 +590,13 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
         # the traceback keeps this frame alive: drop the n x n tensors
         # first, so that a caller's fallback fit has the memory
         del l, k_tt_nngp
-        raise FactorError("fit", int(info), x.shape[0], x.dtype, diag_reg)
+        raise FactorError("fit", int(info), n, x.dtype, diag_reg)
     alpha = _tri_solve(l, _tri_solve(l, y), transpose=True)
     return GPPosterior(
         x_train=x, y_train=y, l=l, alpha=alpha, reg=reg,
         k_tt_nngp=k_tt_nngp, spec=spec, get=get, diag_reg=diag_reg,
-        input_scale=float(input_scale))
+        input_scale=float(input_scale),
+        n_real=None if pad_to is None else n, row_mask=row_mask)
 
 
 def select_diag_reg(spec: KernelSpec, x_train, y_train,

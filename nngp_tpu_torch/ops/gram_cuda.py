@@ -13,7 +13,11 @@ Each wrapper has a plain PyTorch twin (`gram_sym_plain`, `gram_cross_plain`)
 built from `models.kernel_spec` and `ops.gram`. A CPU tensor goes to the
 twin; a CUDA tensor launches the kernel or raises. There is no fallback.
 `LAUNCHES` counts kernel launches, so a run can show that it went through
-the kernels.
+the kernels. A launch made while a CUDA graph is built (`serve/graphs.py`
+warms a bucket up, then captures it) counts into that graph's own tally
+instead (`counting_into`), and every replay of a graph adds the launches
+it captured to `REPLAYS`: a captured launch runs at each replay, never at
+its capture.
 
 The kernels run a persistent grid: about one block per SM slot walks the
 output tiles (`TILE_SHAPE`) in a fixed order. Its launch logic stays in
@@ -21,7 +25,9 @@ plain Python here so the CPU tests hold it: `tile_counts`, `tile_of` and
 `tile_walk` are the kernel's walk, `lower_tile_coords` its closed form,
 and `diag_trajectories` computes the per-row diagonal covariances that the
 kernels read instead of running the diagonal recursion per element.
-`launch_sym` / `launch_cross` launch into preallocated outputs.
+`launch_sym` / `launch_cross` launch into preallocated outputs, which may
+be row blocks of a larger matrix (a row stride above the column count:
+a padded posterior's real block).
 
 `get` follows `KernelSpec.kernel_fn`: 'nngp', 'ntk' or a tuple of them;
 asking for 'ntk' computes both Grams in one pass. `diag_add` lands on the
@@ -31,8 +37,10 @@ solve kernel's diagonal: nngp for get='nngp', ntk when ntk is asked for.
 it (the fit takes its ridge from it) passes it in, otherwise it is computed.
 """
 
+import contextlib
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -44,6 +52,9 @@ from nngp_tpu_torch.ops.dual_activations import DUALS
 from nngp_tpu_torch.ops.gram import input_diag, input_gram
 
 LAUNCHES = {"sym": 0, "cross": 0}
+# kernel runs by replays of captured CUDA graphs (serve/graphs.py)
+REPLAYS = {"sym": 0, "cross": 0}
+_sink = threading.local()
 
 # Output tile (rows, columns) of both kernels per dtype: the fp64 tile is
 # half as wide, so its staging fits the same shared memory.
@@ -228,23 +239,80 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@contextlib.contextmanager
+def counting_into(counts: dict):
+    """Count this thread's launches into `counts` (keys 'sym', 'cross')
+    instead of LAUNCHES while the block runs."""
+    prev = getattr(_sink, "counts", None)
+    _sink.counts = counts
+    try:
+        yield counts
+    finally:
+        _sink.counts = prev
+
+
+def _count(kind: str):
+    counts = getattr(_sink, "counts", None)
+    (LAUNCHES if counts is None else counts)[kind] += 1
+
+
 def _check_out(out, n_rows, n_cols, like, name):
+    """An (n_rows, n_cols) output of x's dtype and device whose rows are
+    contiguous: a whole matrix, or a row block of a wider one."""
     if (not isinstance(out, torch.Tensor) or out.shape != (n_rows, n_cols)
             or out.dtype != like.dtype or out.device != like.device
-            or not out.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous ({n_rows}, {n_cols}) "
-                         f"{like.dtype} tensor on {like.device}")
+            or (n_cols > 1 and out.stride(1) != 1)
+            or (n_rows > 1 and out.stride(0) < n_cols)):
+        raise ValueError(f"{name} must be an ({n_rows}, {n_cols}) "
+                         f"{like.dtype} tensor on {like.device} with "
+                         "contiguous rows")
+
+
+def _row_stride(out0, out1):
+    ld = out0.stride(0) if out0.shape[0] > 1 else out0.shape[1]
+    if out1 is not None and out1.shape[0] > 1 and out1.stride(0) != ld:
+        raise ValueError("out0 and out1 must share their row stride")
+    return ld
+
+
+def _write_out(out, got, get):
+    """Copy the twin's result(s) into `out`, as the kernels write."""
+    gots = got if isinstance(got, tuple) else (got,)
+    for o, g in zip(_out_pair(out, get), gots):
+        _check_out(o, g.shape[0], g.shape[1], g, "out")
+        o.copy_(g)
+    return out
+
+
+def _out_pair(out, get):
+    """(out0, out1) of the launchers from a gram_* `out`: a tensor for
+    get='nngp', a pair for get=('nngp', 'ntk')."""
+    pair = isinstance(out, (tuple, list))
+    if (pair and (len(out) != 2 or not isinstance(get, (tuple, list))
+                  or tuple(get) != ("nngp", "ntk"))) or \
+            (not pair and get != "nngp"):
+        raise ValueError("out= takes a tensor for get='nngp' or a pair for "
+                         f"get=('nngp', 'ntk'); got get={get!r}")
+    return (out[0], out[1]) if pair else (out, None)
 
 
 def gram_sym(spec: KernelSpec, x: torch.Tensor, get="nngp", diag_add=None,
-             diag=None):
+             diag=None, out=None):
     """Symmetric Gram kernel(x, x): exactly symmetric, with the exact
     diagonal (+ `diag_add` on the solve kernel). Same contract as
-    `gram_pallas(spec, x, get=get, mirror='full', diag_add=diag_add)`."""
+    `gram_pallas(spec, x, get=get, mirror='full', diag_add=diag_add)`.
+
+    out: write into this (n, n) tensor instead (a pair for get=('nngp',
+    'ntk')), which may be the leading block of a wider matrix; returned."""
     _check_input(x, "x")
     want_ntk = _want_ntk(get)
     if x.device.type == "cpu":
-        return gram_sym_plain(spec, x, get, diag_add, diag)
+        got = gram_sym_plain(spec, x, get, diag_add, diag)
+        return got if out is None else _write_out(out, got, get)
+    if out is not None:
+        out0, out1 = _out_pair(out, get)
+        launch_sym(spec, x, out0, out1, diag_add, diag)
+        return out
     n = x.shape[0]
     out0 = torch.empty((n, n), dtype=x.dtype, device=x.device)
     out1 = torch.empty_like(out0) if want_ntk else None
@@ -265,6 +333,7 @@ def launch_sym(spec: KernelSpec, x: torch.Tensor, out0: torch.Tensor,
     _check_out(out0, n, n, x, "out0")
     if want_ntk:
         _check_out(out1, n, n, x, "out1")
+    ldo = _row_stride(out0, out1)
     if x.device.type != "cuda":
         raise ValueError(f"x is on {x.device}; the kernel needs a CUDA tensor")
     from nngp_tpu_torch.ops._build import load_library
@@ -280,22 +349,27 @@ def launch_sym(spec: KernelSpec, x: torch.Tensor, out0: torch.Tensor,
         kinds, w2, b2, n_layers = _program(spec)
         fn = lib.gram_sym_f32 if x.dtype == torch.float32 else lib.gram_sym_f64
         err = fn(x.data_ptr(), n, d, d, traj.data_ptr(), traj.shape[0],
-                 diag0.data_ptr(), _ptr(diag1), out0.data_ptr(), _ptr(out1), n,
+                 diag0.data_ptr(), _ptr(diag1), out0.data_ptr(), _ptr(out1), ldo,
                  ctypes.addressof(kinds), ctypes.addressof(w2),
                  ctypes.addressof(b2), n_layers, int(want_ntk), int(max_blocks),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "gram_sym")
-    LAUNCHES["sym"] += 1
+    _count("sym")
 
 
 def gram_cross(spec: KernelSpec, x1: torch.Tensor, x2: torch.Tensor,
-               get="nngp"):
+               get="nngp", out=None):
     """Cross Gram kernel(x1, x2), shape (m, n). Same contract as
-    `spec.kernel_fn(x1, x2, get)`."""
+    `spec.kernel_fn(x1, x2, get)`. out: as in `gram_sym`, (m, n)."""
     _check_pair(x1, x2)
     want_ntk = _want_ntk(get)
     if x1.device.type == "cpu":
-        return gram_cross_plain(spec, x1, x2, get)
+        got = gram_cross_plain(spec, x1, x2, get)
+        return got if out is None else _write_out(out, got, get)
+    if out is not None:
+        out0, out1 = _out_pair(out, get)
+        launch_cross(spec, x1, x2, out0, out1)
+        return out
     out0 = torch.empty((x1.shape[0], x2.shape[0]), dtype=x1.dtype,
                        device=x1.device)
     out1 = torch.empty_like(out0) if want_ntk else None
@@ -324,6 +398,7 @@ def launch_cross(spec: KernelSpec, x1: torch.Tensor, x2: torch.Tensor,
     _check_out(out0, m, n, x1, "out0")
     if want_ntk:
         _check_out(out1, m, n, x1, "out1")
+    ldo = _row_stride(out0, out1)
     if x1.device.type != "cuda":
         raise ValueError(f"x1 is on {x1.device}; the kernel needs a CUDA "
                          "tensor")
@@ -338,9 +413,9 @@ def launch_cross(spec: KernelSpec, x1: torch.Tensor, x2: torch.Tensor,
               else lib.gram_cross_f64)
         err = fn(x1.data_ptr(), m, d, x2.data_ptr(), n, d, d,
                  traj1.data_ptr(), traj2.data_ptr(), traj1.shape[0],
-                 out0.data_ptr(), _ptr(out1), n,
+                 out0.data_ptr(), _ptr(out1), ldo,
                  ctypes.addressof(kinds), ctypes.addressof(w2),
                  ctypes.addressof(b2), n_layers, int(want_ntk), int(max_blocks),
                  torch.cuda.current_stream(x1.device).cuda_stream)
     _raise_on(err, "gram_cross")
-    LAUNCHES["cross"] += 1
+    _count("cross")

@@ -30,9 +30,18 @@ What differs from the JAX Estimator:
   - `exact_max_n`, the train-set size up to which `tier='auto'` keeps the
     exact tier, defaults to a bound derived from the card's memory
     (`default_exact_max_n`); 55,000 on the CPU;
-  - there are no serving buckets: a predict runs exactly the rows it was
-    given, in chunks of 8,192 (`GPPosterior.predict_mean_std_chunked`);
-    the buckets existed to bound XLA compiles;
+  - the serving buckets are CUDA graphs (`serve/graphs.py`): on the card
+    each bucket's predict is captured once and replayed, over a padded
+    posterior (pad_slots) through in-place extends too; a new posterior
+    object (fit, refit, relearn, restore, a re-route, slots run out)
+    drops them, and they are captured again at their next use. A batch
+    above the largest bucket (8,192, less for large train sets) runs in
+    chunks of it. The distributed tier predicts eagerly (its predict is
+    collective over the mesh). `warmup` returns the buckets it captured;
+  - pad_slots and `fit_gp(pad_to=)` are capped by `default_exact_max_n`
+    (the JAX package's cap is its column-block factor layout, which the
+    port has not); a padded exact fit in fp32 whose factor fails raises
+    under tier='auto' instead of re-routing to the Nystrom tier;
   - `learn_hyper` takes None as its unset sentinel, so an explicit False
     survives `quality='best'` (the JAX package turns it into True);
   - the encoder in use is named by `encoder_kind`, and a fall-back to the
@@ -56,9 +65,9 @@ What differs from the JAX Estimator:
 
 import collections
 import json
-import math
 import os
 import sys
+import threading
 import time
 import warnings
 from typing import Optional, Sequence, Tuple
@@ -75,7 +84,8 @@ from nngp_tpu_torch.convert import (distributed_from_numpy,
 from nngp_tpu_torch.data.workload import schema_stats, schema_stats_from_csvs
 from nngp_tpu_torch.gp.nystrom import (NystromPosterior, _resolve_finalize,
                                        fit_nystrom)
-from nngp_tpu_torch.gp.posterior import fit_gp
+from nngp_tpu_torch.gp.posterior import (  # noqa: F401 (the rule's name)
+    EXACT_PEAK_BYTES_PER_N2, GPPosterior, default_exact_max_n, fit_gp)
 from nngp_tpu_torch.models.kernel_spec import (Activation, Dense, KernelSpec,
                                                reference_kernel)
 from nngp_tpu_torch.ops.linalg import FactorError
@@ -83,45 +93,13 @@ from nngp_tpu_torch.parallel.mesh import check_mesh_device, is_lead
 from nngp_tpu_torch.parallel.sharded import (DistributedPosterior,
                                              distributed_fit)
 from nngp_tpu_torch.serve.follower import collective
+from nngp_tpu_torch.serve.graphs import BucketGraphs, buckets_upto
 from nngp_tpu_torch.utils.device import resolve_device
 
 # Scaled-feature magnitude ceiling for incremental extends, mirroring the
 # fit-time prescale threshold (`gp.posterior._PRESCALE_MAX_ABS`): beyond it
 # squared fp32 Gram entries head toward overflow.
 _EXTEND_MAX_SCALED_ABS = 2.0 ** 20
-
-
-# tier='auto' keeps the exact tier while its largest device-memory peak
-# stays within this share of the card's memory. The peaks, in bytes per
-# element of the n x n Gram, by kernel and dtype: a fit, an extend (with the
-# posterior it extends), and a refit while the live posterior is kept, as
-# `relearn_hyperparams` refits; the refit's is the largest. nngp: 8.00, 8.41
-# and 12.00 bytes in fp32, 16.01, 16.82 and 24.01 in fp64; an ntk posterior
-# also keeps the train NNGP Gram, so it needs more. Measured on an NVIDIA
-# H100 80GB HBM3 (700 W) by `chip_smoke.py` (phase 8, which fails if a peak
-# exceeds the constants below; PERF.md). nngp: ~75k rows fp32 and ~53k fp64
-# on the 80 GB card. On the CPU the JAX package's 55,000 stays.
-EXACT_MEMORY_SHARE = 0.8
-EXACT_PEAK_BYTES_PER_N2 = {("nngp", torch.float32): 12.1,
-                           ("nngp", torch.float64): 24.1,
-                           ("ntk", torch.float32): 20.1,
-                           ("ntk", torch.float64): 40.1}
-EXACT_MAX_N_CPU = 55000
-
-
-def default_exact_max_n(device, dtype, get: str = "nngp") -> int:
-    """The largest train-set size whose exact-tier peaks for kernel `get`
-    stay within EXACT_MEMORY_SHARE of `device`'s memory (EXACT_MAX_N_CPU on
-    the CPU). dtype: the working dtype, numpy or torch."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return EXACT_MAX_N_CPU
-    if not isinstance(dtype, torch.dtype):
-        dtype = torch.float64 if np.dtype(dtype) == np.float64 \
-            else torch.float32
-    total = torch.cuda.get_device_properties(device).total_memory
-    return int(math.sqrt(EXACT_MEMORY_SHARE * total
-                         / EXACT_PEAK_BYTES_PER_N2[get, dtype]))
 
 
 def _spec_to_json(spec: KernelSpec):
@@ -172,10 +150,17 @@ class Estimator:
 
     @posterior.setter
     def posterior(self, value):
-        # EVERY posterior change (fit, extend, restore, rollback) drops the
-        # prediction memo: a stale entry would serve the old model's answer.
-        # The posterior is never mutated in place; a change installs a new
-        # object here.
+        # EVERY install (fit, extend, restore, rollback) drops the
+        # prediction memo, whose stale entries would serve the old model's
+        # answers; a new posterior object also drops the serving buckets'
+        # graphs, which read the old one's tensors. The one change made in
+        # place, a padded posterior's extend, empties the memo itself and
+        # keeps the graphs (`extend_with_lines`).
+        if "_serve_lock" not in self.__dict__:
+            # predicts, captures and in-place extends take it
+            self._serve_lock = threading.RLock()
+        if value is not self.__dict__.get("_posterior"):
+            self._graphs = None
         self._posterior = value
         self._pred_cache = collections.OrderedDict()
 
@@ -202,8 +187,15 @@ class Estimator:
                  auto_nystrom_m: int = 2048,
                  exact_max_n: Optional[int] = None, *, device):
         """The arguments of the JAX Estimator, plus `device` (required;
-        'cuda' without a GPU raises). pad_slots is not ported and raises
-        NotImplementedError when set (ROADMAP 'Not to port').
+        'cuda' without a GPU raises).
+
+        pad_slots (single-device exact nngp tier only): the fit pads its
+        storage with this many inert rows (`fit_gp(pad_to=n + pad_slots)`)
+        and `extend_with_lines` buckets each feedback batch to a power of
+        two written into the slots in place, so the serving buckets'
+        CUDA graphs stay valid across online feedback. When the slots run
+        out the posterior falls back to dense appends (a new posterior,
+        new graphs).
 
         mesh: a `parallel.make_mesh` DeviceMesh on `device`'s type: fit and
         serve with the row-sharded distributed posterior
@@ -266,10 +258,14 @@ class Estimator:
             hyper_ard=hyper_ard, nystrom_m=nystrom_m,
             nystrom_moments=nystrom_moments, dtype=dtype,
             calibrate_frac=calibrate_frac)
-        if pad_slots is not None:
-            raise NotImplementedError(
-                "Estimator(pad_slots=...) is not ported (ROADMAP 'Not to "
-                "port': shape buckets)")
+        if pad_slots is not None and (nystrom_m is not None
+                                      or mesh is not None
+                                      or kernel_type != "nngp"):
+            raise ValueError(
+                "pad_slots is the single-chip exact-nngp shape-stability "
+                "feature; the Nystrom tier is already shape-stable and the "
+                "distributed tier pads internally")
+        self.pad_slots = int(pad_slots) if pad_slots is not None else None
         if tier not in (None, "auto", "exact", "nystrom", "distributed"):
             raise ValueError("tier must be 'auto', 'exact', 'nystrom' or "
                              f"'distributed'; got {tier!r}")
@@ -435,6 +431,10 @@ class Estimator:
                 raise ValueError("tier='distributed' requires mesh=")
             self.nystrom_m = None
         else:
+            if self.pad_slots is not None:
+                raise ValueError(
+                    "pad_slots is the single-chip exact-tier feature but "
+                    f"the routed tier for n={n} is the Nystrom tier")
             self._use_nystrom(min(int(auto_m), n))
         if verbose:
             print(f"tier routing: n={n} -> {tier}"
@@ -463,7 +463,7 @@ class Estimator:
         try:
             return self._fit(self._apply_feature_scale(x), y)
         except FactorError as err:
-            if self._auto_nystrom_m is None:
+            if self._auto_nystrom_m is None or self.pad_slots is not None:
                 raise
             reason = str(err)
         self._use_nystrom(self._auto_nystrom_m)
@@ -633,6 +633,7 @@ class Estimator:
             if isinstance(p, DistributedPosterior):   # real rows, gathered
                 x_tr, y_tr = p.x_natural(), p.y_natural()
             else:
+                p = p.strip_padding()         # the real rows
                 x_tr, y_tr = p.x_train, p.y_train
             x_fs = x_tr.cpu().numpy() * float(p.input_scale)
             y = y_tr.cpu().numpy()
@@ -687,8 +688,11 @@ class Estimator:
                                    diag_reg=self.diag_reg,
                                    get=self.kernel_type,
                                    block_size=self.dist_block_size)
+        pad_to = (x.shape[0] + self.pad_slots
+                  if self.pad_slots is not None else None)
         return fit_gp(self.spec, x, y, diag_reg=self.diag_reg,
-                      get=self.kernel_type, device=self.device)
+                      get=self.kernel_type, pad_to=pad_to,
+                      device=self.device)
 
     def _validate_fit(self):
         """Fail loudly if the fit degenerated: non-finite alpha or factor
@@ -728,9 +732,12 @@ class Estimator:
         """An Estimator from a checkpoint directory (`meta.json` +
         `posterior.npz`) written by this package or by the JAX package
         (single-chip exact, Nystrom or distributed tier), on `device`. A
-        JAX column-block factor is assembled into one dense factor and a
-        padded posterior is cut to its real rows. A Nystrom posterior's
-        solve stage runs where finalize='auto' puts it on `device`.
+        JAX column-block factor is assembled into one dense factor. A
+        padded posterior (meta n_real) stays padded and extends into its
+        remaining slots; pad_slots itself is construction-time
+        configuration and is not restored, as in the JAX package. A
+        Nystrom posterior's solve stage runs where finalize='auto' puts it
+        on `device`.
 
         mesh: required for a distributed checkpoint, whose storage order
         is a function of the fit's mesh size: a mesh of another size, or
@@ -760,6 +767,7 @@ class Estimator:
         self.std_scale = float(meta.get("std_scale", 1.0))
         self.drift_monitor = None
         self.hyper_result = None
+        self.pad_slots = None
         self._init_encoders()
         self.nystrom_m, self.nystrom_moments = None, "fp32"
         self.mesh, self.dist_block_size = None, None
@@ -806,15 +814,16 @@ class Estimator:
                     "the checkpoint holds a single-device posterior but "
                     "mesh= was passed; refit with Estimator(mesh=...) for a "
                     "row-sharded model, or restore without mesh")
-            n = int(meta.get("n_real", arrs["x_train"].shape[0]))
-            k_tt = arrs["k_tt_nngp"] if "k_tt_nngp" in arrs else None
             state = {
-                "x_train": arrs["x_train"][:n], "y_train": arrs["y_train"][:n],
-                "l": _dense_factor(meta, arrs)[:n, :n],
-                "alpha": arrs["alpha"][:n], "reg": arrs["reg"],
-                "k_tt_nngp": None if k_tt is None else k_tt[:n, :n],
+                "x_train": arrs["x_train"], "y_train": arrs["y_train"],
+                "l": _dense_factor(meta, arrs),
+                "alpha": arrs["alpha"], "reg": arrs["reg"],
+                "k_tt_nngp": (arrs["k_tt_nngp"] if "k_tt_nngp" in arrs
+                              else None),
                 "diag_reg": self.diag_reg,
                 "input_scale": float(meta.get("input_scale", 1.0)),
+                "n_real": (int(meta["n_real"]) if "n_real" in meta
+                           else None),
             }
         self.posterior = posterior_from_numpy(state, self.spec,
                                               self.kernel_type, self.device)
@@ -851,6 +860,10 @@ class Estimator:
             # x_train is stored divided by input_scale; the scale must ride
             # along or a restored posterior would mis-scale every query
             meta["input_scale"] = float(p.input_scale)
+            if p.n_real is not None:
+                # padded: without the real-row count a restore would take
+                # the inert rows for training data
+                meta["n_real"] = int(p.n_real)
             state = posterior_to_numpy(p)
             arrs = {k: state[k] for k in ("x_train", "y_train", "l",
                                           "alpha", "reg")}
@@ -871,34 +884,65 @@ class Estimator:
     @collective
     def load_model(self, verbose: bool = True):
         """Warm-up prediction on the training rows (the reference
-        estimator's `load_model`), chunked so the cross Gram stays
-        8,192 x n; on the Nystrom tier on the inducing rows."""
+        estimator's `load_model`), through the serving buckets; on the
+        Nystrom tier on the inducing rows."""
         p = self.posterior
         if isinstance(p, NystromPosterior):
             rows = p.x_m
         elif isinstance(p, DistributedPosterior):
             rows = p.x_natural()      # every rank predicts the same rows
         else:
-            rows = p.x_train
-        mean, std = p.predict_mean_std_chunked(rows * p.input_scale)
+            rows = p.x_train[:p.num_train]
+        mean, std = self._bucketed_predict(
+            (rows * p.input_scale).cpu().numpy())
         if verbose:
             print(mean.shape, std.shape)
             print("Model construction complete.")
 
     @collective
-    def warmup(self, max_batch: int = 4096, verbose: bool = True) -> float:
-        """One predict of `max_batch` synthetic rows, so that the first
-        request pays neither the kernel library's build and load nor the
-        first allocations of a batch that size. The prediction memo, the
-        drift monitor and the posterior are untouched. Returns the seconds
-        it took."""
-        t0 = time.perf_counter()
-        self.posterior.predict_mean_std_chunked(
-            np.ones((max_batch, self._feature_dim()), dtype=self.dtype))
-        dt = time.perf_counter() - t0
-        if verbose:
-            print(f"warmup: {max_batch} rows in {dt:.2f} s")
-        return dt
+    def warmup(self, max_batch: int = 4096, verbose: bool = True) -> list:
+        """Run every serving bucket up to `max_batch` once, so that the
+        first request of each size pays neither the kernel library's build
+        and load nor the bucket's CUDA graph capture. Synthetic rows go
+        straight through `_bucketed_predict`: the prediction memo, the
+        drift monitor and the posterior are untouched. Returns the bucket
+        sizes warmed (up to the largest bucket; a larger batch runs in
+        chunks of it)."""
+        graphs = self._bucket_graphs()
+        largest = graphs.largest if graphs is not None else max_batch
+        buckets = buckets_upto(max_batch, largest)
+        for b in buckets:
+            t0 = time.perf_counter()
+            # the serving dtype: ones, not zeros (a zero row has zero norm,
+            # the acos(rho) edge instead of the serving path)
+            self._bucketed_predict(np.ones((b, self._feature_dim()),
+                                           dtype=self.dtype))
+            if verbose:
+                print(f"warmup: bucket {b} ready "
+                      f"({time.perf_counter() - t0:.3f} s)")
+        return buckets
+
+    def _bucket_graphs(self):
+        """The serving buckets of the current posterior (None on the
+        distributed tier, which predicts eagerly), made at first use."""
+        p = self.posterior
+        if isinstance(p, DistributedPosterior):
+            return None
+        graphs = self._graphs
+        if graphs is None or graphs.post is not p:
+            graphs = self._graphs = BucketGraphs(p, self._serve_lock)
+        return graphs
+
+    def _bucketed_predict(self, x: np.ndarray):
+        """(mean, std) as 1-D numpy arrays of encoded rows x: the one place
+        the serving bucket policy lives (`serve/graphs.py`). On the card
+        the exact and Nystrom tiers replay each bucket's CUDA graph; the
+        distributed tier predicts eagerly in chunks."""
+        with self._serve_lock:
+            graphs = self._bucket_graphs()
+            if graphs is None:
+                return self.posterior.predict_mean_std_chunked(x)
+            return graphs.predict(x)
 
     def _feature_dim(self) -> int:
         """The encoded feature width, whatever the tier (exact: x_train;
@@ -999,7 +1043,21 @@ class Estimator:
                                               "extend_with_lines")
         self._guard_feature_magnitude(x, "extend_with_lines")
         y = np.log2(cards).reshape(-1, 1).astype(self.dtype)
-        self._install_posterior(self.posterior.extend(x, y))
+        with self._serve_lock:
+            post = self.posterior
+            if isinstance(post, GPPosterior) and post.n_real is not None:
+                # padded: the batch bucketed to a power of two (>= 64)
+                # written into the slots in place, or the dense fall-back
+                # when they run out
+                cand = post.extend(x, y, bucket=64)
+            else:
+                cand = post.extend(x, y)
+            if cand is post:
+                # in place (validated before it wrote): the graphs read
+                # the same storage, only the memo is stale
+                self._pred_cache = collections.OrderedDict()
+            else:
+                self._install_posterior(cand)
         return x.shape[0]
 
     @collective
@@ -1061,12 +1119,11 @@ class Estimator:
             if not k:
                 raise ValueError(f"blank query line at index {i}")
             keys.append(k)
-        # the memo first, then the posterior: the setter replaces the
-        # posterior before the memo, so results computed here can only
-        # land in a memo that belongs to this posterior or to an older
-        # (already discarded) one
+        # the memo first, then the predict: a new posterior or an in-place
+        # extend replaces the memo after the model changes, so results
+        # computed here can only land in a memo that belongs to this model
+        # or to an older (already discarded) one
         cache = self._pred_cache
-        post = self.posterior
         fresh = {}
         need, seen = [], set()
         for k in keys:
@@ -1076,7 +1133,7 @@ class Estimator:
                 seen.add(k)
                 need.append(k)
         if need:
-            mean, std = post.predict_mean_std_chunked(self.encode_lines(need))
+            mean, std = self._bucketed_predict(self.encode_lines(need))
             fresh = dict(zip(need, zip(mean, std)))
         pairs = [fresh[k] if k in fresh else cache[k] for k in keys]
         cap = self.predict_cache_size
@@ -1115,7 +1172,7 @@ class Estimator:
         """Shared core of `calibrate_uncertainty` and the `calibrate_frac`
         holdout, from the raw posterior std."""
         from nngp_tpu_torch.eval.calibration import conformal_scores, fit_std_scale
-        mean, std = self.posterior.predict_mean_std_chunked(x)
+        mean, std = self._bucketed_predict(x)
         self.std_scale = fit_std_scale(y, mean, std)
         self._conformal_scores = conformal_scores(y, mean, std)
         if verbose:
@@ -1152,7 +1209,7 @@ class Estimator:
         x, cards = self._encode_labeled_lines(labeled_lines,
                                               "record_feedback")
         y = np.log2(cards)
-        mean, std = self.posterior.predict_mean_std_chunked(x)
+        mean, std = self._bucketed_predict(x)
         std = np.maximum(std * self.std_scale, self.drift_monitor.std_floor)
         abs_z = np.abs(y - mean) / std
         drift = self.drift_monitor.update(abs_z)

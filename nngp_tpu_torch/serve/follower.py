@@ -110,11 +110,18 @@ class _Channel:
 
     def close(self, mine: int):
         """Every rank's count, in rank order; then the group is destroyed
-        (a gloo group left to the interpreter's exit can abort it)."""
+        and released (a gloo group left to the interpreter's exit can
+        abort it)."""
         out = torch.zeros(self.size, dtype=torch.int64)
         out[self.rank] = mine
         dist.all_reduce(out, group=self.group)
         dist.destroy_process_group(self.group)
+        # destroy_process_group only unregisters the group: its gloo
+        # worker and transport threads live while this reference does,
+        # and a LeadEstimator sits in a reference cycle (it caches its
+        # replayed methods, bound to itself), so without this the group
+        # lived until a garbage collection, or to the interpreter's exit
+        self.group = None
         return out.tolist()
 
 

@@ -148,8 +148,9 @@ class EstimatorSocketServer:
     themselves (stats()['feedback_errors']), never the batch.
 
     Model mutations and predict batches serialize on one lock, and an
-    extend installs a new posterior object, so a client never reads a
-    half-installed posterior. The batcher's dispatcher and the feedback
+    extend installs a new posterior object or, on a padded posterior,
+    writes its slots under the Estimator's own lock, so a client never
+    reads a half-installed posterior. The batcher's dispatcher and the feedback
     worker both launch on the device's default stream.
 
     port=0 binds an ephemeral port (read `.port`). Context manager.

@@ -265,12 +265,14 @@ class _CudaMesh:
 @pytest.mark.parametrize("kw,err,match", [
     ({"mesh": _CudaMesh()}, ValueError, "mesh is a cuda mesh"),
     ({"dist_block_size": 64}, ValueError, "needs mesh="),
-    ({"pad_acquisitions": True}, NotImplementedError, "Not to port"),
+    ({"pad_acquisitions": True, "nystrom_m": 8}, ValueError,
+     "pad_acquisitions is the single-chip exact-nngp"),
 ])
 def test_unported_arguments_name_their_roadmap_item(kw, err, match):
-    """pad_acquisitions names its ROADMAP item; the mesh arguments are
-    ported (tests/test_torch_parallel_learn.py) and checked: a mesh of
-    another device type, or a panel width without a mesh, raise."""
+    """The mesh arguments are ported (tests/test_torch_parallel_learn.py)
+    and checked: a mesh of another device type, or a panel width without
+    a mesh, raise; pad_acquisitions is ported (tests/test_torch_padded.py)
+    and refuses the Nystrom tier as the JAX learner does."""
     with pytest.raises(err, match=match):
         ActiveLearner(KernelSpec(mlp(1)), device="cpu", **kw)
 

@@ -2,8 +2,8 @@
 against the JAX CLI on the committed synth join workload (2,400 queries:
 480 train, 1,440 pool, 480 validation), fp64 on the CPU: the same
 validation MSE per round (rtol 1e-9) and the same printed headline lines;
-a JAX-written --hyper_file driving the port; and the errors of the flags
-whose path is not ported.
+a JAX-written --hyper_file driving the port; and the flags' usage
+errors.
 """
 
 import os
@@ -91,11 +91,13 @@ def test_cli_nystrom_flags_match_jax_cli(flags, jax_flags, rtol, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh_devices", "4"], "world size is 1"),
-    (["--pad_acquisitions"], "not ported yet (ROADMAP 'Not to port'"),
+    (["--pad_acquisitions", "--nystrom_m", "16"],
+     "--pad_acquisitions pads the single-device exact nngp posterior"),
 ])
 def test_cli_unported_flags_name_their_item(flags, item, capsys):
-    """An unported flag names its ROADMAP item; --mesh_devices must be the
-    world size (1 without a launcher). Both are usage errors."""
+    """--mesh_devices must be the world size (1 without a launcher), and
+    --pad_acquisitions (ported) pads the single-device exact tier only.
+    Both are usage errors."""
     with pytest.raises(SystemExit) as exc:
         active_train.main(["--device", "cpu", *flags])
     assert exc.value.code == 2

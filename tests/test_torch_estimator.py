@@ -137,9 +137,12 @@ def test_checkpoint_from_the_port_restores_in_jax(toy, tmp_path):
 
 
 def test_padded_and_column_block_jax_checkpoints_restore(toy, tmp_path):
-    """A padded JAX posterior (pad_slots, meta n_real) is cut to its real
-    rows; a column-block factor (meta l_block_starts) is assembled into one
-    dense factor. Both predict what the JAX estimator predicts."""
+    """A padded JAX posterior (pad_slots, meta n_real) stays padded, its 8
+    slots kept: the posterior extends 3 rows into them in place, and a
+    feedback batch (a 64-row bucket) falls back to the dense extend, as in
+    the JAX estimator; a column-block factor (meta l_block_starts) is
+    assembled into one dense factor. Both predict what the JAX estimator
+    predicts."""
     stats, qdir = toy
     jest = JaxEstimator("toy", None, qdir, stats=stats, dtype=np.float64,
                         pad_slots=8, verbose=False)
@@ -148,6 +151,22 @@ def test_padded_and_column_block_jax_checkpoints_restore(toy, tmp_path):
         assert json.load(f)["n_real"] == 60
     est = Estimator.restore(str(tmp_path / "pad"), device="cpu")
     assert est.posterior.num_train == 60
+    assert est.posterior.num_padded == 68
+    _close(est.predict(LINES), jest.predict(LINES))
+    x = est.encode_lines(LINES[:3])
+    y = np.ones((3, 1))
+    post = est.posterior
+    assert post.extend(x, y) is post and post.num_train == 63
+    jpost = jest.posterior.extend(jnp.asarray(x), jnp.asarray(y))
+    assert int(jpost.n_real) == 63
+    _close([v.ravel() for v in post.predict_mean_std(torch.as_tensor(x))],
+           [np.ravel(v) for v in jpost.predict_mean_std(jnp.asarray(x))])
+    jest.posterior = jpost
+    new = _labeled(9, 3)
+    est.extend_with_lines(new)
+    jest.extend_with_lines(new)
+    assert est.posterior.n_real is None and jest.posterior.n_real is None
+    assert est.posterior.num_train == jest.posterior.num_train == 66
     _close(est.predict(LINES), jest.predict(LINES))
 
     dense = tmp_path / "dense"
@@ -319,13 +338,15 @@ class _CudaMesh:
     ({"mesh": _CudaMesh()}, ValueError, "mesh is a cuda mesh"),
     ({"dist_block_size": 64}, ValueError, "needs mesh="),
     ({"tier": "distributed"}, ValueError, "requires mesh="),
-    ({"pad_slots": 8}, NotImplementedError, "Not to port"),
+    ({"pad_slots": 8, "nystrom_m": 32}, ValueError,
+     "pad_slots is the single-chip exact-nngp"),
 ])
 def test_unported_arguments_name_their_roadmap_item(toy, kw, err, item):
-    """pad_slots names its ROADMAP item; the mesh arguments are ported
-    (tests/test_torch_parallel_serve.py) and checked: a mesh of another
-    device type, a panel width or tier='distributed' without a mesh
-    raise."""
+    """The mesh arguments are ported (tests/test_torch_parallel_serve.py)
+    and checked: a mesh of another device type, a panel width or
+    tier='distributed' without a mesh raise; pad_slots is ported
+    (tests/test_torch_padded.py) and refuses the Nystrom tier as the JAX
+    Estimator does."""
     stats, qdir = toy
     args = dict(stats=stats, verbose=False, device="cpu")
     args.update(kw)
@@ -392,17 +413,17 @@ def test_memo_hit_launches_nothing_and_dedups(pair64, monkeypatch):
 
     monkeypatch.setattr(type(est.posterior), "predict_mean_std", spy)
     first = est.predict(LINES)
-    assert calls == [4]                               # 5 lines, 4 distinct
+    assert calls == [64]          # 5 lines, 4 distinct, in the 64-row bucket
     launches = dict(gram_cuda.LAUNCHES)
     again = est.predict(LINES[::-1])
-    assert calls == [4] and gram_cuda.LAUNCHES == launches
+    assert calls == [64] and gram_cuda.LAUNCHES == launches
     for g, w in zip(again, first):
         np.testing.assert_array_equal(g, w[::-1])
     est.predict_cache_size = 0                        # dedup only
     est.posterior = est.posterior
     est.predict(LINES)
     est.predict(LINES)
-    assert calls == [4, 4, 4]
+    assert calls == [64, 64, 64]          # 4 distinct lines, bucketed
     est.predict_cache_size = Estimator.predict_cache_size
     with pytest.raises(ValueError, match="blank query line at index 1"):
         est.predict([LINES[0], "  "])
@@ -461,7 +482,7 @@ def test_load_model_and_warmup_leave_the_model_alone(pair64, capsys):
     est.posterior = post
     est.load_model()
     assert "Model construction complete." in capsys.readouterr().out
-    assert est.warmup(max_batch=64, verbose=False) >= 0.0
+    assert est.warmup(max_batch=64, verbose=False) == [64]  # the buckets
     assert est.posterior is post and len(est._pred_cache) == 0
 
 

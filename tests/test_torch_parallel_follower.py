@@ -232,6 +232,16 @@ def test_followers_replay_every_call(runs, p):
 
 
 @pytest.mark.parametrize("p", WORLDS)
+def test_the_lead_releases_its_control_group(runs, p):
+    """Closing the lead destroys the control group and drops the object:
+    the lead caches its replayed methods, bound to itself, so a kept
+    reference lived to a garbage collection or to the interpreter's exit,
+    where the gloo group's threads could abort the rank."""
+    for get in ("nngp", "ntk"):
+        assert runs[p][0][get]["released"]
+
+
+@pytest.mark.parametrize("p", WORLDS)
 def test_a_malformed_line_costs_only_itself(runs, p):
     """The batcher bisects the failed batch: the malformed line alone gets
     the encoder's error; on the socket its reply is an error and the next

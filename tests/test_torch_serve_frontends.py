@@ -686,13 +686,14 @@ def test_serve_demo_nystrom_flags(toy, tmp_path, capsys, flags, m):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh_devices", "4"], "world size is 1"),
-    (["--pad_slots", "8"], "not ported yet (ROADMAP 'Not to port'"),
+    (["--pad_slots", "8", "--nystrom_m", "16"],
+     "--pad_slots pads the single-device exact posterior"),
     (["--tier", "distributed"], "needs --mesh_devices"),
 ])
 def test_serve_demo_unported_flags_name_their_item(flags, item, capsys):
-    """Flags that cannot run stop with a usage error: an unported one names
-    its ROADMAP item; --mesh_devices must be the world size (1 without a
-    launcher), and --tier distributed needs a mesh."""
+    """Flags that cannot run stop with a usage error: --pad_slots pads the
+    single-device exact tier only; --mesh_devices must be the world size
+    (1 without a launcher), and --tier distributed needs a mesh."""
     from nngp_tpu_torch.cli import serve_demo
 
     with pytest.raises(SystemExit) as exc:

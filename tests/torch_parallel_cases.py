@@ -476,6 +476,8 @@ def frontends(mesh, pl):
             with LeadEstimator(est, timeout=pl["timeout_s"]) as lead:
                 r["served"] = _serve(lead, pl, pl["idle_s"].get(get, 0.0))
             r["calls"], r["replayed"] = lead.calls, lead.replayed
+            # the control group's object, released when the lead closed
+            r["released"] = lead._chan is None or lead._chan.group is None
         else:
             r["replayed"] = follow(est, timeout=pl["timeout_s"])
         r["final"] = est.predict(pl["lines"])
