@@ -49,9 +49,10 @@ exits nonzero; nothing is caught and retried:
      the 30,000 in fp64 and fp32 moments against their anchors, extend vs
      a refit and forget(extend) vs the fit, finalize 'host' vs 'device', an
      NTK fit, `gram_cross` at the panel shape (16,384 x 2,048, d = 61)
-     against its twin with times; the exact tier's fit, extend and refit
-     peaks, nngp and ntk, at n = 40,000 (ntk fp64 at 32,000; the
-     `exact_max_n` rule); an Estimator with tier='auto'
+     against its twin with times; the dense exact layout's fit, extend and
+     refit peaks, nngp and ntk, at n = 40,000 (ntk fp64 at 32,000; the
+     `dense_exact_max_n` rule); an Estimator with tier='auto' given that
+     dense cap as exact_max_n,
      routed to the Nystrom tier (checkpoint, forget and extend of lines,
      grow_inducing); the train CLI's DTC learn and the Nystrom active
      learner with growth against the JAX package's CPU anchors; with times;
@@ -121,7 +122,7 @@ exits nonzero; nothing is caught and retried:
  14. the port's fp32 faults (ROADMAP Queue C): C1, gram_sym and the
      Cholesky factor of synth6_big's first 40,000-74,000 train rows in
      fp32 at the default ridge (each factor's info, times, peaks; ntk at
-     its exact_max_n; gram_sym at 74,000 against its twin, timed), then
+     its dense_exact_max_n; gram_sym at 74,000 against its twin, timed), then
      Estimator(float32, tier='auto', quality='best') on 50,000 lines,
      whose failed exact factor must re-route the fit to the Nystrom tier
      (printed, warned, the memory freed) and serve what tier='nystrom'
@@ -142,7 +143,26 @@ exits nonzero; nothing is caught and retried:
      dense one and the JAX anchors, (f) per bucket the eager predict's and
      the replay's ms, busy, idle and device records, and the in-place
      against the dense extend at 40,000 fp64 rows with the graphs' pool,
-     (g) gram_kernel in every replay's trace against the replay counter.
+     (g) gram_kernel in every replay's trace against the replay counter;
+ 16. the exact tier's column-block layout (`ops.linalg.BlockLowerTriangular`,
+     `fused_panel_cholesky`) on synth6_big, chunk_norm, the reference nngp
+     kernel, the default ridge, fp64: (a) its first 40,000 train rows,
+     nngp and ntk, fitted densely and with the switch forced to the
+     blocks (predictions within 1e-9 / 1e-7 of the largest value, the
+     evidence within 1e-6); (b) all 90,000 through Estimator(tier='auto')
+     routed to the exact tier on the blocks (its routing line, fit,
+     predict-30k q-error beside the Nystrom anchor, a residual through
+     gram_cross panels, fit 89,000 + extend 1,000 against it, refits at
+     panel widths 2,048 and 4,096); (c) the first 60,000 in ntk without a
+     resident K_tt (its residual, q-error, panel_symm_matmul's share of a
+     predict); (d) all 90,000 in fp32, whose block factor fails and is
+     re-routed to the Nystrom tier with its memory freed, against
+     tier='nystrom'; (e) a block checkpoint of synth6's 10,800-row fp64
+     model (the JAX package's keys, bit-equal predictions, an extend);
+     (f) the fit, extend and refit peaks against the rule's constants,
+     and gram_sym at a block's diagonal square and gram_cross at the
+     largest block panel and a panel_symm_matmul panel against their
+     twins, timed.
 
 Phase 4 also runs the training CLI in fp64 on the synthimdb, synthtpch and
 synthtpcds join workloads against the JAX package's fp64 q-error.
@@ -1549,7 +1569,7 @@ DTC_RE = re.compile(
 # validation MSE after the initial fit and after each round
 NY_ACTIVE_ANCHOR = (6.39861511277883, 6.166571525613683, 5.930777271358477,
                     5.745355015026577)
-# exact fits and extends at this n measure the peaks of default_exact_max_n
+# exact fits and extends at this n measure the peaks of dense_exact_max_n
 PEAK_N = 40000
 PEAK_N_NTK64 = 32000
 
@@ -1586,19 +1606,19 @@ def big_split(tmp):
     return lines[:BIG_TRAIN], lines[BIG_TRAIN:BIG_TRAIN + BIG_TEST]
 
 
-def encode_big(lines):
-    """(x fp32 chunk_norm features, y = log2 card) of labeled lines, with
-    the port's native encoder, as `Estimator._encode_labeled_lines` does."""
+def encode_big(lines, dtype=np.float32):
+    """(x chunk_norm features, y = log2 card) of labeled lines in `dtype`,
+    with the port's native encoder, as `Estimator._encode_labeled_lines`
+    does."""
     from nngp_tpu_torch.data.workload import schema_stats
     from nngp_tpu_torch.featurize.join import MultiJoinEncoder
     from nngp_tpu_torch.native import FastEncoder
 
     stats = schema_stats("synth6", SYNTH6_STATS)
     x, cards, *_ = FastEncoder(stats).encode_multi(
-        "\n".join(lines), with_card=True, dtype=np.float32)
-    x = x * MultiJoinEncoder(stats, chunk_norm=True).col_scale.astype(
-        np.float32)
-    return x, np.log2(cards).reshape(-1, 1).astype(np.float32)
+        "\n".join(lines), with_card=True, dtype=dtype)
+    x = x * MultiJoinEncoder(stats, chunk_norm=True).col_scale.astype(dtype)
+    return x, np.log2(cards).reshape(-1, 1).astype(dtype)
 
 
 def hold_q(label, mean, y, anchor, tol):
@@ -1834,19 +1854,20 @@ def check_panel_kernels(spec, device):
 
 
 def check_exact_peaks(x, y, device):
-    """The peaks behind `Estimator`'s exact_max_n, for nngp and ntk in fp32
-    and fp64 (at n = 40,000, ntk fp64 at 32,000 so that it stays well
-    inside the card), each above what was allocated before the fit, in
-    bytes per n^2: an exact fit; an extend of it by 1,000 rows (the
-    posterior it extends included); a second fit while the first posterior
-    is alive, as `relearn_hyperparams` refits. All are printed, then the
-    check fails if one exceeds the constant the rule uses. The ridge is 0.1
-    of the mean diagonal, so the fp32 factor of these rows cannot fail; the
-    peaks do not depend on it."""
+    """The peaks behind the dense layout's cap (`dense_exact_max_n`, the
+    layout switch), for nngp and ntk in fp32 and fp64 (at n = 40,000, ntk
+    fp64 at 32,000 so that it stays well inside the card), each above what
+    was allocated before the fit, in bytes per n^2: an exact fit; an
+    extend of it by 1,000 rows (the posterior it extends included); a
+    second fit while the first posterior is alive, as
+    `relearn_hyperparams` refits. All are printed, then the check fails if
+    one exceeds the constant the rule uses. The ridge is 0.1 of the mean
+    diagonal, so the fp32 factor of these rows cannot fail; the peaks do
+    not depend on it."""
     from nngp_tpu_torch.gp import fit_gp
     from nngp_tpu_torch.models.kernel_spec import reference_kernel
-    from nngp_tpu_torch.gp.posterior import (EXACT_PEAK_BYTES_PER_N2,
-                                             default_exact_max_n)
+    from nngp_tpu_torch.gp.posterior import (DENSE_PEAK_BYTES_PER_N2,
+                                             dense_exact_max_n)
 
     spec = reference_kernel()
     out = {}
@@ -1881,9 +1902,9 @@ def check_exact_peaks(x, y, device):
                 "n": n,
                 "gib": {k: v / 2 ** 30 for k, v in peaks.items()},
                 "bytes_per_n2": {k: v / n ** 2 for k, v in peaks.items()},
-                "constant": EXACT_PEAK_BYTES_PER_N2[get, dtype],
-                "exact_max_n": default_exact_max_n(device, dtype, get)}
-    print("  exact fit / extend / refit peaks: " + json.dumps(out))
+                "constant": DENSE_PEAK_BYTES_PER_N2[get, dtype],
+                "dense_exact_max_n": dense_exact_max_n(device, dtype, get)}
+    print("  dense exact fit / extend / refit peaks: " + json.dumps(out))
     for key, row in out.items():
         if max(row["bytes_per_n2"].values()) > row["constant"]:
             raise AssertionError(f"exact peaks {key} at n={row['n']}: "
@@ -1893,20 +1914,22 @@ def check_exact_peaks(x, y, device):
 
 
 def nystrom_estimator(total, device, big_lines, big, tmp):
-    """(c) An Estimator with tier='auto' on the 90,000 train lines: routed
-    to the Nystrom tier with m = 2048 (90,000 > exact_max_n), df64
-    moments; its q-error through predict; a checkpoint round trip;
-    forget_with_lines and extend_with_lines back; grow_inducing by 512."""
+    """(c) An Estimator with tier='auto' on the 90,000 train lines, given
+    the dense layout's cap as exact_max_n: routed to the Nystrom tier with
+    m = 2048 (90,000 > that cap; phase 16 routes them by the exact tier's
+    own cap), df64 moments; its q-error through predict; a checkpoint
+    round trip; forget_with_lines and extend_with_lines back;
+    grow_inducing by 512."""
     import os
 
     from nngp_tpu_torch.serve import Estimator
-    from nngp_tpu_torch.gp.posterior import default_exact_max_n
+    from nngp_tpu_torch.gp.posterior import dense_exact_max_n
 
     train, test_labeled = big_lines
     test, test_y = synth6_test(test_labeled)
     x_tr, y_tr = big[0], big[1]
     check_exact_peaks(x_tr, y_tr, device)
-    max_n = default_exact_max_n(device, np.float32)
+    max_n = dense_exact_max_n(device, np.float32)
     train_dir = write_train_dir(tmp, train)
     reset_launches()
     torch.cuda.synchronize()
@@ -1916,13 +1939,13 @@ def nystrom_estimator(total, device, big_lines, big, tmp):
         est = Estimator("synth6", None, train_dir, stats_dir=SYNTH6_STATS,
                         dtype=np.float32, chunk_norm=True, tier="auto",
                         auto_nystrom_m=NY_M, nystrom_moments="df64",
-                        device=device)
+                        exact_max_n=max_n, device=device)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     routing = [l for l in buf.getvalue().splitlines()
                if l.startswith("tier routing")]
-    print(f"  Estimator tier='auto': {routing}; exact_max_n {max_n} on "
-          f"this card; construction {build_s!r} s")
+    print(f"  Estimator tier='auto': {routing}; exact_max_n = the dense "
+          f"cap {max_n} on this card; construction {build_s!r} s")
     if not (est.nystrom_m == NY_M and est.posterior.num_inducing == NY_M
             and est.posterior.moments == "df64" and BIG_TRAIN > max_n):
         raise AssertionError(f"tier='auto' routed {routing}")
@@ -3824,6 +3847,20 @@ def start_listen_gloo(queries, labeled):
     return finish
 
 
+def profiled_ms(fn, label):
+    """The Gram kernel's device ms a call (`cli.gram_bench.device_ms`). The
+    profiler has returned no kernel record for a launch now and then in a
+    long run (a 22 GB gram_sym, a 64-column proposal panel): ask again,
+    then fail."""
+    from nngp_tpu_torch.cli.gram_bench import device_ms
+
+    for reps in (3, 5, 5):
+        ms = device_ms(fn, reps)
+        if ms:
+            return ms
+    raise AssertionError(f"{label}: the profiler recorded no Gram kernel")
+
+
 def check_cross_rows(label, spec, x1, x2, get, row_blocks=None):
     """gram_cross on the rows of one of a path's launches (x1 against x2,
     as the path calls it) against its plain twin, timed beside it, its
@@ -3831,7 +3868,6 @@ def check_cross_rows(label, spec, x1, x2, get, row_blocks=None):
     the plain twin on the whole output; else the (start, stop) row ranges
     to check, and the plain twin is timed in CHUNK-row blocks over all
     rows. Returns the row."""
-    from nngp_tpu_torch.cli.gram_bench import device_ms
     from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_cross_plain
 
     (m, d), n, dtype = x1.shape, x2.shape[0], x1.dtype
@@ -3859,7 +3895,8 @@ def check_cross_rows(label, spec, x1, x2, get, row_blocks=None):
     k_ms, p_ms = paired_ms(lambda: gram_cross(spec, x1, x2, get), plain,
                            reps=3)
     row = {"ms": k_ms,
-           "device_ms": device_ms(lambda: gram_cross(spec, x1, x2, get), 3),
+           "device_ms": profiled_ms(lambda: gram_cross(spec, x1, x2, get),
+                                    label),
            "plain_ms": p_ms,
            "library_ms": _event_ms(lambda: torch.matmul(x1, x2.mT), 3),
            "max_abs_err": err}
@@ -4399,8 +4436,8 @@ def rpchol_slice(card, total, device, big):
 
 # ------------------------------------------ phase 14: the port's fp32 faults
 # C1: fp32 exact fits of synth6_big's train rows (chunk_norm, reference nngp)
-# at the default ridge, up to just under the 74,973 rows default_exact_max_n
-# admits on the 80 GB card; the ntk fit at its own exact_max_n
+# at the default ridge, up to just under the 74,973 rows dense_exact_max_n
+# admits on the 80 GB card; the ntk fit at its own dense cap
 FACTOR_N = (40000, 50000, 60000, 74000)
 FACTOR_BLOCKS = ((0, 2048), (72000, 74000))   # rows held against the twin
 # the Estimator's train lines, all of them fitted in file order: the 50,000
@@ -4426,11 +4463,11 @@ def factorability(total, device, x_tr):
     from nngp_tpu_torch.gp.posterior import solve_ridge
     from nngp_tpu_torch.models.kernel_spec import diag_eval, reference_kernel
     from nngp_tpu_torch.ops.gram_cuda import gram_sym
-    from nngp_tpu_torch.gp.posterior import default_exact_max_n
+    from nngp_tpu_torch.gp.posterior import dense_exact_max_n
 
     spec = reference_kernel()
     runs = [("nngp", n) for n in FACTOR_N]
-    runs.append(("ntk", default_exact_max_n(device, np.float32, "ntk")))
+    runs.append(("ntk", dense_exact_max_n(device, np.float32, "ntk")))
     rows = []
     for get, n in runs:
         x = torch.as_tensor(x_tr[:n], device=device)
@@ -4479,7 +4516,7 @@ def check_sym_rows(label, spec, x, row_blocks):
     exact diagonal and the ridge written in), then timed beside the twin
     (in CHUNK-row blocks over all rows), its bound and torch.matmul (dot
     only). Returns the row."""
-    from nngp_tpu_torch.cli.gram_bench import bound, device_ms
+    from nngp_tpu_torch.cli.gram_bench import bound
     from nngp_tpu_torch.gp.posterior import solve_ridge
     from nngp_tpu_torch.models.kernel_spec import diag_eval
     from nngp_tpu_torch.ops.gram_cuda import gram_cross_plain, gram_sym
@@ -4509,14 +4546,12 @@ def check_sym_rows(label, spec, x, row_blocks):
             gram_cross_plain(spec, x[s:s + CHUNK], x, "nngp")
 
     k_ms, p_ms = paired_ms(kernel, plain, reps=3)
-    # the profiler has returned no record for this 22 GB launch once in a
-    # long run: ask again before giving up on the device time
-    dev_ms = device_ms(kernel, 3) or device_ms(kernel, 5)
+    dev_ms = profiled_ms(kernel, label)
     row = {"ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
            "library_ms": _event_ms(lambda: torch.matmul(x, x.mT), 3),
            "max_abs_err": err}
     row["bound_ms"], row["bound_by"] = bound("sym", n, n, d, dtype)
-    row["share"] = row["bound_ms"] / (dev_ms or k_ms)
+    row["share"] = row["bound_ms"] / dev_ms
     print(f"time gram_sym {label} {n}x{n}x{d}: " + json.dumps(row))
     torch.cuda.empty_cache()
     return row
@@ -4794,7 +4829,7 @@ def raw64_predict_peak(total, device, x_tr, y_tr):
     from nngp_tpu_torch.featurize.join import MultiJoinEncoder
     from nngp_tpu_torch.gp import fit_gp
     from nngp_tpu_torch.models.kernel_spec import reference_kernel
-    from nngp_tpu_torch.gp.posterior import EXACT_PEAK_BYTES_PER_N2
+    from nngp_tpu_torch.gp.posterior import DENSE_PEAK_BYTES_PER_N2
 
     scale = MultiJoinEncoder(schema_stats("synth6", SYNTH6_STATS),
                              chunk_norm=True).col_scale.astype(np.float32)
@@ -4815,7 +4850,7 @@ def raw64_predict_peak(total, device, x_tr, y_tr):
     out = {"n": n, "input_scale": post.input_scale, "fit_gib": fit_gib,
            "predict_gib": pred_gib, "posterior_gib": post_gib,
            "predict_bytes_per_n2": (pred_gib + post_gib) * 2 ** 30 / n ** 2,
-           "constant": EXACT_PEAK_BYTES_PER_N2["nngp", torch.float32],
+           "constant": DENSE_PEAK_BYTES_PER_N2["nngp", torch.float32],
            "zero_stds": int((std == 0).sum())}
     print("  C3 raw-encoding fp32 predict peak: " + json.dumps(out))
     if (out["predict_bytes_per_n2"] > out["constant"] or out["zero_stds"]
@@ -5310,8 +5345,8 @@ def inplace_extend_memory(device, big):
     padded posterior's buckets: their largest, their pool's bytes against
     the exact tier's bytes per n^2 rule."""
     from nngp_tpu_torch.gp import fit_gp
-    from nngp_tpu_torch.gp.posterior import (EXACT_MEMORY_SHARE,
-                                             EXACT_PEAK_BYTES_PER_N2)
+    from nngp_tpu_torch.gp.posterior import (DENSE_PEAK_BYTES_PER_N2,
+                                             EXACT_MEMORY_SHARE)
     from nngp_tpu_torch.models.kernel_spec import reference_kernel
     from nngp_tpu_torch.serve.graphs import BucketGraphs, buckets_upto
 
@@ -5350,7 +5385,7 @@ def inplace_extend_memory(device, big):
             out["pool_bytes_per_n2"] = pool / big_n ** 2
             total = torch.cuda.get_device_properties(device).total_memory
             out["rule_plus_pool_share"] = EXACT_MEMORY_SHARE + pool / total
-            out["rule_bytes_per_n2"] = EXACT_PEAK_BYTES_PER_N2[
+            out["rule_bytes_per_n2"] = DENSE_PEAK_BYTES_PER_N2[
                 "nngp", torch.float64]
             del graphs
         del post, ext
@@ -5416,6 +5451,635 @@ def shape_stable_slice(card, total, device, big):
     print(f"shape-stable serving on {card}: " + json.dumps(
         {k: v for k, v in out.items() if k in ("extend_40k",)}))
     return out
+
+
+# --------------------------------- phase 16: the column-block exact tier
+# synth6_big (chunk_norm, the reference nngp kernel, the default ridge) in
+# fp64: (a) its first BLOCK_VS_DENSE_N train rows on both factor layouts,
+# (b) all 90,000 on the column blocks through tier='auto', (c) the first
+# BLOCK_NTK_N in ntk, past the dense ntk fp64 cap (~41k), (d) all 90,000
+# in fp32; (e) synth6's 10,800-row fp64 model with the switch forced.
+BLOCK_VS_DENSE_N = 40000
+BLOCK_NTK_N = 60000
+# (a): block against dense, max |d| over the largest value, by kernel;
+# the log evidence, relative
+BLOCK_VS_DENSE = {"nngp": 1e-9, "ntk": 1e-7}
+BLOCK_EVIDENCE_RTOL = 1e-6
+# (b): the panel widths timed at 90,000 fp64
+BLOCK_PANELS = (2048, 4096)
+# (b), (c): ||(K + rI) alpha - y|| / ||y|| may be this many times the
+# dense fit's at BLOCK_VS_DENSE_N, times n / BLOCK_VS_DENSE_N
+RESIDUAL_SLACK = 10.0
+# (d): what a failed block fit may leave allocated, GiB
+FAILED_FIT_SLACK_GIB = 0.5
+# (f): the fp32 peaks, at the ridge of phase 8's (the factor cannot fail)
+BLOCK_PEAK_N32 = 60000
+CKPT_FEEDBACK_LINES = 64
+
+
+def timed_peak(fn, device, base=None):
+    """(fn(), host seconds between device syncs, peak bytes allocated above
+    `base`, by default what was allocated before)."""
+    torch.cuda.synchronize()
+    if base is None:
+        base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(device) - base)
+
+
+def free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def block_counts(n, width):
+    """The launches of a column-block fit of n rows: gram_sym for every
+    block's diagonal square, gram_cross for the rows below all but the
+    last."""
+    nb = -(-n // width)
+    return {"sym": nb, "cross": nb - 1}
+
+
+def predict_counts(post, rows, chunk):
+    """gram_cross launches of `predict_mean_std_chunked(rows rows, chunk)`:
+    one cross Gram a chunk, and for an NTK posterior without a train NNGP
+    Gram one panel_symm_matmul panel per SYMM_PANEL train rows."""
+    from nngp_tpu_torch.ops.gram import SYMM_PANEL
+
+    per = 1
+    if post.get == "ntk" and post.k_tt_nngp is None:
+        per += -(-post.num_train // SYMM_PANEL)
+    return {"sym": 0, "cross": -(-rows // chunk) * per}
+
+
+def residual(label, post, total):
+    """||(K + rI) alpha - y|| / ||y|| of an exact posterior, K applied panel
+    by panel through gram_cross (`panel_symm_matmul`): no dense matrix."""
+    from nngp_tpu_torch.ops.gram import SYMM_PANEL, panel_symm_matmul
+
+    reset_launches()
+    kalpha = panel_symm_matmul(post.spec, post.x_train, post.alpha, post.get)
+    r = kalpha + post.reg * post.alpha - post.y_train
+    out = float(torch.linalg.norm(r) / torch.linalg.norm(post.y_train))
+    expect_launches(f"{label} residual", read_launches(),
+                    {"sym": 0, "cross": -(-post.num_train // SYMM_PANEL)},
+                    total)
+    return out
+
+
+def hold_residual(label, got, dense40, n):
+    bound = RESIDUAL_SLACK * dense40 * n / BLOCK_VS_DENSE_N
+    print(f"  {label}: ||(K + rI) alpha - y|| / ||y|| = {got!r} (bound "
+          f"{bound!r}: {RESIDUAL_SLACK} x the dense fit's {dense40!r} at "
+          f"{BLOCK_VS_DENSE_N} rows, x n / {BLOCK_VS_DENSE_N})")
+    if not got <= bound:
+        raise AssertionError(f"{label}: residual {got} > {bound}")
+
+
+def block_vs_dense(total, device, spec, x, y, x_te):
+    """(a) The first BLOCK_VS_DENSE_N train rows, fp64, nngp and ntk, each
+    fitted on the dense layout and with the switch forced to the column
+    blocks: predict-30k mean and std within BLOCK_VS_DENSE of the largest
+    value, the log evidence within BLOCK_EVIDENCE_RTOL; each fit's seconds
+    and peak bytes per n^2, and the dense fits' residuals (the bound of
+    (b) and (c)). Returns the figures."""
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.gp import posterior as P
+
+    n = BLOCK_VS_DENSE_N
+    xt = torch.as_tensor(x[:n], device=device)
+    yt = torch.as_tensor(y[:n], device=device)
+    out = {}
+    for get in ("nngp", "ntk"):
+        runs = {}
+        for layout in ("dense", "block"):
+            P._BLOCK_LAYOUT_MIN_N = 0 if layout == "block" else None
+            try:
+                reset_launches()
+                post, fit_s, peak = timed_peak(
+                    lambda: fit_gp(spec, xt, yt, get=get, input_scale=1.0),
+                    device)
+            finally:
+                P._BLOCK_LAYOUT_MIN_N = None
+            label = f"(a) {get} fp64 n={n} {layout}"
+            expect_launches(f"{label} fit", read_launches(),
+                            block_counts(n, P._BLOCK_PANEL)
+                            if layout == "block" else
+                            {"sym": 1, "cross": 0}, total)
+            reset_launches()
+            t0 = time.perf_counter()
+            mean, std = post.predict_mean_std_chunked(x_te, chunk=CHUNK)
+            predict_s = time.perf_counter() - t0
+            expect_launches(f"{label} predict-{x_te.shape[0]}",
+                            read_launches(),
+                            predict_counts(post, x_te.shape[0], CHUNK), total)
+            runs[layout] = {
+                "mean": mean, "std": std, "fit_s": fit_s,
+                "predict_s": predict_s, "peak_bytes_per_n2": peak / n ** 2,
+                "evidence": post.log_marginal_likelihood(),
+                "residual": residual(label, post, total)}
+            del post
+            free_card()
+        d, b = runs["dense"], runs["block"]
+        row = {"mean_rel": rel_max(b["mean"], d["mean"]),
+               "std_rel": rel_max(b["std"], d["std"]),
+               "evidence_rel": abs(b["evidence"] / d["evidence"] - 1)}
+        for layout, r in runs.items():
+            row[layout] = {k: r[k] for k in ("fit_s", "predict_s",
+                                             "peak_bytes_per_n2", "evidence",
+                                             "residual")}
+        out[get] = row
+        print(f"  (a) {get} fp64 n={n}, block vs dense: " + json.dumps(row))
+        if not (row["mean_rel"] <= BLOCK_VS_DENSE[get]
+                and row["std_rel"] <= BLOCK_VS_DENSE[get]
+                and row["evidence_rel"] <= BLOCK_EVIDENCE_RTOL):
+            raise AssertionError(f"(a) {get}: block and dense posteriors "
+                                 f"disagree: {row}")
+    return out
+
+
+def panel_trial(spec, xt, yt, width, device, fit_kw, base):
+    """A 90,000-row fp64 fit with panels `width` wide: (posterior, s, peak
+    bytes above `base`) and the rate of one update product at the middle
+    panel ((n / 2, w) x (w, w), addmm_), TFLOP/s."""
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.gp import posterior as P
+
+    default, P._BLOCK_PANEL = P._BLOCK_PANEL, width
+    try:
+        post, fit_s, peak = timed_peak(
+            lambda: fit_gp(spec, xt, yt, **fit_kw), device, base)
+    finally:
+        P._BLOCK_PANEL = default
+    rows = xt.shape[0] // 2
+    col = torch.zeros((rows, width), dtype=xt.dtype, device=xt.device)
+    a = torch.ones((rows, width), dtype=xt.dtype, device=xt.device)
+    b = torch.ones((width, width), dtype=xt.dtype, device=xt.device)
+    ms = _event_ms(lambda: col.addmm_(a, b.mT, alpha=-1), 5)
+    del col, a, b
+    return post, fit_s, peak, 2.0 * rows * width * width / ms / 1e9
+
+
+def block_big(total, device, spec, big_lines, x, y, x_te, tmp, dense40):
+    """(b) All 90,000 train lines, fp64 nngp, through Estimator(tier='auto')
+    routed to the exact tier on the column blocks: its fit (blocks, panel
+    width, seconds, peak), predict of the 30,000 test lines (q-error
+    beside the Nystrom df64 anchor, seconds), its residual; then the
+    posterior freed, 89,000 rows fitted at its ridge and extended by 1,000
+    (against the Estimator's predictions), and the 90,000 refitted with the
+    extended posterior alive at each panel width of BLOCK_PANELS (the fit's
+    seconds and rate, the refit-with-live peak). The peaks are above what
+    was allocated before the 89,000-row fit, so the extend's holds the
+    posterior it extends and the refit's the extended one. Returns the
+    figures and the peaks."""
+    import os
+
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.gp import posterior as P
+    from nngp_tpu_torch.ops.linalg import BlockLowerTriangular
+    from nngp_tpu_torch.serve import Estimator
+
+    train, test_labeled = big_lines
+    test, test_y = synth6_test(test_labeled)
+    cap = P.default_exact_max_n(device, np.float64)
+    dense_cap = P.dense_exact_max_n(device, np.float64)
+    train_dir = write_train_dir(os.path.join(tmp, "b"), train)
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        est, build_s, peak = timed_peak(
+            lambda: Estimator("synth6", None, train_dir,
+                              stats_dir=SYNTH6_STATS, dtype=np.float64,
+                              chunk_norm=True, tier="auto",
+                              auto_nystrom_m=NY_M, device=device), device)
+    routing = [l for l in buf.getvalue().splitlines()
+               if l.startswith("tier routing")]
+    post = est.posterior
+    print(f"  (b) Estimator tier='auto' fp64 on {BIG_TRAIN} lines: "
+          f"{routing}; dense cap {dense_cap}, exact cap {cap}")
+    if not (est.nystrom_m is None
+            and isinstance(post.l, BlockLowerTriangular)
+            and dense_cap < BIG_TRAIN <= cap and len(routing) == 1
+            and f"-> exact; exact_max_n {cap}" in routing[0]):
+        raise AssertionError(f"(b) tier='auto' did not fit the exact tier "
+                             f"on column blocks: {routing}")
+    expect_launches("(b) Estimator construction (block fit)",
+                    read_launches(), block_counts(BIG_TRAIN, P._BLOCK_PANEL),
+                    total)
+    expect_native_encoder(est)
+    out = {"construction_s": build_s, "blocks": len(post.l.blocks),
+           "panel": P._BLOCK_PANEL, "peak_gib": peak / 2 ** 30,
+           "factor_gib": sum(b.numel() for b in post.l.blocks) * 8 / 2 ** 30}
+    reset_launches()
+    t0 = time.perf_counter()
+    mean, std = est.predict(test)
+    out["predict_s"] = time.perf_counter() - t0
+    largest = est._graphs.largest
+    expect_launches(f"(b) Estimator predict-{len(test)} (largest bucket "
+                    f"{largest})", read_launches(),
+                    {"sym": 0, "cross": -(-len(set(test)) // largest)}, total)
+    if not (np.all(np.isfinite(mean)) and np.all(np.isfinite(std))
+            and np.all(std >= 0)):
+        raise AssertionError("(b) means or stds not finite and >= 0")
+    out["median"], out["p95"] = qerror(mean, test_y)
+    out["residual"] = residual("(b) 90k", post, total)
+    hold_residual("(b) 90k fp64 nngp", out["residual"], dense40, BIG_TRAIN)
+    reg = float(post.reg)
+    print(f"  (b) exact fp64 90k: symmetric q-error median={out['median']!r}"
+          f" p95={out['p95']!r} (Nystrom fp64 m = {NY_M}: "
+          f"{NY_ANCHORS['df64'][0]} / {NY_ANCHORS['df64'][1]}, not a bound)")
+    del est, post
+    free_card()
+
+    xt = torch.as_tensor(x, device=device)
+    yt = torch.as_tensor(y, device=device)
+    fit_kw = dict(diag_reg=reg, diag_reg_absolute_scale=True,
+                  input_scale=1.0)
+    peaks = {}
+    reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    a, out["fit89_s"], fit_peak = timed_peak(
+        lambda: fit_gp(spec, xt[:-NY_EXT], yt[:-NY_EXT], **fit_kw), device)
+    peaks["fit"] = fit_peak / (BIG_TRAIN - NY_EXT) ** 2
+    b, out["extend_s"], ext_peak = timed_peak(
+        lambda: a.extend(xt[-NY_EXT:], yt[-NY_EXT:]), device, base)
+    peaks["extend"] = ext_peak / BIG_TRAIN ** 2
+    want = block_counts(BIG_TRAIN - NY_EXT, P._BLOCK_PANEL)
+    expect_launches(f"(b) fit {BIG_TRAIN - NY_EXT} + extend {NY_EXT}",
+                    read_launches(), {"sym": want["sym"] + 1,
+                                      "cross": want["cross"] + 1}, total)
+    del a
+    free_card()
+    reset_launches()
+    ext_mean = b.predict_mean_std_chunked(x_te, chunk=CHUNK)[0]
+    expect_launches("(b) extended posterior predict", read_launches(),
+                    predict_counts(b, x_te.shape[0], CHUNK), total)
+    out["extend_vs_refit"] = same_means(
+        f"(b) fit {BIG_TRAIN - NY_EXT} + extend {NY_EXT} vs the "
+        f"{BIG_TRAIN}-row Estimator", ext_mean, mean)
+    out["panels"] = {}
+    for width in BLOCK_PANELS:
+        reset_launches()
+        c, fit_s, refit_peak, gemm_tf = panel_trial(spec, xt, yt, width,
+                                                    device, fit_kw, base)
+        expect_launches(f"(b) refit {BIG_TRAIN} at panel {width}",
+                        read_launches(), block_counts(BIG_TRAIN, width),
+                        total)
+        out["panels"][width] = {
+            "panels": -(-BIG_TRAIN // width), "fit_s": fit_s,
+            "fit_tflops": BIG_TRAIN ** 3 / 3.0 / fit_s / 1e12,
+            "update_gemm_tflops": gemm_tf,
+            "refit_with_live_bytes_per_n2": refit_peak / BIG_TRAIN ** 2}
+        if width == P._BLOCK_PANEL:
+            peaks["refit"] = refit_peak / BIG_TRAIN ** 2
+        del c
+        free_card()
+    del b, xt, yt
+    free_card()
+    print("  (b) 90k fp64: " + json.dumps(out))
+    return out, {"n": BIG_TRAIN, "bytes_per_n2": peaks}
+
+
+def block_ntk(total, device, spec, x, y, x_te, y_te, dense40):
+    """(c) The first BLOCK_NTK_N train rows, fp64 ntk, past the dense ntk
+    cap: column blocks, no resident K_tt, finite stds, the residual; the
+    q-error, predict-30k seconds and the share of panel_symm_matmul in a
+    chunk's predict; the extend and refit-with-live peaks. Returns the
+    figures and the peaks."""
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.gp import posterior as P
+    from nngp_tpu_torch.ops.gram import panel_symm_matmul
+    from nngp_tpu_torch.ops.linalg import BlockLowerTriangular
+
+    n = BLOCK_NTK_N
+    xt = torch.as_tensor(x[:n + NY_EXT], device=device)
+    yt = torch.as_tensor(y[:n + NY_EXT], device=device)
+
+    def fit():
+        return fit_gp(spec, xt[:n], yt[:n], get="ntk", input_scale=1.0)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    post, fit_s, fit_peak = timed_peak(fit, device)
+    expect_launches(f"(c) ntk fp64 n={n} fit", read_launches(),
+                    block_counts(n, P._BLOCK_PANEL), total)
+    if not (isinstance(post.l, BlockLowerTriangular)
+            and post.k_tt_nngp is None
+            and n > P.dense_exact_max_n(device, np.float64, "ntk")):
+        raise AssertionError("(c) the ntk fit is not column blocks without "
+                             "a resident K_tt")
+    out = {"fit_s": fit_s, "blocks": len(post.l.blocks)}
+    reset_launches()
+    t0 = time.perf_counter()
+    mean, std = post.predict_mean_std_chunked(x_te, chunk=CHUNK)
+    out["predict_s"] = time.perf_counter() - t0
+    expect_launches(f"(c) predict-{x_te.shape[0]}", read_launches(),
+                    predict_counts(post, x_te.shape[0], CHUNK), total)
+    if not (np.all(np.isfinite(std)) and np.all(std >= 0)):
+        raise AssertionError("(c) stds not finite and >= 0")
+    out["median"], out["p95"] = qerror(mean, y_te.ravel())
+    chunk = torch.as_tensor(x_te[:CHUNK], device=device)
+    w = torch.ones((n, CHUNK), dtype=xt.dtype, device=device)
+    out["chunk_ms"] = host_ms(lambda: post.predict_mean_std(chunk), reps=3)
+    out["panel_symm_ms"] = host_ms(
+        lambda: panel_symm_matmul(spec, post.x_train, w), reps=3)
+    out["panel_symm_share"] = out["panel_symm_ms"] / out["chunk_ms"]
+    del w, chunk
+    free_card()
+    out["residual"] = residual("(c) ntk 60k", post, total)
+    hold_residual("(c) 60k fp64 ntk", out["residual"], dense40, n)
+    peaks = {"fit": fit_peak / n ** 2}
+    ext, _, ext_peak = timed_peak(
+        lambda: post.extend(xt[n:], yt[n:]), device, base)
+    peaks["extend"] = ext_peak / (n + NY_EXT) ** 2
+    del post
+    free_card()
+    _, _, refit_peak = timed_peak(fit, device, base)
+    peaks["refit"] = refit_peak / n ** 2
+    del ext
+    free_card()
+    print(f"  (c) ntk fp64 n={n}: " + json.dumps(out))
+    return out, {"n": n, "bytes_per_n2": peaks}
+
+
+def block_fp32_reroute(total, device, big_lines, tmp):
+    """(d) All 90,000 train lines in fp32 through Estimator(tier='auto'): the
+    exact tier now admits them, their column-block factor fails (C1), and
+    the fit goes to the Nystrom tier with its routing line and warning;
+    the failed fit's FactorError order, the memory it left allocated
+    (within FAILED_FIT_SLACK_GIB), and what tier='nystrom' serves on the
+    same lines. Returns the figures."""
+    import os
+    import warnings
+
+    from nngp_tpu_torch.gp import NystromPosterior
+    from nngp_tpu_torch.gp import posterior as P
+    from nngp_tpu_torch.ops.linalg import FactorError
+    from nngp_tpu_torch.serve import Estimator
+    from nngp_tpu_torch.serve import estimator as est_mod
+
+    train, test_labeled = big_lines
+    test, _ = synth6_test(test_labeled)
+    train_dir = write_train_dir(os.path.join(tmp, "d"), train)
+    real, mem = est_mod.fit_gp, {}
+
+    def watched(*args, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(device)
+        try:
+            return real(*args, **kw)
+        except FactorError as err:
+            torch.cuda.synchronize()
+            mem["order"], mem["n"] = err.order, err.n
+            mem["left_gib"] = (torch.cuda.memory_allocated(device)
+                               - before) / 2 ** 30
+            raise
+
+    def build(tier):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log), \
+                warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            est = Estimator("synth6", None, train_dir,
+                            stats_dir=SYNTH6_STATS, dtype=np.float32,
+                            chunk_norm=True, tier=tier, auto_nystrom_m=NY_M,
+                            nystrom_moments="df64", device=device)
+        return est, [l for l in log.getvalue().splitlines()
+                     if l.startswith("tier routing")], warned
+
+    est_mod.fit_gp = watched
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        est, routing, warned = build("auto")
+        out = {"construction_s": time.perf_counter() - t0, **mem}
+    finally:
+        est_mod.fit_gp = real
+    print(f"  (d) Estimator tier='auto' fp32 on {BIG_TRAIN} lines: "
+          f"{routing}; the block fit failed at order {mem.get('order')} of "
+          f"{mem.get('n')}, {mem.get('left_gib')!r} GiB left allocated")
+    if not (isinstance(est.posterior, NystromPosterior) and len(routing) == 2
+            and "-> exact" in routing[0] and "exact -> nystrom" in routing[1]
+            and f"order {mem.get('order')} " in routing[1]
+            and any("exact -> nystrom" in str(w.message) for w in warned)):
+        raise AssertionError(f"(d) tier='auto' did not re-route: {routing}")
+    if not abs(mem["left_gib"]) <= FAILED_FIT_SLACK_GIB:
+        raise AssertionError(f"(d) the failed block fit left "
+                             f"{mem['left_gib']} GiB allocated")
+    failed = (mem["order"] - 1) // P._BLOCK_PANEL + 1
+    expect_launches("(d) failed block fit + Nystrom fit", read_launches(),
+                    {"sym": failed,
+                     "cross": failed + panels(BIG_TRAIN) + 1}, total)
+    mean, std = est.predict(test)
+    del est
+    free_card()
+    reset_launches()
+    ny, _, _ = build("nystrom")
+    # K_mm's whitening bases come from the cache the re-routed fit filled
+    expect_launches("(d) Estimator tier='nystrom' fit", read_launches(),
+                    {"sym": 0, "cross": panels(BIG_TRAIN)}, total)
+    ny_mean, ny_std = ny.predict(test)
+    out["vs_nystrom_mean"] = same_means(
+        "(d) re-routed vs tier='nystrom', mean", mean, ny_mean)
+    out["vs_nystrom_std"] = same_means(
+        "(d) re-routed vs tier='nystrom', std", std, ny_std)
+    del ny
+    free_card()
+    return out
+
+
+def block_checkpoint(total, device, tmp):
+    """(e) synth6's 10,800-row fp64 model (phase 6's) with the switch forced
+    to the column blocks: the checkpoint holds the JAX package's block
+    keys and no dense factor, restores as blocks predicting bit for bit,
+    and an extend through the restored Estimator matches the original's.
+    Returns the figures."""
+    import os
+
+    from nngp_tpu_torch.gp import posterior as P
+    from nngp_tpu_torch.ops.linalg import BlockLowerTriangular
+    from nngp_tpu_torch.serve import Estimator
+
+    train, test_labeled, val = synth6_lines()
+    test, _ = synth6_test(test_labeled)
+    train_dir = write_train_dir(os.path.join(tmp, "e"), train)
+    ckpt = os.path.join(tmp, "e_ckpt")
+    P._BLOCK_LAYOUT_MIN_N = 0
+    try:
+        reset_launches()
+        est, build_s = build_estimator(train_dir, np.float64, device)
+        expect_launches("(e) synth6 fp64 block fit", read_launches(),
+                        block_counts(N_TRAIN, P._BLOCK_PANEL), total)
+        mean, std = est.predict(test)
+        t0 = time.perf_counter()
+        est.save(ckpt)
+        save_s = time.perf_counter() - t0
+        with open(os.path.join(ckpt, "meta.json")) as f:
+            starts = json.load(f)["l_block_starts"]
+        with np.load(os.path.join(ckpt, "posterior.npz")) as z:
+            files = set(z.files)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            back = Estimator.restore(ckpt, device=device)
+        restore_s = time.perf_counter() - t0
+        if not ("l" not in files and starts[-1] == N_TRAIN
+                and {f"l_block_{i}" for i in range(len(starts) - 1)} <= files
+                and isinstance(est.posterior.l, BlockLowerTriangular)
+                and isinstance(back.posterior.l, BlockLowerTriangular)
+                and list(back.posterior.l.starts) == starts):
+            raise AssertionError(f"(e) block checkpoint: starts {starts}, "
+                                 f"files {sorted(files)[:8]}")
+        b_mean, b_std = back.predict(test)
+        if not (np.array_equal(b_mean, mean) and np.array_equal(b_std, std)):
+            raise AssertionError("(e) the restored block posterior does not "
+                                 "predict bit for bit")
+        lines = val[:CKPT_FEEDBACK_LINES]
+        reset_launches()
+        back.extend_with_lines(lines)
+        expect_launches("(e) restored extend_with_lines", read_launches(),
+                        {"sym": 1, "cross": 1}, total)
+        est.extend_with_lines(lines)
+        if not isinstance(back.posterior.l, BlockLowerTriangular):
+            raise AssertionError("(e) the extend left the column blocks")
+        rel = same_means("(e) restored + extend vs the original + extend",
+                         back.predict(test)[0], est.predict(test)[0], 1e-12)
+    finally:
+        P._BLOCK_LAYOUT_MIN_N = None
+    del est, back
+    free_card()
+    out = {"blocks": len(starts) - 1, "construction_s": build_s,
+           "save_s": save_s, "restore_s": restore_s, "extend_rel": rel}
+    print("  (e) block checkpoint: " + json.dumps(out))
+    return out
+
+
+def fp32_block_peaks(spec, device, x, y):
+    """(f) The fp32 column-block peaks, nngp and ntk, at BLOCK_PEAK_N32 rows
+    (the switch forced: below the dense fp32 nngp cap) and the ridge of
+    phase 8's peaks: a fit, an extend of 1,000 rows with the posterior it
+    extends, a refit with the extended posterior alive, all above what was
+    allocated before the fit. Returns {label: {"n", "bytes_per_n2"}}."""
+    from nngp_tpu_torch.gp import fit_gp
+    from nngp_tpu_torch.gp import posterior as P
+
+    n = BLOCK_PEAK_N32
+    xt = torch.as_tensor(x[:n + NY_EXT], dtype=torch.float32, device=device)
+    yt = torch.as_tensor(y[:n + NY_EXT], dtype=torch.float32, device=device)
+    out = {}
+    for get in ("nngp", "ntk"):
+        def fit():
+            return fit_gp(spec, xt[:n], yt[:n], diag_reg=0.1, get=get,
+                          input_scale=1.0)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        P._BLOCK_LAYOUT_MIN_N = 0
+        try:
+            post, _, fit_peak = timed_peak(fit, device)
+            ext, _, ext_peak = timed_peak(
+                lambda: post.extend(xt[n:], yt[n:]), device, base)
+            del post
+            free_card()
+            _, _, refit_peak = timed_peak(fit, device, base)
+        finally:
+            P._BLOCK_LAYOUT_MIN_N = None
+        del ext
+        free_card()
+        out[f"{get} float32"] = {"n": n, "bytes_per_n2": {
+            "fit": fit_peak / n ** 2, "extend": ext_peak / (n + NY_EXT) ** 2,
+            "refit": refit_peak / n ** 2}}
+    return out
+
+
+def hold_block_peaks(peaks, device):
+    """Print every peak beside the rule's constant and the caps; fail if a
+    peak exceeds the constant `default_exact_max_n` uses."""
+    from nngp_tpu_torch.gp import posterior as P
+
+    out = {}
+    for label, row in peaks.items():
+        get, dtype = label.split()
+        key = (get, getattr(torch, dtype))
+        out[label] = dict(row, constant=P.EXACT_PEAK_BYTES_PER_N2[key],
+                          exact_max_n=P.default_exact_max_n(device, key[1],
+                                                            get),
+                          dense_exact_max_n=P.dense_exact_max_n(
+                              device, key[1], get))
+    print("  (f) column-block fit / extend / refit peaks: " + json.dumps(out))
+    for label, row in out.items():
+        if max(row["bytes_per_n2"].values()) > row["constant"]:
+            raise AssertionError(f"column-block peaks {label} at n="
+                                 f"{row['n']}: {row['bytes_per_n2']} bytes "
+                                 f"per n^2 > {row['constant']}")
+    return out
+
+
+def block_kernels(spec, x, x_te, device):
+    """(f) The kernels at the column-block path's shapes, fp64, against
+    their plain twins and timed: gram_sym at a block's diagonal square
+    (w x w with the ridge), gram_cross at the largest block panel ((90,000
+    - w) x w) and at a panel_symm_matmul panel (60,000 x 4,096); and
+    gram_cross at phase 15's serving-bucket shapes (64 and 8,192 rows
+    against the padded synth6 posterior's 14,896, d = 61, fp64), whose
+    replayed rows lack the twin's and torch.matmul's times there."""
+    from nngp_tpu_torch.gp import posterior as P
+    from nngp_tpu_torch.ops.gram import SYMM_PANEL
+
+    w = P._BLOCK_PANEL
+    xt = torch.as_tensor(x, device=device)
+    xq = torch.as_tensor(x_te[:GRAPH_BUCKETS[-1]], device=device)
+    stored = N_TRAIN + PAD_SLOTS
+    out = {"diagonal_square": check_sym_rows(
+               f"block diagonal square fp64 w={w}", spec, xt[:w], [(0, w)]),
+           "block_panel": check_cross_rows(
+               f"block panel fp64 w={w}", spec, xt[w:], xt[:w], "nngp"),
+           "symm_panel": check_cross_rows(
+               "panel_symm_matmul panel fp64", spec, xt[:BLOCK_NTK_N],
+               xt[:SYMM_PANEL], "nngp")}
+    for b in (GRAPH_BUCKETS[0], GRAPH_BUCKETS[-1]):
+        out[f"serving_bucket_{b}"] = check_cross_rows(
+            f"serving bucket {b} fp64", spec, xq[:b], xt[:stored], "nngp")
+    del xt, xq
+    free_card()
+    return out
+
+
+def block_layout_slice(card, total, device, big_lines):
+    """Phase 16: the exact tier's column-block layout on synth6_big, (a)-(f).
+    Returns (the kernel rows for the summary line, the peaks)."""
+    import tempfile
+
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+
+    spec = reference_kernel()
+    train, test_labeled = big_lines
+    x, y = encode_big(train, np.float64)
+    x_te, y_te = encode_big(test_labeled, np.float64)
+    print(f"column-block exact tier on {card}: synth6_big {x.shape[0]} train"
+          f" / {x_te.shape[0]} test rows fp64, d = {x.shape[1]}")
+    a = block_vs_dense(total, device, spec, x, y, x_te)
+    with tempfile.TemporaryDirectory() as tmp:
+        b, peak_b = block_big(total, device, spec, big_lines, x, y, x_te,
+                              tmp, a["nngp"]["dense"]["residual"])
+        c, peak_c = block_ntk(total, device, spec, x, y, x_te, y_te,
+                              a["ntk"]["dense"]["residual"])
+        d = block_fp32_reroute(total, device, big_lines, tmp)
+        e = block_checkpoint(total, device, tmp)
+    peaks = hold_block_peaks({"nngp float64": peak_b, "ntk float64": peak_c,
+                              **fp32_block_peaks(spec, device, x, y)},
+                             device)
+    kernels = block_kernels(spec, x, x_te, device)
+    print(f"column-block figures on {card}: " + json.dumps(
+        {"a": a, "b": b, "c": c, "d": d, "e": e}))
+    return kernels, peaks
 
 
 def main():
@@ -5485,6 +6149,8 @@ def main():
                                    launches, device, big, big_lines)
     stable = timed("15 shape-stable serving", shape_stable_slice, card,
                    launches, device, big)
+    block_rows, _ = timed("16 column-block exact tier", block_layout_slice,
+                          card, launches, device, big_lines)
     print("phase seconds: " + json.dumps(phase_s))
 
     summary = {"kernels": [
@@ -5502,6 +6168,12 @@ def main():
     summary["kernels"][1]["rpchol"] = rpchol_rows
     summary["kernels"][0]["exact_fit_74k"] = fault_sym
     summary["kernels"][1]["fp64_variance"] = fault_cross
+    # the column-block exact tier's shapes, fp64: a block's diagonal
+    # square, its largest panel below, a panel_symm_matmul panel
+    summary["kernels"][0]["block_diagonal_square"] = \
+        block_rows["diagonal_square"]
+    summary["kernels"][1]["block_panel"] = block_rows["block_panel"]
+    summary["kernels"][1]["symm_panel"] = block_rows["symm_panel"]
     # the serving buckets' CUDA graphs: per bucket the eager predict's and
     # the replay's ms, and gram_cross's device ms in each (one launch, two
     # for fp32 with a prescale)

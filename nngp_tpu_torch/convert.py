@@ -1,7 +1,9 @@
 """Carry kernel specs and posterior state between `nngp_tpu` (JAX) and this
 package. Works on attributes and numpy arrays only, so it never imports
 jax: a JAX posterior's arrays are handed over as numpy
-(`np.asarray(post.l)`, ...).
+(`np.asarray(post.l)`, ...). A column-block factor (the JAX package's
+`BlockLowerTriangular`, or this package's) travels as its blocks and
+starts: any object with `blocks`, `starts` and `n` is taken for one.
 
 A distributed posterior travels as the JAX package's distributed
 checkpoint holds it: whole arrays in block-cyclic storage order, with the
@@ -22,6 +24,7 @@ import torch
 from nngp_tpu_torch.gp.nystrom import NystromPosterior
 from nngp_tpu_torch.gp.posterior import GPPosterior
 from nngp_tpu_torch.models.kernel_spec import Activation, Dense, KernelSpec
+from nngp_tpu_torch.ops.linalg import BlockLowerTriangular
 from nngp_tpu_torch.utils.device import resolve_device
 
 STATE_KEYS = ("x_train", "y_train", "l", "alpha", "reg", "k_tt_nngp",
@@ -47,14 +50,22 @@ def layers_from_jax(jax_layers):
 def posterior_from_numpy(state: dict, spec: KernelSpec, get: str,
                          device) -> GPPosterior:
     """A GPPosterior on `device` from the arrays named in STATE_KEYS
-    (k_tt_nngp may be None; diag_reg and input_scale are numbers). A
-    padded posterior's n_real (the JAX posterior's `int(post.n_real)`, a
-    checkpoint's meta n_real) keeps it padded; None or absent, it is
-    exact-shape."""
+    (k_tt_nngp may be None; diag_reg and input_scale are numbers; l an
+    array or a column-block factor, which stays one). A padded posterior's
+    n_real (the JAX posterior's `int(post.n_real)`, a checkpoint's meta
+    n_real) keeps it padded; None or absent, it is exact-shape."""
     device = torch.device(device)
 
     def tensor(name):  # a copy: the arrays may be read-only JAX views
         return torch.as_tensor(np.array(state[name]), device=device)
+
+    def factor():
+        l = state["l"]
+        if not hasattr(l, "blocks"):
+            return tensor("l")
+        return BlockLowerTriangular(
+            [torch.as_tensor(np.array(b), device=device) for b in l.blocks],
+            l.starts, l.n)
 
     x_train = tensor("x_train")
     y_train = tensor("y_train")
@@ -69,7 +80,7 @@ def posterior_from_numpy(state: dict, spec: KernelSpec, get: str,
         row_mask[:n_real] = 1.0
     return GPPosterior(
         x_train=x_train.contiguous(), y_train=y_train,
-        l=tensor("l"), alpha=tensor("alpha"), reg=tensor("reg"),
+        l=factor(), alpha=tensor("alpha"), reg=tensor("reg"),
         k_tt_nngp=None if k_tt is None else tensor("k_tt_nngp"),
         spec=spec, get=get, diag_reg=float(state["diag_reg"]),
         input_scale=float(state["input_scale"]), n_real=n_real,
@@ -77,13 +88,20 @@ def posterior_from_numpy(state: dict, spec: KernelSpec, get: str,
 
 
 def posterior_to_numpy(post: GPPosterior) -> dict:
-    """The posterior's state as numpy arrays and numbers (STATE_KEYS)."""
+    """The posterior's state as numpy arrays and numbers (STATE_KEYS); a
+    column-block factor as a BlockLowerTriangular of numpy blocks (its
+    blocks, starts and n are what the JAX class takes)."""
     def arr(t):
         return None if t is None else t.detach().cpu().numpy()
 
+    l = post.l
+    if isinstance(l, BlockLowerTriangular):
+        l = BlockLowerTriangular([arr(b) for b in l.blocks], l.starts, l.n)
+    else:
+        l = arr(l)
     return {
         "x_train": arr(post.x_train), "y_train": arr(post.y_train),
-        "l": arr(post.l), "alpha": arr(post.alpha), "reg": arr(post.reg),
+        "l": l, "alpha": arr(post.alpha), "reg": arr(post.reg),
         "k_tt_nngp": arr(post.k_tt_nngp), "diag_reg": float(post.diag_reg),
         "input_scale": float(post.input_scale), "n_real": post.n_real,
     }

@@ -13,14 +13,25 @@ exact tier).
 K is the NNGP kernel, T (Theta) the NTK, and T^-1 abbreviates
 (T_tt + r I)^-1.
 
-Fit: `gram_sym` builds the ridged solve Gram (exact diagonal + r fused in,
-both triangles written), `torch.linalg.cholesky` factors it (cuSOLVER on
-CUDA) and two `torch.linalg.solve_triangular` calls give alpha. Predict:
-`gram_cross` gives K_*t; the solves are cuBLAS trsm. The 10.8k forest Gram
-is 467 MB in fp32, so the factor stays one dense tensor on an 80 GB card.
-Extend: `gram_cross` gives K21 and `gram_sym` K22, and
-`ops.linalg.cholesky_append_rows` appends them to the factor. A factor that
-fails (fit or extend) raises `ops.linalg.FactorError`.
+Fit, dense layout (n up to `dense_exact_max_n`): `gram_sym` builds the
+ridged solve Gram (exact diagonal + r fused in, both triangles written),
+`torch.linalg.cholesky` factors it (cuSOLVER on CUDA) and two
+`torch.linalg.solve_triangular` calls give alpha. Predict: `gram_cross`
+gives K_*t; the solves are cuBLAS trsm. Extend: `gram_cross` gives K21 and
+`gram_sym` K22, and `ops.linalg.cholesky_append_rows` appends them to the
+factor. A factor that fails (fit or extend) raises `ops.linalg.FactorError`.
+
+Fit, column-block layout (above the dense cap; the JAX package's large-n
+path): the factor is an `ops.linalg.BlockLowerTriangular` of panels
+_BLOCK_PANEL columns wide, factored left-looking by
+`ops.linalg.fused_panel_cholesky` from panels the kernels write straight
+into each block (`gram_sym` its diagonal square with the exact diagonal
+and the ridge, `gram_cross` the rows below), so K + rI never exists and
+the factor takes ~n^2/2 elements. The solves run in place over the blocks
+and the extend appends to every block. An NTK posterior keeps no train
+NNGP Gram there (`k_tt_nngp` None): its covariance applies K_tt panel by
+panel (`ops.gram.panel_symm_matmul`) at each predict. Evidence and
+checkpoints read the blocks.
 
 Padded posteriors (`fit_gp(pad_to=)`, as in the JAX package): the storage
 holds pad_to rows, the real ones first, then inert rows (copies of row 0,
@@ -28,9 +39,8 @@ zero label, a unit row of the factor, masked out of every cross Gram), and
 `extend` writes new rows into the pad slots in place
 (`ops.linalg.padded_append_rows_`), so every tensor a predict reads keeps
 its storage and a CUDA graph captured over them stays valid
-(`serve/graphs.py`). On the card pad_to is capped by `default_exact_max_n`
-of the kernel and dtype (the JAX package caps it at its column-block
-layout, which the port has not).
+(`serve/graphs.py`). pad_to is capped by `dense_exact_max_n`: padding is
+a dense-layout feature, as in the JAX package.
 """
 
 import dataclasses
@@ -42,8 +52,14 @@ import torch
 
 from nngp_tpu_torch.models.kernel_spec import (KernelSpec, diag_eval,
                                                is_scale_equivariant)
+from nngp_tpu_torch.ops.gram import panel_symm_matmul
 from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
-from nngp_tpu_torch.ops.linalg import (FactorError, cholesky_append_rows,
+from nngp_tpu_torch.ops.linalg import (BlockLowerTriangular, FactorError,
+                                       block_cholesky_append_rows,
+                                       block_tri_solve_lower,
+                                       block_tri_solve_lower_t,
+                                       cholesky_append_rows, column_blocks,
+                                       fused_panel_cholesky,
                                        padded_append_rows_)
 from nngp_tpu_torch.utils.device import resolve_device
 
@@ -52,67 +68,112 @@ from nngp_tpu_torch.utils.device import resolve_device
 # its largest device-memory peak stays within EXACT_MEMORY_SHARE of the
 # card's memory. The peaks, in bytes per element of the n x n Gram, by
 # kernel and dtype: a fit, an extend (with the posterior it extends), and a
-# refit while the live posterior is kept, as `relearn_hyperparams` refits;
-# the refit's is the largest. nngp: 8.00, 8.41 and 12.00 bytes in fp32,
-# 16.01, 16.82 and 24.01 in fp64; an ntk posterior also keeps the train
-# NNGP Gram, so it needs more. Measured on an NVIDIA H100 80GB HBM3 (700 W)
-# by `chip_smoke.py` (phase 8, which fails if a peak exceeds the constants
-# below; PERF.md). nngp: ~75k rows fp32 and ~53k fp64 on the 80 GB card.
-# On the CPU the JAX package's 55,000 stays.
+# refit while the live posterior is kept, as `relearn_hyperparams` refits.
+#
+# The dense layout: nngp 8.00, 8.41 and 12.00 bytes in fp32, 16.01, 16.82
+# and 24.01 in fp64; an ntk posterior also keeps the train NNGP Gram, so
+# it needs more; the refit's is the largest. Measured on an NVIDIA H100
+# 80GB HBM3 (700 W) by `chip_smoke.py` (phase 8, which fails if a peak
+# exceeds the constants below; PERF.md). nngp: ~75k rows fp32 and ~53k
+# fp64 on the 80 GB card. `dense_exact_max_n` is that cap; above it the
+# fit takes the column-block layout, whose peaks are
+# EXACT_PEAK_BYTES_PER_N2 and `default_exact_max_n` the exact tier's cap
+# under them. The extend's is the largest: two factors of ~n^2/2
+# elements (the blocks' squares hold their zero upper triangles: n w / 2
+# more) and its (n, m) solves: nngp fp64 at 90,000 rows 4.10, 8.27 and
+# 8.19 bytes, ntk fp64 at 60,000 4.15, 8.53 and 8.43, fp32 half that
+# (`chip_smoke.py` phase 16, which fails if a peak exceeds the constants;
+# PERF.md §6, the same card): ~126k rows fp32 and ~90k nngp fp64.
+# On the CPU the JAX package's numbers stay: the column-block layout from
+# BLOCK_LAYOUT_MIN_N_CPU rows and an exact tier up to EXACT_MAX_N_CPU.
 EXACT_MEMORY_SHARE = 0.8
-EXACT_PEAK_BYTES_PER_N2 = {("nngp", torch.float32): 12.1,
+DENSE_PEAK_BYTES_PER_N2 = {("nngp", torch.float32): 12.1,
                            ("nngp", torch.float64): 24.1,
                            ("ntk", torch.float32): 20.1,
                            ("ntk", torch.float64): 40.1}
+EXACT_PEAK_BYTES_PER_N2 = {("nngp", torch.float32): 4.3,
+                           ("nngp", torch.float64): 8.35,
+                           ("ntk", torch.float32): 4.3,
+                           ("ntk", torch.float64): 8.6}
 EXACT_MAX_N_CPU = 55000
+BLOCK_LAYOUT_MIN_N_CPU = 28000
+# Tests set it to force the layout switch (the fit takes the column-block
+# layout from this many rows); None: above `dense_exact_max_n`.
+_BLOCK_LAYOUT_MIN_N = None
+# Columns of a block of the column-block factor: at 90,000 rows fp64 the
+# fit took 5.17-5.38 s at 2,048 against 5.40 s at 4,096, whose wider
+# blocks hold ~1.3% more beside a live posterior (PERF.md §6).
+_BLOCK_PANEL = 2048
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
+
+
+def _max_n(device, dtype, get, peaks) -> int:
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(math.sqrt(EXACT_MEMORY_SHARE * total
+                         / peaks[get, _torch_dtype(dtype)]))
+
+
+def dense_exact_max_n(device, dtype, get: str = "nngp") -> int:
+    """The largest train-set size whose dense-layout peaks for kernel `get`
+    stay within EXACT_MEMORY_SHARE of `device`'s memory
+    (BLOCK_LAYOUT_MIN_N_CPU - 1 on the CPU): the layout switch and
+    pad_to's cap. dtype: the working dtype, numpy or torch."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return BLOCK_LAYOUT_MIN_N_CPU - 1
+    return _max_n(device, dtype, get, DENSE_PEAK_BYTES_PER_N2)
 
 
 def default_exact_max_n(device, dtype, get: str = "nngp") -> int:
     """The largest train-set size whose exact-tier peaks for kernel `get`
-    stay within EXACT_MEMORY_SHARE of `device`'s memory (EXACT_MAX_N_CPU on
-    the CPU). dtype: the working dtype, numpy or torch."""
+    stay within EXACT_MEMORY_SHARE of `device`'s memory, the column-block
+    layout's above `dense_exact_max_n` (EXACT_MAX_N_CPU on the CPU).
+    dtype: the working dtype, numpy or torch."""
     device = torch.device(device)
     if device.type != "cuda":
         return EXACT_MAX_N_CPU
-    if not isinstance(dtype, torch.dtype):
-        dtype = torch.float64 if np.dtype(dtype) == np.float64 \
-            else torch.float32
-    total = torch.cuda.get_device_properties(device).total_memory
-    return int(math.sqrt(EXACT_MEMORY_SHARE * total
-                         / EXACT_PEAK_BYTES_PER_N2[get, dtype]))
+    return _max_n(device, dtype, get, EXACT_PEAK_BYTES_PER_N2)
 
 
-# Rows (columns) of an fp32 factor converted to fp64 at a time by the
-# solves and products of an fp64 right-hand side (`_tri_solve`, `_mm_wide`)
+def _dense_cap(device, dtype, get) -> int:
+    """The most rows a fit factors densely: dense_exact_max_n, or below
+    _BLOCK_LAYOUT_MIN_N where that is set."""
+    if _BLOCK_LAYOUT_MIN_N is not None:
+        return _BLOCK_LAYOUT_MIN_N - 1
+    return dense_exact_max_n(device, dtype, get)
+
+
+def uses_block_layout(n: int, device, dtype, get: str = "nngp") -> bool:
+    """Whether an exact fit of n rows keeps its factor as column blocks."""
+    return n > _dense_cap(device, dtype, get)
+
+
+# Columns of an fp32 factor converted to fp64 at a time by the solves of
+# an fp64 right-hand side (`_tri_solve`) and rows by the products
+# (`_mm_wide`)
 _WIDE_BLOCK = 4096
 
 
 def _tri_solve(l, b, transpose=False):
-    """L^-1 b, or L^-T b with transpose=True, for lower-triangular L. A
-    right-hand side of a wider dtype than L's (fp64 against an fp32
-    factor) is solved in its own dtype by block substitution, L converted
-    one _WIDE_BLOCK-column panel at a time: no (n, n) fp64 copy."""
-    if b.dtype == l.dtype:
+    """L^-1 b, or L^-T b with transpose=True, for a lower-triangular L: a
+    dense tensor or a `BlockLowerTriangular`. A right-hand side of a wider
+    dtype than L's (fp64 against an fp32 factor) is solved in its own
+    dtype by block substitution, L converted a bounded slice at a time:
+    no (n, n) fp64 copy. Column blocks are always solved so, in place."""
+    if isinstance(l, torch.Tensor) and b.dtype == l.dtype:
         if transpose:
             return torch.linalg.solve_triangular(l.mT, b, upper=True)
         return torch.linalg.solve_triangular(l, b, upper=False)
-    x = b.clone(memory_format=torch.contiguous_format)
-    n = l.shape[0]
-    starts = range(0, n, _WIDE_BLOCK)
-    for s in (reversed(starts) if transpose else starts):
-        e = min(s + _WIDE_BLOCK, n)
-        diag = l[s:e, s:e].to(b.dtype)
-        if transpose:
-            x[s:e] = torch.linalg.solve_triangular(diag.mT, x[s:e],
-                                                   upper=True)
-            if s:
-                x[:s].sub_(l[s:e, :s].to(b.dtype).mT @ x[s:e])
-        else:
-            x[s:e] = torch.linalg.solve_triangular(diag, x[s:e],
-                                                   upper=False)
-            if e < n:
-                x[e:].sub_(l[e:, s:e].to(b.dtype) @ x[s:e])
-    return x
+    if isinstance(l, torch.Tensor):
+        l = column_blocks(l, _WIDE_BLOCK)
+    if transpose:
+        return block_tri_solve_lower_t(l, b)
+    return block_tri_solve_lower(l, b)
 
 
 def _mm_wide(a, b):
@@ -132,10 +193,14 @@ class GPPosterior:
 
     x_train: torch.Tensor            # (n, d), stored divided by input_scale
     y_train: torch.Tensor            # (n, 1)
-    l: torch.Tensor                  # (n, n) lower Cholesky of solve-kernel + r I
+    # (n, n) lower Cholesky of solve-kernel + r I: a tensor, or above
+    # dense_exact_max_n a BlockLowerTriangular
+    l: object
     alpha: torch.Tensor              # (n, 1) (solve-kernel + r I)^-1 Y
     reg: torch.Tensor                # scalar ridge actually added
-    k_tt_nngp: Optional[torch.Tensor]  # (n, n) train NNGP Gram; get='ntk' only
+    # (n, n) train NNGP Gram of a get='ntk' posterior with a dense factor;
+    # None for nngp and for a column-block factor (`_ktt_matmul`)
+    k_tt_nngp: Optional[torch.Tensor]
     spec: KernelSpec
     get: str = "nngp"
     diag_reg: float = 1e-3
@@ -177,6 +242,14 @@ class GPPosterior:
             return x.to(self.x_train.dtype).contiguous()
         return torch.as_tensor(np.asarray(x), dtype=self.x_train.dtype,
                                device=self.device).contiguous()
+
+    def _ktt_matmul(self, w):
+        """K_tt @ w for the NTK covariance, in w's dtype: from the resident
+        train NNGP Gram, or panel by panel when the posterior keeps none
+        (`ops.gram.panel_symm_matmul`)."""
+        if self.k_tt_nngp is not None:
+            return _mm_wide(self.k_tt_nngp, w)
+        return panel_symm_matmul(self.spec, self.x_train, w, "nngp")
 
     # -------------------------------------------------------------- predict
     @property
@@ -243,7 +316,7 @@ class GPPosterior:
         # w = (T + rI)^-1 T_t* via two triangular solves, shape (n, m)
         w = _tri_solve(self.l, _tri_solve(self.l, ntk_cross.mT),
                        transpose=True)
-        kw = _mm_wide(self.k_tt_nngp, w)             # K_tt T^-1 T_t*, (n, m)
+        kw = self._ktt_matmul(w)                     # K_tt T^-1 T_t*, (n, m)
         if compute_cov == "diag":
             var = (var_kernels(k_diag)
                    + torch.sum(w * kw, dim=0)
@@ -293,10 +366,11 @@ class GPPosterior:
         the stored system is the raw one divided by scale^2, so the logdet
         gains n log scale^2 and the quadratic term is divided by scale^2.
         Pad rows add nothing: their label and alpha are zero, their factor
-        diagonal one; n counts the real rows."""
+        diagonal one; n counts the real rows. A column-block factor gives
+        its diagonal block by block."""
         n = self.num_train
         quad = float(torch.sum(self.y_train * self.alpha))
-        logdet = float(2.0 * torch.sum(torch.log(torch.diagonal(self.l))))
+        logdet = float(2.0 * torch.sum(torch.log(self.l.diagonal())))
         if self.input_scale != 1.0:
             s2 = float(self.input_scale) ** 2
             quad /= s2
@@ -311,7 +385,9 @@ class GPPosterior:
         input.
 
         An exact-shape posterior returns a new posterior and is not
-        modified (`_extend_dense` of the JAX package). A padded one
+        modified (`_extend_dense` of the JAX package); a column-block
+        factor gains its rows block by block
+        (`ops.linalg.block_cholesky_append_rows`). A padded one
         (`fit_gp(pad_to=)`) writes the rows into its pad slots in place and
         returns itself; when the slots run out it returns the dense
         extend of `strip_padding()` instead. bucket (padded only): round
@@ -402,14 +478,17 @@ class GPPosterior:
             n22, k22 = gram_sym(self.spec, x_new, ("nngp", "ntk"),
                                 diag_add=self.reg)
         try:
-            l = cholesky_append_rows(self.l, k21, k22)
+            if isinstance(self.l, BlockLowerTriangular):
+                l = block_cholesky_append_rows(self.l, k21, k22)
+            else:
+                l = cholesky_append_rows(self.l, k21, k22)
         except FactorError as err:
             err.diag_reg = self.diag_reg
             raise
         y = torch.cat([self.y_train, y_new])
         alpha = _tri_solve(l, _tri_solve(l, y), transpose=True)
         k_tt = None
-        if self.get == "ntk":
+        if self.k_tt_nngp is not None:   # a lazy K_tt stays lazy
             # filled block by block: no (n, n + m) temporary at the peak
             n = self.k_tt_nngp.shape[0]
             k_tt = self.k_tt_nngp.new_empty((n + n22.shape[0],) * 2)
@@ -526,12 +605,15 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
     rows, masked out of every cross Gram), that `extend` fills in place.
     The ridge is relative to the real rows' diagonal; the Gram kernel
     writes the real block of the padded matrix. At most
-    `default_exact_max_n` of the device, dtype and kernel.
+    `dense_exact_max_n` of the device, dtype and kernel.
+
+    Above `dense_exact_max_n` (unpadded) the factor is column blocks, and
+    an NTK posterior keeps no train NNGP Gram (module docstring).
 
     A ridged Gram that is not positive definite in the working dtype
     raises `ops.linalg.FactorError` (a FloatingPointError naming n, the
-    failing order, the dtype and diag_reg), after its n x n tensors are
-    freed; the JAX fit returns a NaN factor there."""
+    failing order, the dtype and diag_reg), after its n x n tensors or
+    its blocks are freed; the JAX fit returns a NaN factor there."""
     if get not in ("nngp", "ntk"):
         raise ValueError(f"get must be 'nngp' or 'ntk', got {get!r}")
     if device is None:
@@ -552,7 +634,7 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
     n = x.shape[0]
     if pad_to is not None:
         pad_to = int(pad_to)
-        cap = default_exact_max_n(device, x.dtype, get)
+        cap = _dense_cap(device, x.dtype, get)
         if get != "nngp":
             raise ValueError("pad_to supports get='nngp' only (the padded "
                              "NTK covariance needs a masked resident k_tt; "
@@ -561,42 +643,79 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
             raise ValueError(f"pad_to={pad_to} < n={n}")
         if pad_to > cap:
             raise ValueError(
-                f"pad_to={pad_to} exceeds the exact tier's "
-                f"default_exact_max_n {cap} for {get} in "
-                f"{str(x.dtype).replace('torch.', '')} on {device}")
+                f"pad_to={pad_to} exceeds {cap}, the dense factor layout's "
+                f"dense_exact_max_n for {get} in "
+                f"{str(x.dtype).replace('torch.', '')} on {device}: padding "
+                "is a dense-layout feature, and the column-block layout "
+                "that serves the exact tier beyond it up to "
+                "default_exact_max_n takes none")
 
     diag = diag_eval(spec.layers, x, ("nngp", "ntk"))
     reg = solve_ridge(diag, get, diag_reg, diag_reg_absolute_scale)
-    row_mask = None
-    if pad_to is not None:
-        solve_k = x.new_zeros((pad_to, pad_to))
-        gram_sym(spec, x, "nngp", diag_add=reg, diag=diag,
-                 out=solve_k[:n, :n])
-        solve_k.diagonal()[n:] = 1.0
-        k_tt_nngp = None
-        x = torch.cat([x, x[:1].expand(pad_to - n, -1)])
-        y = torch.cat([y, y.new_zeros((pad_to - n, y.shape[1]))])
-        row_mask = x.new_zeros(pad_to)
-        row_mask[:n] = 1.0
-    elif get == "nngp":
-        solve_k = gram_sym(spec, x, "nngp", diag_add=reg, diag=diag)
-        k_tt_nngp = None
+    row_mask = k_tt_nngp = None
+    if pad_to is None and uses_block_layout(n, device, x.dtype, get):
+        try:
+            l = _block_factor(spec, x, reg, diag, get)
+        except FactorError as err:
+            err.diag_reg = diag_reg
+            raise
     else:
-        k_tt_nngp, solve_k = gram_sym(spec, x, ("nngp", "ntk"), diag_add=reg,
-                                      diag=diag)
-    l, info = torch.linalg.cholesky_ex(solve_k)
-    del solve_k
-    if int(info):
-        # the traceback keeps this frame alive: drop the n x n tensors
-        # first, so that a caller's fallback fit has the memory
-        del l, k_tt_nngp
-        raise FactorError("fit", int(info), n, x.dtype, diag_reg)
+        if pad_to is not None:
+            solve_k = x.new_zeros((pad_to, pad_to))
+            gram_sym(spec, x, "nngp", diag_add=reg, diag=diag,
+                     out=solve_k[:n, :n])
+            solve_k.diagonal()[n:] = 1.0
+            x = torch.cat([x, x[:1].expand(pad_to - n, -1)])
+            y = torch.cat([y, y.new_zeros((pad_to - n, y.shape[1]))])
+            row_mask = x.new_zeros(pad_to)
+            row_mask[:n] = 1.0
+        elif get == "nngp":
+            solve_k = gram_sym(spec, x, "nngp", diag_add=reg, diag=diag)
+        else:
+            k_tt_nngp, solve_k = gram_sym(spec, x, ("nngp", "ntk"),
+                                          diag_add=reg, diag=diag)
+        l, info = torch.linalg.cholesky_ex(solve_k)
+        del solve_k
+        if int(info):
+            # the traceback keeps this frame alive: drop the n x n tensors
+            # first, so that a caller's fallback fit has the memory
+            del l, k_tt_nngp
+            raise FactorError("fit", int(info), n, x.dtype, diag_reg)
     alpha = _tri_solve(l, _tri_solve(l, y), transpose=True)
     return GPPosterior(
         x_train=x, y_train=y, l=l, alpha=alpha, reg=reg,
         k_tt_nngp=k_tt_nngp, spec=spec, get=get, diag_reg=diag_reg,
         input_scale=float(input_scale),
         n_real=None if pad_to is None else n, row_mask=row_mask)
+
+
+def _block_factor(spec: KernelSpec, x, reg, diag, get: str
+                  ) -> BlockLowerTriangular:
+    """chol(K_get + reg I) of the rows x as column blocks _BLOCK_PANEL wide
+    (`fused_panel_cholesky`): block k's panel K[s:, s:e] is written into
+    its own storage, the diagonal square by `gram_sym` (the exact diagonal
+    `diag` and the ridge fused in) and the rows below by `gram_cross`. The
+    kernels write the ntk Gram beside the nngp one, so for get='ntk' the
+    nngp half goes to an (n - s, w) scratch panel, freed with the step."""
+    n = x.shape[0]
+    pair = ("nngp", "ntk")
+
+    def panel_fn(s, e, out):
+        w, xs = e - s, x[s:e]
+        sub = (diag[0][s:e], diag[1][s:e])
+        if get == "nngp":
+            gram_sym(spec, xs, "nngp", diag_add=reg, diag=sub, out=out[:w])
+            if e < n:
+                gram_cross(spec, x[e:], xs, "nngp", out=out[w:])
+            return
+        scratch = torch.empty_like(out)
+        gram_sym(spec, xs, pair, diag_add=reg, diag=sub,
+                 out=(scratch[:w], out[:w]))
+        if e < n:
+            gram_cross(spec, x[e:], xs, pair, out=(scratch[w:], out[w:]))
+
+    return fused_panel_cholesky(panel_fn, n, x.dtype, _BLOCK_PANEL,
+                                layout="blocks", device=x.device)
 
 
 def select_diag_reg(spec: KernelSpec, x_train, y_train,

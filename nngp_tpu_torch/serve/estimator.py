@@ -29,7 +29,9 @@ format.
 What differs from the JAX Estimator:
   - `exact_max_n`, the train-set size up to which `tier='auto'` keeps the
     exact tier, defaults to a bound derived from the card's memory
-    (`default_exact_max_n`); 55,000 on the CPU;
+    (`default_exact_max_n`, under the column-block factor's peaks); 55,000
+    on the CPU. The factor is dense up to `dense_exact_max_n` (28,000 on
+    the CPU, the JAX package's switch) and column blocks above it;
   - the serving buckets are CUDA graphs (`serve/graphs.py`): on the card
     each bucket's predict is captured once and replayed, over a padded
     posterior (pad_slots) through in-place extends too; a new posterior
@@ -38,10 +40,10 @@ What differs from the JAX Estimator:
     above the largest bucket (8,192, less for large train sets) runs in
     chunks of it. The distributed tier predicts eagerly (its predict is
     collective over the mesh). `warmup` returns the buckets it captured;
-  - pad_slots and `fit_gp(pad_to=)` are capped by `default_exact_max_n`
-    (the JAX package's cap is its column-block factor layout, which the
-    port has not); a padded exact fit in fp32 whose factor fails raises
-    under tier='auto' instead of re-routing to the Nystrom tier;
+  - pad_slots and `fit_gp(pad_to=)` are capped by `dense_exact_max_n`
+    (the JAX package caps them at its column-block layout too); a padded
+    exact fit in fp32 whose factor fails raises under tier='auto' instead
+    of re-routing to the Nystrom tier;
   - `learn_hyper` takes None as its unset sentinel, so an explicit False
     survives `quality='best'` (the JAX package turns it into True);
   - the encoder in use is named by `encoder_kind`, and a fall-back to the
@@ -56,11 +58,11 @@ What differs from the JAX Estimator:
     the Nystrom tier that 'auto' takes beyond exact_max_n, with a printed
     and warned `tier routing:` line that gives the reason. On the card
     the fp32 factor of synth6_big's rows fails at the default ridge at
-    orders from 32,897 (40k rows) to 66,541 (74k), where the memory rule
-    admits ~75k, and depends on the rows' order (PERF.md, PR 11), so no
-    cap by n would do. Hyperparameters learned against the exact evidence
-    are relearned against the DTC evidence first; `relearn_hyperparams`
-    never re-routes (it rolls back and raises).
+    orders from 32,897 (40k rows) to 72,606 (all 90k), where the memory
+    rule admits ~126k, and depends on the rows' order (PERF.md §6), so
+    no cap by n would do. Hyperparameters learned against the
+    exact evidence are relearned against the DTC evidence first;
+    `relearn_hyperparams` never re-routes (it rolls back and raises).
 """
 
 import collections
@@ -84,11 +86,12 @@ from nngp_tpu_torch.convert import (distributed_from_numpy,
 from nngp_tpu_torch.data.workload import schema_stats, schema_stats_from_csvs
 from nngp_tpu_torch.gp.nystrom import (NystromPosterior, _resolve_finalize,
                                        fit_nystrom)
-from nngp_tpu_torch.gp.posterior import (  # noqa: F401 (the rule's name)
-    EXACT_PEAK_BYTES_PER_N2, GPPosterior, default_exact_max_n, fit_gp)
+from nngp_tpu_torch.gp.posterior import (  # noqa: F401 (the rule's names)
+    DENSE_PEAK_BYTES_PER_N2, EXACT_PEAK_BYTES_PER_N2, GPPosterior,
+    default_exact_max_n, dense_exact_max_n, fit_gp, uses_block_layout)
 from nngp_tpu_torch.models.kernel_spec import (Activation, Dense, KernelSpec,
                                                reference_kernel)
-from nngp_tpu_torch.ops.linalg import FactorError
+from nngp_tpu_torch.ops.linalg import BlockLowerTriangular, FactorError
 from nngp_tpu_torch.parallel.mesh import check_mesh_device, is_lead
 from nngp_tpu_torch.parallel.sharded import (DistributedPosterior,
                                              distributed_fit)
@@ -123,14 +126,19 @@ def _spec_from_json(items) -> KernelSpec:
     return KernelSpec(tuple(layers))
 
 
-def _dense_factor(meta, arrs) -> np.ndarray:
-    """The factor of a JAX checkpoint as one dense array: a column-block
-    factor (`l_block_starts`, block k = L[s_k:, s_k:s_{k+1}]) is assembled."""
+def _checkpoint_factor(meta, arrs, device, get):
+    """The factor of a checkpoint: a dense array, or a column-block factor
+    (`l_block_starts`, block k = L[s_k:, s_k:s_{k+1}]) that stays blocks
+    where `fit_gp` would factor its n rows so (`uses_block_layout`) and is
+    assembled into one dense array below that."""
     if "l_block_starts" not in meta:
         return np.asarray(arrs["l"])
     starts = [int(s) for s in meta["l_block_starts"]]
     blocks = [np.asarray(arrs[f"l_block_{i}"]) for i in range(len(starts) - 1)]
-    l = np.zeros((starts[-1], starts[-1]), dtype=blocks[0].dtype)
+    n = starts[-1]
+    if uses_block_layout(n, device, blocks[0].dtype, get):
+        return BlockLowerTriangular(blocks, starts, n)
+    l = np.zeros((n, n), dtype=blocks[0].dtype)
     for s, blk in zip(starts, blocks):
         l[s:, s:s + blk.shape[1]] = blk
     return l
@@ -717,7 +725,7 @@ class Estimator:
                     "encodings.")
             return
         ok = torch.stack([torch.isfinite(p.alpha).all(),
-                          torch.isfinite(torch.diagonal(p.l)).all()]).cpu()
+                          torch.isfinite(p.l.diagonal()).all()]).cpu()
         ok_alpha, ok_l = bool(ok[0]), bool(ok[1])
         if not (ok_alpha and ok_l):
             raise FloatingPointError(
@@ -732,7 +740,8 @@ class Estimator:
         """An Estimator from a checkpoint directory (`meta.json` +
         `posterior.npz`) written by this package or by the JAX package
         (single-chip exact, Nystrom or distributed tier), on `device`. A
-        JAX column-block factor is assembled into one dense factor. A
+        column-block factor stays blocks above `dense_exact_max_n` and is
+        assembled into one dense factor below it. A
         padded posterior (meta n_real) stays padded and extends into its
         remaining slots; pad_slots itself is construction-time
         configuration and is not restored, as in the JAX package. A
@@ -816,7 +825,8 @@ class Estimator:
                     "row-sharded model, or restore without mesh")
             state = {
                 "x_train": arrs["x_train"], "y_train": arrs["y_train"],
-                "l": _dense_factor(meta, arrs),
+                "l": _checkpoint_factor(meta, arrs, self.device,
+                                        self.kernel_type),
                 "alpha": arrs["alpha"], "reg": arrs["reg"],
                 "k_tt_nngp": (arrs["k_tt_nngp"] if "k_tt_nngp" in arrs
                               else None),
@@ -865,8 +875,16 @@ class Estimator:
                 # the inert rows for training data
                 meta["n_real"] = int(p.n_real)
             state = posterior_to_numpy(p)
-            arrs = {k: state[k] for k in ("x_train", "y_train", "l",
-                                          "alpha", "reg")}
+            arrs = {k: state[k] for k in ("x_train", "y_train", "alpha",
+                                          "reg")}
+            l = state["l"]
+            if isinstance(l, BlockLowerTriangular):
+                # the JAX package's keys; no dense n x n is assembled
+                meta["l_block_starts"] = list(l.starts)
+                for i, blk in enumerate(l.blocks):
+                    arrs[f"l_block_{i}"] = blk
+            else:
+                arrs["l"] = l
             if state["k_tt_nngp"] is not None:
                 arrs["k_tt_nngp"] = state["k_tt_nngp"]
         if is_lead(self.mesh):    # a distributed gather is rank 0's only

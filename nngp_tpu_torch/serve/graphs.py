@@ -67,20 +67,27 @@ def pool_estimate(post, rows: int) -> int:
     (the cross Gram, its mask, the triangular solve's copy, result and
     square), four more in fp64 for an fp32 posterior with an input
     prescale (its variance), eight for the NTK's pair; on the Nystrom tier
-    as long as its inducing rows. On an NVIDIA H100 80GB HBM3 at 700 W
+    as long as its inducing rows. An NTK posterior without a train NNGP
+    Gram (column-block factor) adds one `panel_symm_matmul` panel, and its
+    fp64 copy with the fp64 variance. On an NVIDIA H100 80GB HBM3 at 700 W
     (`chip_smoke.py` phase 15) the pool came out at 47.8-47.9 bytes per
     row and stored row in fp64 (N = 14,896 and 44,096) and 54.9 in fp32
     with the fp64 variance."""
     from nngp_tpu_torch.gp.posterior import needs_raw_fp64
+    from nngp_tpu_torch.ops.gram import SYMM_PANEL
 
+    fixed = 0
     if hasattr(post, "x_train"):
         width, itemsize = post.x_train.shape[0], post.x_train.element_size()
         per_row = (6 if post.get == "nngp" else 8) * width * itemsize
-        if needs_raw_fp64(post.input_scale, post.x_train.dtype):
+        wide = needs_raw_fp64(post.input_scale, post.x_train.dtype)
+        if wide:
             per_row += 4 * width * 8
+        if post.get == "ntk" and post.k_tt_nngp is None:
+            fixed = width * SYMM_PANEL * (itemsize + (8 if wide else 0))
     else:
         per_row = 6 * post.x_m.shape[0] * 8
-    return int(rows) * per_row
+    return int(rows) * per_row + fixed
 
 
 def largest_bucket(post) -> int:

@@ -121,7 +121,7 @@ def test_a_failed_fp32_exact_factor_raises_like_jax(dup_dir, tier):
 
 def _card_memory(monkeypatch):
     """tier='auto' routes as on an 80 GB H100 (test_exact_max_n_rule's
-    stub): the exact tier up to ~75k fp32 rows."""
+    stub): the exact tier up to ~126k fp32 rows."""
     class Props:
         total_memory = 85_029_158_912
 
@@ -146,7 +146,8 @@ def test_tier_auto_refits_a_failed_fp32_exact_fit_on_the_nystrom_tier(
         warnings.simplefilter("always")
         est = Estimator("toy", None, dup_dir, tier="auto", **kw)
     out = capsys.readouterr().out
-    assert "tier routing: n=240 -> exact; exact_max_n 749" in out
+    cap = est_mod.default_exact_max_n("cuda", np.float32, "nngp")
+    assert f"tier routing: n=240 -> exact; exact_max_n {cap}" in out
     line = next(l for l in out.splitlines() if "exact -> nystrom" in l)
     assert "m=24, moments=fp32" in line and "diag_reg=1e-09" in line
     assert any(str(w.message) == line and w.category is RuntimeWarning

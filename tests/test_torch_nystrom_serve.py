@@ -127,29 +127,45 @@ def test_forget_and_grow_with_lines_match_jax(toy):
 def test_exact_max_n_rule(monkeypatch, get):
     """The default bound of tier='auto': 55,000 on the CPU; on a card the
     largest n whose exact-tier peak, EXACT_PEAK_BYTES_PER_N2 bytes per
-    n^2 for the kernel and dtype, stays within 80% of its memory (about
-    74k fp32 and 53k fp64 nngp on an 80 GB H100; fewer for an ntk
-    posterior, which also keeps the train NNGP Gram)."""
+    n^2 for the kernel and dtype (the column-block factor's), stays within
+    80% of its memory: about 126k fp32 and 89-90k fp64 on an 80 GB H100,
+    synth6_big's 90,000 rows in nngp fp64 among them. The dense layout's cap,
+    dense_exact_max_n (DENSE_PEAK_BYTES_PER_N2: about 74k fp32 and 53k
+    fp64 nngp, fewer for an ntk posterior, which also keeps the train NNGP
+    Gram), is the layout switch: 27,999 on the CPU."""
     assert est_mod.default_exact_max_n("cpu", np.float32, get) == 55000
     assert est_mod.default_exact_max_n("cpu", torch.float64, get) == 55000
+    assert est_mod.dense_exact_max_n("cpu", np.float32, get) == 27999
 
     class Props:
         total_memory = 85_029_158_912        # an NVIDIA H100 80GB HBM3
 
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: Props)
-    n32 = est_mod.default_exact_max_n("cuda", np.float32, get)
-    n64 = est_mod.default_exact_max_n("cuda", torch.float64, get)
-    for n_max, dtype in ((n32, torch.float32), (n64, torch.float64)):
-        per = est_mod.EXACT_PEAK_BYTES_PER_N2[get, dtype]
-        assert n_max ** 2 * per <= 0.8 * Props.total_memory
-        assert (n_max + 1) ** 2 * per > 0.8 * Props.total_memory
+    caps = {}
+    for rule, peaks in ((est_mod.default_exact_max_n,
+                         est_mod.EXACT_PEAK_BYTES_PER_N2),
+                        (est_mod.dense_exact_max_n,
+                         est_mod.DENSE_PEAK_BYTES_PER_N2)):
+        for dtype in (torch.float32, torch.float64):
+            n_max = caps[rule, dtype] = rule("cuda", dtype, get)
+            per = peaks[get, dtype]
+            assert n_max ** 2 * per <= 0.8 * Props.total_memory
+            assert (n_max + 1) ** 2 * per > 0.8 * Props.total_memory
+    block = est_mod.default_exact_max_n
+    dense = est_mod.dense_exact_max_n
+    assert caps[block, torch.float32] == block("cuda", np.float32, get)
+    assert 115000 < caps[block, torch.float32] < 135000
+    assert 85000 < caps[block, torch.float64] < 95000
     if get == "nngp":
-        assert 70000 < n32 < 78000 and 50000 < n64 < 56000
-        assert est_mod.default_exact_max_n("cuda", np.float32) == n32
+        assert caps[block, torch.float64] >= 90000
+        assert 70000 < caps[dense, torch.float32] < 78000
+        assert 50000 < caps[dense, torch.float64] < 56000
+        assert est_mod.default_exact_max_n("cuda", np.float32) == \
+            caps[block, torch.float32]
     else:
-        assert n32 < est_mod.default_exact_max_n("cuda", np.float32, "nngp")
-        assert n64 < est_mod.default_exact_max_n("cuda", np.float64, "nngp")
+        assert caps[dense, torch.float32] < dense("cuda", np.float32, "nngp")
+        assert caps[dense, torch.float64] < dense("cuda", np.float64, "nngp")
 
 
 def test_quality_best_routes_df64_moments(toy):
