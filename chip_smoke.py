@@ -7,9 +7,11 @@ Run from the root of a checkout. The phases run in order and any failure
 exits nonzero; nothing is caught and retried:
 
   1. card: the nvidia-smi name and power limit, and torch's device name;
-  2. build: nvcc compiles `nngp_tpu_torch/csrc/gram.cu` for sm_90a and g++
-     the port's native query encoder `nngp_tpu_torch/csrc/fastenc.cpp`,
-     both into `.build/` (reused when the source hash matches);
+  2. build: one nvcc compiles `nngp_tpu_torch/csrc/gram.cu` and
+     `nngp_tpu_torch/csrc/gemm_3xtf32.cu` for sm_90a into one library,
+     and g++ the port's native query encoder
+     `nngp_tpu_torch/csrc/fastenc.cpp`, all into `.build/` (reused when the
+     source hash matches);
   3. kernels vs their plain PyTorch twins on the card: fp32 and fp64, nngp
      and ntk, relu/erf/abs/sin, depth 1 and 3, b_std 0 and 0.1, at ragged
      sizes, at the forest shapes, at the join widths d = 45, 61, 99, and
@@ -162,7 +164,29 @@ exits nonzero; nothing is caught and retried:
      (f) the fit, extend and refit peaks against the rule's constants,
      and gram_sym at a block's diagonal square and gram_cross at the
      largest block panel and a panel_symm_matmul panel against their
-     twins, timed.
+     twins, timed;
+ 17. precision='high' (`ops/matmul.py`, `csrc/gemm_3xtf32.cu`): (a) the
+     3xTF32 kernel against fp64, its twin and torch.matmul fp32 in all
+     four layouts at M, N, K in (1, 17, 129, 1,000) with alpha / beta
+     (1, 0), (1, 1), (-1, 1) (NaN-filled outputs at beta 0), and at the
+     Nystrom tier's shapes (the 16,384-row panel's psi and C, the ragged
+     tail panel, b, the RPCholesky residual and update, the predict
+     chunk's psi, mean and h = ic^T psi), each within max(1e-5, 2 x
+     torch.matmul fp32's error) of |A| @ |B|; (b)
+     synth6_big 90k / m = 2,048 fp32 at 'high' (3 GEMM launches a panel):
+     q-error within 3% / 5% of NY_ANCHORS['fp32'] (whether it holds the
+     fp32 band is printed), forget(extend) vs the fit (printed), the
+     moments against 'highest', warm fits of both; (c) forest fp32 ntk m = 2,048 'high' vs
+     'highest' within 1% / 3%; (d) RPCholesky at synth6_big m = 2,048 with
+     'high': rank <= m, q-error within 3% / 5% of 'highest''s; (e) a
+     'high' posterior in a synth6 Estimator: every serving bucket's CUDA
+     graph replay (gemm_3xtf32 inside, counted) against the eager predict,
+     extend by 1,000 lines and grow_inducing against refits (1e-6),
+     forget(extend) against the fit (1e-6 with df64 moments; printed with
+     fp32 moments), a checkpoint round trip bit-equal; (f) the kernel's
+     ms a call and on the device at the two panel shapes and the
+     8,192-row predict chunk beside its bound, torch.matmul fp32 and the
+     twin; torch's TF32 switch off at the end.
 
 Phase 4 also runs the training CLI in fp64 on the synthimdb, synthtpch and
 synthtpcds join workloads against the JAX package's fp64 q-error.
@@ -173,8 +197,9 @@ launches that replays of the serving buckets' CUDA graphs ran (a graph's
 warm-up and capture count into its own tally, `serve/graphs.py`). The last three lines are the
 card line, one JSON object with a summary per kernel (its time per call,
 its own device time, the roofline bound and share, and the time of
-`torch.matmul` writing the same output, labelled "dot only": not the same
-function, a yardstick), and the result line `{"ok": true, "device":
+`torch.matmul` writing the same output: for the Gram kernels labelled
+"dot only", not the same function, a yardstick; for gemm_3xtf32 the same
+product in full fp32), and the result line `{"ok": true, "device":
 {...}}`. Without CUDA, or outside a checkout, the script fails before
 printing any result.
 """
@@ -731,11 +756,12 @@ def qerror(mean, y):
 
 
 def reset_launches():
-    from nngp_tpu_torch.ops import gram_cuda
+    from nngp_tpu_torch.ops import gram_cuda, matmul
 
-    for key in gram_cuda.LAUNCHES:
-        gram_cuda.LAUNCHES[key] = 0
-        gram_cuda.REPLAYS[key] = 0
+    for counters in (gram_cuda.LAUNCHES, gram_cuda.REPLAYS, matmul.LAUNCHES,
+                     matmul.REPLAYS):
+        for key in counters:
+            counters[key] = 0
 
 
 def read_launches():
@@ -753,7 +779,7 @@ def expect_launches(label, got, want, total):
     """Fail unless the path launched exactly `want`; add to `total`."""
     if got != want:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
-    for key in total:
+    for key in got:
         total[key] += got[key]
     print(f"  {label}: launches {got}")
 
@@ -6082,6 +6108,553 @@ def block_layout_slice(card, total, device, big_lines):
     return kernels, peaks
 
 
+# ---------------------------------------------- phase 17: precision='high'
+GEMM_SOURCE = "nngp_tpu_torch/csrc/gemm_3xtf32.cu"
+# the TPU source: XLA's dot at Precision.HIGH (bf16_3x) in the functions
+# nngp_tpu/gp/nystrom.py runs under jax.default_matmul_precision('high');
+# the first of them, _panel_delta's projection
+GEMM_REPLACES = "nngp_tpu/gp/nystrom.py:101 (XLA dot, Precision.HIGH)"
+GEMM_SIZES = (1, 17, 129, 1000)
+GEMM_AB = ((1.0, 0.0), (1.0, 1.0), (-1.0, 1.0))
+GEMM_LAYOUTS = ((False, False), (True, False), (False, True), (True, True))
+GEMM_FLOOR = 1e-5      # the error bound's floor, relative to |A| @ |B|
+TF32_FLOPS = 495e12    # dense TF32 tensor-core rate of an H100 SXM
+NY_TAIL = BIG_TRAIN - NY_EXT - (panels(BIG_TRAIN - NY_EXT) - 1) * NY_PANEL
+# (label, m, n, k, A transposed, B transposed): the panel's psi = K_pm W
+# (NN) and C += psi^T psi (TN), the ragged tail panel, b += psi^T y, the
+# RPCholesky residual g = K - F F_S^T (NT: F_S^T is a transposed gather)
+# at synth6_big's 65,536 candidates and F's m + 64 columns and its update
+# F[:, j:j+64] = g[:, perm] @ invL^T, the predict chunk's projection and
+# mean, and its h = ic^T psi (TT: both operands transpose views)
+GEMM_SHAPES = (
+    ("panel psi NN", NY_PANEL, NY_M, NY_M, False, False),
+    ("panel C TN", NY_M, NY_M, NY_PANEL, True, False),
+    ("tail psi NN", NY_TAIL, NY_M, NY_M, False, False),
+    ("tail C TN", NY_M, NY_M, NY_TAIL, True, False),
+    ("panel b TN", NY_M, 1, NY_PANEL, True, False),
+    ("rpchol residual NT", 65536, 64, NY_M + 64, False, True),
+    ("rpchol update NN", 65536, 64, 64, False, False),
+    ("predict psi NN", CHUNK, NY_M, NY_M, False, False),
+    ("predict mean NN", CHUNK, 1, NY_M, False, False),
+    ("predict h TT", NY_M, CHUNK, NY_M, True, True))
+# q-error band of the 'high' fit around NY_ANCHORS['fp32'] (phase 12's);
+# the fp32 moments' own band NY_TOL['fp32'] is printed beside it
+HIGH_TOL = (0.03, 0.05)
+HIGH_NTK_TOL = (0.01, 0.03)   # 'high' vs 'highest', forest ntk
+HIGH_EST_M = 2048
+
+
+def read_gemm():
+    """gemm_3xtf32 runs since the last reset: the wrapper's launches and
+    those that CUDA graph replays ran."""
+    from nngp_tpu_torch.ops import matmul
+
+    return matmul.LAUNCHES["gemm"] + matmul.REPLAYS["gemm"]
+
+
+def gemm_operand(rows, cols, trans, gen, device):
+    """A (rows, cols) fp32 N(0, 1) operand, a transpose view when
+    `trans`."""
+    shape = (cols, rows) if trans else (rows, cols)
+    t = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return t.mT if trans else t
+
+
+def gemm_errors(a, b, c0, alpha, beta, outs):
+    """Each fp32 result's max over elements of |result - exact| /
+    (|alpha| |A| @ |B| + |beta C|), the exact value in fp64."""
+    a64, b64, c64 = a.double(), b.double(), c0.double()
+    exact = alpha * (a64 @ b64) + beta * c64
+    scale = torch.clamp_min(abs(alpha) * (a64.abs() @ b64.abs())
+                            + abs(beta) * c64.abs(), 1e-300)
+    return [float(((o.double() - exact).abs() / scale).max()) for o in outs]
+
+
+def gemm_case(label, m, n, k, ta, tb, alpha, beta, gen, device):
+    """One product through the kernel (into a NaN-filled output when beta
+    is 0, which must not be read), the twin and torch.matmul fp32: their
+    errors against fp64, the bound max(GEMM_FLOOR, 2 x torch.matmul's),
+    and max |kernel - twin|. Raises when the kernel misses the bound."""
+    from nngp_tpu_torch.ops.matmul import matmul_3xtf32, matmul_3xtf32_plain
+
+    a = gemm_operand(m, k, ta, gen, device)
+    b = gemm_operand(k, n, tb, gen, device)
+    c0 = torch.randn((m, n), generator=gen, device=device)
+    out = torch.full_like(c0, float("nan")) if beta == 0.0 else c0.clone()
+    got = matmul_3xtf32(a, b, out=out, alpha=alpha, beta=beta)
+    plain = matmul_3xtf32_plain(a, b, out=c0.clone(), alpha=alpha, beta=beta)
+    lib = alpha * (a @ b) + beta * c0
+    torch.cuda.synchronize()
+    if got is not out or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"gemm_3xtf32 {label}: not every element "
+                             "written, or not finite")
+    err, plain_err, lib_err = gemm_errors(a, b, c0, alpha, beta,
+                                          (got, plain, lib))
+    bound = max(GEMM_FLOOR, 2.0 * lib_err)
+    if not err <= bound:
+        raise AssertionError(
+            f"gemm_3xtf32 {label} (alpha {alpha}, beta {beta}): error "
+            f"{err!r} > {bound!r} (twin {plain_err!r}, torch.matmul fp32 "
+            f"{lib_err!r})")
+    return {"err": err, "plain_err": plain_err, "lib_err": lib_err,
+            "bound": bound,
+            "max_abs_diff": float((got - plain).abs().max())}
+
+
+def check_gemm(device):
+    """(a) The 3xTF32 kernel against fp64, its twin and torch.matmul fp32:
+    every layout (NN, TN, NT, TT) at M, N, K in GEMM_SIZES with each alpha
+    / beta of GEMM_AB, and the Nystrom tier's own shapes (GEMM_SHAPES).
+    Returns the per-shape figures."""
+    gen = torch.Generator(device=device).manual_seed(17)
+    worst = {"err": 0.0}
+    cases = 0
+    for m in GEMM_SIZES:
+        for n in GEMM_SIZES:
+            for k in GEMM_SIZES:
+                for ta, tb in GEMM_LAYOUTS:
+                    for alpha, beta in GEMM_AB:
+                        r = gemm_case(f"{m}x{n}x{k}", m, n, k, ta, tb,
+                                      alpha, beta, gen, device)
+                        cases += 1
+                        if r["err"] / r["bound"] > worst["err"]:
+                            worst = dict(r, err=r["err"] / r["bound"],
+                                         shape=(m, n, k, ta, tb, alpha,
+                                                beta))
+    print(f"  (a) gemm_3xtf32: {cases} small cases (M, N, K in "
+          f"{GEMM_SIZES}, 4 layouts, alpha/beta {GEMM_AB}) within their "
+          f"bounds; the closest at {worst['shape']}: error / bound "
+          f"{worst['err']!r}")
+    rows = {}
+    for label, m, n, k, ta, tb in GEMM_SHAPES:
+        for alpha, beta in GEMM_AB:
+            r = gemm_case(label, m, n, k, ta, tb, alpha, beta, gen, device)
+            print(f"  (a) gemm_3xtf32 {label} ({m} x {k}) @ ({k} x {n}), "
+                  f"alpha {alpha}, beta {beta}: error vs fp64 / (|A||B| + "
+                  f"|beta C|) kernel {r['err']!r}, twin {r['plain_err']!r}, "
+                  f"torch.matmul fp32 {r['lib_err']!r}, bound "
+                  f"{r['bound']!r}; max|kernel - twin| "
+                  f"{r['max_abs_diff']!r}")
+            rows.setdefault(label, r)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def gemm_bound(m, n, k, beta):
+    """(bound ms, 'bytes' or 'operations') of one 3xTF32 product: the
+    three TF32 products' 2 M N K FLOPs each at TF32_FLOPS, or A and B read
+    once, C written once (and read when beta != 0)."""
+    from nngp_tpu_torch.cli.gram_bench import HBM_BYTES_PER_S
+
+    t_ops = 3 * 2.0 * m * n * k / TF32_FLOPS * 1e3
+    t_bytes = (m * k + k * n + m * n * (2 if beta else 1)) * 4 \
+        / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def gemm_device_ms(fn, reps=10):
+    """gemm_3xtf32's own device ms a call (torch.profiler's CUDA records of
+    the kernel; the wrapper's workspace fill left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if "gemm_3xtf32_kernel" in e.key)
+        if total:
+            return total / 1e3 / reps
+    raise AssertionError("the profiler recorded no gemm_3xtf32 kernel")
+
+
+def time_gemm(device):
+    """(f) ms a call (CUDA events, plain / kernel / kernel / plain) and on
+    the device, the bound, torch.matmul fp32 (the library call the port
+    never makes under 'high') and the twin, at the two panel shapes and the
+    8,192-row predict chunk."""
+    from nngp_tpu_torch.ops.matmul import matmul_3xtf32, matmul_3xtf32_plain
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    out = {}
+    timed_shapes = ("panel psi NN", "panel C TN", "predict psi NN")
+    for label, m, n, k, ta, tb in (s for s in GEMM_SHAPES
+                                   if s[0] in timed_shapes):
+        a = gemm_operand(m, k, ta, gen, device)
+        b = gemm_operand(k, n, tb, gen, device)
+        c = torch.empty((m, n), device=device)
+        k_ms, p_ms = paired_ms(lambda: matmul_3xtf32(a, b, out=c),
+                               lambda: matmul_3xtf32_plain(a, b), reps=5)
+        row = {"ms": k_ms,
+               "device_ms": gemm_device_ms(lambda: matmul_3xtf32(a, b,
+                                                                 out=c)),
+               "plain_ms": p_ms,
+               "library_ms": _event_ms(lambda: torch.matmul(a, b, out=c),
+                                       10)}
+        row["bound_ms"], row["bound_by"] = gemm_bound(m, n, k, 0.0)
+        row["share"] = row["bound_ms"] / row["device_ms"]
+        row["tflops"] = 2.0 * m * n * k / row["device_ms"] / 1e9
+        print(f"time gemm_3xtf32 {label} ({m} x {k}) @ ({k} x {n}): "
+              + json.dumps(row))
+        out[label] = row
+        del a, b, c
+        torch.cuda.empty_cache()
+    return out
+
+
+def high_fit(total, device, big):
+    """(b) synth6_big 90k / m = 2,048 fp32 nngp, phase 8's protocol at
+    precision='high': fit on 89,000 (3 GEMM launches a panel), extend by
+    1,000, forget, predict-30k in 8,192-row chunks; the q-error in
+    HIGH_TOL of the JAX CPU anchor, and whether it also holds NY_TOL; the
+    moments against 'highest', both predictions against the same model in
+    fp64; warm fit ms of both."""
+    from nngp_tpu_torch.gp import fit_nystrom
+    from nngp_tpu_torch.gp import nystrom as TN
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+
+    spec = reference_kernel()
+    x_tr, y_tr, x_te, y_te, rows = big
+    yv = y_te.ravel().astype(np.float64)
+    xf, yf = x_tr[:-NY_EXT], y_tr[:-NY_EXT]
+    xe, ye = x_tr[-NY_EXT:], y_tr[-NY_EXT:]
+
+    def fit(precision):
+        return fit_nystrom(spec, xf, yf, num_inducing=NY_M,
+                           inducing_rows=rows, input_scale=1.0,
+                           precision=precision, device=device)
+
+    highest = fit("highest")
+    TN._BASES_CACHE.clear()             # the 'high' fit evaluates K_mm too
+    reset_launches()
+    post = fit("high")
+    torch.cuda.synchronize()
+    fit_gemm = read_gemm()
+    n_panels = panels(xf.shape[0])
+    expect_launches(f"90k 'high' fit (K_mm + {n_panels} panels)",
+                    read_launches(), {"sym": 0, "cross": n_panels + 1},
+                    total)
+    if fit_gemm != 3 * n_panels:
+        raise AssertionError(f"'high' fit: {fit_gemm} gemm launches, "
+                             f"expected {3 * n_panels}")
+    reset_launches()
+    ext = post.extend(xe, ye)
+    back = ext.forget(xe, ye)
+    mean, std = ext.predict_mean_std_chunked(x_te, chunk=CHUNK)
+    torch.cuda.synchronize()
+    chunks = -(-x_te.shape[0] // CHUNK)
+    path_gemm = read_gemm()
+    expect_launches("90k 'high' extend + forget + predict", read_launches(),
+                    {"sym": 0, "cross": 2 + chunks}, total)
+    if path_gemm != 3 + 3 + 3 * chunks:
+        raise AssertionError(f"'high' extend + forget + predict: "
+                             f"{path_gemm} gemm launches")
+    if not (np.all(np.isfinite(mean)) and np.all(np.isfinite(std))
+            and np.all(std >= 0)):
+        raise AssertionError("'high' 90k: predictions not finite")
+    med, p95 = hold_q("90k fp32 moments, precision='high'", mean, yv,
+                      NY_ANCHORS["fp32"], HIGH_TOL)
+    a_med, a_p95 = NY_ANCHORS["fp32"]
+    tight = (abs(med / a_med - 1) <= NY_TOL["fp32"][0]
+             and abs(p95 / a_p95 - 1) <= NY_TOL["fp32"][1])
+    rel = {name: rel_max(getattr(post, name).cpu().numpy(),
+                         getattr(highest, name).cpu().numpy())
+           for name in ("c_raw", "b_w", "ic", "beta_w")}
+    fit_mean = post.predict_mean_std_chunked(x_te)[0]
+    h_ext = highest.extend(xe, ye)
+    h_mean = h_ext.predict_mean_std_chunked(x_te)[0]
+    # the same model in fp64 (the fp32 rows and the fp32 rank cut): how far
+    # each fp32 product path's predictions lie from exact arithmetic
+    d64 = fit_nystrom(spec, xf.astype(np.float64), yf.astype(np.float64),
+                      num_inducing=NY_M, inducing_rows=rows.astype(
+                          np.float64), input_scale=1.0,
+                      rank_rtol=post.rank_rtol, device=device)
+    d64_mean = d64.extend(xe.astype(np.float64), ye.astype(
+        np.float64)).predict_mean_std_chunked(x_te.astype(np.float64))[0]
+    vs_fp64 = {"high": rel_max(mean, d64_mean),
+               "highest": rel_max(h_mean, d64_mean)}
+    forget_rel = {
+        "high": rel_max(back.predict_mean_std_chunked(x_te)[0], fit_mean),
+        "highest": rel_max(h_ext.forget(xe, ye).predict_mean_std_chunked(
+            x_te)[0], highest.predict_mean_std_chunked(x_te)[0])}
+    times = {"high_fit_ms": host_ms(lambda: fit("high"), reps=3),
+             "highest_fit_ms": host_ms(lambda: fit("highest"), reps=3),
+             "gemm_launches_per_fit": fit_gemm,
+             "median": med, "p95": p95, "holds_fp32_band": tight,
+             "moments_rel_vs_highest": rel,
+             "mean_rel_vs_highest": rel_max(mean, h_mean),
+             "mean_rel_vs_fp64": vs_fp64,
+             "forget_extend_vs_fit": forget_rel}
+    print(f"  (b) 90k 'high': holds the fp32 moments' band "
+          f"{NY_TOL['fp32']}: {tight}; " + json.dumps(times))
+    total["gemm"] += fit_gemm + path_gemm
+    del post, ext, back, highest, h_ext, d64
+    torch.cuda.empty_cache()
+    return times
+
+
+def high_ntk_forest(total, device):
+    """(c) forest fp32 ntk, DTC m = 2,048: 'high' against 'highest' on the
+    test q-error within HIGH_NTK_TOL."""
+    from nngp_tpu_torch.cli import train
+    from nngp_tpu_torch.gp import fit_nystrom
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+
+    args = train.build_parser().parse_args(["--query_path", FOREST])
+    with contextlib.redirect_stdout(io.StringIO()):
+        x_tr, y_tr, _, x_te, y_te, _ = train.load_split(args)
+    yv = np.asarray(y_te, np.float64).ravel()
+    q = {}
+    for precision in ("highest", "high"):
+        reset_launches()
+        post = fit_nystrom(reference_kernel(), x_tr, y_tr, num_inducing=NY_M,
+                           get="ntk", precision=precision, device=device)
+        mean, std = post.predict_mean_std_chunked(x_te, chunk=CHUNK)
+        torch.cuda.synchronize()
+        gemm = read_gemm()
+        if (precision == "high") != (gemm > 0):
+            raise AssertionError(f"forest ntk {precision}: {gemm} gemm "
+                                 "launches")
+        total["gemm"] += gemm
+        if not np.all(np.isfinite(std)):
+            raise AssertionError(f"forest ntk {precision}: std not finite")
+        q[precision] = qerror(mean, yv)
+    print(f"  (c) forest fp32 ntk m={NY_M}: 'highest' {q['highest']!r}, "
+          f"'high' {q['high']!r} (bounds {HIGH_NTK_TOL})")
+    hold_q("forest ntk 'high' vs 'highest'", mean, yv, q["highest"],
+           HIGH_NTK_TOL)
+    return q
+
+
+def high_rpchol(total, device, big):
+    """(d) select_inducing_rpchol(precision='high') on synth6_big at m =
+    2,048 (65,536 candidates), seeds 0-2, beside 'highest': rank <= m,
+    finite stds, and phase 13's rule between the two: the mean median and
+    p95 of the 'high' fits within the 'highest' seeds' spread + 3%
+    (RPCHOL_WIDEN) of their mean. A selection's product launches: two a
+    round that reaches its proposal panel."""
+    from nngp_tpu_torch.gp import fit_nystrom
+    from nngp_tpu_torch.gp.nystrom import select_inducing_rpchol
+    from nngp_tpu_torch.models.kernel_spec import reference_kernel
+
+    spec = reference_kernel()
+    x_tr, y_tr, x_te, y_te, _ = big
+    yv = y_te.ravel().astype(np.float64)
+    x_s = prescaled(spec, x_tr, device)
+    out, picked = {}, {}
+    for precision in ("highest", "high"):
+        qs, secs, launches = [], [], []
+        for seed in range(RPCHOL_SEEDS):
+            reset_launches()
+            t0 = time.perf_counter()
+            idx = select_inducing_rpchol(spec, x_s, RPCHOL_BIG_M, seed=seed,
+                                         block=RPCHOL_BLOCK,
+                                         precision=precision)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            gemm = read_gemm()
+            rounds = read_launches()["cross"]
+            if gemm != (2 * rounds if precision == "high" else 0):
+                raise AssertionError(f"rpchol {precision}: {gemm} gemm "
+                                     f"launches in {rounds} rounds")
+            post = fit_nystrom(spec, x_tr, y_tr, num_inducing=RPCHOL_BIG_M,
+                               inducing_rows=x_tr[idx], precision=precision,
+                               device=device)
+            mean, std = post.predict_mean_std_chunked(x_te, chunk=CHUNK)
+            launches.append(read_gemm())
+            if not (np.all(np.isfinite(std)) and post.rank <= RPCHOL_BIG_M
+                    and len(idx) <= RPCHOL_BIG_M):
+                raise AssertionError(f"rpchol {precision} seed {seed}: "
+                                     f"rank {post.rank}, {len(idx)} indices")
+            qs.append(qerror(mean, yv))
+            picked[precision, seed] = idx
+            del post
+        q = np.asarray(qs)
+        out[precision] = {"median": float(q[:, 0].mean()),
+                          "median_sd": float(q[:, 0].std()),
+                          "p95": float(q[:, 1].mean()),
+                          "p95_sd": float(q[:, 1].std()),
+                          "select_s": secs, "gemm_launches": launches}
+        if precision == "high":
+            total["gemm"] += sum(launches)
+    shared = [len(np.intersect1d(picked["high", s], picked["highest", s]))
+              for s in range(RPCHOL_SEEDS)]
+    print(f"  (d) rpchol synth6_big m={RPCHOL_BIG_M}, seeds 0-"
+          f"{RPCHOL_SEEDS - 1}: indices shared with 'highest' {shared}; "
+          + json.dumps(out))
+    hi, ref = out["high"], out["highest"]
+    for key in ("median", "p95"):
+        if not abs(hi[key] - ref[key]) <= (ref[f"{key}_sd"]
+                                           + RPCHOL_WIDEN * ref[key]):
+            raise AssertionError(f"rpchol 'high' {key} {hi[key]} outside "
+                                 f"{ref[key]} +- {ref[key + '_sd']} + "
+                                 f"{RPCHOL_WIDEN} of it")
+    del x_s
+    torch.cuda.empty_cache()
+    return out
+
+
+def high_graphs(est, post, x_pool, device):
+    """(e)'s serving buckets: warmup captures 64-8,192; each bucket's
+    replay against the eager predict on the same rows (bit-equal, else
+    1e-6 of the largest value, phase 15's rule), gemm_3xtf32 launched in
+    each replay and counted in `matmul.REPLAYS`. Returns ({bucket: rel
+    difference}, gemm launches a replay)."""
+    from nngp_tpu_torch.ops import matmul
+
+    buckets = est.warmup(max_batch=GRAPH_BUCKETS[-1], verbose=False)
+    graphs = est._graphs
+    tallies = [graphs._buckets[b].counts["gemm"] for b in buckets]
+    if buckets != GRAPH_BUCKETS or min(tallies) < 3:
+        raise AssertionError(f"'high' warmup: buckets {buckets}, gemm a "
+                             f"replay {tallies}")
+    rel = {}
+    for b in GRAPH_BUCKETS:
+        xb = rows_of(x_pool, b)
+        before = matmul.REPLAYS["gemm"]
+        got = est._bucketed_predict(xb)
+        if (matmul.REPLAYS["gemm"] - before
+                != graphs._buckets[b].counts["gemm"]):
+            raise AssertionError(f"'high' bucket {b}: the replay's gemm "
+                                 "launches were not counted")
+        m, s = post.predict_mean_std(torch.as_tensor(xb, device=device))
+        want = (m.reshape(-1).cpu().numpy(), s.reshape(-1).cpu().numpy())
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        rel[b] = 0.0 if same else max(rel_max(g, w)
+                                      for g, w in zip(got, want))
+        if not rel[b] <= GRAPH_RTOL[torch.float32]:
+            raise AssertionError(f"'high' bucket {b}: replay vs eager "
+                                 f"{rel[b]}")
+    print(f"  (e) 'high' Estimator: {len(buckets)} buckets, gemm launches "
+          f"a replay {tallies}; replay vs eager (0 = bit-equal) "
+          f"{json.dumps(rel)}")
+    return rel, tallies
+
+
+def high_estimator(total, device, tmp):
+    """(e) A 'high' posterior (fp32 moments) in the Estimator (synth6 fp32
+    chunk_norm, m = 2,048): each serving bucket's CUDA graph replay
+    against the eager predict (phase 15's rule) with gemm_3xtf32 launched
+    inside the replay; an extend by 1,000 lines against a refit whose
+    panels are the fit's and the extend's (1e-6); forget(extend) against
+    the fit, held to 1e-6 with moments='df64' as phase 8 holds it, and
+    printed beside what 'highest' gives on the same rows with fp32
+    moments ((C + P) - P is not C in fp32, and the whitening amplifies
+    it); grow_inducing against a refit (1e-6); a checkpoint round trip
+    bit-equal."""
+    import os
+
+    from nngp_tpu_torch.gp import fit_nystrom
+    from nngp_tpu_torch.serve import Estimator
+
+    train, test_labeled, val = synth6_lines()
+    test, test_y = synth6_test(test_labeled)
+    train_dir = write_train_dir(tmp, train)
+    with contextlib.redirect_stdout(io.StringIO()):
+        est = Estimator("synth6", None, train_dir, stats_dir=SYNTH6_STATS,
+                        dtype=np.float32, chunk_norm=True,
+                        nystrom_m=HIGH_EST_M, device=device)
+    x, cards = est._encode_labeled_lines(train, "fit")
+    y = np.log2(cards).reshape(-1, 1).astype(np.float32)
+    new = val[:NY_EXT]
+    xn, cn = est._encode_labeled_lines(new, "extend")
+    yn = np.log2(cn).reshape(-1, 1).astype(np.float32)
+    x_test = est.encode_lines(test)
+    base = est.posterior
+    rows_raw = base.x_m * base.input_scale
+
+    def refit(xr, yr, precision="high", reg=None, **kw):
+        kw.update(dict(diag_reg=est.diag_reg) if reg is None else
+                  dict(diag_reg=reg, diag_reg_absolute_scale=True))
+        return fit_nystrom(est.spec, xr, yr, inducing_rows=rows_raw,
+                           input_scale=base.input_scale, precision=precision,
+                           device=device, **kw)
+
+    def means(post):
+        return post.predict_mean_std_chunked(x_test)[0]
+
+    est.posterior = refit(x, y)
+    post = est.posterior
+    rel, tallies = high_graphs(est, post, x_test, device)
+    total["gemm"] += sum(tallies)
+    mean0 = est.predict(test)[0]
+    print(f"  (e) 'high' Estimator synth6 fp32 m={HIGH_EST_M}: q-error "
+          f"{qerror(mean0, test_y)!r}")
+    reset_launches()
+    est.extend_with_lines(new)
+    ext_gemm = read_gemm()
+    total["gemm"] += ext_gemm
+    if est.posterior.precision != "high" or ext_gemm < 3:
+        raise AssertionError(f"'high' extend: precision "
+                             f"{est.posterior.precision}, {ext_gemm} gemm "
+                             "launches")
+    same_means("'high' Estimator extend-1000 vs refit (the same panels)",
+               est.predict(test)[0],
+               means(refit(np.concatenate([x, xn]), np.concatenate([y, yn]),
+                           reg=float(post.reg), panel_size=x.shape[0])))
+    est.forget_with_lines(new)
+    got = rel_max(est.predict(test)[0], mean0)
+    hi = refit(x, y, "highest")
+    want = rel_max(means(hi.extend(xn, yn).forget(xn, yn)), means(hi))
+    # fp32 moments: printed, not bounded (phase 8 holds forget(extend) to
+    # 1e-6 on df64 moments only); df64 moments below, at 1e-6
+    print(f"  'high' Estimator fp32 moments forget(extend) vs the fit: "
+          f"{got!r} ('highest' on the same rows {want!r}; no bound)")
+    d64 = refit(x, y, moments="df64")
+    same_means("'high' df64 moments forget(extend) vs the fit",
+               means(d64.extend(xn, yn).forget(xn, yn)), means(d64))
+    est.save(os.path.join(tmp, "high_ckpt"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        back = Estimator.restore(os.path.join(tmp, "high_ckpt"),
+                                 device=device)
+    got, want = back.predict(test), est.predict(test)
+    if (back.posterior.precision != "high"
+            or not all(np.array_equal(g, w) for g, w in zip(got, want))):
+        raise AssertionError("'high' checkpoint round trip not bit-equal")
+    m_new = est.grow_inducing(train, num_new=256)
+    grown = est.posterior
+    ref = fit_nystrom(est.spec, x, y, inducing_rows=grown.x_m
+                      * grown.input_scale, input_scale=grown.input_scale,
+                      diag_reg=est.diag_reg, precision="high",
+                      device=device)
+    same_means("'high' Estimator grow_inducing(256) vs refit",
+               est.predict(test)[0], means(ref))
+    if grown.precision != "high" or m_new != HIGH_EST_M + 256:
+        raise AssertionError(f"'high' grow: m {m_new}, precision "
+                             f"{grown.precision}")
+    del est, back, ref, grown, hi, d64
+    torch.cuda.empty_cache()
+    return {"replay_rel": rel, "gemm_a_replay": tallies}
+
+
+def high_slice(card, total, device, big):
+    """Phase 17: precision='high' on the 3xTF32 GEMM. Returns the kernel's
+    summary figures."""
+    import tempfile
+
+    total["gemm"] = 0
+    rows = check_gemm(device)
+    fit = high_fit(total, device, big)
+    ntk = high_ntk_forest(total, device)
+    rp = high_rpchol(total, device, big)
+    with tempfile.TemporaryDirectory() as tmp:
+        est = high_estimator(total, device, tmp)
+    times = time_gemm(device)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("allow_tf32 is on after phase 17")
+    print(f"precision='high' on {card}: " + json.dumps(
+        {"fit": fit, "ntk_forest": ntk, "rpchol": rp, "estimator": est}))
+    panel = times[GEMM_SHAPES[0][0]]
+    return dict(panel, max_abs_err=rows[GEMM_SHAPES[0][0]]["max_abs_diff"],
+                errors={k: {f: r[f] for f in ("err", "plain_err", "lib_err",
+                                              "bound")}
+                        for k, r in rows.items()},
+                shapes=times)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6103,7 +6676,8 @@ def main():
     cached = _build.is_built()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({'cached library' if cached else 'nvcc'})")
+          f"({'cached library' if cached else 'nvcc'}: "
+          f"{_build.library_path()})")
     t0 = time.perf_counter()
     if not native.is_available():
         raise AssertionError("the native query encoder did not build (g++ "
@@ -6151,6 +6725,8 @@ def main():
                    launches, device, big)
     block_rows, _ = timed("16 column-block exact tier", block_layout_slice,
                           card, launches, device, big_lines)
+    gemm = timed("17 precision='high'", high_slice, card, launches, device,
+                 big)
     print("phase seconds: " + json.dumps(phase_s))
 
     summary = {"kernels": [
@@ -6182,6 +6758,15 @@ def main():
                                    "eager_gram_ms", "replay_gram_ms")}
                 for r in stable[label]["timings"]]
         for label in ("fp32", "fp64")}
+    # the 3xTF32 GEMM of precision='high' (phase 17): launches on its
+    # paths, the figures at the panel's psi = K_pm W (16,384 x 2,048 x
+    # 2,048), its other shapes beside them
+    summary["kernels"].append(
+        {"name": "gemm_3xtf32", "route": "cuda", "source": GEMM_SOURCE,
+         "replaces": GEMM_REPLACES, "launches": launches["gemm"], **gemm,
+         "library": "torch.matmul(a, b) fp32 (cuBLAS, full IEEE): the same "
+                    "function at another precision; never called under "
+                    "'high'"})
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,9 @@ streams row panels, so device state is O(m^2 + panel * m) at any n:
          C += psi_p psi_p^T      b += psi_p y_p
          M1 += W_K^T K_mp psi_p^T                   (ntk only)
 
-     with `torch.matmul` (TF32 off). The relative ridge's trace is the
-     exact diagonal recursion of the panel's rows.
+     with `torch.matmul` (TF32 off) under precision='highest' or with
+     the 3xTF32 GEMM under 'high' (`ops/matmul.py::mm`). The relative
+     ridge's trace is the exact diagonal recursion of the panel's rows.
   3. The k x k solve stage runs once, in fp64, on the host or the device:
      ic ic^T = (C + rI)^-1 by Cholesky, falling back to the eigenvalue-
      clamped inverse root when moment noise left C + rI indefinite (noise
@@ -56,7 +57,15 @@ What differs from the JAX module:
     rank holds the whole, replicated posterior;
   - with mesh= and inducing='rpchol', rank 0 selects and broadcasts the
     indices;
-  - not ported: precision='high' (ROADMAP 'Not to port').
+  - precision='high' runs the products that JAX runs under
+    `jax.default_matmul_precision('high')` (the panel moments, the
+    predict's projections, the RPCholesky residual and update) in 3xTF32,
+    the card's counterpart of the TPU's bf16_3x, through the hand-written
+    kernel `csrc/gemm_3xtf32.cu` (its plain twin on the CPU); fp64 products
+    stay fp64. The cross Gram stays full fp32 under 'high', where JAX's
+    would run bf16_3x: its dot is a small share of the kernel, and a
+    reduced-precision dot of raw features is the error
+    `nngp_tpu/ops/gram_pallas.py:73-75` warns of.
 """
 
 import dataclasses
@@ -73,6 +82,7 @@ from nngp_tpu_torch.models.kernel_spec import (KernelSpec,
                                                diag_eval)
 from nngp_tpu_torch.ops.gram import input_diag
 from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
+from nngp_tpu_torch.ops.matmul import PRECISIONS, mm
 from nngp_tpu_torch.parallel.mesh import all_reduce_sum_many
 from nngp_tpu_torch.utils.device import resolve_device
 
@@ -98,33 +108,31 @@ def select_inducing(n: int, m: int, seed: int = 0) -> np.ndarray:
 
 
 def _check_precision(precision: str):
-    """Only 'highest' (TF32 off); 'high' raises 'Not to port'."""
-    if precision == "high":
-        raise NotImplementedError(
-            "precision='high' is not ported (ROADMAP 'Not to port': the "
-            "TPU's 3-pass MXU mode; its counterpart here would be TF32, "
-            "which utils/device.py forbids)")
-    if precision != "highest":
-        raise ValueError(f"precision must be 'highest', got {precision!r}")
+    """'highest' (full IEEE products, TF32 off) or 'high' (3xTF32 products
+    on fp32, `ops/matmul.py`); anything else raises."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be 'highest' or 'high', got "
+                         f"{precision!r}")
 
 
-def _rpchol_panel(spec, get, x_c, x_s, sel, f):
+def _rpchol_panel(spec, get, x_c, x_s, sel, f, precision="highest"):
     """One proposal panel's residual columns: g = K(x_c, x_S) - F F_S^T,
     and its proposal rows g[sel]. Unfilled F columns are zero, so the
-    full-width product is exact."""
+    full-width product is exact. The product is subtracted from the cross
+    Gram in place (alpha = -1, beta = 1)."""
     if get == "ntk":
         _, k_cs = gram_cross(spec, x_c, x_s, ("nngp", "ntk"))
     else:
         k_cs = gram_cross(spec, x_c, x_s, "nngp")
-    g = k_cs - f @ f[sel].mT
+    g = mm(f, f[sel].mT, precision, out=k_cs, alpha=-1.0, beta=1.0)
     return g, g[sel]
 
 
-def _rpchol_update(g, perm, inv_lt, f, d, j):
+def _rpchol_update(g, perm, inv_lt, f, d, j, precision="highest"):
     """Accept a round's pivots: F[:, j:j+B] = g[:, perm] @ invL^T (columns
     past the accepted rank are zero in inv_lt: they land as zeros and
     later rounds overwrite them), residual diagonal -= row norms."""
-    f_new = g[:, perm] @ inv_lt
+    f_new = mm(g[:, perm], inv_lt, precision)
     f[:, j:j + f_new.shape[1]] = f_new
     return torch.clamp_min(d - torch.sum(f_new * f_new, dim=1), 0.0)
 
@@ -161,7 +169,8 @@ def select_inducing_rpchol(spec: KernelSpec, x, m: int, get: str = "nngp",
     device by default). With n > max_candidates the pivots come from a
     seeded uniform subsample of the candidates. May return fewer than m
     indices when the kernel is numerically rank-deficient on the
-    candidates. precision: only 'highest' (TF32 stays off)."""
+    candidates. precision: 'highest' or 'high' (the residual and update
+    products in 3xTF32 on fp32 rows, as JAX runs them at Precision.HIGH)."""
     from scipy.linalg import lapack
 
     _check_precision(precision)
@@ -199,7 +208,8 @@ def select_inducing_rpchol(spec: KernelSpec, x, m: int, get: str = "nngp",
             break                       # numerically exhausted
         sel = rng.choice(nc, size=block, p=d_host / tot)
         sel_t = torch.as_tensor(sel, device=device)
-        g, h_small = _rpchol_panel(spec, get, x_c, x_c[sel_t], sel_t, f)
+        g, h_small = _rpchol_panel(spec, get, x_c, x_c[sel_t], sel_t, f,
+                                   precision)
         h64 = h_small.cpu().numpy().astype(np.float64)
         h64 = 0.5 * (h64 + h64.T)
         # pivoted Cholesky of the proposal block: P^T H P = L L^T, rank r
@@ -215,7 +225,8 @@ def select_inducing_rpchol(spec: KernelSpec, x, m: int, get: str = "nngp",
         inv_lt[:r, :r] = li.T           # cols >= r stay zero (rejected)
         d = _rpchol_update(
             g, torch.as_tensor(piv[:block] - 1, device=device),
-            torch.as_tensor(inv_lt, dtype=x_c.dtype, device=device), f, d, j)
+            torch.as_tensor(inv_lt, dtype=x_c.dtype, device=device), f, d, j,
+            precision)
         # taken[] guards the sampler, so the accepted pivots are fresh
         chosen.extend(int(p) for p in perm)
         taken[perm] = True
@@ -366,30 +377,33 @@ def _finalize(c_raw, b_w, reg, dtype, mode: str):
 
 
 # ------------------------------------------------------------ streaming
-def _panel_deltas(spec, get, x_me, w_solve, w_kmm, x_p, y_p):
+def _panel_deltas(spec, get, x_me, w_solve, w_kmm, x_p, y_p,
+                  precision="highest"):
     """The whitened moments of one panel's rows: (dC, db, dM1 or None,
-    d diag_sum, d yty)."""
+    d diag_sum, d yty), the products at `precision`."""
     if get == "ntk":
         nngp_pm, solve_pm = gram_cross(spec, x_p, x_me, ("nngp", "ntk"))
     else:
         solve_pm = gram_cross(spec, x_p, x_me, "nngp")
-    psi = (solve_pm @ w_solve).mT                 # (k, p)
-    dm1 = (nngp_pm @ w_kmm).mT @ psi.mT if get == "ntk" else None
+    psi = mm(solve_pm, w_solve, precision).mT     # (k, p)
+    dm1 = (mm(mm(nngp_pm, w_kmm, precision).mT, psi.mT, precision)
+           if get == "ntk" else None)
     # the relative ridge's trace: the exact solve-kernel diagonal
     dn, dt = apply_diag_recursion(input_diag(x_p), spec.layers)
-    return (psi @ psi.mT, psi @ y_p, dm1, torch.sum(dt if get == "ntk"
-                                                    else dn),
-            torch.sum(y_p * y_p))
+    return (mm(psi, psi.mT, precision), mm(psi, y_p, precision), dm1,
+            torch.sum(dt if get == "ntk" else dn), torch.sum(y_p * y_p))
 
 
 def _stream_moments(spec, get, x_m, w_solve, w_kmm, x, y, panel_size,
                     c_raw=None, b_w=None, m1_w=None, diag_sum=None,
-                    yty=None, mesh=None, mesh_axis="data"):
+                    yty=None, mesh=None, mesh_axis="data",
+                    precision="highest"):
     """Panel loop over the (n, d) rows x and (n, 1) labels y (tensors on
-    x_m's device, prescaled): the whitened moments of every panel added to
-    the given accumulators, or to zeros. The moments run in the bases'
-    dtype (fp64 for moments='df64'); the last panel is ragged. Returns
-    (c_raw, b_w, m1_w or None, diag_sum, yty).
+    x_m's device, prescaled): the whitened moments of every panel, their
+    products at `precision`, added to the given accumulators, or to zeros.
+    The moments run in the bases' dtype (fp64 for moments='df64'); the
+    last panel is ragged. Returns (c_raw, b_w, m1_w or None, diag_sum,
+    yty).
 
     With `mesh` (collective: every rank passes the same rows) the panel
     length rounds up to a multiple of the mesh size q, rank r streams rows
@@ -419,7 +433,7 @@ def _stream_moments(spec, get, x_m, w_solve, w_kmm, x, y, panel_size,
         if lo < hi:
             deltas = _panel_deltas(spec, get, x_me, w_solve, w_kmm,
                                    x[lo:hi].to(mdt).contiguous(),
-                                   y[lo:hi].to(mdt))
+                                   y[lo:hi].to(mdt), precision)
         else:                 # this rank's share lies past the last row
             deltas = (torch.zeros_like(c_raw), torch.zeros_like(b_w),
                       None if m1_w is None else torch.zeros_like(m1_w),
@@ -460,7 +474,7 @@ class NystromPosterior:
     diag_reg: float = 1e-3
     num_train: int = 0
     input_scale: float = 1.0
-    # kept for the checkpoint format; only 'highest' is accepted
+    # the products' precision: 'highest' or 'high' (3xTF32 on fp32)
     precision: str = "highest"
     rank_rtol: float = 1e-6
     panel_size: int = _DEFAULT_PANEL
@@ -518,54 +532,60 @@ class NystromPosterior:
         df64 = self.moments == "df64"
         xe = x_test.to(torch.float64) if df64 else x_test
         xm = self.x_m.to(torch.float64) if df64 else self.x_m
+        p = self.precision
         psi_k = None
         if self.get == "nngp":
             cross = gram_cross(self.spec, xe, xm, "nngp")
-            psi = (cross @ self.w_solve).mT
+            psi = mm(cross, self.w_solve, p).mT
         elif need_kmm:
             nngp_c, ntk_c = gram_cross(self.spec, xe, xm, ("nngp", "ntk"))
-            psi = (ntk_c @ self.w_solve).mT
-            psi_k = (nngp_c @ self.w_kmm).mT.to(self.dtype)
+            psi = mm(ntk_c, self.w_solve, p).mT
+            psi_k = mm(nngp_c, self.w_kmm, p).mT.to(self.dtype)
         else:
-            psi = (gram_cross(self.spec, xe, xm, "ntk") @ self.w_solve).mT
+            psi = mm(gram_cross(self.spec, xe, xm, "ntk"), self.w_solve,
+                     p).mT
         return psi.to(self.dtype), psi_k
 
     def _predict_scaled(self, x_test, compute_cov):
         """Predict body on raw-unit x_test: the mean is exact, var/cov come
-        back divided by input_scale^2."""
+        back divided by input_scale^2. The products run at
+        `self.precision`."""
         resolve_device(self.device)
         x_test = self._as_input(x_test)
         if self.input_scale != 1.0:
             x_test = x_test * (1.0 / self.input_scale)
         layers = self.spec.layers
+        p = self.precision
         if self.get == "nngp":
             psi, _ = self._projections(x_test, False)
-            mean = psi.mT @ self.beta_w
+            mean = mm(psi.mT, self.beta_w, p)
             if compute_cov is False:
                 return mean
-            h = self.ic.mT @ psi
+            h = mm(self.ic.mT, psi, p)
             if compute_cov == "diag":
                 var = (diag_eval(layers, x_test, "nngp")
                        - torch.sum(psi * psi, dim=0)
                        + self.reg * torch.sum(h * h, dim=0))
                 return mean, torch.clamp_min(var, 0.0)
             k_ss = gram_sym(self.spec, x_test, "nngp")   # exact diagonal
-            return mean, k_ss - psi.mT @ psi + self.reg * (h.mT @ h)
+            return mean, k_ss - mm(psi.mT, psi, p) + self.reg * mm(h.mT, h,
+                                                                   p)
 
         # get == 'ntk': both kernels Nystrom-approximated
         psi_t, psi_k = self._projections(x_test, compute_cov is not False)
-        mean = psi_t.mT @ self.beta_w
+        mean = mm(psi_t.mT, self.beta_w, p)
         if compute_cov is False:
             return mean
-        ct = self.ic @ (self.ic.mT @ psi_t)              # (C + rI)^-1 psi_t
-        g = self.m1_w.to(self.dtype) @ ct                # (k2, mt)
+        ct = mm(self.ic, mm(self.ic.mT, psi_t, p), p)    # (C + rI)^-1 psi_t
+        g = mm(self.m1_w.to(self.dtype), ct, p)          # (k2, mt)
         if compute_cov == "diag":
             var = (diag_eval(layers, x_test, "nngp")
                    + torch.sum(g * g, dim=0)
                    - 2.0 * torch.sum(psi_k * g, dim=0))
             return mean, torch.clamp_min(var, 0.0)
         k_ss = gram_sym(self.spec, x_test, "nngp")
-        return mean, k_ss + g.mT @ g - psi_k.mT @ g - g.mT @ psi_k
+        return mean, (k_ss + mm(g.mT, g, p) - mm(psi_k.mT, g, p)
+                      - mm(g.mT, psi_k, p))
 
     def predict(self, x_test, compute_cov=True):
         """Posterior (mean, cov) in raw input units: `GPPosterior.predict`
@@ -607,7 +627,8 @@ class NystromPosterior:
             x = x * (1.0 / self.input_scale)
         return x.shape[0], _stream_moments(
             self.spec, self.get, self.x_m, self.w_solve, self.w_kmm, x, y,
-            self.panel_size, mesh=self.mesh, mesh_axis=self.mesh_axis, **acc)
+            self.panel_size, mesh=self.mesh, mesh_axis=self.mesh_axis,
+            precision=self.precision, **acc)
 
     def extend(self, x_new, y_new) -> "NystromPosterior":
         """Add labeled rows (raw units): their moments are accumulated and
@@ -700,14 +721,15 @@ class NystromPosterior:
 
 
 # ------------------------------------------------------------------- fit
-def _rpchol_indices(spec, x, m, get, seed, mesh, mesh_axis):
+def _rpchol_indices(spec, x, m, get, seed, mesh, mesh_axis, precision):
     """`select_inducing_rpchol` on the prescaled rows x, as a tensor of
     indices on x's device. With a mesh (collective) coordinate 0 selects
     and broadcasts the count, then the indices, so every rank holds the
     same inducing rows."""
     if mesh is None:
         return torch.as_tensor(select_inducing_rpchol(
-            spec, x, m, get=get, seed=seed), device=x.device)
+            spec, x, m, get=get, seed=seed, precision=precision),
+            device=x.device)
     import torch.distributed as dist
 
     from nngp_tpu_torch.parallel.mesh import owner_broadcast
@@ -715,9 +737,9 @@ def _rpchol_indices(spec, x, m, get, seed, mesh, mesh_axis):
     group = mesh.get_group(mesh_axis)
     idx = None
     if dist.get_rank(group) == 0:
-        idx = torch.as_tensor(select_inducing_rpchol(spec, x, m, get=get,
-                                                     seed=seed),
-                              device=x.device)
+        idx = torch.as_tensor(select_inducing_rpchol(
+            spec, x, m, get=get, seed=seed, precision=precision),
+            device=x.device)
     like = torch.zeros(1, dtype=torch.int64, device=x.device)
     count = owner_broadcast(lambda: like + idx.numel(), 0, (1,), like, group)
     return owner_broadcast(lambda: idx, 0, (int(count),), like, group)
@@ -747,8 +769,12 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
     with the fit's spec, get and seed; may give fewer than num_inducing
     rows; with mesh= rank 0 selects and broadcasts the indices).
     finalize: 'host', 'device' or 'auto'.
+    precision: 'highest' (full IEEE products) or 'high' (the moment,
+    predict and RPCholesky products of an fp32 posterior in 3xTF32,
+    `ops/matmul.py`; fp64 products are unchanged), as JAX's precision.
     moments: 'fp32' or 'df64' (fp32 posteriors only: the kernel entries,
-    bases, projections and accumulators in fp64, with the rank cut 1e-12).
+    bases, projections and accumulators in fp64, with the rank cut 1e-12;
+    its fp64 products ignore precision, as JAX's df64 path does).
     mesh: a `parallel.make_mesh` DeviceMesh: every panel's rows are split
     over its ranks and the moment deltas summed over them (collective:
     every rank passes the same rows and gets the same posterior, which
@@ -801,7 +827,7 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
                                 device=device)]
     else:
         x_m = x[_rpchol_indices(spec, x, num_inducing, get, seed, mesh,
-                                mesh_axis)]
+                                mesh_axis, precision)]
     x_m = x_m.contiguous()
     if rank_rtol is None:
         rank_rtol = _default_rank_rtol(x.dtype, moments)
@@ -810,7 +836,7 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
         device=(finalize == "device" and whiten == "chol"), entries=moments)
     c_raw, b_w, m1_w, diag_sum, yty = _stream_moments(
         spec, get, x_m, w_solve, w_kmm, x, y, panel_size, mesh=mesh,
-        mesh_axis=mesh_axis)
+        mesh_axis=mesh_axis, precision=precision)
     if diag_reg_absolute_scale:
         reg = torch.tensor(diag_reg, dtype=x.dtype, device=device)
     else:

@@ -1,11 +1,16 @@
-"""Build and load the CUDA Gram kernels (`csrc/gram.cu`).
+"""Build and load the CUDA kernels: the Gram kernels (`csrc/gram.cu`) and
+the 3xTF32 GEMM (`csrc/gemm_3xtf32.cu`).
 
-The source is compiled with nvcc into a shared library with a plain C
-interface and loaded with ctypes: no PyTorch headers, so a build takes
-seconds. The library is cached under `.build/nngp_tpu_torch/` keyed by a
-hash of the source and the flags, so it is rebuilt whenever either
-changes. A build writes to a temporary path and renames it into place, so
-a killed nvcc never leaves a half-written library behind.
+Both sources are compiled by one nvcc call with one set of flags into one
+shared library with a plain C interface, loaded with ctypes: no PyTorch
+headers, so a build takes seconds. -fmad=false is there for gram.cu's
+epilogue, which rounds operation by operation as its plain twin does; in
+the GEMM it touches only the fp32 epilogue (alpha * acc + beta * C), whose
+unfused form is its twin's. The library is cached under
+`.build/nngp_tpu_torch/` keyed by a hash of both sources and the flags, so
+it is rebuilt whenever any of them changes. A build writes to a temporary
+path and renames it into place, so a killed nvcc never leaves a
+half-written library behind.
 
 There is no fallback: if nvcc is missing or the build fails, `load_library`
 raises with nvcc's stderr.
@@ -21,6 +26,8 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO_ROOT = os.path.dirname(_PKG_DIR)
 SOURCE = os.path.join(_PKG_DIR, "csrc", "gram.cu")
+GEMM_SOURCE = os.path.join(_PKG_DIR, "csrc", "gemm_3xtf32.cu")
+SOURCES = (SOURCE, GEMM_SOURCE)
 BUILD_DIR = os.path.join(_REPO_ROOT, ".build", "nngp_tpu_torch")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +53,19 @@ _CROSS_ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,          # n_layers, want_ntk, max_blocks
     ctypes.c_void_p,                                   # stream
 ]
+_GEMM_ARGTYPES = [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # trans_a, trans_b,
+                                                       # narrow
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # m, n, k
+    ctypes.c_float,                                    # alpha
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,  # a, lda, vec_a
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,  # b, ldb, vec_b
+    ctypes.c_float,                                    # beta
+    ctypes.c_void_p, ctypes.c_longlong,                # c, ldc
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # tiles, splits, k_split
+    ctypes.c_void_p, ctypes.c_void_p,                  # work, counters
+    ctypes.c_void_p,                                   # stream
+]
 
 _lock = threading.Lock()
 _lib = None
@@ -60,14 +80,18 @@ def _nvcc() -> str:
     if os.path.exists(candidate):
         return candidate
     raise RuntimeError(
-        "nvcc not found on PATH or under $CUDA_HOME/bin; the CUDA Gram "
+        "nvcc not found on PATH or under $CUDA_HOME/bin; the CUDA "
         "kernels need the CUDA toolkit to build")
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libgram_{digest.hexdigest()[:16]}.so")
+    digest = hashlib.sha256()
+    for source in SOURCES:
+        with open(source, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR,
+                        f"libkernels_{digest.hexdigest()[:16]}.so")
 
 
 def is_built() -> bool:
@@ -82,7 +106,7 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
@@ -97,18 +121,25 @@ def build() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded kernel library, built at first use. Loading it raises
+    the GEMM kernels' dynamic shared-memory limit (`gemm_3xtf32_setup`),
+    outside any CUDA graph capture."""
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            for name in ("gram_sym_f32", "gram_sym_f64"):
+            for name, argtypes in (("gram_sym_f32", _SYM_ARGTYPES),
+                                   ("gram_sym_f64", _SYM_ARGTYPES),
+                                   ("gram_cross_f32", _CROSS_ARGTYPES),
+                                   ("gram_cross_f64", _CROSS_ARGTYPES),
+                                   ("gemm_3xtf32", _GEMM_ARGTYPES),
+                                   ("gemm_3xtf32_setup", [])):
                 fn = getattr(lib, name)
-                fn.argtypes = _SYM_ARGTYPES
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            for name in ("gram_cross_f32", "gram_cross_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = _CROSS_ARGTYPES
-                fn.restype = ctypes.c_int
+            err = lib.gemm_3xtf32_setup()
+            if err != 0:
+                raise RuntimeError(
+                    f"gemm_3xtf32_setup failed: cudaError_t {err}")
             _lib = lib
         return _lib

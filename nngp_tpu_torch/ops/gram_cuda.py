@@ -241,8 +241,8 @@ def _ptr(t):
 
 @contextlib.contextmanager
 def counting_into(counts: dict):
-    """Count this thread's launches into `counts` (keys 'sym', 'cross')
-    instead of LAUNCHES while the block runs."""
+    """Count this thread's launches into `counts` (keys 'sym', 'cross' and
+    `ops.matmul`'s 'gemm') instead of LAUNCHES while the block runs."""
     prev = getattr(_sink, "counts", None)
     _sink.counts = counts
     try:
@@ -251,9 +251,13 @@ def counting_into(counts: dict):
         _sink.counts = prev
 
 
-def _count(kind: str):
+def _count(kind: str, launches=None):
+    """One launch of `kind` into the tally of `counting_into`, else into
+    `launches` (this module's LAUNCHES when None)."""
     counts = getattr(_sink, "counts", None)
-    (LAUNCHES if counts is None else counts)[kind] += 1
+    if counts is None:
+        counts = LAUNCHES if launches is None else launches
+    counts[kind] += 1
 
 
 def _check_out(out, n_rows, n_cols, like, name):

@@ -30,8 +30,9 @@ the exact tier's memory rule (`gp.posterior.EXACT_MEMORY_SHARE`) leaves
 20% of it free, and the pool takes at most half of that.
 
 Launches recorded into a graph count into its own tally, not
-`ops.gram_cuda.LAUNCHES`; each replay adds the tally to
-`ops.gram_cuda.REPLAYS`.
+`ops.gram_cuda.LAUNCHES` or `ops.matmul.LAUNCHES`; each replay adds the
+tally to `ops.gram_cuda.REPLAYS` (the Gram kernels) and `ops.matmul.REPLAYS`
+(the 3xTF32 GEMM of a precision='high' Nystrom posterior).
 """
 
 import threading
@@ -40,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from nngp_tpu_torch.ops import gram_cuda
+from nngp_tpu_torch.ops import gram_cuda, matmul
 
 BUCKET_MIN = 64
 BUCKET_MAX = 8192
@@ -103,6 +104,18 @@ def largest_bucket(post) -> int:
     return b
 
 
+def _tally():
+    """A graph's launch tally: zero for every kernel's key."""
+    return dict.fromkeys((*gram_cuda.LAUNCHES, *matmul.LAUNCHES), 0)
+
+
+def _add_replays(counts):
+    """Add one replay's kernel launches to the replay counters."""
+    for replays in (gram_cuda.REPLAYS, matmul.REPLAYS):
+        for key in replays:
+            replays[key] += counts[key]
+
+
 class _Bucket:
     """One captured bucket: its graph, static input, static (2, b)
     output (mean; std) and the kernel launches the graph holds."""
@@ -119,7 +132,7 @@ class BucketGraphs:
     lock: held around each capture and each copy-in, replay and copy-out;
     the Estimator holds the same lock around an in-place extend. Counters:
     `captures`, `capture_ms` (per bucket) and `pool_bytes()`; the kernels
-    a replay runs go to `ops.gram_cuda.REPLAYS`."""
+    a replay runs go to `ops.gram_cuda.REPLAYS` and `ops.matmul.REPLAYS`."""
 
     def __init__(self, post, lock=None):
         self.post = post
@@ -178,8 +191,7 @@ class BucketGraphs:
             if n < b:
                 bucket.x[n:] = bucket.x[n - 1]
             bucket.graph.replay()
-            for key, count in bucket.counts.items():
-                gram_cuda.REPLAYS[key] += count
+            _add_replays(bucket.counts)
             out = bucket.out[:, :n].cpu().numpy()
         return out[0], out[1]
 
@@ -193,12 +205,11 @@ class BucketGraphs:
             self._pool = torch.cuda.graph_pool_handle()
         stream = self._stream
         stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream), \
-                gram_cuda.counting_into({"sym": 0, "cross": 0}):
+        with torch.cuda.stream(stream), gram_cuda.counting_into(_tally()):
             self._fn(x)
         torch.cuda.current_stream(device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        counts = {"sym": 0, "cross": 0}
+        counts = _tally()
         with gram_cuda.counting_into(counts), \
                 torch.cuda.graph(graph, pool=self._pool, stream=stream,
                                  capture_error_mode="thread_local"):

@@ -307,8 +307,8 @@ def test_errors():
             (dict(get="gp"), ValueError, "get"),
             (dict(whiten="qr"), ValueError, "whiten"),
             (dict(inducing="kmeans"), ValueError, "inducing"),
-            (dict(precision="high"), NotImplementedError, "Not to port"),
             (dict(precision="default"), ValueError, "precision"),
+            (dict(precision="HIGH"), ValueError, "precision"),
             (dict(mesh=_CudaMesh()), ValueError, "mesh is a cuda mesh"),
             (dict(moments="bf16"), ValueError, "moments"),
             (dict(moments="df64"), ValueError, "df64"),
@@ -317,9 +317,12 @@ def test_errors():
             fit_nystrom(spec, x, y, **kw, **bad)
     with pytest.raises(ValueError, match="device="):
         fit_nystrom(spec, x, y, num_inducing=16)
-    with pytest.raises(NotImplementedError, match="Not to port"):
-        TN.select_inducing_rpchol(spec, x, 8, precision="high",
-                                  device="cpu")
+    # precision='high' is ported (tests/test_torch_matmul_3xtf32.py)
+    high = fit_nystrom(spec, x.astype(np.float32), y.astype(np.float32),
+                       precision="high", **kw)
+    assert high.precision == "high"
+    assert len(TN.select_inducing_rpchol(
+        spec, x.astype(np.float32), 8, precision="high", device="cpu")) == 8
     zeros = torch.zeros((4, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="no eigenvalue"):
         TN._whiten_basis(zeros, 1e-8)

@@ -174,9 +174,11 @@ def test_two_gloo_ranks_select_the_same_rows():
 
 def test_errors():
     x, y = _skewed_data()
-    with pytest.raises(NotImplementedError, match="Not to port"):
+    # precision='high' is ported: on fp64 rows it is 'highest' itself
+    np.testing.assert_array_equal(
         TN.select_inducing_rpchol(SPEC, x, 8, precision="high",
-                                  device="cpu")
+                                  device="cpu"),
+        TN.select_inducing_rpchol(SPEC, x, 8, device="cpu"))
     with pytest.raises(ValueError, match="precision"):
         TN.select_inducing_rpchol(SPEC, x, 8, precision="default",
                                   device="cpu")

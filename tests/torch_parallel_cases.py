@@ -307,6 +307,26 @@ def nystrom(mesh, pl):
     return out
 
 
+def nystrom_high(mesh, pl):
+    """fit_nystrom(mesh=, precision='high') on fp32 rows: the moments, an
+    extend and a forget through the mesh, the predictions; the moments of
+    the same fit without a mesh."""
+    from nngp_tpu_torch.gp import fit_nystrom
+    kw = dict(num_inducing=pl["m"], panel_size=pl["panel"], input_scale=1.0,
+              precision="high")
+    post = fit_nystrom(pl["spec"], pl["x"], pl["y"], mesh=mesh, **kw)
+    plain = fit_nystrom(pl["spec"], pl["x"], pl["y"], device="cpu", **kw)
+    ext = post.extend(pl["x_new"], pl["y_new"])
+    back = ext.forget(pl["x_new"], pl["y_new"])
+    moments = [post.c_raw, post.b_w, post.diag_sum, post.yty, back.c_raw]
+    return {"mesh": moments,
+            "plain": [plain.c_raw, plain.b_w, plain.diag_sum, plain.yty,
+                      plain.c_raw],
+            "precision": (post.precision, ext.precision),
+            "num_train": (post.num_train, ext.num_train, back.num_train),
+            "mean_std": post.predict_mean_std(pl["xt"])}
+
+
 def rpchol(mesh, pl):
     """fit_nystrom(inducing='rpchol', mesh=): the inducing rows this rank
     holds (rank 0 selects and broadcasts), the predictions and an extend's."""
