@@ -7,8 +7,9 @@ Run from the root of a checkout. The phases run in order and any failure
 exits nonzero; nothing is caught and retried:
 
   1. card: the nvidia-smi name and power limit, and torch's device name;
-  2. build: one nvcc compiles `nngp_tpu_torch/csrc/gram.cu` and
-     `nngp_tpu_torch/csrc/gemm_3xtf32.cu` for sm_90a into one library,
+  2. build: one nvcc a source, started together, compiles
+     `nngp_tpu_torch/csrc/gram.cu` and `nngp_tpu_torch/csrc/gemm_3xtf32.cu`
+     for sm_90a, linked into one library,
      and g++ the port's native query encoder
      `nngp_tpu_torch/csrc/fastenc.cpp`, all into `.build/` (reused when the
      source hash matches);
@@ -165,28 +166,36 @@ exits nonzero; nothing is caught and retried:
      and gram_sym at a block's diagonal square and gram_cross at the
      largest block panel and a panel_symm_matmul panel against their
      twins, timed;
- 17. precision='high' (`ops/matmul.py`, `csrc/gemm_3xtf32.cu`): (a) the
-     3xTF32 kernel against fp64, its twin and torch.matmul fp32 in all
-     four layouts at M, N, K in (1, 17, 129, 1,000) with alpha / beta
-     (1, 0), (1, 1), (-1, 1) (NaN-filled outputs at beta 0), and at the
-     Nystrom tier's shapes (the 16,384-row panel's psi and C, the ragged
-     tail panel, b, the RPCholesky residual and update, the predict
-     chunk's psi, mean and h = ic^T psi), each within max(1e-5, 2 x
-     torch.matmul fp32's error) of |A| @ |B|; (b)
-     synth6_big 90k / m = 2,048 fp32 at 'high' (3 GEMM launches a panel):
-     q-error within 3% / 5% of NY_ANCHORS['fp32'] (whether it holds the
-     fp32 band is printed), forget(extend) vs the fit (printed), the
-     moments against 'highest', warm fits of both; (c) forest fp32 ntk m = 2,048 'high' vs
-     'highest' within 1% / 3%; (d) RPCholesky at synth6_big m = 2,048 with
-     'high': rank <= m, q-error within 3% / 5% of 'highest''s; (e) a
-     'high' posterior in a synth6 Estimator: every serving bucket's CUDA
-     graph replay (gemm_3xtf32 inside, counted) against the eager predict,
-     extend by 1,000 lines and grow_inducing against refits (1e-6),
-     forget(extend) against the fit (1e-6 with df64 moments; printed with
-     fp32 moments), a checkpoint round trip bit-equal; (f) the kernel's
-     ms a call and on the device at the two panel shapes and the
-     8,192-row predict chunk beside its bound, torch.matmul fp32 and the
-     twin; torch's TF32 switch off at the end.
+ 17. precision='high' (`ops/matmul.py`, `csrc/gemm_3xtf32.cu`, two
+     kernels: the Hopper one (TMA, wgmma) for outputs wider than 16
+     columns whose operands TMA can address, the first design (mma.sync)
+     for the rest): ptxas's registers and spills of both; (a) each route
+     on every case it takes, against fp64, its twin and torch.matmul fp32
+     in all four layouts at M, N, K in (1, 17, 129, 1,000) and, with
+     rows padded to 16 bytes, (1,000, 2,049), with alpha / beta (1, 0),
+     (1, 1), (-1, 1) (NaN-filled outputs at beta 0), and at the Nystrom
+     tier's shapes (the 16,384-row panel's psi and C, the ragged tail
+     panel, b, the RPCholesky residual and update, the predict chunk's
+     psi, mean and h = ic^T psi), each within max(1e-5, 2 x torch.matmul
+     fp32's error) of |A| @ |B|, the wgmma route within torch.matmul's
+     at the panel and predict shapes; (b)
+     synth6_big 90k / m = 2,048 fp32 at 'high' (3 GEMM launches a panel,
+     each product on its route): q-error within 3% / 5% of
+     NY_ANCHORS['fp32'] (whether it holds the fp32 band is printed),
+     forget(extend) vs the fit (printed), the moments against 'highest',
+     warm fits and predict-30k of both; (c) forest fp32 ntk m = 2,048
+     'high' vs 'highest' within 1% / 3%; (d) RPCholesky at synth6_big m =
+     2,048 with 'high' (every product on wgmma): rank <= m, q-error within
+     3% / 5% of 'highest''s; (e) a 'high' posterior in a synth6
+     Estimator: every serving bucket's CUDA graph replay (gemm_3xtf32
+     inside, counted by route) against the eager predict, extend by 1,000
+     lines and grow_inducing against refits (1e-6), forget(extend)
+     against the fit (1e-6 with df64 moments; printed with fp32 moments),
+     a checkpoint round trip bit-equal; (f) both kernels in turns, ms a
+     call and on the device at the two panel shapes, the 8,192-row
+     predict chunk and the RPCholesky residual (the first design alone
+     at the one-column products) beside the bound, torch.matmul fp32 and
+     the twin; torch's TF32 switch off at the end.
 
 Phase 4 also runs the training CLI in fp64 on the synthimdb, synthtpch and
 synthtpcds join workloads against the JAX package's fp64 q-error.
@@ -6115,6 +6124,7 @@ GEMM_SOURCE = "nngp_tpu_torch/csrc/gemm_3xtf32.cu"
 # the first of them, _panel_delta's projection
 GEMM_REPLACES = "nngp_tpu/gp/nystrom.py:101 (XLA dot, Precision.HIGH)"
 GEMM_SIZES = (1, 17, 129, 1000)
+GEMM_RAGGED = (1000, 2049)   # M, N, K with stored rows padded to 16 bytes
 GEMM_AB = ((1.0, 0.0), (1.0, 1.0), (-1.0, 1.0))
 GEMM_LAYOUTS = ((False, False), (True, False), (False, True), (True, True))
 GEMM_FLOOR = 1e-5      # the error bound's floor, relative to |A| @ |B|
@@ -6139,25 +6149,93 @@ GEMM_SHAPES = (
     ("predict h TT", NY_M, CHUNK, NY_M, True, True))
 # q-error band of the 'high' fit around NY_ANCHORS['fp32'] (phase 12's);
 # the fp32 moments' own band NY_TOL['fp32'] is printed beside it
+# timed on both routes; at the first three (the panel's psi = K_pm W and
+# C += psi^T psi, the predict chunk's psi) the wgmma route's error may not
+# exceed torch.matmul fp32's
+GEMM_TIMED = ("panel psi NN", "panel C TN", "predict psi NN",
+              "rpchol residual NT")
+# the one-column products, on the first design's narrow tile alone
+GEMM_TIMED_NARROW = ("panel b TN", "predict mean NN")
 HIGH_TOL = (0.03, 0.05)
 HIGH_NTK_TOL = (0.01, 0.03)   # 'high' vs 'highest', forest ntk
 HIGH_EST_M = 2048
 
 
 def read_gemm():
-    """gemm_3xtf32 runs since the last reset: the wrapper's launches and
-    those that CUDA graph replays ran."""
+    """gemm_3xtf32 runs since the last reset, on both routes: the
+    wrapper's launches and those that CUDA graph replays ran."""
     from nngp_tpu_torch.ops import matmul
 
     return matmul.LAUNCHES["gemm"] + matmul.REPLAYS["gemm"]
 
 
-def gemm_operand(rows, cols, trans, gen, device):
+def read_gemm_routes():
+    """{'wgmma': n, 'mma': n}: gemm_3xtf32 runs since the last reset by
+    route, replays included."""
+    from nngp_tpu_torch.ops import matmul
+
+    return {r: matmul.LAUNCHES[f"gemm_{r}"] + matmul.REPLAYS[f"gemm_{r}"]
+            for r in matmul.ROUTES}
+
+
+def expect_gemm_routes(label, want):
+    """Fail unless the gemm_3xtf32 runs since the last reset took the
+    routes `want` ({'wgmma': n, 'mma': n})."""
+    got = read_gemm_routes()
+    if got != want:
+        raise AssertionError(f"{label}: gemm routes {got}, expected {want}")
+    print(f"  {label}: gemm routes {got}")
+
+
+def count_gemm(total):
+    """Add the gemm_3xtf32 runs since the last reset to `total`: all of
+    them under 'gemm', each route under 'gemm_<route>'."""
+    routes = read_gemm_routes()
+    total["gemm"] += sum(routes.values())
+    for route, n in routes.items():
+        total[f"gemm_{route}"] += n
+
+
+def basis_route(post):
+    """The route of a Nystrom posterior's wide products (the panel's psi =
+    K_pm W and C += psi^T psi, the predict's psi and h = ic^T psi): their
+    operands' rows are k = rank floats long, so TMA addresses them, and
+    the wgmma kernel takes them, when k is a multiple of 4."""
+    return "wgmma" if post.w_solve.shape[1] % 4 == 0 else "mma"
+
+
+def routes_of(post, wide, narrow):
+    """{'wgmma': n, 'mma': n} for `wide` products on basis_route(post) and
+    `narrow` one-column products (b += psi^T y, the mean) on 'mma'."""
+    out = {"wgmma": 0, "mma": narrow}
+    out[basis_route(post)] += wide
+    return out
+
+
+def gemm_operand(rows, cols, trans, gen, device, pad=False):
     """A (rows, cols) fp32 N(0, 1) operand, a transpose view when
-    `trans`."""
+    `trans`; `pad`: a column block of a matrix whose stored rows are
+    padded to a multiple of 4 floats, so that TMA can address it whatever
+    its shape."""
     shape = (cols, rows) if trans else (rows, cols)
-    t = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    width = -(-shape[1] // 4) * 4 if pad else shape[1]
+    t = torch.randn((shape[0], width), generator=gen, device=device,
+                    dtype=torch.float32)[:, :shape[1]]
     return t.mT if trans else t
+
+
+def gemm_routes(a, b):
+    """The routes that take a @ b: 'mma' always, 'wgmma' where
+    `launch_plan` gives it the Hopper kernel."""
+    from nngp_tpu_torch.ops import matmul
+
+    m, k = a.shape
+    n = b.shape[1]
+    tma = all(matmul.tma_stride(*matmul.operand_layout(t, r, c), r, c)
+              is not None for t, r, c in ((a, m, k), (b, k, n)))
+    shape = matmul.launch_plan(m, n, k, 1, tma)[0]
+    return ("wgmma", "mma") if matmul.ROUTE_OF[shape] == "wgmma" \
+        else ("mma",)
 
 
 def gemm_errors(a, b, c0, alpha, beta, outs):
@@ -6170,72 +6248,100 @@ def gemm_errors(a, b, c0, alpha, beta, outs):
     return [float(((o.double() - exact).abs() / scale).max()) for o in outs]
 
 
-def gemm_case(label, m, n, k, ta, tb, alpha, beta, gen, device):
-    """One product through the kernel (into a NaN-filled output when beta
-    is 0, which must not be read), the twin and torch.matmul fp32: their
-    errors against fp64, the bound max(GEMM_FLOOR, 2 x torch.matmul's),
-    and max |kernel - twin|. Raises when the kernel misses the bound."""
-    from nngp_tpu_torch.ops.matmul import matmul_3xtf32, matmul_3xtf32_plain
+def gemm_case(label, m, n, k, ta, tb, alpha, beta, gen, device, pad=False):
+    """One product through each route that takes it (into a NaN-filled
+    output when beta is 0, which must not be read), the twin and
+    torch.matmul fp32: their errors against fp64, the bound
+    max(GEMM_FLOOR, 2 x torch.matmul's), and max |kernel - twin|, by
+    route. Raises when a kernel misses the bound."""
+    from nngp_tpu_torch.ops.matmul import _matmul_on_route, matmul_3xtf32_plain
 
-    a = gemm_operand(m, k, ta, gen, device)
-    b = gemm_operand(k, n, tb, gen, device)
+    a = gemm_operand(m, k, ta, gen, device, pad)
+    b = gemm_operand(k, n, tb, gen, device, pad)
     c0 = torch.randn((m, n), generator=gen, device=device)
-    out = torch.full_like(c0, float("nan")) if beta == 0.0 else c0.clone()
-    got = matmul_3xtf32(a, b, out=out, alpha=alpha, beta=beta)
+    routes = gemm_routes(a, b)
+    got = {}
+    for route in routes:
+        out = torch.full_like(c0, float("nan")) if beta == 0.0 \
+            else c0.clone()
+        got[route] = _matmul_on_route(a, b, out, alpha, beta, route)
+        if got[route] is not out:
+            raise AssertionError(f"gemm_3xtf32 {label} ({route}): the "
+                                 "output was not written in place")
     plain = matmul_3xtf32_plain(a, b, out=c0.clone(), alpha=alpha, beta=beta)
     lib = alpha * (a @ b) + beta * c0
     torch.cuda.synchronize()
-    if got is not out or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"gemm_3xtf32 {label}: not every element "
-                             "written, or not finite")
-    err, plain_err, lib_err = gemm_errors(a, b, c0, alpha, beta,
-                                          (got, plain, lib))
+    errs = gemm_errors(a, b, c0, alpha, beta,
+                       (*got.values(), plain, lib))
+    plain_err, lib_err = errs[-2:]
     bound = max(GEMM_FLOOR, 2.0 * lib_err)
-    if not err <= bound:
-        raise AssertionError(
-            f"gemm_3xtf32 {label} (alpha {alpha}, beta {beta}): error "
-            f"{err!r} > {bound!r} (twin {plain_err!r}, torch.matmul fp32 "
-            f"{lib_err!r})")
-    return {"err": err, "plain_err": plain_err, "lib_err": lib_err,
-            "bound": bound,
-            "max_abs_diff": float((got - plain).abs().max())}
+    out = {}
+    for route, err in zip(routes, errs):
+        if not bool(torch.isfinite(got[route]).all()):
+            raise AssertionError(f"gemm_3xtf32 {label} ({route}): not every "
+                                 "element written, or not finite")
+        if not err <= bound:
+            raise AssertionError(
+                f"gemm_3xtf32 {label} ({route}, alpha {alpha}, beta {beta}): "
+                f"error {err!r} > {bound!r} (twin {plain_err!r}, "
+                f"torch.matmul fp32 {lib_err!r})")
+        out[route] = {"err": err, "plain_err": plain_err, "lib_err": lib_err,
+                      "bound": bound,
+                      "max_abs_diff": float((got[route] - plain).abs().max())}
+    return out
 
 
 def check_gemm(device):
-    """(a) The 3xTF32 kernel against fp64, its twin and torch.matmul fp32:
-    every layout (NN, TN, NT, TT) at M, N, K in GEMM_SIZES with each alpha
-    / beta of GEMM_AB, and the Nystrom tier's own shapes (GEMM_SHAPES).
-    Returns the per-shape figures."""
+    """(a) Both kernels against fp64, the twin and torch.matmul fp32, each
+    on every case its route takes: every layout (NN, TN, NT, TT) at M, N,
+    K in GEMM_SIZES and, with stored rows padded to 16 bytes (the wgmma
+    route's ragged edges), in GEMM_RAGGED, with each alpha / beta of
+    GEMM_AB; and the Nystrom tier's own shapes (GEMM_SHAPES). At the
+    first three shapes of GEMM_TIMED the wgmma route's error may not
+    exceed torch.matmul fp32's. Returns the per-shape figures by route."""
     gen = torch.Generator(device=device).manual_seed(17)
-    worst = {"err": 0.0}
-    cases = 0
-    for m in GEMM_SIZES:
-        for n in GEMM_SIZES:
-            for k in GEMM_SIZES:
-                for ta, tb in GEMM_LAYOUTS:
-                    for alpha, beta in GEMM_AB:
-                        r = gemm_case(f"{m}x{n}x{k}", m, n, k, ta, tb,
-                                      alpha, beta, gen, device)
-                        cases += 1
-                        if r["err"] / r["bound"] > worst["err"]:
-                            worst = dict(r, err=r["err"] / r["bound"],
-                                         shape=(m, n, k, ta, tb, alpha,
-                                                beta))
-    print(f"  (a) gemm_3xtf32: {cases} small cases (M, N, K in "
-          f"{GEMM_SIZES}, 4 layouts, alpha/beta {GEMM_AB}) within their "
-          f"bounds; the closest at {worst['shape']}: error / bound "
-          f"{worst['err']!r}")
+    worst, cases = {}, {}
+
+    def small(sizes, pad):
+        for m in sizes:
+            for n in sizes:
+                for k in sizes:
+                    for ta, tb in GEMM_LAYOUTS:
+                        for alpha, beta in GEMM_AB:
+                            rows = gemm_case(f"{m}x{n}x{k}", m, n, k, ta, tb,
+                                             alpha, beta, gen, device, pad)
+                            for route, r in rows.items():
+                                cases[route] = cases.get(route, 0) + 1
+                                rel = r["err"] / r["bound"]
+                                if rel > worst.get(route, (0.0,))[0]:
+                                    worst[route] = (rel, (m, n, k, ta, tb,
+                                                          alpha, beta, pad))
+
+    small(GEMM_SIZES, False)
+    small(GEMM_RAGGED, True)
+    print(f"  (a) gemm_3xtf32: small cases (M, N, K in {GEMM_SIZES}; "
+          f"{GEMM_RAGGED} padded; 4 layouts, alpha/beta {GEMM_AB}) within "
+          f"their bounds, by route {cases}; the closest, error / bound: "
+          + json.dumps({r: {"shape": str(w[1]), "error_over_bound": w[0]}
+                        for r, w in worst.items()}))
     rows = {}
     for label, m, n, k, ta, tb in GEMM_SHAPES:
         for alpha, beta in GEMM_AB:
-            r = gemm_case(label, m, n, k, ta, tb, alpha, beta, gen, device)
-            print(f"  (a) gemm_3xtf32 {label} ({m} x {k}) @ ({k} x {n}), "
-                  f"alpha {alpha}, beta {beta}: error vs fp64 / (|A||B| + "
-                  f"|beta C|) kernel {r['err']!r}, twin {r['plain_err']!r}, "
-                  f"torch.matmul fp32 {r['lib_err']!r}, bound "
-                  f"{r['bound']!r}; max|kernel - twin| "
-                  f"{r['max_abs_diff']!r}")
-            rows.setdefault(label, r)
+            by_route = gemm_case(label, m, n, k, ta, tb, alpha, beta, gen,
+                                 device)
+            for route, r in by_route.items():
+                print(f"  (a) gemm_3xtf32 {route} {label} ({m} x {k}) @ "
+                      f"({k} x {n}), alpha {alpha}, beta {beta}: error vs "
+                      f"fp64 / (|A||B| + |beta C|) kernel {r['err']!r}, twin "
+                      f"{r['plain_err']!r}, torch.matmul fp32 "
+                      f"{r['lib_err']!r}, bound {r['bound']!r}; "
+                      f"max|kernel - twin| {r['max_abs_diff']!r}")
+                if (route == "wgmma" and label in GEMM_TIMED[:3]
+                        and not r["err"] <= r["lib_err"]):
+                    raise AssertionError(
+                        f"gemm_3xtf32 wgmma {label}: error {r['err']!r} above "
+                        f"torch.matmul fp32's {r['lib_err']!r}")
+                rows.setdefault(route, {}).setdefault(label, r)
         torch.cuda.empty_cache()
     return rows
 
@@ -6252,66 +6358,128 @@ def gemm_bound(m, n, k, beta):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def gemm_device_ms(fn, reps=10):
-    """gemm_3xtf32's own device ms a call (torch.profiler's CUDA records of
-    the kernel; the wrapper's workspace fill left out)."""
-    from torch.profiler import ProfilerActivity, profile
+GEMM_KERNEL_NAMES = {"wgmma": "gemm_3xtf32_wgmma_kernel",
+                     "mma": "gemm_3xtf32_kernel"}
+GEMM_TRACE_ATTEMPTS = 5
 
+
+def gemm_device_ms(fn, route, reps=10):
+    """The route's kernel's own device ms a call (torch.profiler's CUDA
+    records of it; the wrapper's workspace fill left out) and where the
+    number came from. Each profiler session runs one untraced step first
+    (a session's first records can be lost). The profiler has returned no
+    record of a GEMM kernel in GEMM_TRACE_ATTEMPTS sessions in a row, once,
+    deep in a whole run on an H100: then the call's CUDA-event ms, wrapper
+    included, stands in and the row says so."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    name = GEMM_KERNEL_NAMES[route]
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+    for attempt in range(GEMM_TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         total = sum(e.device_time_total for e in prof.key_averages()
-                    if "gemm_3xtf32_kernel" in e.key)
+                    if name in e.key)
         if total:
-            return total / 1e3 / reps
-    raise AssertionError("the profiler recorded no gemm_3xtf32 kernel")
+            return total / 1e3 / reps, "profiler"
+        print(f"  the profiler recorded no {name} (session {attempt + 1} "
+              f"of {GEMM_TRACE_ATTEMPTS})")
+    return _event_ms(fn, reps), "cuda events"
 
 
 def time_gemm(device):
-    """(f) ms a call (CUDA events, plain / kernel / kernel / plain) and on
-    the device, the bound, torch.matmul fp32 (the library call the port
-    never makes under 'high') and the twin, at the two panel shapes and the
-    8,192-row predict chunk."""
-    from nngp_tpu_torch.ops.matmul import matmul_3xtf32, matmul_3xtf32_plain
+    """(f) Each route that takes them at the shapes of GEMM_TIMED (both
+    routes, in turns mma / wgmma / wgmma / mma) and of GEMM_TIMED_NARROW
+    (the first design alone): ms a call (CUDA events) and on the device,
+    the bound and share, torch.matmul fp32 (the library call the port
+    never makes under 'high') and the twin. Returns {route: {label:
+    row}}."""
+    from nngp_tpu_torch.ops.matmul import _matmul_on_route, matmul_3xtf32_plain
 
     gen = torch.Generator(device=device).manual_seed(23)
-    out = {}
-    timed_shapes = ("panel psi NN", "panel C TN", "predict psi NN")
-    for label, m, n, k, ta, tb in (s for s in GEMM_SHAPES
-                                   if s[0] in timed_shapes):
+    out = {"wgmma": {}, "mma": {}}
+    for label, m, n, k, ta, tb in (s for s in GEMM_SHAPES if s[0] in
+                                   GEMM_TIMED + GEMM_TIMED_NARROW):
         a = gemm_operand(m, k, ta, gen, device)
         b = gemm_operand(k, n, tb, gen, device)
         c = torch.empty((m, n), device=device)
-        k_ms, p_ms = paired_ms(lambda: matmul_3xtf32(a, b, out=c),
-                               lambda: matmul_3xtf32_plain(a, b), reps=5)
-        row = {"ms": k_ms,
-               "device_ms": gemm_device_ms(lambda: matmul_3xtf32(a, b,
-                                                                 out=c)),
-               "plain_ms": p_ms,
-               "library_ms": _event_ms(lambda: torch.matmul(a, b, out=c),
-                                       10)}
-        row["bound_ms"], row["bound_by"] = gemm_bound(m, n, k, 0.0)
-        row["share"] = row["bound_ms"] / row["device_ms"]
-        row["tflops"] = 2.0 * m * n * k / row["device_ms"] / 1e9
-        print(f"time gemm_3xtf32 {label} ({m} x {k}) @ ({k} x {n}): "
-              + json.dumps(row))
-        out[label] = row
+
+        def on(route):
+            return lambda: _matmul_on_route(a, b, c, 1.0, 0.0, route)
+
+        if gemm_routes(a, b) == ("wgmma", "mma"):
+            # mma, wgmma, wgmma, mma
+            wgmma_ms, mma_ms = paired_ms(on("wgmma"), on("mma"), reps=5)
+            ms = {"wgmma": wgmma_ms, "mma": mma_ms}
+        else:
+            on("mma")()
+            ms = {"mma": _event_ms(on("mma"), 10)}
+        plain_ms = _event_ms(lambda: matmul_3xtf32_plain(a, b), 3)
+        lib_ms = _event_ms(lambda: torch.matmul(a, b, out=c), 10)
+        bound_ms, bound_by = gemm_bound(m, n, k, 0.0)
+        for route, t in ms.items():
+            device_ms, device_ms_by = gemm_device_ms(on(route), route)
+            row = {"ms": t, "device_ms": device_ms,
+                   "device_ms_by": device_ms_by,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            row["share"] = bound_ms / row["device_ms"]
+            row["tflops"] = 2.0 * m * n * k / row["device_ms"] / 1e9
+            print(f"time gemm_3xtf32 {route} {label} ({m} x {k}) @ ({k} x "
+                  f"{n}): " + json.dumps(row))
+            out[route][label] = row
         del a, b, c
         torch.cuda.empty_cache()
+    return out
+
+
+def gemm_ptxas():
+    """ptxas's registers, spills and shared memory of both GEMM kernels,
+    one line a kernel, from the build's log, printed once."""
+    from nngp_tpu_torch.ops import _build
+
+    _build.load_library()
+    lines = _build.ptxas_report("gemm_3xtf32")
+    out = []
+    for i, line in enumerate(lines):
+        if "Function properties for" not in line:
+            continue
+        wgmma = re.search(r"wgmma_kernelILi(\d+)ELb(\d)ELb(\d)E", line)
+        mma = re.search(r"3xtf32_kernelILi(\d+)ELi(\d+)E.*?Lb(\d)ELb(\d)E",
+                        line)
+        if wgmma:
+            name = "wgmma 128 x {} tile, A{}, B{}".format(
+                wgmma[1], " transposed" * int(wgmma[2]),
+                " transposed" * int(wgmma[3]))
+        elif mma:
+            name = "mma {} x {} tile, A{}, B{}".format(
+                mma[1], mma[2], " transposed" * int(mma[3]),
+                " transposed" * int(mma[4]))
+        else:
+            continue
+        spills = lines[i + 1].strip() if i + 1 < len(lines) else ""
+        used = lines[i + 2].split(": ", 1)[-1] if i + 2 < len(lines) else ""
+        out.append(f"{name}: {spills}; {used}")
+    advisories = sorted({line.strip() for line in lines if "(C75" in line})
+    print("ptxas, gemm_3xtf32 kernels:\n  " + "\n  ".join(out + advisories))
     return out
 
 
 def high_fit(total, device, big):
     """(b) synth6_big 90k / m = 2,048 fp32 nngp, phase 8's protocol at
     precision='high': fit on 89,000 (3 GEMM launches a panel), extend by
-    1,000, forget, predict-30k in 8,192-row chunks; the q-error in
-    HIGH_TOL of the JAX CPU anchor, and whether it also holds NY_TOL; the
-    moments against 'highest', both predictions against the same model in
-    fp64; warm fit ms of both."""
+    1,000, forget, predict-30k in 8,192-row chunks, each product on its
+    route; the q-error in HIGH_TOL of the JAX CPU anchor, and whether it
+    also holds NY_TOL; the moments against 'highest', both predictions
+    against the same model in fp64; warm fit and predict-30k ms of
+    both."""
     from nngp_tpu_torch.gp import fit_nystrom
     from nngp_tpu_torch.gp import nystrom as TN
     from nngp_tpu_torch.models.kernel_spec import reference_kernel
@@ -6340,6 +6508,11 @@ def high_fit(total, device, big):
     if fit_gemm != 3 * n_panels:
         raise AssertionError(f"'high' fit: {fit_gemm} gemm launches, "
                              f"expected {3 * n_panels}")
+    print(f"  (b) rank k = {post.w_solve.shape[1]}: the wide products take "
+          f"the {basis_route(post)} route")
+    expect_gemm_routes(f"90k 'high' fit ({n_panels} panels: psi, C wide; "
+                       "b narrow)", routes_of(post, 2 * n_panels, n_panels))
+    count_gemm(total)
     reset_launches()
     ext = post.extend(xe, ye)
     back = ext.forget(xe, ye)
@@ -6352,6 +6525,10 @@ def high_fit(total, device, big):
     if path_gemm != 3 + 3 + 3 * chunks:
         raise AssertionError(f"'high' extend + forget + predict: "
                              f"{path_gemm} gemm launches")
+    expect_gemm_routes(f"90k 'high' extend + forget + predict ({chunks} "
+                       "chunks: psi, h wide; mean narrow)",
+                       routes_of(post, 4 + 2 * chunks, 2 + chunks))
+    count_gemm(total)
     if not (np.all(np.isfinite(mean)) and np.all(np.isfinite(std))
             and np.all(std >= 0)):
         raise AssertionError("'high' 90k: predictions not finite")
@@ -6382,6 +6559,12 @@ def high_fit(total, device, big):
             x_te)[0], highest.predict_mean_std_chunked(x_te)[0])}
     times = {"high_fit_ms": host_ms(lambda: fit("high"), reps=3),
              "highest_fit_ms": host_ms(lambda: fit("highest"), reps=3),
+             "high_predict_30k_ms": host_ms(
+                 lambda: ext.predict_mean_std_chunked(x_te, chunk=CHUNK),
+                 reps=3),
+             "highest_predict_30k_ms": host_ms(
+                 lambda: h_ext.predict_mean_std_chunked(x_te, chunk=CHUNK),
+                 reps=3),
              "gemm_launches_per_fit": fit_gemm,
              "median": med, "p95": p95, "holds_fp32_band": tight,
              "moments_rel_vs_highest": rel,
@@ -6390,7 +6573,6 @@ def high_fit(total, device, big):
              "forget_extend_vs_fit": forget_rel}
     print(f"  (b) 90k 'high': holds the fp32 moments' band "
           f"{NY_TOL['fp32']}: {tight}; " + json.dumps(times))
-    total["gemm"] += fit_gemm + path_gemm
     del post, ext, back, highest, h_ext, d64
     torch.cuda.empty_cache()
     return times
@@ -6418,7 +6600,10 @@ def high_ntk_forest(total, device):
         if (precision == "high") != (gemm > 0):
             raise AssertionError(f"forest ntk {precision}: {gemm} gemm "
                                  "launches")
-        total["gemm"] += gemm
+        if precision == "high":
+            print(f"  (c) forest ntk 'high': gemm routes "
+                  f"{read_gemm_routes()}")
+        count_gemm(total)
         if not np.all(np.isfinite(std)):
             raise AssertionError(f"forest ntk {precision}: std not finite")
         q[precision] = qerror(mean, yv)
@@ -6460,11 +6645,19 @@ def high_rpchol(total, device, big):
             if gemm != (2 * rounds if precision == "high" else 0):
                 raise AssertionError(f"rpchol {precision}: {gemm} gemm "
                                      f"launches in {rounds} rounds")
+            # the residual and the update: F and its gathered rows are
+            # m + 64 floats wide, the update 64: both on wgmma (n64 tiles)
+            expect_gemm_routes(f"rpchol {precision} seed {seed} ({rounds} "
+                               "rounds)",
+                               {"wgmma": gemm, "mma": 0})
+            count_gemm(total)
+            reset_launches()
             post = fit_nystrom(spec, x_tr, y_tr, num_inducing=RPCHOL_BIG_M,
                                inducing_rows=x_tr[idx], precision=precision,
                                device=device)
             mean, std = post.predict_mean_std_chunked(x_te, chunk=CHUNK)
-            launches.append(read_gemm())
+            launches.append(gemm + read_gemm())
+            count_gemm(total)
             if not (np.all(np.isfinite(std)) and post.rank <= RPCHOL_BIG_M
                     and len(idx) <= RPCHOL_BIG_M):
                 raise AssertionError(f"rpchol {precision} seed {seed}: "
@@ -6478,8 +6671,6 @@ def high_rpchol(total, device, big):
                           "p95": float(q[:, 1].mean()),
                           "p95_sd": float(q[:, 1].std()),
                           "select_s": secs, "gemm_launches": launches}
-        if precision == "high":
-            total["gemm"] += sum(launches)
     shared = [len(np.intersect1d(picked["high", s], picked["highest", s]))
               for s in range(RPCHOL_SEEDS)]
     print(f"  (d) rpchol synth6_big m={RPCHOL_BIG_M}, seeds 0-"
@@ -6511,15 +6702,24 @@ def high_graphs(est, post, x_pool, device):
     if buckets != GRAPH_BUCKETS or min(tallies) < 3:
         raise AssertionError(f"'high' warmup: buckets {buckets}, gemm a "
                              f"replay {tallies}")
+    # a replay's psi and h (h's width is the bucket) on the basis' route,
+    # the mean on mma
+    routes = {f"gemm_{r}": n for r, n in routes_of(post, 2, 1).items()}
+    for b in buckets:
+        got = {key: graphs._buckets[b].counts[key] for key in routes}
+        if got != routes:
+            raise AssertionError(f"'high' bucket {b}: gemm routes a replay "
+                                 f"{got}, expected {routes}")
     rel = {}
     for b in GRAPH_BUCKETS:
         xb = rows_of(x_pool, b)
-        before = matmul.REPLAYS["gemm"]
+        before = dict(matmul.REPLAYS)
         got = est._bucketed_predict(xb)
-        if (matmul.REPLAYS["gemm"] - before
-                != graphs._buckets[b].counts["gemm"]):
+        if any(matmul.REPLAYS[key] - before[key]
+               != graphs._buckets[b].counts[key]
+               for key in ("gemm", *routes)):
             raise AssertionError(f"'high' bucket {b}: the replay's gemm "
-                                 "launches were not counted")
+                                 "launches were not counted by route")
         m, s = post.predict_mean_std(torch.as_tensor(xb, device=device))
         want = (m.reshape(-1).cpu().numpy(), s.reshape(-1).cpu().numpy())
         same = all(np.array_equal(g, w) for g, w in zip(got, want))
@@ -6529,7 +6729,7 @@ def high_graphs(est, post, x_pool, device):
             raise AssertionError(f"'high' bucket {b}: replay vs eager "
                                  f"{rel[b]}")
     print(f"  (e) 'high' Estimator: {len(buckets)} buckets, gemm launches "
-          f"a replay {tallies}; replay vs eager (0 = bit-equal) "
+          f"a replay {tallies} ({routes}); replay vs eager (0 = bit-equal) "
           f"{json.dumps(rel)}")
     return rel, tallies
 
@@ -6578,19 +6778,24 @@ def high_estimator(total, device, tmp):
 
     est.posterior = refit(x, y)
     post = est.posterior
+    reset_launches()
     rel, tallies = high_graphs(est, post, x_test, device)
-    total["gemm"] += sum(tallies)
+    count_gemm(total)
     mean0 = est.predict(test)[0]
     print(f"  (e) 'high' Estimator synth6 fp32 m={HIGH_EST_M}: q-error "
           f"{qerror(mean0, test_y)!r}")
     reset_launches()
     est.extend_with_lines(new)
     ext_gemm = read_gemm()
-    total["gemm"] += ext_gemm
-    if est.posterior.precision != "high" or ext_gemm < 3:
+    if (est.posterior.precision != "high" or ext_gemm < 3
+            or ext_gemm % 3):
         raise AssertionError(f"'high' extend: precision "
                              f"{est.posterior.precision}, {ext_gemm} gemm "
                              "launches")
+    # a panel (psi, C; b) or a predict (psi, h; mean): two wide, one narrow
+    expect_gemm_routes("'high' Estimator extend-1000",
+                       routes_of(post, 2 * ext_gemm // 3, ext_gemm // 3))
+    count_gemm(total)
     same_means("'high' Estimator extend-1000 vs refit (the same panels)",
                est.predict(test)[0],
                means(refit(np.concatenate([x, xn]), np.concatenate([y, yn]),
@@ -6631,11 +6836,13 @@ def high_estimator(total, device, tmp):
 
 
 def high_slice(card, total, device, big):
-    """Phase 17: precision='high' on the 3xTF32 GEMM. Returns the kernel's
-    summary figures."""
+    """Phase 17: precision='high' on the 3xTF32 GEMM. Returns each route's
+    summary figures ({'wgmma': row, 'mma': row})."""
     import tempfile
 
-    total["gemm"] = 0
+    gemm_ptxas()
+    for key in ("gemm", "gemm_wgmma", "gemm_mma"):
+        total[key] = 0
     rows = check_gemm(device)
     fit = high_fit(total, device, big)
     ntk = high_ntk_forest(total, device)
@@ -6647,12 +6854,14 @@ def high_slice(card, total, device, big):
         raise AssertionError("allow_tf32 is on after phase 17")
     print(f"precision='high' on {card}: " + json.dumps(
         {"fit": fit, "ntk_forest": ntk, "rpchol": rp, "estimator": est}))
-    panel = times[GEMM_SHAPES[0][0]]
-    return dict(panel, max_abs_err=rows[GEMM_SHAPES[0][0]]["max_abs_diff"],
-                errors={k: {f: r[f] for f in ("err", "plain_err", "lib_err",
-                                              "bound")}
-                        for k, r in rows.items()},
-                shapes=times)
+    panel = GEMM_SHAPES[0][0]
+    return {route: dict(
+        times[route][panel],
+        max_abs_err=rows[route][panel]["max_abs_diff"],
+        errors={k: {f: r[f] for f in ("err", "plain_err", "lib_err",
+                                      "bound")}
+                for k, r in rows[route].items()},
+        shapes=times[route]) for route in ("wgmma", "mma")}
 
 
 def main():
@@ -6758,19 +6967,22 @@ def main():
                                    "eager_gram_ms", "replay_gram_ms")}
                 for r in stable[label]["timings"]]
         for label in ("fp32", "fp64")}
-    # the 3xTF32 GEMM of precision='high' (phase 17): launches on its
-    # paths, the figures at the panel's psi = K_pm W (16,384 x 2,048 x
-    # 2,048), its other shapes beside them
-    summary["kernels"].append(
-        {"name": "gemm_3xtf32", "route": "cuda", "source": GEMM_SOURCE,
-         "replaces": GEMM_REPLACES, "launches": launches["gemm"], **gemm,
-         "library": "torch.matmul(a, b) fp32 (cuBLAS, full IEEE): the same "
-                    "function at another precision; never called under "
-                    "'high'"})
+    # the 3xTF32 GEMM of precision='high' (phase 17), one row a kernel:
+    # launches on its paths, the figures at the panel's psi = K_pm W
+    # (16,384 x 2,048 x 2,048), its other shapes beside them
+    for kernel, route in (("gemm_3xtf32_wgmma", "wgmma"),
+                          ("gemm_3xtf32", "mma")):
+        summary["kernels"].append(
+            {"name": kernel, "route": "cuda", "source": GEMM_SOURCE,
+             "replaces": GEMM_REPLACES, "launches": launches[f"gemm_{route}"],
+             **gemm[route],
+             "library": "torch.matmul(a, b) fp32 (cuBLAS, full IEEE): the "
+                        "same function at another precision; never called "
+                        "under 'high'"})
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

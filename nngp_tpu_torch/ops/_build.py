@@ -1,16 +1,19 @@
 """Build and load the CUDA kernels: the Gram kernels (`csrc/gram.cu`) and
-the 3xTF32 GEMM (`csrc/gemm_3xtf32.cu`).
+the 3xTF32 GEMMs (`csrc/gemm_3xtf32.cu`).
 
-Both sources are compiled by one nvcc call with one set of flags into one
-shared library with a plain C interface, loaded with ctypes: no PyTorch
-headers, so a build takes seconds. -fmad=false is there for gram.cu's
+Each source is compiled by its own nvcc, all started together, with one
+set of flags, and one link puts them into one shared library with a plain
+C interface, loaded with ctypes: no PyTorch headers, so a build takes
+seconds. -fmad=false is there for gram.cu's
 epilogue, which rounds operation by operation as its plain twin does; in
 the GEMM it touches only the fp32 epilogue (alpha * acc + beta * C), whose
 unfused form is its twin's. The library is cached under
 `.build/nngp_tpu_torch/` keyed by a hash of both sources and the flags, so
 it is rebuilt whenever any of them changes. A build writes to a temporary
 path and renames it into place, so a killed nvcc never leaves a
-half-written library behind.
+half-written library behind. `-Xptxas=-v` makes ptxas report each
+kernel's registers, spills and shared memory; the build keeps that report
+beside the library (`ptxas_report`).
 
 There is no fallback: if nvcc is missing or the build fails, `load_library`
 raises with nvcc's stderr.
@@ -31,7 +34,7 @@ SOURCES = (SOURCE, GEMM_SOURCE)
 BUILD_DIR = os.path.join(_REPO_ROOT, ".build", "nngp_tpu_torch")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _SYM_ARGTYPES = [
     ctypes.c_void_p,                                  # x
@@ -63,6 +66,19 @@ _GEMM_ARGTYPES = [
     ctypes.c_float,                                    # beta
     ctypes.c_void_p, ctypes.c_longlong,                # c, ldc
     ctypes.c_int, ctypes.c_int, ctypes.c_int,          # tiles, splits, k_split
+    ctypes.c_void_p, ctypes.c_void_p,                  # work, counters
+    ctypes.c_void_p,                                   # stream
+]
+_WGMMA_ARGTYPES = [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # trans_a, trans_b, n64
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # m, n, k
+    ctypes.c_float,                                    # alpha
+    ctypes.c_void_p, ctypes.c_longlong,                # a, lda
+    ctypes.c_void_p, ctypes.c_longlong,                # b, ldb
+    ctypes.c_float,                                    # beta
+    ctypes.c_void_p, ctypes.c_longlong,                # c, ldc
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # tiles, splits, k_split
+    ctypes.c_int,                                      # blocks
     ctypes.c_void_p, ctypes.c_void_p,                  # work, counters
     ctypes.c_void_p,                                   # stream
 ]
@@ -100,24 +116,68 @@ def is_built() -> bool:
 
 
 def build() -> str:
-    """Compile the library if the cached one is missing; return its path."""
+    """Compile the library if the cached one is missing; return its path.
+    One nvcc a source, all started together, then one link."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+    procs = []
     try:
+        for obj, source in zip(objs, SOURCES):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, source]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        log = []
+        for cmd, proc in procs:
+            _, err = proc.communicate(timeout=600)
+            log.append(err)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}"
+                    f"\n{err}")
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stderr}")
+        with open(f"{so}.log", "w") as f:
+            f.write("".join(log))
         os.replace(tmp, so)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (tmp, *objs):
+            if os.path.exists(path):
+                os.unlink(path)
     return so
+
+
+def ptxas_report(kernel: str):
+    """ptxas's lines (registers, spills, shared memory, warnings) about the
+    kernels whose names contain `kernel`, from the cached library's build
+    log."""
+    path = f"{library_path()}.log"
+    if not os.path.exists(path):
+        return []
+    out, keep = [], False
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip()
+            if kernel in line:
+                keep = True
+            elif not (line.startswith(" ") or ": Used " in line):
+                keep = False
+            if keep:
+                out.append(line)
+    return out
 
 
 def load_library() -> ctypes.CDLL:
@@ -133,6 +193,7 @@ def load_library() -> ctypes.CDLL:
                                    ("gram_cross_f32", _CROSS_ARGTYPES),
                                    ("gram_cross_f64", _CROSS_ARGTYPES),
                                    ("gemm_3xtf32", _GEMM_ARGTYPES),
+                                   ("gemm_3xtf32_wgmma", _WGMMA_ARGTYPES),
                                    ("gemm_3xtf32_setup", [])):
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

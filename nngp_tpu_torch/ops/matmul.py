@@ -1,4 +1,4 @@
-"""The 3xTF32 tensor-core GEMM (`csrc/gemm_3xtf32.cu`) and `mm`, the one
+"""The 3xTF32 tensor-core GEMMs (`csrc/gemm_3xtf32.cu`) and `mm`, the one
 dispatch of the Nystrom tier's products.
 
     C = alpha * a @ b + beta * C        (fp32)
@@ -16,38 +16,54 @@ with ~3 * 2^-22 of |a b| per product, against bf16_3x's ~2^-16. The TF32
 lives in the kernel's instructions: `torch.backends.cuda.matmul.allow_tf32`
 stays False, as `utils/device.py` sets it.
 
-`matmul_3xtf32` launches the kernel for CUDA tensors (or raises: there is
-no fallback to cuBLAS) and runs its plain twin `matmul_3xtf32_plain` for
-CPU tensors. The twin splits the operands with `tf32_split`, a bit-exact
-emulation of `cvt.rna.tf32.f32` on the int32 view, and sums the three
-products of fp32 `torch.matmul` (whose products of TF32 parts are exact),
-small terms first. It does not reproduce the kernel's summation order.
+`matmul_3xtf32` launches one of the file's two kernels for CUDA tensors (or
+raises: there is no fallback to cuBLAS) and runs its plain twin
+`matmul_3xtf32_plain` for CPU tensors. The route is decided from the shape
+and the layout before the launch (`launch_plan`): 'wgmma', the Hopper
+design (TMA, a producer warp, wgmma), for outputs wider than NARROW_MAX_N
+columns whose operands TMA can address (`tma_stride`); 'mma', the first
+design (mma.sync), for narrower outputs and for operands TMA cannot
+address. A launch error on either route raises. The twin splits the
+operands with `tf32_split`, a bit-exact emulation of `cvt.rna.tf32.f32` on
+the int32 view, and sums the three products of fp32 `torch.matmul` (whose
+products of TF32 parts are exact), small terms first. It does not
+reproduce the kernels' summation order.
 
 `LAUNCHES` counts kernel launches, as `ops.gram_cuda.LAUNCHES` does for
-the Gram kernels, under the key 'gemm'. A launch made while a CUDA graph is
-built counts into the graph's own tally (`ops.gram_cuda.counting_into`),
+the Gram kernels: every launch under the key 'gemm', and under
+'gemm_wgmma' or 'gemm_mma' by its route. A launch made while a CUDA graph
+is built counts into the graph's own tally (`ops.gram_cuda.counting_into`),
 and `REPLAYS` counts the launches that replays of such graphs ran
 (`serve/graphs.py`).
 
 The launch logic is plain Python, tested on the CPU: `operand_layout` reads
 an operand's layout (row-major or transposed), row stride and whether its
 tiles can be copied 16 bytes at a time from its strides and address;
-`output_stride` checks the output; `launch_plan` picks the tile shape and
-splits K over the SMs when the output has too few tiles to fill them.
+`tma_stride` whether TMA can address it, and with which row stride;
+`output_stride` checks the output; `launch_plan` picks the route and tile
+shape and splits K over the SMs when the output has too few tiles to fill
+them.
 """
 
 import torch
 
 from nngp_tpu_torch.ops import gram_cuda
 
-LAUNCHES = {"gemm": 0}
+ROUTES = ("wgmma", "mma")
+LAUNCHES = {"gemm": 0, "gemm_wgmma": 0, "gemm_mma": 0}
 # kernel runs by replays of captured CUDA graphs (serve/graphs.py)
-REPLAYS = {"gemm": 0}
+REPLAYS = dict.fromkeys(LAUNCHES, 0)
 
-BK = 32                       # the kernel's K-step
-# tile shape (rows, columns) -> the kernel's wide and narrow block tiles
-TILES = {"wide": (128, 64), "narrow": (128, 16)}
+BK = 32                       # the kernels' K-step
+# tile shape -> (rows, columns) of its block tile, and its route: the
+# Hopper kernel's 128 x 128 and 128 x 64 tiles, the first design's wide
+# and narrow ones
+TILES = {"wgmma": (128, 128), "wgmma_n64": (128, 64), "wide": (128, 64),
+         "narrow": (128, 16)}
+ROUTE_OF = {"wgmma": "wgmma", "wgmma_n64": "wgmma", "wide": "mma",
+            "narrow": "mma"}
 NARROW_MAX_N = 16             # outputs this narrow take the narrow tile
+N64_MAX_N = 64                # wgmma outputs this narrow take 128 x 64
 MIN_SPLIT_STEPS = 8           # K-steps a split runs at least
 PRECISIONS = ("highest", "high")
 _INT32_MAX = 2 ** 31 - 1
@@ -128,6 +144,21 @@ def operand_layout(t: torch.Tensor, rows: int, cols: int):
     return best
 
 
+def tma_stride(trans: bool, ld: int, vec: bool, rows: int, cols: int):
+    """The row stride (in elements) to give TMA for a logical (rows, cols)
+    operand read with `operand_layout`'s (trans, ld, vec), or None when TMA
+    cannot address it: its base must be 16-byte aligned and its stored rows
+    a multiple of 16 bytes apart and not overlapping (at least as far apart
+    as a stored row is long). An operand with one stored row has no row
+    stride of its own: it gets the first multiple of 4 at least that long."""
+    stored_rows, stored_cols = (cols, rows) if trans else (rows, cols)
+    if not vec:
+        return None
+    if stored_rows == 1:
+        return -(-stored_cols // 4) * 4
+    return ld if ld >= stored_cols else None
+
+
 def output_stride(out: torch.Tensor, m: int, n: int) -> int:
     """The row stride of an (m, n) output whose columns are contiguous and
     whose rows do not overlap; raises otherwise."""
@@ -139,12 +170,22 @@ def output_stride(out: torch.Tensor, m: int, n: int) -> int:
     return s0 if m > 1 else n
 
 
-def launch_plan(m: int, n: int, k: int, sms: int):
+def launch_plan(m: int, n: int, k: int, sms: int, tma: bool = False):
     """(tile shape, output tiles, K splits, K range of a split) of one
-    launch: the narrow tile for outputs at most NARROW_MAX_N columns wide;
-    when the tiles are fewer than the SMs, K is split so that about two
-    blocks a SM run, each split at least MIN_SPLIT_STEPS K-steps long."""
-    shape = "narrow" if n <= NARROW_MAX_N else "wide"
+    launch; `ROUTE_OF[shape]` is its kernel. `tma`: TMA can address both
+    operands. The Hopper kernel ('wgmma', 128 x 128 tiles; 'wgmma_n64' for
+    outputs at most N64_MAX_N columns wide) takes outputs wider than
+    NARROW_MAX_N columns when `tma` and K is not empty; the first design
+    takes the rest, in its narrow tile for outputs at most NARROW_MAX_N
+    columns wide. When the tiles are fewer than the SMs, K is split so
+    that about two blocks a SM run, each split at least MIN_SPLIT_STEPS
+    K-steps long."""
+    if n <= NARROW_MAX_N:
+        shape = "narrow"
+    elif tma and k > 0:
+        shape = "wgmma_n64" if n <= N64_MAX_N else "wgmma"
+    else:
+        shape = "wide"
     bm, bn = TILES[shape]
     tiles = -(-m // bm) * -(-n // bn)
     steps = -(-k // BK)
@@ -190,8 +231,20 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, out=None,
     each with contiguous rows or contiguous columns (a transpose view is
     read as it lies); out, when given, an (m, n) fp32 tensor with
     contiguous rows, written in place and returned (beta = 0 never reads
-    it). CPU tensors run the plain twin; CUDA tensors launch the kernel,
-    once, on the current stream, or raise."""
+    it). CPU tensors run the plain twin; CUDA tensors launch a kernel,
+    once, on the current stream, on the route `launch_plan` picks, or
+    raise."""
+    return _matmul_on_route(a, b, out, alpha, beta, None)
+
+
+def _matmul_on_route(a, b, out, alpha, beta, route):
+    """`matmul_3xtf32` with the route forced to 'wgmma' or 'mma' (None:
+    `launch_plan`'s); raises for CUDA operands that the forced route does
+    not take. For `chip_smoke.py`, which checks and times both routes at
+    one shape."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route must be one of {ROUTES} or None, got "
+                         f"{route!r}")
     _check_operands(a, b, out, beta)
     m, k = a.shape
     n = b.shape[1]
@@ -208,25 +261,44 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, out=None,
         return out
     trans_a, lda, vec_a = operand_layout(a, m, k)
     trans_b, ldb, vec_b = operand_layout(b, k, n)
+    tma_a = tma_stride(trans_a, lda, vec_a, m, k)
+    tma_b = tma_stride(trans_b, ldb, vec_b, k, n)
+    tma = tma_a is not None and tma_b is not None and route != "mma"
     from nngp_tpu_torch.ops._build import load_library
 
     lib = load_library()
     with torch.cuda.device(a.device):
         sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-        shape, tiles, splits, k_split = launch_plan(m, n, k, sms)
+        shape, tiles, splits, k_split = launch_plan(m, n, k, sms, tma)
+        taken = ROUTE_OF[shape]
+        if route is not None and taken != route:
+            raise ValueError(f"route {route!r} does not take a ({m} x {k}) "
+                             f"@ ({k} x {n}) product with these layouts")
         work = counters = None
         if splits > 1:
             work = torch.empty(splits * m * n, dtype=torch.float32,
                                device=a.device)
             counters = torch.zeros(tiles, dtype=torch.int32, device=a.device)
-        err = lib.gemm_3xtf32(
-            int(trans_a), int(trans_b), int(shape == "narrow"), m, n, k,
-            float(alpha), a.data_ptr(), lda, int(vec_a), b.data_ptr(), ldb,
-            int(vec_b), float(beta), out.data_ptr(), ldc, tiles, splits,
-            k_split, gram_cuda._ptr(work), gram_cuda._ptr(counters),
-            torch.cuda.current_stream(a.device).cuda_stream)
-    gram_cuda._raise_on(err, "gemm_3xtf32")
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        if taken == "wgmma":
+            # a persistent grid: at most one block a SM walks the work
+            # items (tile, split)
+            err = lib.gemm_3xtf32_wgmma(
+                int(trans_a), int(trans_b), int(shape == "wgmma_n64"), m, n,
+                k, float(alpha), a.data_ptr(), tma_a, b.data_ptr(), tma_b,
+                float(beta), out.data_ptr(), ldc, tiles, splits, k_split,
+                min(tiles * splits, sms), gram_cuda._ptr(work),
+                gram_cuda._ptr(counters), stream)
+        else:
+            err = lib.gemm_3xtf32(
+                int(trans_a), int(trans_b), int(shape == "narrow"), m, n, k,
+                float(alpha), a.data_ptr(), lda, int(vec_a), b.data_ptr(),
+                ldb, int(vec_b), float(beta), out.data_ptr(), ldc, tiles,
+                splits, k_split, gram_cuda._ptr(work),
+                gram_cuda._ptr(counters), stream)
+    gram_cuda._raise_on(err, f"gemm_3xtf32 ({taken})")
     gram_cuda._count("gemm", LAUNCHES)
+    gram_cuda._count(f"gemm_{taken}", LAUNCHES)
     return out
 
 

@@ -25,6 +25,7 @@ so the JAX side of each comparison is an fp32 product. Tolerances, and why:
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -259,19 +260,29 @@ def test_mm_dispatch():
 
 
 def test_graph_replays_count_the_gemm():
-    """A captured bucket's tally holds every kernel's key: a replay adds
-    'gemm' to matmul.REPLAYS and the Gram kernels' to gram_cuda.REPLAYS; a
-    launch made under `counting_into` counts into its tally, not into
+    """A captured bucket's tally holds every kernel's key, the GEMM's per
+    route too: a replay adds 'gemm' and 'gemm_<route>' to matmul.REPLAYS
+    and the Gram kernels' to gram_cuda.REPLAYS; a launch made under
+    `counting_into` (a capture) counts into its tally, by route, not into
     LAUNCHES."""
     before = (dict(MM.REPLAYS), dict(gram_cuda.REPLAYS), dict(MM.LAUNCHES))
     tally = graphs._tally()
-    assert tally == {"sym": 0, "cross": 0, "gemm": 0}
-    graphs._add_replays({"sym": 0, "cross": 2, "gemm": 5})
+    assert tally == {"sym": 0, "cross": 0, "gemm": 0, "gemm_wgmma": 0,
+                     "gemm_mma": 0}
+    assert set(MM.REPLAYS) == set(MM.LAUNCHES) == {
+        "gemm", *(f"gemm_{r}" for r in MM.ROUTES)}
+    graphs._add_replays({"sym": 0, "cross": 2, "gemm": 5, "gemm_wgmma": 3,
+                         "gemm_mma": 2})
     assert MM.REPLAYS["gemm"] == before[0]["gemm"] + 5
+    assert MM.REPLAYS["gemm_wgmma"] == before[0]["gemm_wgmma"] + 3
+    assert MM.REPLAYS["gemm_mma"] == before[0]["gemm_mma"] + 2
     assert gram_cuda.REPLAYS["cross"] == before[1]["cross"] + 2
     with gram_cuda.counting_into(tally):
-        gram_cuda._count("gemm", MM.LAUNCHES)
-    assert tally["gemm"] == 1 and MM.LAUNCHES == before[2]
+        for route in ("wgmma", "wgmma", "mma"):     # a bucket's predict
+            gram_cuda._count("gemm", MM.LAUNCHES)
+            gram_cuda._count(f"gemm_{route}", MM.LAUNCHES)
+    assert tally["gemm"] == 3 and tally["gemm_wgmma"] == 2
+    assert tally["gemm_mma"] == 1 and MM.LAUNCHES == before[2]
     gram_cuda._count("gemm", MM.LAUNCHES)
     assert MM.LAUNCHES["gemm"] == before[2]["gemm"] + 1
     MM.REPLAYS.update(before[0])
@@ -281,22 +292,35 @@ def test_graph_replays_count_the_gemm():
 
 def test_gemm_ctypes_signature_matches_the_c_entry_point():
     """`_build` declares one argtype per parameter of gemm_3xtf32.cu's
-    `gemm_3xtf32`, and none for `gemm_3xtf32_setup`."""
+    `gemm_3xtf32` and `gemm_3xtf32_wgmma`, of the C type of each, and
+    none for `gemm_3xtf32_setup`."""
+    import ctypes
     import re
 
     from nngp_tpu_torch.ops import _build
 
     with open(_build.GEMM_SOURCE) as f:
         src = f.read()
-    params = re.search(r"int gemm_3xtf32\((.*?)\)", src, re.S).group(1)
-    assert params.count(",") + 1 == len(_build._GEMM_ARGTYPES)
+    c_types = {"int": ctypes.c_int, "float": ctypes.c_float,
+               "long long": ctypes.c_longlong}
+    for name, argtypes in (("gemm_3xtf32", _build._GEMM_ARGTYPES),
+                           ("gemm_3xtf32_wgmma", _build._WGMMA_ARGTYPES)):
+        params = re.search(rf"int {name}\((.*?)\)", src, re.S).group(1)
+        params = [" ".join(p.split()) for p in params.split(",")]
+        assert len(params) == len(argtypes), name
+        for param, argtype in zip(params, argtypes):
+            kind = param.rsplit(" ", 1)[0]
+            want = ctypes.c_void_p if "*" in param else c_types[kind]
+            assert argtype is want, (name, param)
     assert re.search(r"int gemm_3xtf32_setup\(\)", src)
 
 
 def test_one_nvcc_builds_both_sources_into_one_library(monkeypatch,
                                                         tmp_path):
-    """Both sources go to one nvcc call with the library's flags; the
-    cache key hashes both sources, so editing either one rebuilds."""
+    """Each source goes to its own nvcc with the library's flags, both
+    started before either ends, and one link puts both objects into one
+    library; ptxas's report is kept beside it; the cache key hashes both
+    sources, so editing either one rebuilds."""
     from nngp_tpu_torch.ops import _build
 
     sources = []
@@ -305,7 +329,10 @@ def test_one_nvcc_builds_both_sources_into_one_library(monkeypatch,
         sources[-1].write_text(f"// {name}\n")
     log = tmp_path / "argv"
     fake = tmp_path / "nvcc"
-    fake.write_text(f"#!/bin/sh\necho \"$@\" >> {log}\n"
+    fake.write_text(f"#!/bin/sh\necho \"start $*\" >> {log}\n"
+                    "case \" $* \" in *\" -c \"*) sleep 0.3;; esac\n"
+                    "echo 'ptxas info    : Used 1 registers' >&2\n"
+                    f"echo \"end $*\" >> {log}\n"
                     "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && touch \"$2\"; "
                     "shift; done\n")
     fake.chmod(0o755)
@@ -314,15 +341,28 @@ def test_one_nvcc_builds_both_sources_into_one_library(monkeypatch,
     monkeypatch.setattr(_build, "SOURCES", tuple(map(str, sources)))
     first = _build.build()
     assert _build.is_built() and _build.build() == first
-    calls = log.read_text().splitlines()
-    assert len(calls) == 1
-    argv = calls[0].split()
-    assert argv[-2:] == [str(sources[0]), str(sources[1])]
-    assert argv[:len(_build.NVCC_FLAGS)] == list(_build.NVCC_FLAGS)
+    events = log.read_text().splitlines()
+    compiles = [e.split()[1:] for e in events
+                if e.startswith("start") and " -c " in e]
+    links = [e.split()[1:] for e in events
+             if e.startswith("start") and " -shared " in e]
+    assert len(compiles) == 2 and len(links) == 1 and len(events) == 6
+    for argv, source in zip(compiles, sources):
+        assert argv[:len(_build.NVCC_FLAGS)] == list(_build.NVCC_FLAGS)
+        assert argv[-1] == str(source)
+    # both compiles start before either ends; the link comes last
+    assert [e.split()[0] for e in events[:4]] == ["start", "start", "end",
+                                                   "end"]
+    assert events[4].startswith("start") and " -shared " in events[4]
+    objs = [argv[argv.index("-o") + 1] for argv in compiles]
+    assert links[0][-2:] == objs
+    with open(f"{first}.log") as f:
+        assert f.read().count("Used 1 registers") == 2
+    assert not any(os.path.exists(o) for o in objs)
     sources[1].write_text("// gemm_3xtf32.cu, edited\n")
     assert not _build.is_built()
     assert _build.build() != first
-    assert len(log.read_text().splitlines()) == 2
+    assert len(log.read_text().splitlines()) == 12
 
 
 # ------------------------------------------------ the Nystrom tier vs JAX
