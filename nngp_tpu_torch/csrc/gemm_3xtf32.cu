@@ -1,4 +1,4 @@
-// 3xTF32 tensor-core GEMM for Hopper (sm_90a), bound to Python with ctypes:
+// 3xTF32 GEMM for Hopper (sm_90a), bound to Python with ctypes:
 //
 //     C = alpha * op(A) @ op(B) + beta * C        (fp32 in, fp32 out)
 //
@@ -7,7 +7,7 @@
 // card in the Nystrom tier (gp/nystrom.py): the panel moments psi = K_pm W,
 // C += psi^T psi, b += psi^T y, M1 += psi_K^T psi, the RPCholesky residual
 // g = K - F F_S^T and update F_new = g[:, perm] L^-T, and the predict's
-// projections.
+// projections and mean.
 //
 // Replaces: XLA's dot at Precision.HIGH, which nngp_tpu/gp/nystrom.py runs
 // under jax.default_matmul_precision('high') (_panel_delta, _sharded_panel_fn,
@@ -31,28 +31,29 @@
 // read once, C written once and read once when beta != 0) at 3.35 TB/s. The
 // Nystrom panel (16,384 x 2,048) @ (2,048 x 2,048) is 412 GFLOP of 3xTF32
 // work, 0.83 ms, against 285 MB, 0.085 ms: compute-bound. A product with
-// one output column (b += psi^T y, the predict's mean) is bytes-bound.
+// one output column (b += psi^T y, the predict's mean) is bytes-bound: A
+// read once is all of its time (0.040 ms for the 2,048 x 16,384 panel).
 //
 // The error rule, common to both kernels below. Each K-step's 32 terms (3
-// TF32 products each, the small terms first) accumulate in the tensor
-// cores into a partial sum that starts at zero, which is then added to the
-// running sum with an fp32 FADD. The tensor cores do not round their sums
-// to nearest: with the whole K range in the MMA's own accumulator, the
-// error against fp64 at the Nystrom panel's C += psi^T psi (K = 16,384)
-// was 8.2e-6 of |A| @ |B| on N(0, 1) data, 38x torch.matmul fp32's 2.2e-7
-// (chip_smoke.py phase 17 (a) on an NVIDIA H100 80GB HBM3 at 700 W; 6.9e-8
-// with the promotion), and a bias on a sum of squares grows with K.
-// Promoting each K-step's partial sum to an fp32 add bounds the MMA part of
-// the error by the K-step, as cuBLAS's fp32 GEMM is bounded by its own
-// blocking.
+// TF32 products each, the small terms first) are summed into a partial sum
+// that starts at zero, which is then added to the running sum with an fp32
+// add. The tensor cores do not round their sums to nearest: with the whole
+// K range in the MMA's own accumulator, the error against fp64 at the
+// Nystrom panel's C += psi^T psi (K = 16,384) was 8.2e-6 of |A| @ |B| on
+// N(0, 1) data, 38x torch.matmul fp32's 2.2e-7 (chip_smoke.py phase 17 (a)
+// on an NVIDIA H100 80GB HBM3 at 700 W; 6.9e-8 with the promotion), and a
+// bias on a sum of squares grows with K. Promoting each K-step's partial
+// sum to an fp32 add bounds the MMA part of the error by the K-step, as
+// cuBLAS's fp32 GEMM is bounded by its own blocking.
 //
-// Two kernels; ops/matmul.py::launch_plan picks one by shape and layout
-// before the launch (neither is a fallback for the other):
+// Two kernels; ops/matmul.py::launch_plan picks one by the output's width
+// before the launch (neither is a fallback for the other). Both read A
+// through TMA, so A's base must be 16-byte aligned and its row stride a
+// multiple of 16 bytes; the wrapper copies an operand that is not so into a
+// padded buffer first, and the Nystrom tier lays its own buffers out so.
 //
-// gemm_3xtf32_wgmma_kernel, the Hopper design, for outputs wider than 16
-// columns whose A and B TMA can address (16-byte aligned bases, row
-// strides a multiple of 16 bytes): the Nystrom panel, RPCholesky and
-// predict products.
+// gemm_3xtf32_wgmma_kernel, for outputs wider than 16 columns: the
+// Nystrom panel, RPCholesky and predict products.
 //   * 128 x 128 output tiles (128 x 64 for outputs at most 64 columns
 //     wide: the RPCholesky residual and update), K-steps of 32, 384
 //     threads: two consumer warpgroups (m64 rows each) and one producer
@@ -88,45 +89,69 @@
 //     epilogue (at the panel psi = K_pm W 1.38-1.40 ms against 1.42-1.44
 //     with a block a tile; equal within the noise at the other shapes:
 //     cli/gemm_bench.py on an NVIDIA H100 80GB HBM3 at 700 W);
-//   * split K and the epilogue as in the first design (below).
+//   * when the output has fewer tiles than the card has SMs, the K range
+//     is split: each split writes its partial tile into a workspace, and
+//     the last split of a tile to finish (an atomic count per tile) sums
+//     the partials in split order, so the result does not depend on which
+//     split finished last; the epilogue writes alpha * acc + beta * C
+//     element by element, masked; beta = 0 never reads C.
 //
-// gemm_3xtf32_kernel, the first design (mma.sync), for outputs at most 16
-// columns wide (b += psi^T y, the predict's mean: bytes-bound, wgmma buys
-// nothing there) and for operands TMA cannot address (e.g. a whitening
-// basis whose width is not a multiple of 4):
-//   * 128 x 64 block tiles (8 warps, 32 x 32 each) and 128 x 16 tiles for
-//     outputs at most 16 columns wide (8 warps, 16 x 16 each), K-steps of
-//     32;
-//   * A and B tiles staged into shared memory by cp.async, double buffered
-//     (the next K-step's copies fly while this one computes). Each tile is
-//     kept in its global layout (the contiguous dimension stays contiguous)
-//     with a row padding that makes the fragment reads free of bank
-//     conflicts in all four layouts; 16-byte copies where the operand's
-//     base and row stride allow them, 4-byte ones otherwise; the ragged
-//     edges are zero-filled by the copy itself;
-//   * the fragments are split into big and small parts in registers, and
-//     three mma.sync.m16n8k8 TF32 instructions per fragment pair form each
-//     K-step's partial sum;
-//   * when the output has fewer tiles than the card has SMs (the products
-//     with one output column, the predict's small buckets), the K range is
-//     split over blockIdx.y: each split writes its partial tile into a
-//     workspace, and the last split of a tile to finish (an atomic count
-//     per tile) sums the partials in split order, so the result does not
-//     depend on which split finished last;
-//   * the epilogue writes alpha * acc + beta * C element by element, masked;
-//     beta = 0 never reads C.
+// gemm_3xtf32_narrow_kernel, for outputs at most 16 columns wide (b +=
+// psi^T y, the predict's mean): A streamed once is the whole cost, so the
+// design is about bytes in flight, not the tensor cores.
+//   * a block owns R = 32, 64 or 128 output rows; its 256 consumer threads
+//     (8 warps) take a row each and, of every stage's 256 / R K-steps, one;
+//     one producer warp, whose first thread issues TMA copies of A into a
+//     ring of 5 stages of 32 KB (160 KB in flight a SM): 256 / R boxes
+//     {32 K, R rows} with the 128-byte swizzle when A is stored M x K (a
+//     thread's 16-byte reads of its row land on 8 distinct chunks a
+//     quarter warp), one plain box {R rows, 32 x 256 / R K} when A is
+//     stored K x M (a warp reads 32 consecutive floats);
+//   * the products run on the CUDA cores: each A element is split once and
+//     its three products with the pre-split B (small terms first) are
+//     fused multiply-adds, exact products rounded once into the partial.
+//     At one output column the TMA stream alone (-DNARROW_ABLATE=1) takes
+//     0.0466-0.0474 / 0.0230-0.0235 ms at b += psi^T y / the predict's
+//     mean, the whole kernel 0.0486-0.0491 / 0.0246-0.0248: all of the
+//     arithmetic costs 4-7%, the most that mma.sync (B padded to 8
+//     columns, the same split of A) could win, so the CUDA cores stay.
+//     Eight consumer warps, against four: 0.0486 / 0.0247 ms against
+//     0.0490 / 0.0257; two or four interleaved FMA chains a K-step gained
+//     nothing with eight (cli/gemm_bench.py, an NVIDIA H100 80GB HBM3 at
+//     700 W). A's tensor map asks for no L2 promotion: at b += psi^T y a
+//     256-byte promotion fetched the neighbouring row block's half of
+//     each 256 bytes again (0.0487-0.0489 ms against 0.0468-0.0479);
+//   * B (at most 16 columns, padded to NB = 1, 4 or 16) is split once a K
+//     chunk by the consumers into (big, small) pairs in shared memory, 32 KB
+//     a chunk, read as broadcasts;
+//   * split K within a thread block cluster: the S <= 8 blocks of a cluster
+//     take the S K ranges of the same R rows; each block sums its slots'
+//     partials of a row in slot order, parks the row sums in its shared
+//     memory, and after a cluster barrier each block adds its share of the
+//     rows over the S blocks in split order through distributed shared
+//     memory (mapa + ld.shared::cluster), so the sum is deterministic and
+//     needs no workspace, no counters and no second pass;
+//   * the grid is sized from the occupancy API (cudaOccupancyMaxActive
+//     Clusters, queried once at setup: an H100 holds 132 single blocks, 66
+//     clusters of 2, 30 of 4, 15 of 8 of this kernel), and launch_plan
+//     picks R and S for the least work on the busiest block: a launch fills
+//     the card in one wave, and when the row blocks outnumber the resident
+//     clusters each cluster walks several;
+//   * alpha * acc + beta * C as above; beta = 0 never reads C.
 //
 // Every entry point launches once on the given stream, allocates nothing
-// (the wrapper passes the split workspace and the zeroed counters) and
-// returns cudaGetLastError(), so it can be captured in a CUDA graph.
-// gemm_3xtf32_setup() raises the kernels' dynamic shared-memory limit and
-// resolves the driver's cuTensorMapEncodeTiled (cudaGetDriverEntryPoint:
-// the library needs no -lcuda); the wrapper calls it once, when the
+// (the wgmma wrapper passes the split workspace and the zeroed counters; the
+// narrow kernel needs neither) and returns cudaGetLastError(), so it can be
+// captured in a CUDA graph. gemm_3xtf32_setup() raises the kernels' dynamic
+// shared-memory limit, resolves the driver's cuTensorMapEncodeTiled
+// (cudaGetDriverEntryPoint: the library needs no -lcuda) and reads the
+// narrow kernel's resident clusters; the wrapper calls it once, when the
 // library is loaded.
 //
 // Built with gram.cu into one library with its flags (ops/_build.py).
 // Their -fmad=false touches only the fp32 epilogue here: alpha * acc +
-// beta * C rounds each operation, as the plain twin does.
+// beta * C rounds each operation, as the plain twin does (the narrow
+// kernel's products are explicit fmaf).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -136,45 +161,8 @@ namespace {
 
 constexpr int BK = 32;  // K-step
 
-struct Params {
-  const float* a;
-  const float* b;
-  float* c;
-  long long lda, ldb, ldc;
-  int m, n, k;
-  float alpha, beta;
-  int vec_a, vec_b;      // 16-byte copies allowed for A / B
-  int k_split;           // K range of one split (a multiple of BK)
-  float* work;           // splits x m x n partial sums (gridDim.y > 1 only)
-  int* counters;         // one zeroed count per output tile (gridDim.y > 1)
-};
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async with a source size: the bytes past `src_bytes` are zero-filled.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ uint32_t rna_tf32(float x) {
@@ -188,15 +176,6 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = rna_tf32(x);
   small = rna_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // C[r, c] = alpha v + beta C[r, c] at an element inside the output; beta =
@@ -219,258 +198,6 @@ __device__ __forceinline__ float split_sum(const P& p, int r, int c,
   for (int s = 0; s < splits; ++s) sum += __ldcg(w + s * slab);
   return sum;
 }
-
-// Copy the TR x TC tile at (r0, c0) of a row-major (rows x cols, row stride
-// ld) matrix into shared memory with row stride LDS, zero-filling what lies
-// outside the matrix.
-template <int TR, int TC, int LDS, int THREADS>
-__device__ __forceinline__ void load_tile(float* s, const float* g,
-                                          long long ld, int rows, int cols,
-                                          int r0, int c0, bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int CH = TC / 4, TOTAL = TR * CH;
-#pragma unroll
-    for (int it = 0; it < (TOTAL + THREADS - 1) / THREADS; ++it) {
-      const int i = it * THREADS + tid;
-      if (TOTAL % THREADS == 0 || i < TOTAL) {
-        const int r = i / CH, c = (i % CH) * 4;
-        const int gr = r0 + r, gc = c0 + c;
-        const float* src = g;
-        int bytes = 0;
-        if (gr < rows && gc < cols) {
-          src = g + static_cast<long long>(gr) * ld + gc;
-          bytes = 4 * min(4, cols - gc);
-        }
-        cp_async16(s + r * LDS + c, src, bytes);
-      }
-    }
-  } else {
-    constexpr int TOTAL = TR * TC;
-#pragma unroll 4
-    for (int it = 0; it < (TOTAL + THREADS - 1) / THREADS; ++it) {
-      const int i = it * THREADS + tid;
-      if (TOTAL % THREADS == 0 || i < TOTAL) {
-        const int r = i / TC, c = i % TC;
-        const int gr = r0 + r, gc = c0 + c;
-        const bool in = gr < rows && gc < cols;
-        cp_async4(s + r * LDS + c,
-                  in ? g + static_cast<long long>(gr) * ld + gc : g,
-                  in ? 4 : 0);
-      }
-    }
-  }
-}
-
-// Block tile BM x BN, warp tile WM x WN; TA / TB: A / B stored transposed
-// (A as K x M, B as N x K, row-major).
-template <int BM, int BN, int WM, int WN, bool TA, bool TB>
-struct Cfg {
-  static constexpr int WARPS_M = BM / WM, WARPS_N = BN / WN;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int MT = WM / 16, NT = WN / 8;
-  // shared tiles keep the global layout: A as [BM][BK + 4] (k contiguous)
-  // or [BK][BM + 8] (m contiguous), B as [BK][BN + 8] or [BN][BK + 4].
-  // A row stride of 4 mod 32 words (k contiguous) or 8 mod 32 (m or n
-  // contiguous) puts the 32 lanes of a fragment read on 32 banks.
-  static constexpr int LDA = TA ? BM + 8 : BK + 4;
-  static constexpr int A_TILE = TA ? BK * LDA : BM * LDA;
-  static constexpr int LDB = TB ? BK + 4 : BN + 8;
-  static constexpr int B_TILE = TB ? BN * LDB : BK * LDB;
-  static constexpr int STAGE = A_TILE + B_TILE;
-  static constexpr int SMEM_BYTES = 2 * STAGE * static_cast<int>(sizeof(float));
-};
-
-template <int BM, int BN, int WM, int WN, bool TA, bool TB>
-__global__ void __launch_bounds__(Cfg<BM, BN, WM, WN, TA, TB>::THREADS, 2)
-    gemm_3xtf32_kernel(Params p) {
-  using C = Cfg<BM, BN, WM, WN, TA, TB>;
-  constexpr int MT = C::MT, NT = C::NT, THREADS = C::THREADS;
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int is_last;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm0 = (warp % C::WARPS_M) * WM;
-  const int wn0 = (warp / C::WARPS_M) * WN;
-  const int tiles_n = (p.n + BN - 1) / BN;
-  const int tile = blockIdx.x;
-  const int bm0 = (tile / tiles_n) * BM, bn0 = (tile % tiles_n) * BN;
-  const int k0 = blockIdx.y * p.k_split;
-  const int k1 = min(p.k, k0 + p.k_split);
-  const int ktiles = k1 > k0 ? (k1 - k0 + BK - 1) / BK : 0;
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  // K steps end at a multiple of BK past k0, and k_split is a multiple of
-  // BK, so masking at p.k alone keeps each split inside its range.
-  auto load_stage = [&](int stage, int kb) {
-    float* sa = smem + stage * C::STAGE;
-    float* sb = sa + C::A_TILE;
-    if constexpr (TA)
-      load_tile<BK, BM, C::LDA, THREADS>(sa, p.a, p.lda, p.k, p.m, kb, bm0,
-                                         p.vec_a);
-    else
-      load_tile<BM, BK, C::LDA, THREADS>(sa, p.a, p.lda, p.m, p.k, bm0, kb,
-                                         p.vec_a);
-    if constexpr (TB)
-      load_tile<BN, BK, C::LDB, THREADS>(sb, p.b, p.ldb, p.n, p.k, bn0, kb,
-                                         p.vec_b);
-    else
-      load_tile<BK, BN, C::LDB, THREADS>(sb, p.b, p.ldb, p.k, p.n, kb, bn0,
-                                         p.vec_b);
-    cp_async_commit();
-  };
-  auto a_at = [&](const float* sa, int m, int k) {
-    return TA ? sa[k * C::LDA + m] : sa[m * C::LDA + k];
-  };
-  auto b_at = [&](const float* sb, int k, int n) {
-    return TB ? sb[n * C::LDB + k] : sb[k * C::LDB + n];
-  };
-
-  if (ktiles > 0) load_stage(0, k0);
-  for (int kt = 0; kt < ktiles; ++kt) {
-    if (kt + 1 < ktiles) {
-      load_stage((kt + 1) & 1, k0 + (kt + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* sa = smem + (kt & 1) * C::STAGE;
-    const float* sb = sa + C::A_TILE;
-    float part[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      uint32_t b_big[NT][2], b_small[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int nn = wn0 + j * 8 + g;
-        split_tf32(b_at(sb, kk + t, nn), b_big[j][0], b_small[j][0]);
-        split_tf32(b_at(sb, kk + t + 4, nn), b_big[j][1], b_small[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int mm = wm0 + i * 16 + g;
-        uint32_t a_big[4], a_small[4];
-        split_tf32(a_at(sa, mm, kk + t), a_big[0], a_small[0]);
-        split_tf32(a_at(sa, mm + 8, kk + t), a_big[1], a_small[1]);
-        split_tf32(a_at(sa, mm, kk + t + 4), a_big[2], a_small[2]);
-        split_tf32(a_at(sa, mm + 8, kk + t + 4), a_big[3], a_small[3]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          mma_tf32(part[i][j], a_small, b_big[j]);
-          mma_tf32(part[i][j], a_big, b_small[j]);
-          mma_tf32(part[i][j], a_big, b_big[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-    __syncthreads();
-  }
-
-  // accumulator element e of fragment (i, j): row g (+8 for e >= 2),
-  // column 2 t (+1 for odd e)
-  if (gridDim.y == 1) {
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = bm0 + wm0 + i * 16 + g + (e >> 1) * 8;
-          const int c = bn0 + wn0 + j * 8 + 2 * t + (e & 1);
-          if (r < p.m && c < p.n) store_out(p, r, c, acc[i][j][e]);
-        }
-    return;
-  }
-
-  // split K: park the partial tile, count the split in; the last one in
-  // sums the partials in split order and writes C
-  const long long slab = static_cast<long long>(p.m) * p.n;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = bm0 + wm0 + i * 16 + g + (e >> 1) * 8;
-        const int c = bn0 + wn0 + j * 8 + 2 * t + (e & 1);
-        if (r < p.m && c < p.n)
-          p.work[blockIdx.y * slab + static_cast<long long>(r) * p.n + c] =
-              acc[i][j][e];
-      }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    is_last = atomicAdd(p.counters + tile, 1) ==
-              static_cast<int>(gridDim.y) - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = bm0 + wm0 + i * 16 + g + (e >> 1) * 8;
-        const int c = bn0 + wn0 + j * 8 + 2 * t + (e & 1);
-        if (r < p.m && c < p.n)
-          store_out(p, r, c, split_sum(p, r, c, gridDim.y));
-      }
-}
-
-// the two tile shapes, wide (128 x 64) and narrow (128 x 16, for outputs
-// at most 16 columns wide); ops/matmul.py::TILES mirrors them
-template <bool TA, bool TB, bool NARROW>
-struct Shape {
-  static constexpr int BM = 128, BN = NARROW ? 16 : 64;
-  static constexpr int WM = NARROW ? 16 : 32, WN = NARROW ? 16 : 32;
-  using C = Cfg<BM, BN, WM, WN, TA, TB>;
-};
-
-template <bool TA, bool TB, bool NARROW>
-cudaError_t setup_one() {
-  using S = Shape<TA, TB, NARROW>;
-  return cudaFuncSetAttribute(
-      gemm_3xtf32_kernel<S::BM, S::BN, S::WM, S::WN, TA, TB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, S::C::SMEM_BYTES);
-}
-
-template <bool TA, bool TB, bool NARROW>
-void launch_one(const Params& p, int tiles, int splits, cudaStream_t stream) {
-  using S = Shape<TA, TB, NARROW>;
-  gemm_3xtf32_kernel<S::BM, S::BN, S::WM, S::WN, TA, TB>
-      <<<dim3(tiles, splits), S::C::THREADS, S::C::SMEM_BYTES, stream>>>(p);
-}
-
-template <bool TA, bool TB>
-void launch_layout(bool narrow, const Params& p, int tiles, int splits,
-                   cudaStream_t stream) {
-  if (narrow)
-    launch_one<TA, TB, true>(p, tiles, splits, stream);
-  else
-    launch_one<TA, TB, false>(p, tiles, splits, stream);
-}
-
 
 // ------------------------------------------------- the Hopper design
 namespace hopper {
@@ -1067,24 +794,454 @@ cudaError_t resolve_encode_tiled() {
 }
 
 // The tensor map of a row-major (rows x cols, row stride ld floats) fp32
-// matrix read in boxes of {32, box_rows}, 128-byte swizzled, the ragged
-// edges zero-filled.
+// matrix read in boxes of {box_cols, box_rows}, 128-byte swizzled (box_cols
+// = 32) or not, the ragged edges zero-filled.
 bool encode(CUtensorMap* map, const float* base, int rows, int cols,
-            long long ld, int box_rows) {
+            long long ld, int box_rows, int box_cols = BOX,
+            bool swizzle = true,
+            CUtensorMapL2promotion promotion =
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
-  const cuuint32_t box[2] = {BOX, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
                       const_cast<float*>(base), dims, strides, box, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : CU_TENSOR_MAP_SWIZZLE_NONE,
+                      promotion,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A product with K = 0 reads nothing, but TMA takes no empty matrix: its
+// tensor maps name this 16-byte aligned stand-in, as one row of 4 floats.
+__device__ __align__(128) float k0_stand_in[4];
+const float* k0_base = nullptr;
+
+cudaError_t resolve_k0_base() {
+  if (k0_base != nullptr) return cudaSuccess;
+  void* p = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&p, k0_stand_in);
+  k0_base = static_cast<const float*>(p);
+  return err;
+}
+
 }  // namespace hopper
+
+// ------------------------------------------------- the narrow kernel
+namespace narrow {
+
+using hopper::kmajor_off;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::named_bar_sync;
+using hopper::tma_load;
+
+constexpr int CONSUMERS = 256;           // eight warps (ops/matmul.py's
+                                         // NARROW_THREADS)
+constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
+constexpr int STAGE_BYTES = CONSUMERS * BK * 4;  // one K-step a thread
+constexpr int RING_BYTES = 163840;       // 160 KB in flight
+constexpr int STAGES = RING_BYTES / STAGE_BYTES;
+constexpr int B_BYTES = 32768;           // one K chunk of split B
+constexpr int B_PER_THREAD = B_BYTES / 8 / CONSUMERS;
+constexpr int MAX_CLUSTER = 8;           // K splits of a row block
+constexpr int EMPTY_ARRIVALS = CONSUMERS / 32;      // each consumer warp
+constexpr int CONSUMER_BAR = 1;          // named barrier (0 is __syncthreads)
+// -DNARROW_ABLATE=1 leaves out the arithmetic (the consumers only wait for
+// each stage and free it: the stream alone), 2 two of the three products a
+// term (big_a big_b alone). Wrong results: for timing what holds the
+// kernel back (cli/gemm_bench.py --ablate).
+#ifndef NARROW_ABLATE
+#define NARROW_ABLATE 0
+#endif
+
+// A block of R output rows (32, 64 or 128): consumer thread t takes row
+// t % R and, of each stage's Q = CONSUMERS / R K-steps, K-step t / R (its
+// slot).
+template <int R>
+struct Rows {
+  static constexpr int Q = CONSUMERS / R;
+  static constexpr int STAGE_K = BK * Q;
+  static_assert(R * Q == CONSUMERS && R >= 32, "R divides CONSUMERS");
+};
+
+// Shared memory of one block, from a 1024-byte aligned base (the 128-byte
+// swizzle repeats every 8 rows of 128 bytes): STAGES raw A stages, the
+// split B chunk as (big, small) pairs [k][NB], the parked partials (a
+// thread's NB sums) and the mbarriers.
+template <int NB>
+struct Smem {
+  static constexpr int CHUNK_K = B_BYTES / (8 * NB);
+  static constexpr int B_OFF = STAGES * STAGE_BYTES;
+  static constexpr int RED_OFF = B_OFF + B_BYTES;
+  static constexpr int BAR_OFF = RED_OFF + NB * CONSUMERS * 4;
+  static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8 + 1024;
+  static_assert(CHUNK_K % (BK * CONSUMERS / 32) == 0,
+                "a B chunk holds whole stages");
+};
+
+struct NParams {
+  const float* b;
+  long long ldb;
+  int trans_b;     // B stored N x K (else K x N)
+  float* c;
+  long long ldc;
+  int m, n, k;
+  float alpha, beta;
+  int row_blocks;  // ceil(m / R)
+  int k_split;     // K range of one split, a multiple of the stage's K
+};
+
+__device__ __forceinline__ uint32_t sreg_cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t sreg_cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t sreg_cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t sreg_clusters() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of the cluster: what each wrote to shared memory before is
+// visible to all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The float at this block's shared address `addr`, in block `rank` of the
+// cluster.
+__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// One term a: its three products with B's (big, small) pairs of this k,
+// small terms first, each exact and rounded once into the partial.
+template <int NB>
+__device__ __forceinline__ void term(float (&part)[NB], float a,
+                                     const float2* b) {
+  if (NARROW_ABLATE == 2) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) part[j] = __fmaf_rn(a, b[j].x, part[j]);
+    return;
+  }
+  uint32_t big, small;
+  split_tf32(a, big, small);
+  const float ab = __uint_as_float(big), as = __uint_as_float(small);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float2 bj = b[j];
+    part[j] = __fmaf_rn(as, bj.x, part[j]);
+    part[j] = __fmaf_rn(ab, bj.y, part[j]);
+    part[j] = __fmaf_rn(ab, bj.x, part[j]);
+  }
+}
+
+// Split B's rows [c0, c0 + CHUNK_K) (zero past k1 and past column n) into
+// (big, small) pairs [k][NB]; every consumer's global loads are issued
+// before any is used.
+template <int NB>
+__device__ __forceinline__ void split_b_chunk(const NParams& p, int c0,
+                                              int k1, float2* out, int tid) {
+  float v[B_PER_THREAD];
+#pragma unroll
+  for (int u = 0; u < B_PER_THREAD; ++u) {
+    const int i = tid + u * CONSUMERS;
+    const int kk = c0 + i / NB, nn = i % NB;
+    v[u] = 0.0f;
+    if (kk < k1 && nn < p.n)
+      v[u] = p.trans_b ? p.b[nn * p.ldb + kk] : p.b[kk * p.ldb + nn];
+  }
+#pragma unroll
+  for (int u = 0; u < B_PER_THREAD; ++u) {
+    uint32_t big, small;
+    split_tf32(v[u], big, small);
+    out[tid + u * CONSUMERS] =
+        make_float2(__uint_as_float(big), __uint_as_float(small));
+  }
+}
+
+// TA: A stored K x M (else M x K). The tensor map names the stored A with
+// boxes {R rows, 32 Q K} (TA, no swizzle) or {32 K, R rows} (128-byte
+// swizzle, Q of them a stage). Block rank s of a cluster takes K range [s
+// k_split, (s + 1) k_split); cluster c walks the row blocks c, c +
+// clusters, ...
+template <int NB, bool TA, int R>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_3xtf32_narrow_kernel(const __grid_constant__ CUtensorMap tma_a,
+                              NParams p) {
+  using S = Smem<NB>;
+  constexpr int Q = Rows<R>::Q, STAGE_K = Rows<R>::STAGE_K;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t pad = ((raw_addr + 1023) & ~1023u) - raw_addr;
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t base = raw_addr + pad;
+  const uint32_t full0 = base + S::BAR_OFF;       // full[s] at full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * STAGES;     // empty[s]
+  float2* b_split = reinterpret_cast<float2*>(smem + S::B_OFF);
+  float* red = reinterpret_cast<float*>(smem + S::RED_OFF);
+  const uint32_t red_addr = base + S::RED_OFF;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int split = static_cast<int>(sreg_cluster_rank());
+  const int splits = static_cast<int>(sreg_cluster_size());
+  const int k0 = split * p.k_split;
+  const int k1 = min(p.k, k0 + p.k_split);
+  const int steps = k1 > k0 ? (k1 - k0 + STAGE_K - 1) / STAGE_K : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's expect_tx + TMA bytes
+      mbar_init(empty0 + 8 * s, EMPTY_ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int r = tid % R, q = tid / R;   // a consumer's row and slot
+  int g = 0;  // stages so far, over the block's row blocks
+  for (int rb = sreg_cluster_id(); rb < p.row_blocks; rb += sreg_clusters()) {
+    const int row0 = rb * R;
+    if (tid >= CONSUMERS) {
+      // ---- producer warp: its first thread keeps the ring full
+      if (tid == CONSUMERS) {
+        for (int j = 0; j < steps; ++j) {
+          const int gj = g + j, s = gj % STAGES;
+          if (gj >= STAGES) mbar_wait(empty0 + 8 * s, ((gj / STAGES) - 1) & 1);
+          const uint32_t bar = full0 + 8 * s;
+          mbar_expect_tx(bar, STAGE_BYTES);
+          const uint32_t dst = base + s * STAGE_BYTES;
+          const int kb = k0 + j * STAGE_K;
+          if constexpr (TA) {
+            tma_load(dst, &tma_a, row0, kb, bar);
+          } else {
+#pragma unroll
+            for (int i = 0; i < Q; ++i)
+              tma_load(dst + i * R * 128, &tma_a, kb + i * BK, row0, bar);
+          }
+        }
+      }
+      __syncwarp();
+    } else {
+      // ---- consumers: row row0 + r, K-step q of each stage
+      float acc[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) acc[j] = 0.0f;
+      for (int j = 0; j < steps; ++j) {
+        const int kc = (j * STAGE_K) % S::CHUNK_K;  // the stage in its chunk
+        if (kc == 0) {
+          // split B's next chunk, once every consumer is done with the last
+          named_bar_sync(CONSUMER_BAR, CONSUMERS);
+          split_b_chunk<NB>(p, k0 + j * STAGE_K, k1, b_split, tid);
+          named_bar_sync(CONSUMER_BAR, CONSUMERS);
+        }
+        const int gj = g + j, s = gj % STAGES;
+        mbar_wait(full0 + 8 * s, (gj / STAGES) & 1);
+        if (NARROW_ABLATE != 1) {
+          const uint8_t* stage = smem + s * STAGE_BYTES;
+          const float2* bk = b_split + (kc + q * BK) * NB;
+          float part[NB];
+#pragma unroll
+          for (int jj = 0; jj < NB; ++jj) part[jj] = 0.0f;
+          if constexpr (TA) {
+            const float* col = reinterpret_cast<const float*>(stage) +
+                               q * BK * R + r;
+#pragma unroll 8
+            for (int kk = 0; kk < BK; ++kk)
+              term<NB>(part, col[kk * R], bk + kk * NB);
+          } else {
+            const uint8_t* box = stage + q * R * 128;
+#pragma unroll
+            for (int kq = 0; kq < BK / 4; ++kq) {
+              const float4 v = *reinterpret_cast<const float4*>(
+                  box + kmajor_off(r, 4 * kq));
+              term<NB>(part, v.x, bk + (4 * kq) * NB);
+              term<NB>(part, v.y, bk + (4 * kq + 1) * NB);
+              term<NB>(part, v.z, bk + (4 * kq + 2) * NB);
+              term<NB>(part, v.w, bk + (4 * kq + 3) * NB);
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < NB; ++jj) acc[jj] += part[jj];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      }
+      // the slots' sums of each row, in slot order
+#pragma unroll
+      for (int j = 0; j < NB; ++j) red[(q * NB + j) * R + r] = acc[j];
+      named_bar_sync(CONSUMER_BAR, CONSUMERS);
+      if (q == 0) {
+        const int row = row0 + r;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int qq = 0; qq < Q; ++qq) sum += red[(qq * NB + j) * R + r];
+          if (splits > 1)
+            red[j * R + r] = sum;     // slot 0's own place: parked
+          else if (row < p.m && j < p.n)
+            store_out(p, row, j, sum);
+        }
+      }
+      named_bar_sync(CONSUMER_BAR, CONSUMERS);  // red read before reuse
+    }
+    g += steps;
+    if (splits > 1) {
+      cluster_sync();  // every split's row sums parked
+      // this block's share of the rows: the sums added in split order
+      const int share = R / splits;
+      for (int e = tid; e < share * NB && tid < CONSUMERS; e += CONSUMERS) {
+        const int rr = split * share + e % share, nn = e / share;
+        const int row = row0 + rr;
+        if (row < p.m && nn < p.n) {
+          const uint32_t at = red_addr + 4 * (nn * R + rr);
+          float sum = 0.0f;
+          for (int s = 0; s < splits; ++s) sum += ld_cluster(at, s);
+          store_out(p, row, nn, sum);
+        }
+      }
+      cluster_sync();  // the sums read: parked anew, or the block exits
+    }
+  }
+}
+
+template <int NB, bool TA, int R>
+cudaError_t setup_one() {
+  return cudaFuncSetAttribute(gemm_3xtf32_narrow_kernel<NB, TA, R>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Smem<NB>::BYTES);
+}
+
+template <int NB>
+cudaLaunchConfig_t config(int clusters, int splits, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = Smem<NB>::BYTES;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = splits;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of 1, 2, 4 and 8 blocks the card holds at once, by layout, NB
+// and R, read at setup.
+int resident[2][3][3][4] = {};
+
+constexpr int nb_index(int nb) { return nb == 1 ? 0 : nb == 4 ? 1 : 2; }
+constexpr int r_index(int r) { return r == 32 ? 0 : r == 64 ? 1 : 2; }
+
+template <int NB, bool TA, int R>
+cudaError_t count_resident() {
+  for (int i = 0; i < 4; ++i) {
+    const int splits = 1 << i;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config<NB>(132, splits, nullptr, &attr);
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(
+        &resident[TA][nb_index(NB)][r_index(R)][i],
+        reinterpret_cast<const void*>(gemm_3xtf32_narrow_kernel<NB, TA, R>),
+        &cfg);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int NB, bool TA, int R>
+cudaError_t prepare() {
+  const cudaError_t err = setup_one<NB, TA, R>();
+  return err != cudaSuccess ? err : count_resident<NB, TA, R>();
+}
+
+template <bool TA, int R>
+cudaError_t prepare_rows() {
+  const cudaError_t each[] = {prepare<1, TA, R>(), prepare<4, TA, R>(),
+                              prepare<16, TA, R>()};
+  for (cudaError_t e : each)
+    if (e != cudaSuccess) return e;
+  return cudaSuccess;
+}
+
+cudaError_t prepare_all() {
+  const cudaError_t each[] = {prepare_rows<false, 32>(),
+                              prepare_rows<false, 64>(),
+                              prepare_rows<false, 128>(),
+                              prepare_rows<true, 32>(),
+                              prepare_rows<true, 64>(),
+                              prepare_rows<true, 128>()};
+  for (cudaError_t e : each)
+    if (e != cudaSuccess) return e;
+  return cudaSuccess;
+}
+
+template <int NB, bool TA, int R>
+cudaError_t launch_one(const CUtensorMap& ma, const NParams& p, int clusters,
+                       int splits, cudaStream_t stream) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config<NB>(clusters, splits, stream, &attr);
+  void* args[] = {const_cast<CUtensorMap*>(&ma),
+                  const_cast<NParams*>(&p)};
+  return cudaLaunchKernelExC(
+      &cfg,
+      reinterpret_cast<const void*>(gemm_3xtf32_narrow_kernel<NB, TA, R>),
+      args);
+}
+
+template <bool TA, int R>
+cudaError_t launch_rows(int nb, const CUtensorMap& ma, const NParams& p,
+                        int clusters, int splits, cudaStream_t stream) {
+  if (nb == 1) return launch_one<1, TA, R>(ma, p, clusters, splits, stream);
+  if (nb == 4) return launch_one<4, TA, R>(ma, p, clusters, splits, stream);
+  return launch_one<16, TA, R>(ma, p, clusters, splits, stream);
+}
+
+template <bool TA>
+cudaError_t launch_layout(int rows, int nb, const CUtensorMap& ma,
+                          const NParams& p, int clusters, int splits,
+                          cudaStream_t stream) {
+  if (rows == 32)
+    return launch_rows<TA, 32>(nb, ma, p, clusters, splits, stream);
+  if (rows == 64)
+    return launch_rows<TA, 64>(nb, ma, p, clusters, splits, stream);
+  return launch_rows<TA, 128>(nb, ma, p, clusters, splits, stream);
+}
+
+}  // namespace narrow
 
 }  // namespace
 
@@ -1093,14 +1250,6 @@ extern "C" {
 int gemm_3xtf32_setup() {
   cudaError_t err = cudaSuccess;
   const cudaError_t each[] = {
-      setup_one<false, false, false>(),
-      setup_one<false, true, false>(),
-      setup_one<true, false, false>(),
-      setup_one<true, true, false>(),
-      setup_one<false, false, true>(),
-      setup_one<false, true, true>(),
-      setup_one<true, false, true>(),
-      setup_one<true, true, true>(),
       hopper::setup_one<128, false, false>(),
       hopper::setup_one<128, false, true>(),
       hopper::setup_one<128, true, false>(),
@@ -1109,62 +1258,44 @@ int gemm_3xtf32_setup() {
       hopper::setup_one<64, false, true>(),
       hopper::setup_one<64, true, false>(),
       hopper::setup_one<64, true, true>(),
-      hopper::resolve_encode_tiled()};
+      narrow::prepare_all(),
+      hopper::resolve_encode_tiled(),
+      hopper::resolve_k0_base()};
   for (cudaError_t e : each)
     if (e != cudaSuccess && err == cudaSuccess) err = e;
   return static_cast<int>(err);
 }
 
-// C (m x n, row stride ldc) = alpha op(A) op(B) + beta C. trans_a: A is
-// stored k x m (else m x k), trans_b: B is stored n x k (else k x n), each
-// row-major with its row stride. vec_a / vec_b: the operand's base is 16-byte
-// aligned and its row stride a multiple of 4 (or it has one stored row).
-// narrow: the 128 x 16 tile. tiles: the output tiles of that shape;
-// splits: K splits of k_split each (work: splits * m * n floats and
-// counters: tiles zeroed ints when splits > 1, else unused).
-int gemm_3xtf32(int trans_a, int trans_b, int narrow, int m, int n, int k,
-                float alpha, const float* a, long long lda, int vec_a,
-                const float* b, long long ldb, int vec_b, float beta,
-                float* c, long long ldc, int tiles, int splits, int k_split,
-                float* work, int* counters, void* stream) {
-  Params p{a,     b,    c,     lda,   ldb,   ldc,     m,       n,
-           k,     alpha, beta, vec_a, vec_b, k_split, work,    counters};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (trans_a) {
-    if (trans_b)
-      launch_layout<true, true>(narrow, p, tiles, splits, s);
-    else
-      launch_layout<true, false>(narrow, p, tiles, splits, s);
-  } else {
-    if (trans_b)
-      launch_layout<false, true>(narrow, p, tiles, splits, s);
-    else
-      launch_layout<false, false>(narrow, p, tiles, splits, s);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same product on the Hopper design. The operands as above, each with
-// a 16-byte aligned base and a row stride (lda, ldb) that is a multiple of
-// 4 floats and at least its stored column count (the wrapper passes any
-// such stride for an operand with one stored row); m, n, k >= 1. n64: the
-// 128 x 64 tile (else 128 x 128). blocks: the persistent grid, at most one
-// block a SM, walking the tiles * splits work items. A tensor map the
-// driver refuses returns cudaErrorInvalidValue, before any launch.
+// The product on the Hopper design: C (m x n, row stride ldc) = alpha
+// op(A) op(B) + beta C. trans_a: A is stored k x m (else m x k), trans_b: B
+// is stored n x k (else k x n), each row-major with a 16-byte aligned base
+// and a row stride (lda, ldb) that is a multiple of 4 floats and at least
+// its stored column count (the wrapper passes any such stride for an
+// operand with one stored row); m, n >= 1. n64: the 128 x 64 tile (else
+// 128 x 128). tiles: the output tiles; splits: K splits of k_split each
+// (work: splits * m * n floats and counters: tiles zeroed ints when splits
+// > 1, else unused). blocks: the persistent grid, at most one block a SM,
+// walking the tiles * splits work items. A tensor map the driver refuses
+// returns cudaErrorInvalidValue, before any launch.
 int gemm_3xtf32_wgmma(int trans_a, int trans_b, int n64, int m, int n, int k,
                       float alpha, const float* a, long long lda,
                       const float* b, long long ldb, float beta, float* c,
                       long long ldc, int tiles, int splits, int k_split,
                       int blocks, float* work, int* counters, void* stream) {
-  if (hopper::encode_tiled == nullptr)
+  if (hopper::encode_tiled == nullptr || hopper::k0_base == nullptr)
     return static_cast<int>(cudaErrorInitializationError);
   CUtensorMap ma, mb;
   const int bn = n64 ? 64 : 128;
-  const bool ok =
-      (trans_a ? hopper::encode(&ma, a, k, m, lda, hopper::BOX)
-               : hopper::encode(&ma, a, m, k, lda, hopper::BM)) &&
-      (trans_b ? hopper::encode(&mb, b, n, k, ldb, bn)
-               : hopper::encode(&mb, b, k, n, ldb, hopper::BOX));
+  bool ok;
+  if (k == 0) {
+    ok = hopper::encode(&ma, hopper::k0_base, 1, 4, 4, hopper::BM) &&
+         hopper::encode(&mb, hopper::k0_base, 1, 4, 4, bn);
+  } else {
+    ok = (trans_a ? hopper::encode(&ma, a, k, m, lda, hopper::BOX)
+                  : hopper::encode(&ma, a, m, k, lda, hopper::BM)) &&
+         (trans_b ? hopper::encode(&mb, b, n, k, ldb, bn)
+                  : hopper::encode(&mb, b, k, n, ldb, hopper::BOX));
+  }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const hopper::WParams p{c,     ldc,    m,       n,    k,       alpha,
                           beta,  tiles,  splits,  k_split, work, counters};
@@ -1173,6 +1304,64 @@ int gemm_3xtf32_wgmma(int trans_a, int trans_b, int n64, int m, int n, int k,
     hopper::launch_tile<64>(trans_a, trans_b, ma, mb, p, blocks, s);
   else
     hopper::launch_tile<128>(trans_a, trans_b, ma, mb, p, blocks, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of `splits` blocks (1, 2, 4 or 8) of the narrow kernel that the
+// card holds at once, for A stored transposed (trans_a) or not, B padded
+// to nb columns (1, 4 or 16) and blocks of `rows` output rows (32, 64 or
+// 128); -1 for another argument.
+int gemm_3xtf32_narrow_clusters(int trans_a, int nb, int rows, int splits) {
+  const int s_index = splits == 1 ? 0 : splits == 2 ? 1 : splits == 4 ? 2
+                      : splits == 8 ? 3 : -1;
+  if ((nb != 1 && nb != 4 && nb != 16) ||
+      (rows != 32 && rows != 64 && rows != 128) || s_index < 0)
+    return -1;
+  return narrow::resident[trans_a ? 1 : 0][narrow::nb_index(nb)]
+                         [narrow::r_index(rows)][s_index];
+}
+
+// The product on the narrow kernel, for n <= 16: operands as above, except
+// that B is read element by element (any row stride ldb) and only A needs
+// a TMA-addressable layout; m, n >= 1. nb: B's columns padded to 1, 4 or
+// 16 (>= n). rows: a block's output rows (32, 64 or 128; each stage holds
+// 256 / rows K-steps); row_blocks: ceil(m / rows). splits: the cluster
+// size, K splits of k_split each (a multiple of 32 * 256 / rows);
+// clusters: the grid's clusters, each walking the row blocks from its
+// index in steps of their count.
+int gemm_3xtf32_narrow(int trans_a, int trans_b, int nb, int rows, int m,
+                       int n, int k, float alpha, const float* a,
+                       long long lda, const float* b, long long ldb,
+                       float beta, float* c, long long ldc, int row_blocks,
+                       int splits, int k_split, int clusters, void* stream) {
+  if (hopper::encode_tiled == nullptr || hopper::k0_base == nullptr)
+    return static_cast<int>(cudaErrorInitializationError);
+  if (n > nb || (nb != 1 && nb != 4 && nb != 16) ||
+      (rows != 32 && rows != 64 && rows != 128) || splits < 1 ||
+      splits > narrow::MAX_CLUSTER ||
+      k_split % (BK * narrow::CONSUMERS / rows) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ma;
+  bool ok;
+  if (k == 0)
+    ok = hopper::encode(&ma, hopper::k0_base, 1, 4, 4, rows);
+  else if (trans_a)
+    ok = hopper::encode(&ma, a, k, m, lda, BK * narrow::CONSUMERS / rows,
+                        rows, false, CU_TENSOR_MAP_L2_PROMOTION_NONE);
+  else
+    ok = hopper::encode(&ma, a, m, k, lda, rows, hopper::BOX, true,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const narrow::NParams p{b,     ldb,  trans_b, c,          ldc,    m,
+                          n,     k,    alpha,   beta,       row_blocks,
+                          k_split};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      trans_a ? narrow::launch_layout<true>(rows, nb, ma, p, clusters,
+                                            splits, s)
+              : narrow::launch_layout<false>(rows, nb, ma, p, clusters,
+                                             splits, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

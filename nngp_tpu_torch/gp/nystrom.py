@@ -65,7 +65,11 @@ What differs from the JAX module:
     stay fp64. The cross Gram stays full fp32 under 'high', where JAX's
     would run bf16_3x: its dot is a small share of the kernel, and a
     reduced-precision dot of raw features is the error
-    `nngp_tpu/ops/gram_pallas.py:73-75` warns of.
+    `nngp_tpu/ops/gram_pallas.py:73-75` warns of. The matrices those
+    products read (the K_pm panel, psi, the bases, ic, M1, RPCholesky's F)
+    then have rows 16-byte multiples apart whatever m and the rank are
+    (`ops/matmul.py::padded_empty`, `padded_copy`), so the GEMM's TMA
+    reads them as they lie; their values and shapes do not change.
 """
 
 import dataclasses
@@ -82,7 +86,8 @@ from nngp_tpu_torch.models.kernel_spec import (KernelSpec,
                                                diag_eval)
 from nngp_tpu_torch.ops.gram import input_diag
 from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
-from nngp_tpu_torch.ops.matmul import PRECISIONS, mm
+from nngp_tpu_torch.ops.matmul import (PRECISIONS, kernel_route, mm,
+                                       padded_copy, padded_empty)
 from nngp_tpu_torch.parallel.mesh import all_reduce_sum_many
 from nngp_tpu_torch.utils.device import resolve_device
 
@@ -113,6 +118,26 @@ def _check_precision(precision: str):
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be 'highest' or 'high', got "
                          f"{precision!r}")
+
+
+def _product_out(rows, cols, precision, dtype, device):
+    """The (rows, cols) output of a product, or of a Gram panel, that a
+    product at `precision` reads next: under 'high' on fp32 one whose rows
+    TMA can address whatever `cols` is (`padded_empty`: a row stride of
+    cols rounded up to 4 floats), so that the 3xTF32 GEMM reads it as it
+    lies; else None (the call allocates its own)."""
+    if not kernel_route(precision, dtype):
+        return None
+    return padded_empty(rows, cols, dtype, device)
+
+
+def _laid_out(t, precision):
+    """t, or under 'high' on fp32 an equal tensor whose rows TMA can
+    address (`padded_copy`): for the matrices the products read again and
+    again (the bases, ic, M1, RPCholesky's F)."""
+    if t is None or not kernel_route(precision, t.dtype):
+        return t
+    return padded_copy(t)
 
 
 def _rpchol_panel(spec, get, x_c, x_s, sel, f, precision="highest"):
@@ -193,7 +218,8 @@ def select_inducing_rpchol(spec: KernelSpec, x, m: int, get: str = "nngp",
     x_c = x[torch.as_tensor(cand, device=device)].contiguous()
     d = spec.diag_fn(x_c, get)
     trace0 = float(torch.sum(d))
-    f = torch.zeros((nc, m + block), dtype=x_c.dtype, device=device)
+    f = _laid_out(torch.zeros((nc, m + block), dtype=x_c.dtype,
+                              device=device), precision)
     chosen: list = []
     taken = np.zeros(nc, dtype=bool)
     j = 0
@@ -381,13 +407,22 @@ def _panel_deltas(spec, get, x_me, w_solve, w_kmm, x_p, y_p,
                   precision="highest"):
     """The whitened moments of one panel's rows: (dC, db, dM1 or None,
     d diag_sum, d yty), the products at `precision`."""
+    def out(cols):        # the next product's operand, laid out for it
+        return _product_out(x_p.shape[0], cols, precision, x_me.dtype,
+                            x_me.device)
+
+    m = x_me.shape[0]
     if get == "ntk":
-        nngp_pm, solve_pm = gram_cross(spec, x_p, x_me, ("nngp", "ntk"))
+        pair = out(m)
+        nngp_pm, solve_pm = gram_cross(spec, x_p, x_me, ("nngp", "ntk"),
+                                       out=None if pair is None
+                                       else (pair, out(m)))
     else:
-        solve_pm = gram_cross(spec, x_p, x_me, "nngp")
-    psi = mm(solve_pm, w_solve, precision).mT     # (k, p)
-    dm1 = (mm(mm(nngp_pm, w_kmm, precision).mT, psi.mT, precision)
-           if get == "ntk" else None)
+        solve_pm = gram_cross(spec, x_p, x_me, "nngp", out=out(m))
+    psi = mm(solve_pm, w_solve, precision,
+             out=out(w_solve.shape[1])).mT     # (k, p)
+    dm1 = (mm(mm(nngp_pm, w_kmm, precision, out=out(w_kmm.shape[1])).mT,
+              psi.mT, precision) if get == "ntk" else None)
     # the relative ridge's trace: the exact solve-kernel diagonal
     dn, dt = apply_diag_recursion(input_diag(x_p), spec.layers)
     return (mm(psi, psi.mT, precision), mm(psi, y_p, precision), dm1,
@@ -489,6 +524,15 @@ class NystromPosterior:
     mesh: Optional[object] = None
     mesh_axis: str = "data"
 
+    def __post_init__(self):
+        # under 'high' the fp32 matrices that the predict's and the
+        # moments' products read get rows TMA can address whatever the
+        # rank (`padded_copy`; the values and shapes are unchanged), at
+        # fit, extend, grow and checkpoint restore alike
+        for name in ("w_solve", "w_kmm", "ic", "m1_w"):
+            setattr(self, name, _laid_out(getattr(self, name),
+                                          self.precision))
+
     @property
     def device(self) -> torch.device:
         return self.x_m.device
@@ -533,17 +577,26 @@ class NystromPosterior:
         xe = x_test.to(torch.float64) if df64 else x_test
         xm = self.x_m.to(torch.float64) if df64 else self.x_m
         p = self.precision
+
+        def out(cols):        # the next product's operand, laid out for it
+            return _product_out(xe.shape[0], cols, p, xe.dtype, xe.device)
+
+        k, m = self.w_solve.shape[1], xm.shape[0]
         psi_k = None
         if self.get == "nngp":
-            cross = gram_cross(self.spec, xe, xm, "nngp")
-            psi = mm(cross, self.w_solve, p).mT
+            cross = gram_cross(self.spec, xe, xm, "nngp", out=out(m))
+            psi = mm(cross, self.w_solve, p, out=out(k)).mT
         elif need_kmm:
-            nngp_c, ntk_c = gram_cross(self.spec, xe, xm, ("nngp", "ntk"))
-            psi = mm(ntk_c, self.w_solve, p).mT
-            psi_k = mm(nngp_c, self.w_kmm, p).mT.to(self.dtype)
+            pair = out(m)
+            nngp_c, ntk_c = gram_cross(self.spec, xe, xm, ("nngp", "ntk"),
+                                       out=None if pair is None
+                                       else (pair, out(m)))
+            psi = mm(ntk_c, self.w_solve, p, out=out(k)).mT
+            psi_k = mm(nngp_c, self.w_kmm, p,
+                       out=out(self.w_kmm.shape[1])).mT.to(self.dtype)
         else:
             psi = mm(gram_cross(self.spec, xe, xm, "ntk"), self.w_solve,
-                     p).mT
+                     p, out=out(k)).mT
         return psi.to(self.dtype), psi_k
 
     def _predict_scaled(self, x_test, compute_cov):
@@ -556,12 +609,19 @@ class NystromPosterior:
             x_test = x_test * (1.0 / self.input_scale)
         layers = self.spec.layers
         p = self.precision
+
+        def out(rows):        # the next product's operand, laid out for it
+            return _product_out(rows, x_test.shape[0], p, self.dtype,
+                                self.device)
+
+        k = self.ic.shape[0]
         if self.get == "nngp":
             psi, _ = self._projections(x_test, False)
             mean = mm(psi.mT, self.beta_w, p)
             if compute_cov is False:
                 return mean
-            h = mm(self.ic.mT, psi, p)
+            h = mm(self.ic.mT, psi, p,
+                   out=out(k) if compute_cov is True else None)
             if compute_cov == "diag":
                 var = (diag_eval(layers, x_test, "nngp")
                        - torch.sum(psi * psi, dim=0)
@@ -576,8 +636,11 @@ class NystromPosterior:
         mean = mm(psi_t.mT, self.beta_w, p)
         if compute_cov is False:
             return mean
-        ct = mm(self.ic, mm(self.ic.mT, psi_t, p), p)    # (C + rI)^-1 psi_t
-        g = mm(self.m1_w.to(self.dtype), ct, p)          # (k2, mt)
+        # (C + rI)^-1 psi_t, then g (k2, mt)
+        ct = mm(self.ic, mm(self.ic.mT, psi_t, p, out=out(k)), p,
+                out=out(k))
+        g = mm(self.m1_w.to(self.dtype), ct, p,
+               out=out(self.m1_w.shape[0]) if compute_cov is True else None)
         if compute_cov == "diag":
             var = (diag_eval(layers, x_test, "nngp")
                    + torch.sum(g * g, dim=0)
@@ -831,9 +894,9 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
     x_m = x_m.contiguous()
     if rank_rtol is None:
         rank_rtol = _default_rank_rtol(x.dtype, moments)
-    w_solve, w_kmm = _inducing_bases(
+    w_solve, w_kmm = (_laid_out(w, precision) for w in _inducing_bases(
         spec, get, float(rank_rtol), x_m, whiten=whiten,
-        device=(finalize == "device" and whiten == "chol"), entries=moments)
+        device=(finalize == "device" and whiten == "chol"), entries=moments))
     c_raw, b_w, m1_w, diag_sum, yty = _stream_moments(
         spec, get, x_m, w_solve, w_kmm, x, y, panel_size, mesh=mesh,
         mesh_axis=mesh_axis, precision=precision)

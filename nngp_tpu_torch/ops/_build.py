@@ -56,19 +56,6 @@ _CROSS_ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,          # n_layers, want_ntk, max_blocks
     ctypes.c_void_p,                                   # stream
 ]
-_GEMM_ARGTYPES = [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # trans_a, trans_b,
-                                                       # narrow
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # m, n, k
-    ctypes.c_float,                                    # alpha
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,  # a, lda, vec_a
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,  # b, ldb, vec_b
-    ctypes.c_float,                                    # beta
-    ctypes.c_void_p, ctypes.c_longlong,                # c, ldc
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # tiles, splits, k_split
-    ctypes.c_void_p, ctypes.c_void_p,                  # work, counters
-    ctypes.c_void_p,                                   # stream
-]
 _WGMMA_ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,          # trans_a, trans_b, n64
     ctypes.c_int, ctypes.c_int, ctypes.c_int,          # m, n, k
@@ -82,6 +69,25 @@ _WGMMA_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p,                  # work, counters
     ctypes.c_void_p,                                   # stream
 ]
+_NARROW_ARGTYPES = [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # trans_a, trans_b, nb
+    ctypes.c_int,                                      # rows
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # m, n, k
+    ctypes.c_float,                                    # alpha
+    ctypes.c_void_p, ctypes.c_longlong,                # a, lda
+    ctypes.c_void_p, ctypes.c_longlong,                # b, ldb
+    ctypes.c_float,                                    # beta
+    ctypes.c_void_p, ctypes.c_longlong,                # c, ldc
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,          # row_blocks, splits,
+                                                       # k_split
+    ctypes.c_int,                                      # clusters
+    ctypes.c_void_p,                                   # stream
+]
+# the GEMM library's C entry points and their ctypes signatures
+GEMM_ENTRY_POINTS = (("gemm_3xtf32_wgmma", _WGMMA_ARGTYPES),
+                     ("gemm_3xtf32_narrow", _NARROW_ARGTYPES),
+                     ("gemm_3xtf32_narrow_clusters", [ctypes.c_int] * 4),
+                     ("gemm_3xtf32_setup", []))
 
 _lock = threading.Lock()
 _lib = None
@@ -182,8 +188,9 @@ def ptxas_report(kernel: str):
 
 def load_library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use. Loading it raises
-    the GEMM kernels' dynamic shared-memory limit (`gemm_3xtf32_setup`),
-    outside any CUDA graph capture."""
+    the GEMM kernels' dynamic shared-memory limit and reads the narrow
+    kernel's resident clusters (`gemm_3xtf32_setup`), outside any CUDA
+    graph capture."""
     global _lib
     with _lock:
         if _lib is None:
@@ -192,9 +199,7 @@ def load_library() -> ctypes.CDLL:
                                    ("gram_sym_f64", _SYM_ARGTYPES),
                                    ("gram_cross_f32", _CROSS_ARGTYPES),
                                    ("gram_cross_f64", _CROSS_ARGTYPES),
-                                   ("gemm_3xtf32", _GEMM_ARGTYPES),
-                                   ("gemm_3xtf32_wgmma", _WGMMA_ARGTYPES),
-                                   ("gemm_3xtf32_setup", [])):
+                                   *GEMM_ENTRY_POINTS):
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

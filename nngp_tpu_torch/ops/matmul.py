@@ -7,64 +7,71 @@ dispatch of the Nystrom tier's products.
 package's `jax.default_matmul_precision('high')`: on the TPU a dot at
 Precision.HIGH is bf16_3x (each fp32 operand split into a high and a low
 bf16 part, the three large cross products summed); here the parts are
-TF32, the same construction on the card's tensor cores:
+TF32, the same construction on the card:
 
     big = rna_tf32(x),  small = rna_tf32(x - big)
     a b ~= small_a big_b + big_a small_b + big_a big_b    (fp32 sums)
 
 with ~3 * 2^-22 of |a b| per product, against bf16_3x's ~2^-16. The TF32
-lives in the kernel's instructions: `torch.backends.cuda.matmul.allow_tf32`
+lives in the kernels' instructions: `torch.backends.cuda.matmul.allow_tf32`
 stays False, as `utils/device.py` sets it.
 
 `matmul_3xtf32` launches one of the file's two kernels for CUDA tensors (or
 raises: there is no fallback to cuBLAS) and runs its plain twin
-`matmul_3xtf32_plain` for CPU tensors. The route is decided from the shape
-and the layout before the launch (`launch_plan`): 'wgmma', the Hopper
-design (TMA, a producer warp, wgmma), for outputs wider than NARROW_MAX_N
-columns whose operands TMA can address (`tma_stride`); 'mma', the first
-design (mma.sync), for narrower outputs and for operands TMA cannot
-address. A launch error on either route raises. The twin splits the
-operands with `tf32_split`, a bit-exact emulation of `cvt.rna.tf32.f32` on
-the int32 view, and sums the three products of fp32 `torch.matmul` (whose
-products of TF32 parts are exact), small terms first. It does not
-reproduce the kernels' summation order.
+`matmul_3xtf32_plain` for CPU tensors. The route is decided from the
+output's width before the launch (`launch_plan`): 'wgmma' (TMA, a producer
+warp, wgmma) for outputs wider than NARROW_MAX_N columns, 'narrow' (TMA, a
+producer warp, the CUDA cores, K split within a thread block cluster) for
+the rest. Both read their streamed operands through TMA, which needs a
+16-byte aligned base and a row stride that is a multiple of 16 bytes
+(`tma_stride`): an operand that has neither is copied once into a padded
+buffer (`padded_copy`) before the launch, and the Nystrom tier lays out the
+buffers it owns so from the start (`padded_empty`). A launch error raises.
+The twin splits the operands with `tf32_split`, a bit-exact emulation of
+`cvt.rna.tf32.f32` on the int32 view, and sums the three products of fp32
+`torch.matmul` (whose products of TF32 parts are exact), small terms
+first. It does not reproduce the kernels' summation order.
 
 `LAUNCHES` counts kernel launches, as `ops.gram_cuda.LAUNCHES` does for
 the Gram kernels: every launch under the key 'gemm', and under
-'gemm_wgmma' or 'gemm_mma' by its route. A launch made while a CUDA graph
-is built counts into the graph's own tally (`ops.gram_cuda.counting_into`),
-and `REPLAYS` counts the launches that replays of such graphs ran
-(`serve/graphs.py`).
+'gemm_wgmma' or 'gemm_narrow' by its route. A launch made while a CUDA
+graph is built counts into the graph's own tally
+(`ops.gram_cuda.counting_into`), and `REPLAYS` counts the launches that
+replays of such graphs ran (`serve/graphs.py`).
 
 The launch logic is plain Python, tested on the CPU: `operand_layout` reads
 an operand's layout (row-major or transposed), row stride and whether its
-tiles can be copied 16 bytes at a time from its strides and address;
-`tma_stride` whether TMA can address it, and with which row stride;
-`output_stride` checks the output; `launch_plan` picks the route and tile
-shape and splits K over the SMs when the output has too few tiles to fill
-them.
+base and stride allow 16-byte accesses; `tma_stride` whether TMA can
+address it, and with which row stride; `output_stride` checks the output;
+`launch_plan` picks the route and tile shape, splits K when the output has
+too few tiles to fill the SMs, and sizes the grid to one wave.
 """
+
+from typing import NamedTuple
 
 import torch
 
 from nngp_tpu_torch.ops import gram_cuda
 
-ROUTES = ("wgmma", "mma")
-LAUNCHES = {"gemm": 0, "gemm_wgmma": 0, "gemm_mma": 0}
+ROUTES = ("wgmma", "narrow")
+LAUNCHES = {"gemm": 0, "gemm_wgmma": 0, "gemm_narrow": 0}
 # kernel runs by replays of captured CUDA graphs (serve/graphs.py)
 REPLAYS = dict.fromkeys(LAUNCHES, 0)
 
 BK = 32                       # the kernels' K-step
 # tile shape -> (rows, columns) of its block tile, and its route: the
-# Hopper kernel's 128 x 128 and 128 x 64 tiles, the first design's wide
-# and narrow ones
-TILES = {"wgmma": (128, 128), "wgmma_n64": (128, 64), "wide": (128, 64),
-         "narrow": (128, 16)}
-ROUTE_OF = {"wgmma": "wgmma", "wgmma_n64": "wgmma", "wide": "mma",
-            "narrow": "mma"}
-NARROW_MAX_N = 16             # outputs this narrow take the narrow tile
+# wgmma kernel's 128 x 128 and 128 x 64 tiles, the narrow kernel's up to
+# 128 rows (NARROW_ROWS) of at most 16 columns
+TILES = {"wgmma": (128, 128), "wgmma_n64": (128, 64), "narrow": (128, 16)}
+ROUTE_OF = {"wgmma": "wgmma", "wgmma_n64": "wgmma", "narrow": "narrow"}
+NARROW_MAX_N = 16             # outputs this narrow take the narrow kernel
 N64_MAX_N = 64                # wgmma outputs this narrow take 128 x 64
-MIN_SPLIT_STEPS = 8           # K-steps a split runs at least
+MIN_SPLIT_STEPS = 8           # K-steps a wgmma split runs at least
+NARROW_ROWS = (128, 64, 32)   # the narrow kernel's block rows R; a stage
+NARROW_THREADS = 256          # holds 256 / R K-steps, one a consumer thread
+NARROW_MIN_STAGES = 4         # stages a narrow K split runs at least
+NARROW_CLUSTERS = (8, 4, 2, 1)  # its cluster sizes (K splits), largest first
+NARROW_NB = (1, 4, 16)        # its B widths: n padded to one of these
 PRECISIONS = ("highest", "high")
 _INT32_MAX = 2 ** 31 - 1
 _RNA_HALF = 0x1000            # half of the 13 dropped mantissa bits' unit
@@ -170,22 +177,99 @@ def output_stride(out: torch.Tensor, m: int, n: int) -> int:
     return s0 if m > 1 else n
 
 
-def launch_plan(m: int, n: int, k: int, sms: int, tma: bool = False):
-    """(tile shape, output tiles, K splits, K range of a split) of one
-    launch; `ROUTE_OF[shape]` is its kernel. `tma`: TMA can address both
-    operands. The Hopper kernel ('wgmma', 128 x 128 tiles; 'wgmma_n64' for
-    outputs at most N64_MAX_N columns wide) takes outputs wider than
-    NARROW_MAX_N columns when `tma` and K is not empty; the first design
-    takes the rest, in its narrow tile for outputs at most NARROW_MAX_N
-    columns wide. When the tiles are fewer than the SMs, K is split so
-    that about two blocks a SM run, each split at least MIN_SPLIT_STEPS
-    K-steps long."""
+def tma_cols(cols: int) -> int:
+    """The row stride, in fp32 elements, that TMA can address for rows of
+    `cols` elements: cols rounded up to a multiple of 4 (16 bytes)."""
+    return -(-cols // 4) * 4
+
+
+def padded_empty(rows: int, cols: int, dtype=torch.float32, device=None):
+    """An uninitialised (rows, cols) tensor whose rows lie tma_cols(cols)
+    elements apart: the [:, :cols] view of a (rows, tma_cols(cols)) buffer
+    (a plain contiguous tensor when cols is a multiple of 4). The Nystrom
+    tier's 'high' products write into such buffers, so that TMA reads them
+    as they lie, on the card and on the CPU alike."""
+    return torch.empty((rows, tma_cols(cols)), dtype=dtype,
+                       device=device)[:, :cols]
+
+
+def padded_copy(t: torch.Tensor) -> torch.Tensor:
+    """t itself when its rows are contiguous, 16 bytes apart in a multiple
+    and 16-byte aligned (or it has one row); else a copy into
+    `padded_empty` with the same values."""
+    rows, cols = t.shape
+    if (t.stride(1) == 1 or cols == 1) and t.data_ptr() % 16 == 0 and (
+            rows == 1 or (t.stride(0) % 4 == 0 and t.stride(0) >= cols)):
+        return t
+    out = padded_empty(rows, cols, t.dtype, t.device)
+    out.copy_(t)
+    return out
+
+
+class Plan(NamedTuple):
+    """One launch: its tile shape (`ROUTE_OF[shape]` is its kernel), the
+    output tiles (the narrow kernel's: row blocks), the K splits (the
+    narrow kernel's cluster size), the K range of a split, the grid's
+    blocks, and the rows of a block tile (the narrow kernel's R)."""
+    shape: str
+    tiles: int
+    splits: int
+    k_split: int
+    blocks: int
+    bm: int = 128
+
+
+def narrow_stage_k(bm: int) -> int:
+    """K of one stage of the narrow kernel with `bm` rows a block."""
+    return BK * NARROW_THREADS // bm
+
+
+def narrow_nb(n: int) -> int:
+    """The narrow kernel's B width for an output n <= NARROW_MAX_N columns
+    wide: the first of NARROW_NB that holds n."""
+    return next(nb for nb in NARROW_NB if n <= nb)
+
+
+def launch_plan(m: int, n: int, k: int, sms: int, resident=None) -> Plan:
+    """The launch of one (m x k) @ (k x n) product.
+
+    Outputs wider than NARROW_MAX_N columns take the wgmma kernel ('wgmma',
+    128 x 128 tiles; 'wgmma_n64' up to N64_MAX_N columns): when the tiles
+    are fewer than the SMs, K is split so that about two work items a SM
+    run, each split at least MIN_SPLIT_STEPS K-steps long, and a persistent
+    grid of at most one block a SM walks them.
+
+    Narrower outputs take the narrow kernel: a block owns R output rows
+    (one of NARROW_ROWS) and a K range; the K splits of one row block form
+    a thread block cluster of S blocks (one of NARROW_CLUSTERS), each
+    split at least NARROW_MIN_STAGES stages long. The grid is min(row
+    blocks, resident(R, S)) clusters, `resident` being the occupancy API's
+    count of such clusters on the card (sms // S when None): one wave.
+    Split clusters take one row block each (their blocks meet at a cluster
+    barrier after it); single blocks walk the row blocks from their index
+    when they are more than the card holds. (R, S) is the pair whose
+    busiest block reads the fewest elements of A, then the one with fewer
+    splits, then the larger R."""
     if n <= NARROW_MAX_N:
-        shape = "narrow"
-    elif tma and k > 0:
-        shape = "wgmma_n64" if n <= N64_MAX_N else "wgmma"
-    else:
-        shape = "wide"
+        held = resident or (lambda bm, s: sms // s)
+        best = None
+        for bm in NARROW_ROWS:
+            rows = -(-m // bm)
+            step = narrow_stage_k(bm)
+            stages = -(-k // step)
+            for s in NARROW_CLUSTERS:
+                if s > 1 and (stages < s * NARROW_MIN_STAGES
+                              or rows > held(bm, s)):
+                    continue
+                clusters = max(1, min(rows, held(bm, s)))
+                per = max(1, -(-stages // s))
+                work = -(-rows // clusters) * bm * per * step
+                key = (work, s, -bm)
+                if best is None or key < best[0]:
+                    best = (key, Plan("narrow", rows, s, per * step,
+                                      clusters * s, bm))
+        return best[1]
+    shape = "wgmma_n64" if n <= N64_MAX_N else "wgmma"
     bm, bn = TILES[shape]
     tiles = -(-m // bm) * -(-n // bn)
     steps = -(-k // BK)
@@ -194,7 +278,7 @@ def launch_plan(m: int, n: int, k: int, sms: int, tma: bool = False):
         splits = max(1, min(-(-2 * sms // tiles), steps // MIN_SPLIT_STEPS))
     per = max(1, -(-steps // splits))
     splits = max(1, -(-steps // per))
-    return shape, tiles, splits, per * BK
+    return Plan(shape, tiles, splits, per * BK, min(tiles * splits, sms))
 
 
 def _check_operands(a, b, out, beta):
@@ -237,11 +321,41 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor, out=None,
     return _matmul_on_route(a, b, out, alpha, beta, None)
 
 
+def _tma_operand(t: torch.Tensor, rows: int, cols: int):
+    """(operand, transposed, row stride) of a logical (rows, cols) operand
+    for TMA: t as it lies when TMA can address it, else a padded copy of
+    its stored matrix (`padded_copy`: at most rows x cols x 8 bytes moved)."""
+    trans, ld, vec = operand_layout(t, rows, cols)
+    stride = tma_stride(trans, ld, vec, rows, cols)
+    if stride is None:
+        stored = padded_copy(t.mT if trans else t)
+        t = stored.mT if trans else stored
+        trans, ld, vec = operand_layout(t, rows, cols)
+        stride = tma_stride(trans, ld, vec, rows, cols)
+    return t, trans, stride
+
+
+_RESIDENT = {}
+
+
+def _resident(lib, trans_a: bool, nb: int):
+    """resident(R, S) for `launch_plan`: the narrow kernel's clusters of S
+    blocks of R rows that the card holds at once (read by the library's
+    setup from the occupancy API), for this layout and B width."""
+    def held(bm, splits):
+        key = (id(lib), bool(trans_a), nb, bm, splits)
+        if key not in _RESIDENT:
+            _RESIDENT[key] = int(lib.gemm_3xtf32_narrow_clusters(
+                int(trans_a), nb, bm, splits))
+        return _RESIDENT[key]
+    return held
+
+
 def _matmul_on_route(a, b, out, alpha, beta, route):
-    """`matmul_3xtf32` with the route forced to 'wgmma' or 'mma' (None:
-    `launch_plan`'s); raises for CUDA operands that the forced route does
-    not take. For `chip_smoke.py`, which checks and times both routes at
-    one shape."""
+    """`matmul_3xtf32` with the route checked: 'wgmma' or 'narrow' raises
+    for CUDA operands that `launch_plan` gives the other kernel (None:
+    `launch_plan`'s). For `chip_smoke.py` and `cli/gemm_bench.py`, which
+    name the kernel they check and time."""
     if route not in (None, *ROUTES):
         raise ValueError(f"route must be one of {ROUTES} or None, got "
                          f"{route!r}")
@@ -254,47 +368,47 @@ def _matmul_on_route(a, b, out, alpha, beta, route):
         return matmul_3xtf32_plain(a, b, out, alpha, beta)
     if a.device.type != "cuda":
         raise ValueError(f"a is on {a.device}; need cpu or cuda")
+    taken = "narrow" if n <= NARROW_MAX_N else "wgmma"
+    if route is not None and taken != route:
+        raise ValueError(f"route {route!r} does not take a ({m} x {k}) @ "
+                         f"({k} x {n}) product")
     if out is None:
         out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     ldc = output_stride(out, m, n)
     if m == 0 or n == 0:
         return out
-    trans_a, lda, vec_a = operand_layout(a, m, k)
-    trans_b, ldb, vec_b = operand_layout(b, k, n)
-    tma_a = tma_stride(trans_a, lda, vec_a, m, k)
-    tma_b = tma_stride(trans_b, ldb, vec_b, k, n)
-    tma = tma_a is not None and tma_b is not None and route != "mma"
     from nngp_tpu_torch.ops._build import load_library
 
     lib = load_library()
+    a, trans_a, lda = _tma_operand(a, m, k)
+    if taken == "wgmma":
+        b, trans_b, ldb = _tma_operand(b, k, n)
+    else:                      # B is read element by element
+        trans_b, ldb, _ = operand_layout(b, k, n)
     with torch.cuda.device(a.device):
         sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-        shape, tiles, splits, k_split = launch_plan(m, n, k, sms, tma)
-        taken = ROUTE_OF[shape]
-        if route is not None and taken != route:
-            raise ValueError(f"route {route!r} does not take a ({m} x {k}) "
-                             f"@ ({k} x {n}) product with these layouts")
-        work = counters = None
-        if splits > 1:
-            work = torch.empty(splits * m * n, dtype=torch.float32,
-                               device=a.device)
-            counters = torch.zeros(tiles, dtype=torch.int32, device=a.device)
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        if taken == "wgmma":
-            # a persistent grid: at most one block a SM walks the work
-            # items (tile, split)
-            err = lib.gemm_3xtf32_wgmma(
-                int(trans_a), int(trans_b), int(shape == "wgmma_n64"), m, n,
-                k, float(alpha), a.data_ptr(), tma_a, b.data_ptr(), tma_b,
-                float(beta), out.data_ptr(), ldc, tiles, splits, k_split,
-                min(tiles * splits, sms), gram_cuda._ptr(work),
-                gram_cuda._ptr(counters), stream)
+        if taken == "narrow":
+            nb = narrow_nb(n)
+            plan = launch_plan(m, n, k, sms, _resident(lib, trans_a, nb))
+            err = lib.gemm_3xtf32_narrow(
+                int(trans_a), int(trans_b), nb, plan.bm, m, n, k,
+                float(alpha), a.data_ptr(), lda, b.data_ptr(), ldb,
+                float(beta), out.data_ptr(), ldc, plan.tiles, plan.splits,
+                plan.k_split, plan.blocks // plan.splits, stream)
         else:
-            err = lib.gemm_3xtf32(
-                int(trans_a), int(trans_b), int(shape == "narrow"), m, n, k,
-                float(alpha), a.data_ptr(), lda, int(vec_a), b.data_ptr(),
-                ldb, int(vec_b), float(beta), out.data_ptr(), ldc, tiles,
-                splits, k_split, gram_cuda._ptr(work),
+            plan = launch_plan(m, n, k, sms)
+            work = counters = None
+            if plan.splits > 1:
+                work = torch.empty(plan.splits * m * n, dtype=torch.float32,
+                                   device=a.device)
+                counters = torch.zeros(plan.tiles, dtype=torch.int32,
+                                       device=a.device)
+            err = lib.gemm_3xtf32_wgmma(
+                int(trans_a), int(trans_b), int(plan.shape == "wgmma_n64"),
+                m, n, k, float(alpha), a.data_ptr(), lda, b.data_ptr(), ldb,
+                float(beta), out.data_ptr(), ldc, plan.tiles, plan.splits,
+                plan.k_split, plan.blocks, gram_cuda._ptr(work),
                 gram_cuda._ptr(counters), stream)
     gram_cuda._raise_on(err, f"gemm_3xtf32 ({taken})")
     gram_cuda._count("gemm", LAUNCHES)

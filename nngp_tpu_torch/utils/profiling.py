@@ -9,11 +9,15 @@ on the device timeline (as `gpu_user_annotation`) and spans the gaps in
 it, so it is not device time: `device_kernels` reads a trace's device
 kernels without them, as `cli/profile_slice.py` counts device activity.
 `Metrics` accumulates named scalars and dumps one JSON object.
+`kernel_device_ms` is the reading of a kernel's own device time that
+`chip_smoke.py` and `cli/gemm_bench.py` share; `gpu_clocks` reads the card's SM clock, its maximum
+and the active throttle reasons to print beside a timed row.
 """
 
 import itertools
 import json
 import os
+import subprocess
 import time
 from contextlib import contextmanager
 
@@ -68,6 +72,83 @@ def device_kernels(trace_path: str) -> dict:
             n, ms = out.get(e["name"], (0, 0.0))
             out[e["name"]] = (n + 1, ms + float(e.get("dur", 0.0)) / 1e3)
     return out
+
+
+TRACE_ATTEMPTS = 5
+# nvidia-smi's fields for `gpu_clocks`; the throttle reasons' field took a
+# new name in newer drivers, so each name is tried in turn
+_CLOCK_FIELDS = ("clocks.sm", "clocks.max.sm")
+_REASON_FIELDS = ("clocks_event_reasons.active",
+                  "clocks_throttle_reasons.active")
+
+
+def _matches(key: str, match) -> bool:
+    return all(part in key for part in
+               ((match,) if isinstance(match, str) else match))
+
+
+def kernel_device_ms(fn, match, reps: int = 10,
+                     attempts: int = TRACE_ATTEMPTS):
+    """(ms a call, source) of the device time of the kernels whose names
+    contain `match` (a string, or a tuple of strings that must all appear)
+    over `reps` calls of fn: the sum of torch.profiler's CUDA records of
+    them (the wrappers' other launches left out), source 'profiler'. Each
+    profiler session runs one untraced step of `reps` calls first (a
+    session's first records can be lost). The profiler has returned no
+    record of a kernel in sessions in a row, deep in a long run on an H100:
+    after `attempts` such sessions the CUDA-event ms of the `reps` calls,
+    wrappers included, stands in, source 'cuda events'."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if _matches(e.key, match))
+        if total:
+            return total / 1e3 / reps, "profiler"
+        print(f"  the profiler recorded no {match} (session {attempt + 1} "
+              f"of {attempts})")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, "cuda events"
+
+
+def gpu_clocks(index: int = 0) -> dict:
+    """The card's SM clock and its maximum (MHz) and the active clock
+    throttle reasons (nvidia-smi's bit mask; 0x0 is none), as nvidia-smi
+    reports them now; {'error': ...} when it cannot."""
+    err = ""
+    for reasons in _REASON_FIELDS:
+        fields = (*_CLOCK_FIELDS, reasons)
+        try:
+            out = subprocess.run(
+                ["nvidia-smi", f"--id={index}",
+                 f"--query-gpu={','.join(fields)}",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=30)
+        except (OSError, subprocess.SubprocessError) as e:
+            return {"error": repr(e)}
+        if out.returncode == 0 and out.stdout.strip():
+            values = [v.strip() for v in
+                      out.stdout.strip().splitlines()[0].split(",")]
+            return {"sm_mhz": values[0], "max_sm_mhz": values[1],
+                    "throttle_reasons": values[2]}
+        err = (out.stderr or out.stdout).strip()
+    return {"error": err}
 
 
 class Metrics:

@@ -219,22 +219,32 @@ def test_output_stride_and_checks():
 
 
 def test_launch_plan_tiles_and_splits():
-    """The panel product fills the card with wide tiles and no split; an
-    output column takes the narrow tile and splits K; every split but the
-    last is a whole number of K-steps and the splits cover K."""
-    assert MM.launch_plan(16384, 2048, 2048, 132) == ("wide", 4096, 1, 2048)
-    assert MM.launch_plan(65536, 64, 2112, 132) == ("wide", 512, 1, 2112)
+    """The panel product fills the card with wgmma tiles and no split, one
+    block a SM; an output column takes the narrow kernel and splits K over
+    a cluster; every split but the last is a whole number of K-steps (the
+    narrow kernel's: of 64-deep stages) and the splits cover K."""
+    assert MM.launch_plan(16384, 2048, 2048, 132) == ("wgmma", 2048, 1,
+                                                      2048, 132, 128)
+    assert MM.launch_plan(65536, 64, 2112, 132) == ("wgmma_n64", 512, 1,
+                                                    2112, 132, 128)
     for m, nn, k in ((2048, 1, 16384), (8192, 1, 2048), (2048, 64, 2048),
                      (17, 17, 129), (1, 1, 1), (5, 3, 0), (1000, 16, 1000)):
-        shape, tiles, splits, k_split = MM.launch_plan(m, nn, k, 132)
-        bm, bn = MM.TILES[shape]
-        assert shape == ("narrow" if nn <= MM.NARROW_MAX_N else "wide")
-        assert tiles == -(-m // bm) * -(-nn // bn)
-        assert k_split % MM.BK == 0 and k_split >= MM.BK
+        shape, tiles, splits, k_split, blocks, bm = MM.launch_plan(m, nn, k,
+                                                                   132)
+        bn = MM.TILES[shape][1]
+        narrow = nn <= MM.NARROW_MAX_N
+        assert shape == ("narrow" if narrow else
+                         "wgmma_n64" if nn <= MM.N64_MAX_N else "wgmma")
+        assert tiles == -(-m // bm) * (1 if narrow else -(-nn // bn))
+        step = MM.narrow_stage_k(bm) if narrow else MM.BK
+        assert k_split % step == 0 and k_split >= step
         assert (splits - 1) * k_split < max(k, 1) <= splits * k_split
-        if splits > 1:
+        assert blocks <= 132
+        if splits > 1 and not narrow:
             assert tiles < 132 and k_split >= MM.MIN_SPLIT_STEPS * MM.BK
-    assert MM.launch_plan(2048, 1, 16384, 132)[2] > 1
+        if splits > 1 and narrow:
+            assert k_split >= MM.NARROW_MIN_STAGES * step
+    assert MM.launch_plan(2048, 1, 16384, 132).splits > 1
 
 
 def test_mm_dispatch():
@@ -268,21 +278,21 @@ def test_graph_replays_count_the_gemm():
     before = (dict(MM.REPLAYS), dict(gram_cuda.REPLAYS), dict(MM.LAUNCHES))
     tally = graphs._tally()
     assert tally == {"sym": 0, "cross": 0, "gemm": 0, "gemm_wgmma": 0,
-                     "gemm_mma": 0}
+                     "gemm_narrow": 0}
     assert set(MM.REPLAYS) == set(MM.LAUNCHES) == {
         "gemm", *(f"gemm_{r}" for r in MM.ROUTES)}
     graphs._add_replays({"sym": 0, "cross": 2, "gemm": 5, "gemm_wgmma": 3,
-                         "gemm_mma": 2})
+                         "gemm_narrow": 2})
     assert MM.REPLAYS["gemm"] == before[0]["gemm"] + 5
     assert MM.REPLAYS["gemm_wgmma"] == before[0]["gemm_wgmma"] + 3
-    assert MM.REPLAYS["gemm_mma"] == before[0]["gemm_mma"] + 2
+    assert MM.REPLAYS["gemm_narrow"] == before[0]["gemm_narrow"] + 2
     assert gram_cuda.REPLAYS["cross"] == before[1]["cross"] + 2
     with gram_cuda.counting_into(tally):
-        for route in ("wgmma", "wgmma", "mma"):     # a bucket's predict
+        for route in ("wgmma", "wgmma", "narrow"):  # a bucket's predict
             gram_cuda._count("gemm", MM.LAUNCHES)
             gram_cuda._count(f"gemm_{route}", MM.LAUNCHES)
     assert tally["gemm"] == 3 and tally["gemm_wgmma"] == 2
-    assert tally["gemm_mma"] == 1 and MM.LAUNCHES == before[2]
+    assert tally["gemm_narrow"] == 1 and MM.LAUNCHES == before[2]
     gram_cuda._count("gemm", MM.LAUNCHES)
     assert MM.LAUNCHES["gemm"] == before[2]["gemm"] + 1
     MM.REPLAYS.update(before[0])
@@ -291,9 +301,11 @@ def test_graph_replays_count_the_gemm():
 
 
 def test_gemm_ctypes_signature_matches_the_c_entry_point():
-    """`_build` declares one argtype per parameter of gemm_3xtf32.cu's
-    `gemm_3xtf32` and `gemm_3xtf32_wgmma`, of the C type of each, and
-    none for `gemm_3xtf32_setup`."""
+    """`_build` declares one argtype per parameter of each of
+    gemm_3xtf32.cu's C entry points (`gemm_3xtf32_wgmma`,
+    `gemm_3xtf32_narrow`, `gemm_3xtf32_narrow_clusters`,
+    `gemm_3xtf32_setup`), of the C type of each; the first design's
+    `gemm_3xtf32` entry point and kernel are gone."""
     import ctypes
     import re
 
@@ -303,16 +315,18 @@ def test_gemm_ctypes_signature_matches_the_c_entry_point():
         src = f.read()
     c_types = {"int": ctypes.c_int, "float": ctypes.c_float,
                "long long": ctypes.c_longlong}
-    for name, argtypes in (("gemm_3xtf32", _build._GEMM_ARGTYPES),
-                           ("gemm_3xtf32_wgmma", _build._WGMMA_ARGTYPES)):
+    entry = re.findall(r"^int (gemm_\w+)\(", src, re.M)
+    assert sorted(entry) == sorted(n for n, _ in _build.GEMM_ENTRY_POINTS)
+    assert "gemm_3xtf32_kernel" not in src and "int gemm_3xtf32(" not in src
+    for name, argtypes in _build.GEMM_ENTRY_POINTS:
         params = re.search(rf"int {name}\((.*?)\)", src, re.S).group(1)
-        params = [" ".join(p.split()) for p in params.split(",")]
+        params = [" ".join(p.split()) for p in params.split(",")
+                  if p.strip()]
         assert len(params) == len(argtypes), name
         for param, argtype in zip(params, argtypes):
             kind = param.rsplit(" ", 1)[0]
             want = ctypes.c_void_p if "*" in param else c_types[kind]
             assert argtype is want, (name, param)
-    assert re.search(r"int gemm_3xtf32_setup\(\)", src)
 
 
 def test_one_nvcc_builds_both_sources_into_one_library(monkeypatch,

@@ -7,8 +7,8 @@ fp64, its plain twin and torch.matmul fp32 on both routes. What decides and
 shapes its launches is plain Python or plain index arithmetic, held here:
 
   - `tma_stride` / `launch_plan`: which kernel takes a product (the wgmma
-    route for outputs wider than 16 columns whose operands TMA can address;
-    the first design's mma.sync route otherwise), the tile (128 x 128, or
+    route for outputs wider than 16 columns, whatever the operands' row
+    strides; the narrow kernel for the rest), the tile (128 x 128, or
     128 x 64 up to 64 columns), and split K when the tiles are fewer than
     the SMs, at every shape of `chip_smoke.GEMM_SHAPES` and at the serving
     buckets' predict products;
@@ -42,13 +42,12 @@ CONSUMERS = 256
 
 # ------------------------------------------------------------ route rule
 def _route(a, b, sms=SMS):
-    """launch_plan's (shape, tiles, splits, k_split) for a @ b, as
-    `_matmul_on_route` reads the operands."""
+    """launch_plan's (shape, tiles, splits, k_split, blocks, bm) for a @ b, as
+    `_matmul_on_route` plans it; the operands' strides do not enter (an
+    operand TMA cannot address is copied into a padded buffer first)."""
     m, k = a.shape
     n = b.shape[1]
-    tma = all(MM.tma_stride(*MM.operand_layout(t, r, c), r, c) is not None
-              for t, r, c in ((a, m, k), (b, k, n)))
-    return MM.launch_plan(m, n, k, sms, tma)
+    return MM.launch_plan(m, n, k, sms)
 
 
 def _aligned(rows, cols, offset=0):
@@ -81,28 +80,30 @@ def test_tma_stride_reads_base_and_strides():
     assert MM.tma_stride(*MM.operand_layout(bcast, 5, 8), 5, 8) is None
 
 
-@pytest.mark.parametrize("m,n,k,tma,shape", [
-    (16384, 2048, 2048, True, "wgmma"),
-    (16384, 2048, 2048, False, "wide"),
-    (65536, 64, 2112, True, "wgmma_n64"),
-    (65536, 17, 2112, True, "wgmma_n64"),
-    (65536, 65, 2112, True, "wgmma"),
-    (8192, 16, 2048, True, "narrow"),
-    (8192, 1, 2048, True, "narrow"),
-    (100, 100, 0, True, "wide"),
+@pytest.mark.parametrize("m,n,k,shape", [
+    (16384, 2048, 2048, "wgmma"),
+    (16384, 2050, 2050, "wgmma"),
+    (65536, 64, 2112, "wgmma_n64"),
+    (65536, 17, 2112, "wgmma_n64"),
+    (65536, 65, 2112, "wgmma"),
+    (8192, 16, 2048, "narrow"),
+    (8192, 1, 2048, "narrow"),
+    (100, 100, 0, "wgmma"),
 ])
-def test_launch_plan_routes(m, n, k, tma, shape):
-    """The wgmma route takes outputs wider than NARROW_MAX_N columns whose
-    operands TMA can address and a K that is not empty; 128 x 64 tiles up
-    to N64_MAX_N columns; the first design takes the rest."""
-    got, tiles, splits, k_split = MM.launch_plan(m, n, k, SMS, tma)
-    bm, bn = MM.TILES[got]
+def test_launch_plan_routes(m, n, k, shape):
+    """The wgmma route takes outputs wider than NARROW_MAX_N columns, K
+    empty or not and whatever the strides (128 x 64 tiles up to N64_MAX_N
+    columns); the narrow kernel takes the rest."""
+    got, tiles, splits, k_split, blocks, bm = MM.launch_plan(m, n, k, SMS)
+    bn = MM.TILES[got][1]
     assert got == shape
     assert MM.ROUTE_OF[got] == ("wgmma" if shape.startswith("wgmma")
-                                else "mma")
-    assert tiles == -(-m // bm) * -(-n // bn)
-    assert k_split % BK == 0 and (splits - 1) * k_split < max(k, 1) \
+                                else "narrow")
+    assert tiles == -(-m // bm) * (1 if shape == "narrow" else -(-n // bn))
+    step = MM.narrow_stage_k(bm) if shape == "narrow" else BK
+    assert k_split % step == 0 and (splits - 1) * k_split < max(k, 1) \
         <= splits * k_split
+    assert blocks <= SMS
 
 
 def _shape_operands(m, n, k, ta, tb):
@@ -116,12 +117,13 @@ WANT_SHAPE = {"panel psi NN": ("wgmma", 2048, 1),
               "panel C TN": ("wgmma", 256, 1),
               "tail psi NN": ("wgmma", None, 1),
               "tail C TN": ("wgmma", 256, 1),
-              "panel b TN": ("narrow", 16, None),
+              "panel b TN": ("narrow", 64, 2),
               "rpchol residual NT": ("wgmma_n64", 512, 1),
               "rpchol update NN": ("wgmma_n64", 512, 1),
               "predict psi NN": ("wgmma", 1024, 1),
-              "predict mean NN": ("narrow", 64, None),
-              "predict h TT": ("wgmma", 1024, 1)}
+              "predict mean NN": ("narrow", 128, 1),
+              "predict h TT": ("wgmma", 1024, 1),
+              "panel psi NN m=2050": ("wgmma", 2176, 1)}
 
 
 @pytest.mark.parametrize("label,m,n,k,ta,tb", chip_smoke.GEMM_SHAPES,
@@ -129,18 +131,18 @@ WANT_SHAPE = {"panel psi NN": ("wgmma", 2048, 1),
 def test_every_gemm_shape_takes_its_route(label, m, n, k, ta, tb):
     """The Nystrom tier's products (`chip_smoke.GEMM_SHAPES`, operands laid
     out as the tier lays them): the panel, tail, RPCholesky and predict
-    products on the wgmma route, the one-column ones on the narrow tile
-    with K split over the SMs."""
+    products on the wgmma route, the one-column ones on the narrow kernel,
+    128 blocks in one wave (b += psi^T y: 64 row blocks of 32, K split over
+    clusters of 2; the mean: 128 row blocks of 64)."""
     a, b = _shape_operands(m, n, k, ta, tb)
-    shape, tiles, splits, k_split = _route(a, b)
+    shape, tiles, splits, k_split, blocks, _ = _route(a, b)
     want_shape, want_tiles, want_splits = WANT_SHAPE[label]
     assert shape == want_shape
     if want_tiles is not None:
         assert tiles == want_tiles
-    if want_splits is not None:
-        assert splits == want_splits
-    else:
-        assert splits > 1 and tiles * splits >= SMS
+    assert splits == want_splits
+    if shape == "narrow":
+        assert blocks == tiles * splits == 128
     assert (splits - 1) * k_split < k <= splits * k_split
 
 
@@ -157,7 +159,7 @@ def test_serving_buckets_take_the_wgmma_route(bucket):
     ic = torch.zeros((k, k))
     psi = torch.zeros((bucket, k)).mT
     for a, b, n in ((cross, w_solve, k), (ic.mT, psi, bucket)):
-        shape, tiles, splits, k_split = _route(a, b)
+        shape, tiles, splits, k_split, _, _ = _route(a, b)
         assert shape == ("wgmma_n64" if n <= MM.N64_MAX_N else "wgmma")
         bm, bn = MM.TILES[shape]
         assert tiles == -(-a.shape[0] // bm) * -(-n // bn)
@@ -166,32 +168,43 @@ def test_serving_buckets_take_the_wgmma_route(bucket):
             <= splits * k_split
         if splits > 1:
             assert k_split >= MM.MIN_SPLIT_STEPS * BK
-    # the bucket's mean (one column) stays on the narrow tile
+    # the bucket's mean (one column) takes the narrow kernel
     assert _route(psi.mT, torch.zeros((k, 1)))[0] == "narrow"
 
 
 def test_a_rank_that_is_not_a_multiple_of_4_takes_the_first_design():
-    """A whitening basis k = 2,047 columns wide: its rows are not 16-byte
-    multiples, so TMA cannot address the panel's products and they run on
-    the first design."""
+    """A whitening basis k = 2,047 columns wide, whose rows are not 16-byte
+    multiples apart, took the first design (mma.sync) until it was
+    retired: now the panel's products take the wgmma route all the same,
+    the wrapper handing TMA a padded copy (`_tma_operand`) with a row
+    stride of 2,048, and the tier's own buffers (`padded_empty`) need no
+    copy."""
     k = 2047
     solve_pm = torch.zeros((16384, 2048))
     w_solve = torch.zeros((2048, k))
     psi = torch.zeros((16384, k))
-    assert _route(solve_pm, w_solve)[0] == "wide"
-    assert _route(psi.mT, psi)[0] == "wide"
+    assert _route(solve_pm, w_solve)[0] == "wgmma"
+    assert _route(psi.mT, psi)[0] == "wgmma"
+    staged, trans, ld = MM._tma_operand(w_solve, 2048, k)
+    assert staged is not w_solve and not trans and ld == 2048
+    assert torch.equal(staged, w_solve) and staged.stride() == (2048, 1)
+    laid = MM.padded_empty(16384, k)
+    got, trans, ld = MM._tma_operand(laid.mT, k, 16384)
+    assert got.data_ptr() == laid.data_ptr() and (trans, ld) == (True, 2048)
 
 
 def test_forcing_a_route_checks_it():
-    """`_matmul_on_route` takes 'wgmma', 'mma' or None; a CPU product runs
-    the twin on any route."""
+    """`_matmul_on_route` takes 'wgmma', 'narrow' or None ('mma', the
+    retired first design, raises); a CPU product runs the twin on any
+    route."""
     a, b = torch.randn(5, 3), torch.randn(3, 4)
     want = MM.matmul_3xtf32_plain(a, b)
-    for route in ("wgmma", "mma", None):
+    for route in ("wgmma", "narrow", None):
         assert torch.equal(MM._matmul_on_route(a, b, None, 1.0, 0.0, route),
                            want)
-    with pytest.raises(ValueError, match="route"):
-        MM._matmul_on_route(a, b, None, 1.0, 0.0, "cublas")
+    for route in ("cublas", "mma"):
+        with pytest.raises(ValueError, match="route"):
+            MM._matmul_on_route(a, b, None, 1.0, 0.0, route)
 
 
 # -------------------------------------------------- shared-memory maps
