@@ -90,6 +90,7 @@ from nngp_tpu_torch.ops.matmul import (PRECISIONS, kernel_route, mm,
                                        padded_copy, padded_empty)
 from nngp_tpu_torch.parallel.mesh import all_reduce_sum_many
 from nngp_tpu_torch.utils.device import resolve_device
+from nngp_tpu_torch.utils.profiling import current, span
 
 _DEFAULT_PANEL = 16384
 
@@ -300,7 +301,8 @@ def _whiten_basis_chol(kmm64: torch.Tensor,
     """Jittered-Cholesky whitening basis W = chol(K_mm + j I)^-T (m, m) on
     K_mm's device, j = rank_rtol * lam_max escalated 10x until the factor
     succeeds (fp32 kernel noise can leave the fp64 copy slightly
-    indefinite). One host sync per attempt (the factor's info)."""
+    indefinite). One host sync per attempt (the factor's info), each
+    counted into the open span's `attempts`."""
     sym = 0.5 * (kmm64 + kmm64.mT)
     m = sym.shape[0]
     lam_max = _lam_max_estimate(sym)
@@ -311,6 +313,7 @@ def _whiten_basis_chol(kmm64: torch.Tensor,
     jitter = rank_rtol * lam_max
     eye = torch.eye(m, dtype=sym.dtype, device=sym.device)
     for _ in range(8):
+        current().add("attempts")
         ell, info = torch.linalg.cholesky_ex(sym + jitter * eye)
         if int(info) != 0:
             jitter *= 10.0
@@ -337,33 +340,36 @@ def _inducing_bases(spec, get, rank_rtol, x_m, whiten="chol", device=False,
     Cached on the value of the inducing set (sha1 of its bytes) with the
     spec, get, rtol, whiten, device and entries: repeated fits with the
     same inducing rows (active-learning refits, timing loops) reuse it.
-    At most 4 entries, each two concrete (m, k) tensors."""
+    At most 4 entries, each two concrete (m, k) tensors. Span
+    `nystrom.bases` (attrs cached, and the whitening's factor attempts)."""
     if device and whiten != "chol":
         raise ValueError("device bases require whiten='chol' (the eigh "
                          "basis is a host semantics anchor)")
     df64 = entries == "df64"
     out_dtype = torch.float64 if df64 else x_m.dtype
-    key = (spec, get, float(rank_rtol), whiten, bool(device), entries,
-           str(x_m.dtype), str(x_m.device), tuple(x_m.shape),
-           hashlib.sha1(x_m.cpu().numpy().tobytes()).hexdigest())
-    hit = _BASES_CACHE.get(key)
-    if hit is not None:
-        return hit
-    xe = x_m.to(torch.float64) if df64 else x_m
-    if get == "ntk":
-        kmm_nngp, kmm_solve = gram_cross(spec, xe, xe, ("nngp", "ntk"))
-    else:
-        kmm_nngp, kmm_solve = None, gram_cross(spec, xe, xe, "nngp")
-    basis_fn = _whiten_basis_chol if whiten == "chol" else _whiten_basis
-    where = x_m.device if device else _HOST
-    out = tuple(None if k is None else basis_fn(
-        k.to(device=where, dtype=torch.float64), rank_rtol).to(
-            device=x_m.device, dtype=out_dtype).contiguous()
-        for k in (kmm_solve, kmm_nngp))
-    if len(_BASES_CACHE) >= _BASES_CACHE_MAX:
-        _BASES_CACHE.pop(next(iter(_BASES_CACHE)))
-    _BASES_CACHE[key] = out
-    return out
+    with span("nystrom.bases", cached=False) as sp:
+        key = (spec, get, float(rank_rtol), whiten, bool(device), entries,
+               str(x_m.dtype), str(x_m.device), tuple(x_m.shape),
+               hashlib.sha1(x_m.cpu().numpy().tobytes()).hexdigest())
+        hit = _BASES_CACHE.get(key)
+        if hit is not None:
+            sp.set(cached=True)
+            return hit
+        xe = x_m.to(torch.float64) if df64 else x_m
+        if get == "ntk":
+            kmm_nngp, kmm_solve = gram_cross(spec, xe, xe, ("nngp", "ntk"))
+        else:
+            kmm_nngp, kmm_solve = None, gram_cross(spec, xe, xe, "nngp")
+        basis_fn = _whiten_basis_chol if whiten == "chol" else _whiten_basis
+        where = x_m.device if device else _HOST
+        out = tuple(None if k is None else basis_fn(
+            k.to(device=where, dtype=torch.float64), rank_rtol).to(
+                device=x_m.device, dtype=out_dtype).contiguous()
+            for k in (kmm_solve, kmm_nngp))
+        if len(_BASES_CACHE) >= _BASES_CACHE_MAX:
+            _BASES_CACHE.pop(next(iter(_BASES_CACHE)))
+        _BASES_CACHE[key] = out
+        return out
 
 
 # ---------------------------------------------------------- solve stage
@@ -384,22 +390,23 @@ def _finalize(c_raw, b_w, reg, dtype, mode: str):
     beta = that @ b, returned on the moments' device. Cholesky, then L^-1
     by `solve_triangular`; if moment noise left C + rI indefinite, the
     eigenvalue-clamped inverse root (noise directions revert to the prior
-    1/r). One host sync, the factor's info."""
-    where = c_raw.device if mode == "device" else _HOST
-    c64 = c_raw.detach().to(device=where, dtype=torch.float64)
-    c64 = 0.5 * (c64 + c64.mT)
-    r = reg.detach().to(device=where, dtype=torch.float64)
-    eye = torch.eye(c64.shape[0], dtype=torch.float64, device=where)
-    ell, info = torch.linalg.cholesky_ex(c64 + r * eye)
-    if int(info) == 0:
-        ic64 = torch.linalg.solve_triangular(ell, eye, upper=False).mT
-    else:
-        lam, v = torch.linalg.eigh(c64)
-        ic64 = v * torch.rsqrt(torch.clamp_min(lam, 0.0) + r)[None, :]
-    beta64 = ic64 @ (ic64.mT @ b_w.detach().to(device=where,
-                                                dtype=torch.float64))
-    return (ic64.to(device=c_raw.device, dtype=dtype).contiguous(),
-            beta64.to(device=c_raw.device, dtype=dtype))
+    1/r). One host sync, the factor's info. Span `nystrom.finalize`."""
+    with span("nystrom.finalize", mode=mode):
+        where = c_raw.device if mode == "device" else _HOST
+        c64 = c_raw.detach().to(device=where, dtype=torch.float64)
+        c64 = 0.5 * (c64 + c64.mT)
+        r = reg.detach().to(device=where, dtype=torch.float64)
+        eye = torch.eye(c64.shape[0], dtype=torch.float64, device=where)
+        ell, info = torch.linalg.cholesky_ex(c64 + r * eye)
+        if int(info) == 0:
+            ic64 = torch.linalg.solve_triangular(ell, eye, upper=False).mT
+        else:
+            lam, v = torch.linalg.eigh(c64)
+            ic64 = v * torch.rsqrt(torch.clamp_min(lam, 0.0) + r)[None, :]
+        beta64 = ic64 @ (ic64.mT @ b_w.detach().to(device=where,
+                                                    dtype=torch.float64))
+        return (ic64.to(device=c_raw.device, dtype=dtype).contiguous(),
+                beta64.to(device=c_raw.device, dtype=dtype))
 
 
 # ------------------------------------------------------------ streaming
@@ -443,7 +450,8 @@ def _stream_moments(spec, get, x_m, w_solve, w_kmm, x, y, panel_size,
     With `mesh` (collective: every rank passes the same rows) the panel
     length rounds up to a multiple of the mesh size q, rank r streams rows
     [r p/q, (r + 1) p/q) of each panel (the rows past n add nothing), and
-    the deltas are summed over ranks before they are added."""
+    the deltas are summed over ranks before they are added. One span
+    `nystrom.panel` a panel (attr rows, this rank's)."""
     mdt = w_solve.dtype
     dev = x_m.device
     k = w_solve.shape[1]
@@ -465,23 +473,25 @@ def _stream_moments(spec, get, x_m, w_solve, w_kmm, x, y, panel_size,
     share = p // q
     for s in range(0, n, p):
         lo, hi = s + rank * share, min(s + (rank + 1) * share, n)
-        if lo < hi:
-            deltas = _panel_deltas(spec, get, x_me, w_solve, w_kmm,
-                                   x[lo:hi].to(mdt).contiguous(),
-                                   y[lo:hi].to(mdt), precision)
-        else:                 # this rank's share lies past the last row
-            deltas = (torch.zeros_like(c_raw), torch.zeros_like(b_w),
-                      None if m1_w is None else torch.zeros_like(m1_w),
-                      torch.zeros_like(diag_sum), torch.zeros_like(yty))
-        if mesh is not None:
-            deltas = all_reduce_sum_many(deltas, mesh.get_group(mesh_axis))
-        dc, db, dm1, dd, dy2 = deltas
-        c_raw = c_raw + dc
-        b_w = b_w + db
-        if get == "ntk":
-            m1_w = m1_w + dm1
-        diag_sum = diag_sum + dd
-        yty = yty + dy2
+        with span("nystrom.panel", rows=max(hi - lo, 0)):
+            if lo < hi:
+                deltas = _panel_deltas(spec, get, x_me, w_solve, w_kmm,
+                                       x[lo:hi].to(mdt).contiguous(),
+                                       y[lo:hi].to(mdt), precision)
+            else:             # this rank's share lies past the last row
+                deltas = (torch.zeros_like(c_raw), torch.zeros_like(b_w),
+                          None if m1_w is None else torch.zeros_like(m1_w),
+                          torch.zeros_like(diag_sum), torch.zeros_like(yty))
+            if mesh is not None:
+                deltas = all_reduce_sum_many(deltas,
+                                             mesh.get_group(mesh_axis))
+            dc, db, dm1, dd, dy2 = deltas
+            c_raw = c_raw + dc
+            b_w = b_w + db
+            if get == "ntk":
+                m1_w = m1_w + dm1
+            diag_sum = diag_sum + dd
+            yty = yty + dy2
     return c_raw, b_w, m1_w, diag_sum, yty
 
 
@@ -866,50 +876,55 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
         device = x_train.device
     device = resolve_device(device)
     finalize = _resolve_finalize(finalize, device)
-    x = _as_tensor(x_train, device)
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"x_train must be float32 or float64, got {x.dtype}")
-    if moments == "df64" and x.dtype != torch.float32:
-        raise ValueError("moments='df64' is the fp64-moment path for fp32 "
-                         f"posteriors; got dtype {x.dtype} (fp64 already "
-                         "carries full precision)")
-    y = _as_tensor(y_train, device, x.dtype)
-    if y.dim() == 1:
-        y = y[:, None]
-    n = x.shape[0]
-    if input_scale is None:
-        input_scale = _auto_input_scale(x_train, spec.layers)
-    if input_scale != 1.0:
-        x = x * (1.0 / input_scale)
-    if inducing_rows is not None:
-        x_m = _as_tensor(inducing_rows, device, x.dtype)
-        if input_scale != 1.0:
-            x_m = x_m * (1.0 / input_scale)
-    elif inducing == "uniform":
-        x_m = x[torch.as_tensor(select_inducing(n, num_inducing, seed),
-                                device=device)]
-    else:
-        x_m = x[_rpchol_indices(spec, x, num_inducing, get, seed, mesh,
-                                mesh_axis, precision)]
-    x_m = x_m.contiguous()
-    if rank_rtol is None:
-        rank_rtol = _default_rank_rtol(x.dtype, moments)
-    w_solve, w_kmm = (_laid_out(w, precision) for w in _inducing_bases(
-        spec, get, float(rank_rtol), x_m, whiten=whiten,
-        device=(finalize == "device" and whiten == "chol"), entries=moments))
-    c_raw, b_w, m1_w, diag_sum, yty = _stream_moments(
-        spec, get, x_m, w_solve, w_kmm, x, y, panel_size, mesh=mesh,
-        mesh_axis=mesh_axis, precision=precision)
-    if diag_reg_absolute_scale:
-        reg = torch.tensor(diag_reg, dtype=x.dtype, device=device)
-    else:
-        reg = (diag_reg * diag_sum / n).to(x.dtype)
-    ic, beta_w = _finalize(c_raw, b_w, reg, x.dtype, finalize)
-    return NystromPosterior(
-        x_m=x_m, w_solve=w_solve, ic=ic, beta_w=beta_w, reg=reg,
-        c_raw=c_raw, b_w=b_w, diag_sum=diag_sum, m1_w=m1_w, w_kmm=w_kmm,
-        spec=spec, get=get, diag_reg=diag_reg, num_train=n,
-        input_scale=float(input_scale), precision=precision,
-        rank_rtol=float(rank_rtol), panel_size=panel_size,
-        finalize=finalize, yty=yty, moments=moments, mesh=mesh,
-        mesh_axis=mesh_axis)
+    with span("nystrom.fit", rows=len(x_train), panel=panel_size) as sp:
+        with span("nystrom.prepare", rows=len(x_train)):
+            x = _as_tensor(x_train, device)
+            if x.dtype not in (torch.float32, torch.float64):
+                raise TypeError("x_train must be float32 or float64, got "
+                                f"{x.dtype}")
+            if moments == "df64" and x.dtype != torch.float32:
+                raise ValueError("moments='df64' is the fp64-moment path for "
+                                 f"fp32 posteriors; got dtype {x.dtype} "
+                                 "(fp64 already carries full precision)")
+            y = _as_tensor(y_train, device, x.dtype)
+            if y.dim() == 1:
+                y = y[:, None]
+            n = x.shape[0]
+            if input_scale is None:
+                input_scale = _auto_input_scale(x_train, spec.layers)
+            if input_scale != 1.0:
+                x = x * (1.0 / input_scale)
+            if inducing_rows is not None:
+                x_m = _as_tensor(inducing_rows, device, x.dtype)
+                if input_scale != 1.0:
+                    x_m = x_m * (1.0 / input_scale)
+            elif inducing == "uniform":
+                x_m = x[torch.as_tensor(
+                    select_inducing(n, num_inducing, seed), device=device)]
+            else:
+                x_m = x[_rpchol_indices(spec, x, num_inducing, get, seed,
+                                        mesh, mesh_axis, precision)]
+            x_m = x_m.contiguous()
+        sp.set(m=x_m.shape[0])
+        if rank_rtol is None:
+            rank_rtol = _default_rank_rtol(x.dtype, moments)
+        w_solve, w_kmm = (_laid_out(w, precision) for w in _inducing_bases(
+            spec, get, float(rank_rtol), x_m, whiten=whiten,
+            device=(finalize == "device" and whiten == "chol"),
+            entries=moments))
+        c_raw, b_w, m1_w, diag_sum, yty = _stream_moments(
+            spec, get, x_m, w_solve, w_kmm, x, y, panel_size, mesh=mesh,
+            mesh_axis=mesh_axis, precision=precision)
+        if diag_reg_absolute_scale:
+            reg = torch.tensor(diag_reg, dtype=x.dtype, device=device)
+        else:
+            reg = (diag_reg * diag_sum / n).to(x.dtype)
+        ic, beta_w = _finalize(c_raw, b_w, reg, x.dtype, finalize)
+        return NystromPosterior(
+            x_m=x_m, w_solve=w_solve, ic=ic, beta_w=beta_w, reg=reg,
+            c_raw=c_raw, b_w=b_w, diag_sum=diag_sum, m1_w=m1_w, w_kmm=w_kmm,
+            spec=spec, get=get, diag_reg=diag_reg, num_train=n,
+            input_scale=float(input_scale), precision=precision,
+            rank_rtol=float(rank_rtol), panel_size=panel_size,
+            finalize=finalize, yty=yty, moments=moments, mesh=mesh,
+            mesh_axis=mesh_axis)

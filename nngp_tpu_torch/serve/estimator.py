@@ -98,6 +98,7 @@ from nngp_tpu_torch.parallel.sharded import (DistributedPosterior,
 from nngp_tpu_torch.serve.follower import collective
 from nngp_tpu_torch.serve.graphs import BucketGraphs, buckets_upto
 from nngp_tpu_torch.utils.device import resolve_device
+from nngp_tpu_torch.utils.profiling import span
 
 # Scaled-feature magnitude ceiling for incremental extends, mirroring the
 # fit-time prescale threshold (`gp.posterior._PRESCALE_MAX_ABS`): beyond it
@@ -992,14 +993,18 @@ class Estimator:
         return x * self.feature_scale.astype(x.dtype)
 
     def encode_lines(self, query_lines: Sequence[str]) -> np.ndarray:
-        if self._fast is not None:
-            x, *_ = self._fast.encode_multi("\n".join(query_lines),
-                                            with_card=False, dtype=self.dtype)
-            return self._apply_feature_scale(self._apply_chunk_norm(x))
-        parsed = [self.encoder.parse_line_without_card(l) for l in query_lines
-                  if l.strip()]
-        return self._apply_feature_scale(
-            self.encoder.encode_batch(parsed, dtype=self.dtype))
+        """Encoded rows of card-less query lines (span `estimator.encode`,
+        attr rows)."""
+        with span("estimator.encode", rows=len(query_lines)):
+            if self._fast is not None:
+                x, *_ = self._fast.encode_multi("\n".join(query_lines),
+                                                with_card=False,
+                                                dtype=self.dtype)
+                return self._apply_feature_scale(self._apply_chunk_norm(x))
+            parsed = [self.encoder.parse_line_without_card(l)
+                      for l in query_lines if l.strip()]
+            return self._apply_feature_scale(
+                self.encoder.encode_batch(parsed, dtype=self.dtype))
 
     def _encode_labeled_lines(self, labeled_lines, op_name: str):
         """Labeled `query@...@card` lines -> (x, cards), card >= 1
@@ -1128,39 +1133,50 @@ class Estimator:
         Duplicate lines are predicted once, and results persist in a
         bounded LRU memo keyed by the query text (plan enumeration
         re-submits the same sub-queries). A line served from the memo
-        launches no kernel."""
-        # one result PER LINE is the contract: both encoders skip blank
-        # lines, which would misalign every later result
-        keys = []
-        for i, line in enumerate(query_lines):
-            k = line.strip()
-            if not k:
-                raise ValueError(f"blank query line at index {i}")
-            keys.append(k)
-        # the memo first, then the predict: a new posterior or an in-place
-        # extend replaces the memo after the model changes, so results
-        # computed here can only land in a memo that belongs to this model
-        # or to an older (already discarded) one
-        cache = self._pred_cache
-        fresh = {}
-        need, seen = [], set()
-        for k in keys:
-            if k in cache:
-                cache.move_to_end(k)  # keep hot serving queries resident
-            elif k not in seen:
-                seen.add(k)
-                need.append(k)
-        if need:
-            mean, std = self._bucketed_predict(self.encode_lines(need))
-            fresh = dict(zip(need, zip(mean, std)))
-        pairs = [fresh[k] if k in fresh else cache[k] for k in keys]
-        cap = self.predict_cache_size
-        if cap > 0:
-            cache.update(fresh)
-            while len(cache) > cap:
-                cache.popitem(last=False)
-        out = np.asarray(pairs, dtype=self.dtype)
-        return out[:, 0].copy(), out[:, 1].copy()
+        launches no kernel.
+
+        Spans: `estimator.predict` (attrs: lines; memo_hits, the lines
+        the memo answered; dup_hits, repeats of a line this call
+        predicts; rows, the lines that reach the device) around
+        `estimator.memo`, `estimator.encode`, the buckets' `graphs.run`
+        and `estimator.assemble`."""
+        with span("estimator.predict", lines=len(query_lines)) as sp:
+            with span("estimator.memo", lines=len(query_lines)):
+                # one result PER LINE is the contract: both encoders skip
+                # blank lines, which would misalign every later result
+                keys = []
+                for i, line in enumerate(query_lines):
+                    k = line.strip()
+                    if not k:
+                        raise ValueError(f"blank query line at index {i}")
+                    keys.append(k)
+                # the memo first, then the predict: a new posterior or an
+                # in-place extend replaces the memo after the model
+                # changes, so results computed here can only land in a memo
+                # that belongs to this model or to an older (already
+                # discarded) one
+                cache = self._pred_cache
+                missed = []
+                for k in keys:
+                    if k in cache:
+                        cache.move_to_end(k)  # keep hot queries resident
+                    else:
+                        missed.append(k)
+                need = list(dict.fromkeys(missed))
+            sp.set(memo_hits=len(keys) - len(missed),
+                   dup_hits=len(missed) - len(need), rows=len(need))
+            if need:
+                mean, std = self._bucketed_predict(self.encode_lines(need))
+            with span("estimator.assemble", lines=len(keys)):
+                fresh = dict(zip(need, zip(mean, std))) if need else {}
+                pairs = [fresh[k] if k in fresh else cache[k] for k in keys]
+                cap = self.predict_cache_size
+                if cap > 0:
+                    cache.update(fresh)
+                    while len(cache) > cap:
+                        cache.popitem(last=False)
+                out = np.asarray(pairs, dtype=self.dtype)
+                return out[:, 0].copy(), out[:, 1].copy()
 
     @collective
     def predict(self, query_lines: Sequence[str]

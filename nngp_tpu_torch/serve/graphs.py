@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from nngp_tpu_torch.ops import gram_cuda, matmul
+from nngp_tpu_torch.utils.profiling import span
 
 BUCKET_MIN = 64
 BUCKET_MAX = 8192
@@ -132,7 +133,11 @@ class BucketGraphs:
     lock: held around each capture and each copy-in, replay and copy-out;
     the Estimator holds the same lock around an in-place extend. Counters:
     `captures`, `capture_ms` (per bucket) and `pool_bytes()`; the kernels
-    a replay runs go to `ops.gram_cuda.REPLAYS` and `ops.matmul.REPLAYS`."""
+    a replay runs go to `ops.gram_cuda.REPLAYS` and `ops.matmul.REPLAYS`.
+    Spans: `graphs.run` a chunk (attrs rows, bucket) around, on the card,
+    `graphs.capture` (attr bucket), `graphs.copy_in` (the pageable copy
+    and the pad fill), `graphs.replay` and `graphs.copy_out` (which waits
+    for the device)."""
 
     def __init__(self, post, lock=None):
         self.post = post
@@ -177,48 +182,53 @@ class BucketGraphs:
     def _run(self, x):
         n = x.shape[0]
         b = bucket_of(n)
-        if self.device.type != "cuda":
-            if n < b:
-                x = np.concatenate([x, np.repeat(x[-1:], b - n, axis=0)])
+        with span("graphs.run", rows=n, bucket=b):
+            if self.device.type != "cuda":
+                if n < b:
+                    x = np.concatenate([x, np.repeat(x[-1:], b - n, axis=0)])
+                with self.lock:
+                    out = self._fn(torch.as_tensor(x, dtype=self.dtype))
+                return out[0, :n].numpy(), out[1, :n].numpy()
             with self.lock:
-                out = self._fn(torch.as_tensor(x, dtype=self.dtype))
-            return out[0, :n].numpy(), out[1, :n].numpy()
-        with self.lock:
-            bucket = self._buckets.get(b)
-            if bucket is None:
-                bucket = self._capture(b)
-            bucket.x[:n].copy_(torch.from_numpy(x))
-            if n < b:
-                bucket.x[n:] = bucket.x[n - 1]
-            bucket.graph.replay()
-            _add_replays(bucket.counts)
-            out = bucket.out[:, :n].cpu().numpy()
-        return out[0], out[1]
+                bucket = self._buckets.get(b)
+                if bucket is None:
+                    bucket = self._capture(b)
+                with span("graphs.copy_in"):
+                    bucket.x[:n].copy_(torch.from_numpy(x))
+                    if n < b:
+                        bucket.x[n:] = bucket.x[n - 1]
+                with span("graphs.replay"):
+                    bucket.graph.replay()
+                _add_replays(bucket.counts)
+                with span("graphs.copy_out"):
+                    out = bucket.out[:, :n].cpu().numpy()
+            return out[0], out[1]
 
     def _capture(self, b: int) -> _Bucket:
         """Warm bucket b up on the capture stream, then capture it."""
-        device = self.device
-        t0 = time.perf_counter()
-        x = torch.ones((b, self.width), dtype=self.dtype, device=device)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
-            self._pool = torch.cuda.graph_pool_handle()
-        stream = self._stream
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream), gram_cuda.counting_into(_tally()):
-            self._fn(x)
-        torch.cuda.current_stream(device).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        counts = _tally()
-        with gram_cuda.counting_into(counts), \
-                torch.cuda.graph(graph, pool=self._pool, stream=stream,
-                                 capture_error_mode="thread_local"):
-            out = self._fn(x)
-        torch.cuda.synchronize(device)
-        bucket = self._buckets[b] = _Bucket(graph, x, out, counts)
-        self.captures += 1
-        self.capture_ms[b] = (time.perf_counter() - t0) * 1e3
-        return bucket
+        with span("graphs.capture", bucket=b):
+            device = self.device
+            t0 = time.perf_counter()
+            x = torch.ones((b, self.width), dtype=self.dtype, device=device)
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(device)
+                self._pool = torch.cuda.graph_pool_handle()
+            stream = self._stream
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream), gram_cuda.counting_into(_tally()):
+                self._fn(x)
+            torch.cuda.current_stream(device).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            counts = _tally()
+            with gram_cuda.counting_into(counts), \
+                    torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                     capture_error_mode="thread_local"):
+                out = self._fn(x)
+            torch.cuda.synchronize(device)
+            bucket = self._buckets[b] = _Bucket(graph, x, out, counts)
+            self.captures += 1
+            self.capture_ms[b] = (time.perf_counter() - t0) * 1e3
+            return bucket
 
     def pool_bytes(self):
         """Bytes of the card's memory held in the graphs' pool (None on

@@ -1,7 +1,7 @@
 """Streaming / continuous-batching front-end for the serving estimator.
 
-A copy of `nngp_tpu/serve/streaming.py` (numpy and the standard library
-only), carried in this package because importing any `nngp_tpu.serve`
+A copy of `nngp_tpu/serve/streaming.py` (numpy, the standard library and
+the port's span recorder), carried in this package because importing any `nngp_tpu.serve`
 module loads jax (the package's `__init__` imports the JAX Estimator).
 Two faults of the original are fixed here; `tests/test_torch_serve_
 frontends.py` shows each against both modules:
@@ -12,6 +12,9 @@ frontends.py` shows each against both modules:
   - the single-item retry after a failed fetch takes its ship time BEFORE
     the retry's predict, so the retry counts as service time, not as
     queue wait.
+It also records the program's spans (`utils/profiling.py`: wait,
+capture, predict and finish, one each a batch), which the original has
+not.
 
 The reference's serving API is synchronous batch-at-a-time (the
 PostgreSQL plugin hands over one list of sub-query lines per call). For
@@ -68,6 +71,8 @@ from concurrent.futures import CancelledError, TimeoutError as FutTimeout
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from nngp_tpu_torch.utils.profiling import span
 
 _PENDING, _RESULT, _EXC, _CANCELLED = 0, 1, 2, 3
 
@@ -220,6 +225,7 @@ class StreamingBatcher:
         # metrics
         self._n_requests = 0
         self._n_batches = 0
+        self._seq = 0           # the last batch drawn (span attrs)
         self._batch_sizes: deque = deque(maxlen=4096)
         self._latencies: deque = deque(maxlen=65536)
         # per-item latency decomposition (same maxlen as _latencies so the
@@ -276,11 +282,27 @@ class StreamingBatcher:
         window on top is pure added latency under sustained arrival. An
         idle wake (empty queue) always takes the capture path, so burst
         absorption is unchanged.
+
+        Spans: `batcher.wait` around the wait for the first item, then
+        `batcher.capture` (attrs: the batch's sequence id, rows, wake,
+        the reason it shipped and the quiet-gap sleeps taken).
         """
-        try:
-            first = self._queue.get(timeout=first_timeout)
-        except queue.Empty:
-            return None
+        with span("batcher.wait"):
+            try:
+                first = self._queue.get(timeout=first_timeout)
+            except queue.Empty:
+                return None
+        self._seq += 1
+        with span("batcher.capture", batch=self._seq,
+                  wake="backlog" if immediate else "idle") as sp:
+            batch, reason, sleeps = self._capture(first, immediate)
+            sp.set(rows=len(batch), reason=reason, sleeps=sleeps)
+        return batch
+
+    def _capture(self, first, immediate: bool):
+        """(batch, reason, sleeps): the batch `_drain_batch` ships after
+        its first item, why it shipped ('backlog', 'full', 'quiet' or
+        'deadline') and the quiet-gap sleeps it took."""
         batch = [first]
         if immediate:
             try:
@@ -288,8 +310,9 @@ class StreamingBatcher:
                     batch.append(self._queue.get_nowait())
             except queue.Empty:
                 pass
-            return batch
+            return batch, "backlog", 0
         deadline = time.monotonic() + self._max_wait_s
+        reason, sleeps = "full", 0
         while len(batch) < self._max_batch:
             before = len(batch)
             try:
@@ -298,6 +321,7 @@ class StreamingBatcher:
             except queue.Empty:
                 pass
             if len(batch) >= self._max_batch:
+                reason = "full"
                 break
             # Hysteresis: while a burst is clearly active (the last sweep
             # drained many items), one empty sample is not "quiet" — the
@@ -305,20 +329,22 @@ class StreamingBatcher:
             # scheduler preemption longer than the gap. Demand TWO consecutive quiet gaps before
             # shipping mid-burst; a trickle still ships after one.
             need_quiet = 2 if (len(batch) - before) > 64 else 1
-            quiet = 0
+            quiet, reason = 0, "quiet"
             while quiet < need_quiet:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     quiet = need_quiet      # SLO window closed: ship
+                    reason = "deadline"
                     break
                 time.sleep(min(self._quiet_gap_s, remaining))
+                sleeps += 1
                 if self._queue.empty():
                     quiet += 1
                 else:
                     break                   # new arrivals: drain again
             if quiet >= need_quiet:
                 break                       # queue stayed quiet: ship now
-        return batch
+        return batch, reason, sleeps
 
     def _dispatch_loop(self):
         if self._dispatch_fn is not None:
@@ -334,14 +360,14 @@ class StreamingBatcher:
             items = [b[0] for b in batch]
             futs = [b[1] for b in batch]
             t_enq = [b[2] for b in batch]
-            self._resolve(items, futs, t_enq)
+            self._resolve(items, futs, t_enq, self._seq)
 
     def _dispatch_loop_pipelined(self):
         """Software pipeline on ONE thread: dispatch the next batch before
         blocking on the previous batch's fetch, overlapping device work
         with the fetch (module docstring, PIPELINED MODE).
         `in_flight` holds at most one dispatched-but-unfetched batch."""
-        in_flight = None        # (handle, items, futs, t_enq, t_ship)
+        in_flight = None   # (handle, items, futs, t_enq, t_ship, seq)
         was_busy = False
         while self._running or not self._queue.empty() or in_flight:
             # with a batch in flight, only poll briefly for new arrivals —
@@ -361,9 +387,12 @@ class StreamingBatcher:
                 futs = [b[1] for b in batch]
                 t_enq = [b[2] for b in batch]
                 t_ship = time.monotonic()
+                seq = self._seq
                 try:
-                    handle = self._dispatch_fn(items)
-                    nxt = (handle, items, futs, t_enq, t_ship)
+                    with span("batcher.predict", batch=seq, rows=len(items),
+                              stage="dispatch"):
+                        handle = self._dispatch_fn(items)
+                    nxt = (handle, items, futs, t_enq, t_ship, seq)
                 except Exception:
                     # dispatch itself failed. Finish the batch already in
                     # flight first: its clients have waited longer, and
@@ -372,15 +401,17 @@ class StreamingBatcher:
                     if in_flight is not None:
                         self._fetch_and_finish(*in_flight)
                         in_flight = None
-                    self._resolve(items, futs, t_enq)
+                    self._resolve(items, futs, t_enq, seq, retry=True)
             if in_flight is not None:
                 self._fetch_and_finish(*in_flight)
             in_flight = nxt
 
-    def _fetch_and_finish(self, handle, items, futs, t_enq, t_ship):
+    def _fetch_and_finish(self, handle, items, futs, t_enq, t_ship, seq):
         try:
-            mean, std = self._fetch_fn(handle)
-            self._finish_batch(items, futs, t_enq, t_ship, mean, std)
+            with span("batcher.predict", batch=seq, rows=len(items),
+                      stage="fetch"):
+                mean, std = self._fetch_fn(handle)
+            self._finish_batch(items, futs, t_enq, t_ship, mean, std, seq)
         except Exception:
             # fetch/validation failed: re-run the batch through the
             # synchronous composed path with bisection
@@ -388,15 +419,17 @@ class StreamingBatcher:
                 # the retry ships now: its predict is service time
                 t_retry = time.monotonic()
                 try:
-                    mean, std = self._predict_fn(items)
+                    with span("batcher.predict", batch=seq, rows=1,
+                              retry=True):
+                        mean, std = self._predict_fn(items)
                     self._finish_batch(items, futs, t_enq, t_retry, mean,
-                                       std)
+                                       std, seq)
                 except Exception as e:
                     self._safe_set(futs[0], exc=e)
                 return
             mid = len(items) // 2
-            self._resolve(items[:mid], futs[:mid], t_enq[:mid])
-            self._resolve(items[mid:], futs[mid:], t_enq[mid:])
+            self._resolve(items[:mid], futs[:mid], t_enq[:mid], seq, True)
+            self._resolve(items[mid:], futs[mid:], t_enq[mid:], seq, True)
 
     # A client may cancel its future at any moment; SlimFuture._set is a
     # no-op on anything already cancelled/resolved, so the dispatcher
@@ -409,56 +442,61 @@ class StreamingBatcher:
         else:
             fut._set(_RESULT, result)
 
-    def _finish_batch(self, items, futs, t_enq, t_ship, mean, std):
-        """Validate a batch's predictions, record metrics, resolve futures.
-        Raises on malformed predictions (callers bisect)."""
-        mean = np.asarray(mean).ravel()
-        std = np.asarray(std).ravel()
-        if mean.shape[0] != len(items):
-            # e.g. Estimator.predict silently drops blank lines —
-            # resolving positionally would hand each later client
-            # its neighbor's prediction. Fail the batch loudly.
-            raise ValueError(
-                f"predict_fn returned {mean.shape[0]} results for "
-                f"{len(items)} requests (did it drop empty items?)")
-        done = time.monotonic()
-        with self._lock:
-            self._n_requests += len(items)
-            self._n_batches += 1
-            self._batch_sizes.append(len(items))
-            self._latencies.extend(done - t for t in t_enq)
-            self._queue_waits.extend(t_ship - t for t in t_enq)
-            # one service value PER ITEM so the quantiles weight each
-            # request, not each batch (a 4k burst batch and a 1-item
-            # trickle batch serve very different request counts)
-            self._services.extend(
-                (done - t_ship) for _ in range(len(items)))
-        mvals, svals = mean.tolist(), std.tolist()
-        # Batch fast path: one condvar acquisition + ONE notify_all for
-        # the whole batch instead of a lock round-trip per future.
-        with self._cond:
-            for f, m, s in zip(futs, mvals, svals):
-                if f._state == _PENDING:
-                    f._state = _RESULT
-                    f._value = (float(m), float(s))
-            self._cond.notify_all()
+    def _finish_batch(self, items, futs, t_enq, t_ship, mean, std, seq):
+        """Validate a batch's predictions, record metrics, resolve futures
+        (span `batcher.finish`). Raises on malformed predictions (callers
+        bisect)."""
+        with span("batcher.finish", batch=seq, rows=len(items)):
+            mean = np.asarray(mean).ravel()
+            std = np.asarray(std).ravel()
+            if mean.shape[0] != len(items):
+                # e.g. Estimator.predict silently drops blank lines —
+                # resolving positionally would hand each later client
+                # its neighbor's prediction. Fail the batch loudly.
+                raise ValueError(
+                    f"predict_fn returned {mean.shape[0]} results for "
+                    f"{len(items)} requests (did it drop empty items?)")
+            done = time.monotonic()
+            with self._lock:
+                self._n_requests += len(items)
+                self._n_batches += 1
+                self._batch_sizes.append(len(items))
+                self._latencies.extend(done - t for t in t_enq)
+                self._queue_waits.extend(t_ship - t for t in t_enq)
+                # one service value PER ITEM so the quantiles weight each
+                # request, not each batch (a 4k burst batch and a 1-item
+                # trickle batch serve very different request counts)
+                self._services.extend(
+                    (done - t_ship) for _ in range(len(items)))
+            mvals, svals = mean.tolist(), std.tolist()
+            # Batch fast path: one condvar acquisition + ONE notify_all for
+            # the whole batch instead of a lock round-trip per future.
+            with self._cond:
+                for f, m, s in zip(futs, mvals, svals):
+                    if f._state == _PENDING:
+                        f._state = _RESULT
+                        f._value = (float(m), float(s))
+                self._cond.notify_all()
 
-    def _resolve(self, items, futs, t_enq):
-        """Predict a batch and resolve its futures. On failure, BISECT:
-        the bad requests are isolated in O(k log n) sub-dispatches instead
-        of n serial per-item retries (one malformed line in a 4k batch
-        would otherwise stall coalescing for ~n serial predicts)."""
+    def _resolve(self, items, futs, t_enq, seq, retry=False):
+        """Predict batch `seq` and resolve its futures (span
+        `batcher.predict`; retry on a bisection's re-runs). On failure,
+        BISECT: the bad requests are isolated in O(k log n) sub-dispatches
+        instead of n serial per-item retries (one malformed line in a 4k
+        batch would otherwise stall coalescing for ~n serial predicts)."""
         try:
             t_ship = time.monotonic()
-            mean, std = self._predict_fn(items)
-            self._finish_batch(items, futs, t_enq, t_ship, mean, std)
+            with span("batcher.predict", batch=seq, rows=len(items),
+                      retry=retry):
+                mean, std = self._predict_fn(items)
+            self._finish_batch(items, futs, t_enq, t_ship, mean, std, seq)
         except Exception as e:
             if len(items) == 1:
                 self._safe_set(futs[0], exc=e)
                 return
             mid = len(items) // 2
-            self._resolve(items[:mid], futs[:mid], t_enq[:mid])
-            self._resolve(items[mid:], futs[mid:], t_enq[mid:])
+            self._resolve(items[:mid], futs[:mid], t_enq[:mid], seq, True)
+            self._resolve(items[mid:], futs[mid:], t_enq[mid:], seq, True)
 
     # -------------------------------------------------------------- admin
     def stats(self) -> dict:

@@ -12,12 +12,32 @@ kernels without them, as `cli/profile_slice.py` counts device activity.
 `kernel_device_ms` is the reading of a kernel's own device time that
 `chip_smoke.py` and `cli/gemm_bench.py` share; `gpu_clocks` reads the card's SM clock, its maximum
 and the active throttle reasons to print beside a timed row.
+
+`span(name, **attrs)` records a span of the program's own host work, from
+any thread, in one process-wide recorder that is off until `enable()`:
+off, it returns one shared no-op object and keeps nothing. A `Span` holds
+its name, its start and end on `time.perf_counter` (the clock on which a
+benchmark places host spans beside a device trace), its id, the id of the
+span open around it on the same thread (0 at the top; each thread keeps
+its own stack, so a batcher's dispatcher thread nests as its callers'
+threads do), the thread's ident and its attrs: the counts of the boundary
+it sits on (rows, lines, hits, bucket, reason), set at the start or by
+`Span.set` / `Span.add` before it ends. `current()` is the innermost open
+span of the calling thread. `take()` returns, then clears, the spans kept
+(at most `SPAN_CAPACITY`) and the count of those dropped past it;
+`disable()` before `take()` leaves no span still open to land after it.
+Unlike `annotate`, a span is kept whichever thread records it and whether
+or not a profiler runs. The serving path (`serve/streaming.py`,
+`serve/estimator.py`, `serve/graphs.py`) and the Nystrom fit
+(`gp/nystrom.py`) record one span per batch, chunk, panel or stage, never
+one per line or row.
 """
 
 import itertools
 import json
 import os
 import subprocess
+import threading
 import time
 from contextlib import contextmanager
 
@@ -175,3 +195,131 @@ class Metrics:
             with open(path, "w") as f:
                 f.write(payload)
         return payload
+
+
+# ------------------------------------------------------------------ spans
+# at most this many spans kept between two take() calls; a 40 s serving or
+# refit window records about 10,000
+SPAN_CAPACITY = 200_000
+
+
+class Span:
+    """One span of host work (module docstring). Used as a context
+    manager, from `span()`."""
+
+    __slots__ = ("name", "t0", "t1", "id", "parent", "thread", "attrs")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+        self.t0 = self.t1 = None
+
+    def set(self, **attrs):
+        """Set attrs known only once the work has run."""
+        self.attrs.update(attrs)
+
+    def add(self, key: str, n: int = 1):
+        """Add n to the count `key`, from code that runs inside the span."""
+        self.attrs[key] = self.attrs.get(key, 0) + n
+
+    def __enter__(self):
+        stack = _stack()
+        self.parent = stack[-1].id if stack else 0
+        self.id = next(_IDS)
+        self.thread = threading.get_ident()
+        stack.append(self)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter()
+        _stack().pop()
+        _RECORDER.keep(self)
+        return False
+
+
+class _NoSpan:
+    """What `span()` and `current()` return while the recorder is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        pass
+
+    def add(self, key, n=1):
+        pass
+
+
+NO_SPAN = _NoSpan()
+_IDS = itertools.count(1)
+_LOCAL = threading.local()
+
+
+def _stack() -> list:
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
+
+
+class _Recorder:
+    def __init__(self):
+        self.on = False
+        self.capacity = SPAN_CAPACITY
+        self.spans = []
+        self.dropped = 0
+        self.lock = threading.Lock()
+
+    def keep(self, s: Span):
+        if not self.on:
+            return
+        with self.lock:
+            if len(self.spans) < self.capacity:
+                self.spans.append(s)
+            else:
+                self.dropped += 1
+
+
+_RECORDER = _Recorder()
+
+
+def span(name: str, **attrs):
+    """A span named `name` around a block (module docstring); the shared
+    no-op while the recorder is off."""
+    if not _RECORDER.on:
+        return NO_SPAN
+    return Span(name, attrs)
+
+
+def current():
+    """The innermost open span of the calling thread (the no-op when
+    there is none or the recorder is off)."""
+    if not _RECORDER.on:
+        return NO_SPAN
+    stack = _stack()
+    return stack[-1] if stack else NO_SPAN
+
+
+def enable():
+    """Start keeping spans."""
+    _RECORDER.on = True
+
+
+def disable():
+    """Stop keeping spans; what was kept stays until `take()`."""
+    _RECORDER.on = False
+
+
+def take():
+    """(spans, dropped): the spans kept since the last take, in the order
+    they ended, and the count dropped past SPAN_CAPACITY; both cleared."""
+    rec = _RECORDER
+    with rec.lock:
+        spans, rec.spans = rec.spans, []
+        dropped, rec.dropped = rec.dropped, 0
+    return spans, dropped
