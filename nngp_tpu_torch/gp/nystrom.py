@@ -833,6 +833,9 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
     device memory. The arguments of the JAX function, plus `device` (where
     the posterior lives; required for numpy input, a tensor's own device by
     default). x_train's dtype (fp32 or fp64) is the posterior's.
+    input_scale None probes max|x| on the rows once they are on the
+    device (one reduction, one scalar read back), not on the caller's
+    host array: the same scale, bit for bit.
 
     whiten: 'chol' (jittered Cholesky basis, rank m) or 'eigh' (the
     eigenvalue-truncated basis, rank <= m). inducing_rows: explicit (m, d)
@@ -877,7 +880,8 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
     device = resolve_device(device)
     finalize = _resolve_finalize(finalize, device)
     with span("nystrom.fit", rows=len(x_train), panel=panel_size) as sp:
-        with span("nystrom.prepare", rows=len(x_train)):
+        with span("nystrom.prepare", rows=len(x_train),
+                  probe="device" if input_scale is None else "given"):
             x = _as_tensor(x_train, device)
             if x.dtype not in (torch.float32, torch.float64):
                 raise TypeError("x_train must be float32 or float64, got "
@@ -891,7 +895,7 @@ def fit_nystrom(spec: KernelSpec, x_train, y_train, num_inducing: int = 2048,
                 y = y[:, None]
             n = x.shape[0]
             if input_scale is None:
-                input_scale = _auto_input_scale(x_train, spec.layers)
+                input_scale = _auto_input_scale(x, spec.layers)
             if input_scale != 1.0:
                 x = x * (1.0 / input_scale)
             if inducing_rows is not None:

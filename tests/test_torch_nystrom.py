@@ -139,6 +139,80 @@ def test_input_scale_and_inducing_rows_match_jax(get):
     np.testing.assert_array_equal(n(post.x_m), np.asarray(jpost.x_m))
 
 
+def _probe_rows(case):
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, 1000, (150, 20))
+    if case == "fp32_negative_max":
+        x = (x - 500.0) * 6e3
+        x[17, 3] = -5.0e6
+        return x.astype(np.float32)
+    if case == "fp32_below_threshold":
+        return x.astype(np.float32)
+    if case == "fp32_not_equivariant":
+        return (x * 6e3).astype(np.float32)
+    return (x * 6e3).astype(np.float64)
+
+
+@pytest.mark.parametrize("case,scale", [
+    ("fp32_negative_max", 2.0 ** 23), ("fp32_below_threshold", 1.0),
+    ("fp32_not_equivariant", 1.0), ("fp64", 1.0)])
+def test_fit_probes_its_device_rows_for_the_input_scale(monkeypatch, case,
+                                                        scale):
+    """fit_nystrom on numpy rows takes max|x| from the tensor it holds on
+    its device, never the caller's array, and gets numpy's scale: the fit
+    equals, bit for bit, one given that scale."""
+    spec = KernelSpec(mlp(1, width=64, b_std=0.1 if case ==
+                          "fp32_not_equivariant" else 0.0))
+    x = _probe_rows(case)
+    y = np.random.default_rng(12).uniform(0.0, 16.0, (len(x), 1)).astype(
+        x.dtype)
+    want = TN._auto_input_scale(x, spec.layers)
+    assert want == scale
+    probe, seen = TN._auto_input_scale, []
+
+    def on_tensors_only(rows, layers):
+        assert isinstance(rows, torch.Tensor)
+        seen.append(rows)
+        return probe(rows, layers)
+
+    monkeypatch.setattr(TN, "_auto_input_scale", on_tensors_only)
+    monkeypatch.setattr(TN, "_BASES_CACHE", {})
+    kw = dict(num_inducing=24, panel_size=40, seed=3, device="cpu")
+    post = fit_nystrom(spec, x, y, **kw)
+    assert len(seen) == 1 and post.input_scale == want
+    TN._BASES_CACHE.clear()
+    given = fit_nystrom(spec, x, y, input_scale=want, **kw)
+    assert len(seen) == 1
+    for name in ("x_m", "w_solve", "c_raw", "b_w", "ic", "beta_w", "reg"):
+        assert torch.equal(getattr(post, name), getattr(given, name)), name
+
+
+@pytest.mark.parametrize("fill", [
+    "inf", "-inf", "nan", "nan_and_large", "empty", "power_of_two", "large"])
+def test_the_device_probe_gives_numpy_s_input_scale(fill):
+    """The probe alone on the tensor the fit makes of numpy rows, against
+    the same probe on the array: non-finite maxima map to 1.0, an empty
+    array reads 0.0 (scale 1.0), powers of two are kept."""
+    layers = mlp(1)
+    x = np.random.default_rng(13).uniform(-1e3, 1e3, (40, 7)).astype(
+        np.float32)
+    if fill == "empty":
+        x = x[:0]
+    elif fill == "power_of_two":
+        x[5, 2] = -2.0 ** 21
+    elif fill == "large":
+        x[5, 2] = 3.3e7
+    else:
+        x[5, 2] = {"inf": np.inf, "-inf": -np.inf}.get(fill, np.nan)
+        if fill == "nan_and_large":
+            x[9, 1] = 3.3e7
+    want = TN._auto_input_scale(x, layers)
+    got = TN._auto_input_scale(TN._as_tensor(x, "cpu"), layers)
+    assert got == want
+    assert want == {"power_of_two": 2.0 ** 21,
+                    "large": 2.0 ** 25}.get(fill, 1.0)
+
+
 @pytest.mark.parametrize("get", ["nngp", "ntk"])
 def test_extend_equals_refit_and_forget_inverts(get):
     """Moments are row sums: extend equals a refit on the concatenated

@@ -300,7 +300,22 @@ def test_a_fit_spans_its_stages_and_panels(monkeypatch):
     (bases,) = _named(spans, "nystrom.bases")
     assert bases.attrs["cached"] is False and bases.attrs["attempts"] >= 1
     assert _named(spans, "nystrom.finalize")[0].attrs == {"mode": "host"}
-    assert _named(spans, "nystrom.prepare")[0].attrs == {"rows": 150}
+    assert _named(spans, "nystrom.prepare")[0].attrs == {
+        "rows": 150, "probe": "device"}
+
+
+def test_a_fit_given_its_input_scale_probes_nothing(monkeypatch):
+    def no_probe(rows, layers):
+        raise AssertionError("probed although input_scale was given")
+
+    monkeypatch.setattr(TN, "_auto_input_scale", no_probe)
+    monkeypatch.setattr(TN, "_BASES_CACHE", {})
+    x, y = _fit_data(8)
+    _, spans, _ = _recorded(lambda: fit_nystrom(
+        KernelSpec(mlp(1, width=64)), x, y, num_inducing=16, panel_size=40,
+        input_scale=4.0, device="cpu"))
+    assert _named(spans, "nystrom.prepare")[0].attrs == {
+        "rows": 150, "probe": "given"}
 
 
 def test_a_second_fit_on_the_same_inducing_rows_finds_its_bases_cached(
