@@ -41,6 +41,15 @@ zero label, a unit row of the factor, masked out of every cross Gram), and
 its storage and a CUDA graph captured over them stays valid
 (`serve/graphs.py`). pad_to is capped by `dense_exact_max_n`: padding is
 a dense-layout feature, as in the JAX package.
+
+Spans (`utils/profiling.py::span`, off until `profiling.enable()`): a fit
+is `exact.fit` (rows, pad_to, layout 'dense' / 'padded' / 'blocks',
+dtype, get) around `exact.prepare` (the input-scale probe, the copy to
+the device, the exact diagonal and the ridge; probe 'given', 'skipped',
+'host' or 'device'), `exact.gram` (dense and padded layouts: the Gram,
+the padding, the row mask), `exact.factor` (the Cholesky up to its info
+sync; the whole column-block factor) and `exact.solve` (alpha's two
+triangular solves).
 """
 
 import dataclasses
@@ -62,6 +71,7 @@ from nngp_tpu_torch.ops.linalg import (BlockLowerTriangular, FactorError,
                                        fused_panel_cholesky,
                                        padded_append_rows_)
 from nngp_tpu_torch.utils.device import resolve_device
+from nngp_tpu_torch.utils.profiling import span
 
 
 # The exact tier's memory rule: a train-set size is served exactly while
@@ -554,16 +564,28 @@ def input_scale_for_bound(max_abs: float, layers, fp64: bool = False) -> float:
 def _auto_input_scale(x, layers) -> float:
     """Data-probed prescale: `input_scale_for_bound` of max|x|. Free for
     numpy input; a CUDA tensor costs one device sync."""
+    if _probe_site(x, layers) == "skipped":
+        return 1.0
     if isinstance(x, torch.Tensor):
-        if x.dtype == torch.float64 or not is_scale_equivariant(layers):
-            return 1.0
         m = float(torch.max(torch.abs(x))) if x.numel() else 0.0
     else:
         x = np.asarray(x)
-        if x.dtype == np.float64 or not is_scale_equivariant(layers):
-            return 1.0
         m = float(np.max(np.abs(x))) if x.size else 0.0
     return input_scale_for_bound(m, layers)
+
+
+def _probe_site(x, layers) -> str:
+    """Where `_auto_input_scale(x, layers)` reads max|x|, for a fit's
+    prepare span: 'skipped' where it reads nothing (fp64 rows, or a spec
+    that is not scale-equivariant), 'device' on a card's tensor, else
+    'host'."""
+    if isinstance(x, torch.Tensor):
+        fp64, where = x.dtype == torch.float64, x.device.type
+    else:
+        fp64, where = np.asarray(x).dtype == np.float64, "cpu"
+    if fp64 or not is_scale_equivariant(layers):
+        return "skipped"
+    return "host" if where == "cpu" else "device"
 
 
 def _as_tensor(a, device, dtype=None):
@@ -621,72 +643,94 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
             raise ValueError("fit_gp needs device= for numpy input")
         device = x_train.device
     device = resolve_device(device)
-    if input_scale is None:
-        input_scale = _auto_input_scale(x_train, spec.layers)
-    x = _as_tensor(x_train, device)
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"x_train must be float32 or float64, got {x.dtype}")
-    y = _as_tensor(y_train, device, x.dtype)
-    if y.dim() == 1:
-        y = y[:, None]
-    if input_scale != 1.0:
-        x = x * (1.0 / input_scale)
-    n = x.shape[0]
-    if pad_to is not None:
-        pad_to = int(pad_to)
-        cap = _dense_cap(device, x.dtype, get)
-        if get != "nngp":
-            raise ValueError("pad_to supports get='nngp' only (the padded "
-                             "NTK covariance needs a masked resident k_tt; "
-                             "not implemented)")
-        if pad_to < n:
-            raise ValueError(f"pad_to={pad_to} < n={n}")
-        if pad_to > cap:
-            raise ValueError(
-                f"pad_to={pad_to} exceeds {cap}, the dense factor layout's "
-                f"dense_exact_max_n for {get} in "
-                f"{str(x.dtype).replace('torch.', '')} on {device}: padding "
-                "is a dense-layout feature, and the column-block layout "
-                "that serves the exact tier beyond it up to "
-                "default_exact_max_n takes none")
-
-    diag = diag_eval(spec.layers, x, ("nngp", "ntk"))
-    reg = solve_ridge(diag, get, diag_reg, diag_reg_absolute_scale)
-    row_mask = k_tt_nngp = None
-    if pad_to is None and uses_block_layout(n, device, x.dtype, get):
-        try:
-            l = _block_factor(spec, x, reg, diag, get)
-        except FactorError as err:
-            err.diag_reg = diag_reg
-            raise
-    else:
+    with span("exact.fit", rows=len(x_train), get=get,
+              pad_to=None if pad_to is None else int(pad_to)) as fit_span:
+        with span("exact.prepare", rows=len(x_train),
+                  probe="given" if input_scale is not None
+                  else _probe_site(x_train, spec.layers)):
+            if input_scale is None:
+                input_scale = _auto_input_scale(x_train, spec.layers)
+            x = _as_tensor(x_train, device)
+            if x.dtype not in (torch.float32, torch.float64):
+                raise TypeError("x_train must be float32 or float64, got "
+                                f"{x.dtype}")
+            y = _as_tensor(y_train, device, x.dtype)
+            if y.dim() == 1:
+                y = y[:, None]
+            if input_scale != 1.0:
+                x = x * (1.0 / input_scale)
+            n = x.shape[0]
+            if pad_to is not None:
+                pad_to = int(pad_to)
+                cap = _dense_cap(device, x.dtype, get)
+                if get != "nngp":
+                    raise ValueError(
+                        "pad_to supports get='nngp' only (the padded NTK "
+                        "covariance needs a masked resident k_tt; not "
+                        "implemented)")
+                if pad_to < n:
+                    raise ValueError(f"pad_to={pad_to} < n={n}")
+                if pad_to > cap:
+                    raise ValueError(
+                        f"pad_to={pad_to} exceeds {cap}, the dense factor "
+                        f"layout's dense_exact_max_n for {get} in "
+                        f"{str(x.dtype).replace('torch.', '')} on {device}: "
+                        "padding is a dense-layout feature, and the "
+                        "column-block layout that serves the exact tier "
+                        "beyond it up to default_exact_max_n takes none")
+            diag = diag_eval(spec.layers, x, ("nngp", "ntk"))
+            reg = solve_ridge(diag, get, diag_reg, diag_reg_absolute_scale)
+        row_mask = k_tt_nngp = None
         if pad_to is not None:
-            solve_k = x.new_zeros((pad_to, pad_to))
-            gram_sym(spec, x, "nngp", diag_add=reg, diag=diag,
-                     out=solve_k[:n, :n])
-            solve_k.diagonal()[n:] = 1.0
-            x = torch.cat([x, x[:1].expand(pad_to - n, -1)])
-            y = torch.cat([y, y.new_zeros((pad_to - n, y.shape[1]))])
-            row_mask = x.new_zeros(pad_to)
-            row_mask[:n] = 1.0
-        elif get == "nngp":
-            solve_k = gram_sym(spec, x, "nngp", diag_add=reg, diag=diag)
+            layout, storage = "padded", pad_to
+        elif uses_block_layout(n, device, x.dtype, get):
+            layout, storage = "blocks", n
         else:
-            k_tt_nngp, solve_k = gram_sym(spec, x, ("nngp", "ntk"),
-                                          diag_add=reg, diag=diag)
-        l, info = torch.linalg.cholesky_ex(solve_k)
-        del solve_k
-        if int(info):
-            # the traceback keeps this frame alive: drop the n x n tensors
-            # first, so that a caller's fallback fit has the memory
-            del l, k_tt_nngp
-            raise FactorError("fit", int(info), n, x.dtype, diag_reg)
-    alpha = _tri_solve(l, _tri_solve(l, y), transpose=True)
-    return GPPosterior(
-        x_train=x, y_train=y, l=l, alpha=alpha, reg=reg,
-        k_tt_nngp=k_tt_nngp, spec=spec, get=get, diag_reg=diag_reg,
-        input_scale=float(input_scale),
-        n_real=None if pad_to is None else n, row_mask=row_mask)
+            layout, storage = "dense", n
+        fit_span.set(layout=layout,
+                     dtype=str(x.dtype).replace("torch.", ""))
+        if layout == "blocks":
+            with span("exact.factor", rows=n, storage_rows=storage,
+                      layout=layout):
+                try:
+                    l = _block_factor(spec, x, reg, diag, get)
+                except FactorError as err:
+                    err.diag_reg = diag_reg
+                    raise
+        else:
+            with span("exact.gram", rows=n, storage_rows=storage):
+                if layout == "padded":
+                    solve_k = x.new_zeros((pad_to, pad_to))
+                    gram_sym(spec, x, "nngp", diag_add=reg, diag=diag,
+                             out=solve_k[:n, :n])
+                    solve_k.diagonal()[n:] = 1.0
+                    x = torch.cat([x, x[:1].expand(pad_to - n, -1)])
+                    y = torch.cat([y, y.new_zeros((pad_to - n, y.shape[1]))])
+                    row_mask = x.new_zeros(pad_to)
+                    row_mask[:n] = 1.0
+                elif get == "nngp":
+                    solve_k = gram_sym(spec, x, "nngp", diag_add=reg,
+                                       diag=diag)
+                else:
+                    k_tt_nngp, solve_k = gram_sym(spec, x, ("nngp", "ntk"),
+                                                  diag_add=reg, diag=diag)
+            with span("exact.factor", rows=n, storage_rows=storage,
+                      layout=layout):
+                l, info = torch.linalg.cholesky_ex(solve_k)
+                del solve_k
+                if int(info):
+                    # the traceback keeps this frame alive: drop the n x n
+                    # tensors first, so that a caller's fallback fit has
+                    # the memory
+                    del l, k_tt_nngp
+                    raise FactorError("fit", int(info), n, x.dtype, diag_reg)
+        with span("exact.solve", rows=n):
+            alpha = _tri_solve(l, _tri_solve(l, y), transpose=True)
+        return GPPosterior(
+            x_train=x, y_train=y, l=l, alpha=alpha, reg=reg,
+            k_tt_nngp=k_tt_nngp, spec=spec, get=get, diag_reg=diag_reg,
+            input_scale=float(input_scale),
+            n_real=None if pad_to is None else n, row_mask=row_mask)
 
 
 def _block_factor(spec: KernelSpec, x, reg, diag, get: str

@@ -28,9 +28,9 @@ span of the calling thread. `take()` returns, then clears, the spans kept
 `disable()` before `take()` leaves no span still open to land after it.
 Unlike `annotate`, a span is kept whichever thread records it and whether
 or not a profiler runs. The serving path (`serve/streaming.py`,
-`serve/estimator.py`, `serve/graphs.py`) and the Nystrom fit
-(`gp/nystrom.py`) record one span per batch, chunk, panel or stage, never
-one per line or row.
+`serve/estimator.py`, `serve/graphs.py`), the Nystrom fit
+(`gp/nystrom.py`) and the exact fit (`gp/posterior.py::fit_gp`) record
+one span per batch, chunk, panel or stage, never one per line or row.
 """
 
 import itertools
