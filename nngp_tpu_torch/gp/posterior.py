@@ -35,8 +35,11 @@ checkpoints read the blocks.
 
 Padded posteriors (`fit_gp(pad_to=)`, as in the JAX package): the storage
 holds pad_to rows, the real ones first, then inert rows (copies of row 0,
-zero label, a unit row of the factor, masked out of every cross Gram), and
-`extend` writes new rows into the pad slots in place
+zero label, a unit row of the factor, masked out of every cross Gram). The
+fit builds, factors and solves the n real rows only, as the dense layout
+does, and writes the factor into the padded storage with the pad's unit
+rows beside it, since the padded Gram's factor is block diagonal. `extend`
+writes new rows into the pad slots in place
 (`ops.linalg.padded_append_rows_`), so every tensor a predict reads keeps
 its storage and a CUDA graph captured over them stays valid
 (`serve/graphs.py`). pad_to is capped by `dense_exact_max_n`: padding is
@@ -48,8 +51,9 @@ dtype, get) around `exact.prepare` (the input-scale probe, the copy to
 the device, the exact diagonal and the ridge; probe 'given', 'skipped',
 'host' or 'device'), `exact.gram` (dense and padded layouts: the Gram,
 the padding, the row mask), `exact.factor` (the Cholesky up to its info
-sync; the whole column-block factor) and `exact.solve` (alpha's two
-triangular solves).
+sync, of factor_rows = n rows in every layout; the whole column-block
+factor) and `exact.solve` (alpha's two triangular solves; padded: the
+factor and alpha written into their padded storage).
 """
 
 import dataclasses
@@ -625,8 +629,9 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
     pad_to (get='nngp' only): a padded posterior of pad_to storage rows,
     n real and pad_to - n inert (copies of row 0, zero labels, unit factor
     rows, masked out of every cross Gram), that `extend` fills in place.
-    The ridge is relative to the real rows' diagonal; the Gram kernel
-    writes the real block of the padded matrix. At most
+    The ridge is relative to the real rows' diagonal; the Gram, the
+    factor and alpha's solves cover the n real rows, and the pad's unit
+    factor rows and zero alpha rows are written beside them. At most
     `dense_exact_max_n` of the device, dtype and kernel.
 
     Above `dense_exact_max_n` (unpadded) the factor is column blocks, and
@@ -691,31 +696,30 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
                      dtype=str(x.dtype).replace("torch.", ""))
         if layout == "blocks":
             with span("exact.factor", rows=n, storage_rows=storage,
-                      layout=layout):
+                      factor_rows=n, layout=layout):
                 try:
                     l = _block_factor(spec, x, reg, diag, get)
                 except FactorError as err:
                     err.diag_reg = diag_reg
                     raise
         else:
+            # padded or not, the Gram, the factor and the solves cover the
+            # n real rows: the inert-padded Gram is [K + rI, 0; 0, I], whose
+            # factor [L, 0; 0, I] is written into its storage afterwards
             with span("exact.gram", rows=n, storage_rows=storage):
-                if layout == "padded":
-                    solve_k = x.new_zeros((pad_to, pad_to))
-                    gram_sym(spec, x, "nngp", diag_add=reg, diag=diag,
-                             out=solve_k[:n, :n])
-                    solve_k.diagonal()[n:] = 1.0
-                    x = torch.cat([x, x[:1].expand(pad_to - n, -1)])
-                    y = torch.cat([y, y.new_zeros((pad_to - n, y.shape[1]))])
-                    row_mask = x.new_zeros(pad_to)
-                    row_mask[:n] = 1.0
-                elif get == "nngp":
+                if get == "nngp":
                     solve_k = gram_sym(spec, x, "nngp", diag_add=reg,
                                        diag=diag)
                 else:
                     k_tt_nngp, solve_k = gram_sym(spec, x, ("nngp", "ntk"),
                                                   diag_add=reg, diag=diag)
+                if layout == "padded":
+                    x = torch.cat([x, x[:1].expand(pad_to - n, -1)])
+                    y = torch.cat([y, y.new_zeros((pad_to - n, y.shape[1]))])
+                    row_mask = x.new_zeros(pad_to)
+                    row_mask[:n] = 1.0
             with span("exact.factor", rows=n, storage_rows=storage,
-                      layout=layout):
+                      factor_rows=n, layout=layout):
                 l, info = torch.linalg.cholesky_ex(solve_k)
                 del solve_k
                 if int(info):
@@ -725,12 +729,29 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
                     del l, k_tt_nngp
                     raise FactorError("fit", int(info), n, x.dtype, diag_reg)
         with span("exact.solve", rows=n):
-            alpha = _tri_solve(l, _tri_solve(l, y), transpose=True)
+            alpha = _tri_solve(l, _tri_solve(l, y[:n]), transpose=True)
+            if layout == "padded":
+                l = _padded_factor(l, pad_to)
+                alpha = torch.cat(
+                    [alpha, alpha.new_zeros((pad_to - n, alpha.shape[1]))])
         return GPPosterior(
             x_train=x, y_train=y, l=l, alpha=alpha, reg=reg,
             k_tt_nngp=k_tt_nngp, spec=spec, get=get, diag_reg=diag_reg,
             input_scale=float(input_scale),
             n_real=None if pad_to is None else n, row_mask=row_mask)
+
+
+def _padded_factor(l: torch.Tensor, pad_to: int) -> torch.Tensor:
+    """[L, 0; 0, I] of order pad_to, for the factor L of the n real rows:
+    the factor of the inert-padded Gram [K + rI, 0; 0, I], written (exact
+    zeros, a unit diagonal), not computed."""
+    n = l.shape[0]
+    out = l.new_empty((pad_to, pad_to))
+    out[:n, :n] = l
+    out[:n, n:] = 0.0
+    out[n:] = 0.0
+    out.diagonal()[n:] = 1.0
+    return out
 
 
 def _block_factor(spec: KernelSpec, x, reg, diag, get: str

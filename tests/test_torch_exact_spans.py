@@ -72,7 +72,7 @@ def test_a_fit_spans_its_stages(layout, monkeypatch):
     by = {s.name: s.attrs for s in children}
     assert by["exact.prepare"] == {"rows": 100, "probe": "skipped"}
     assert by["exact.factor"] == {"rows": 100, "storage_rows": storage,
-                                  "layout": layout}
+                                  "factor_rows": 100, "layout": layout}
     assert by["exact.solve"] == {"rows": 100}
     if layout != "blocks":
         assert by["exact.gram"] == {"rows": 100, "storage_rows": storage}

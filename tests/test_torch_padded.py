@@ -27,6 +27,7 @@ from nngp_tpu_torch.active import ActiveLearner
 from nngp_tpu_torch.gp import fit_gp
 from nngp_tpu_torch.gp import posterior as TP
 from nngp_tpu_torch.models.kernel_spec import KernelSpec, mlp
+from nngp_tpu_torch.ops.gram_cuda import gram_sym
 from nngp_tpu_torch.ops.linalg import FactorError
 from nngp_tpu_torch.serve import Estimator
 from nngp_tpu_torch.serve import graphs
@@ -121,6 +122,96 @@ def test_padded_fit_with_an_fp32_prescale():
     np.testing.assert_allclose(s_p, s_d, rtol=1e-5)
     ext = pad.extend(f32(xt), torch.zeros((7, 1)))
     assert ext is pad and ext.num_train == 71 and ext.num_padded == 96
+
+
+def _whole_padded_fit(x, y, pad_to, input_scale, diag_reg=1e-3):
+    """The reference for the padded fit's factor: the inert-padded Gram
+    [K + rI, 0; 0, I] built at all pad_to rows (zero fill, the real block
+    from `gram_sym`, a unit pad diagonal), factored whole by `cholesky_ex`
+    and solved whole for alpha. Returns (factor, info, alpha)."""
+    x = t(x) * (1.0 / input_scale)
+    y, nr = t(y), x.shape[0]
+    diag = TP.diag_eval(SPEC.layers, x, ("nngp", "ntk"))
+    reg = TP.solve_ridge(diag, "nngp", diag_reg, False)
+    k = x.new_zeros((pad_to, pad_to))
+    gram_sym(SPEC, x, "nngp", diag_add=reg, diag=diag, out=k[:nr, :nr])
+    k.diagonal()[nr:] = 1.0
+    l, info = torch.linalg.cholesky_ex(k)
+    y = torch.cat([y, y.new_zeros((pad_to - nr, 1))])
+    z = torch.linalg.solve_triangular(l, y, upper=False)
+    return l, int(info), torch.linalg.solve_triangular(l.mT, z, upper=True)
+
+
+@pytest.mark.parametrize("dtype, input_scale", [(np.float64, 1.0),
+                                                (np.float32, 2.0)])
+def test_the_padded_factor_matches_the_whole_padded_factor(dtype,
+                                                           input_scale):
+    """The padded fit factors and solves its 100 real rows and writes the
+    pad beside them: its real block matches the factor of the whole
+    160-row padded Gram to rounding (n eps max|L| for the factor,
+    eps n / diag_reg max|alpha| for alpha, the Gram's condition), and
+    the pad block is exact: a unit diagonal, zeros beside it, zero
+    alpha rows. fp64, and fp32 with a pinned prescale."""
+    x, y, _, _ = _data()
+    x, y = x.astype(dtype), y.astype(dtype)
+    pad = fit_gp(SPEC, t(x), t(y), input_scale=input_scale, pad_to=160)
+    l, info, alpha = _whole_padded_fit(x, y, 160, input_scale)
+    assert info == 0 and pad.l.shape == (160, 160)
+    eps = torch.finfo(pad.l.dtype).eps
+    torch.testing.assert_close(
+        pad.l[:100, :100], l[:100, :100], rtol=0,
+        atol=8 * 100 * eps * float(l.abs().max()))
+    torch.testing.assert_close(
+        pad.alpha[:100], alpha[:100], rtol=0,
+        atol=eps * (100 / 1e-3) * float(alpha.abs().max()))
+    assert torch.equal(pad.l[100:, 100:], torch.eye(60, dtype=pad.l.dtype))
+    assert not pad.l[100:, :100].any() and not pad.l[:100, 100:].any()
+    assert not pad.alpha[100:].any() and pad.alpha.shape == (160, 1)
+
+
+def test_pad_to_n_is_the_dense_fit_bit_for_bit():
+    """pad_to == n: a padded posterior with no pad rows, whose factor,
+    alpha and rows are the dense fit's bit for bit."""
+    x, y, xt, _ = _data()
+    pad = fit_gp(SPEC, t(x), t(y), pad_to=100)
+    dense = fit_gp(SPEC, t(x), t(y))
+    assert pad.n_real == 100 and pad.num_padded == 100
+    for name in ("x_train", "y_train", "l", "alpha", "reg"):
+        assert torch.equal(getattr(pad, name), getattr(dense, name)), name
+    assert torch.equal(pad.row_mask, torch.ones(100, dtype=torch.float64))
+    for a, b in zip(pad.predict_mean_std(t(xt)),
+                    dense.predict_mean_std(t(xt))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("diag_reg", [-0.5, -1e-3, -1e-4])
+def test_a_padded_fit_that_is_not_positive_definite_fails_at_the_same_order(
+        diag_reg):
+    """A real block that is not positive definite (a negative ridge)
+    raises FactorError at the leading minor where the whole padded
+    Gram's factor fails: the pad block cannot fail."""
+    x, y, _, _ = _data()
+    _, info, _ = _whole_padded_fit(x, y, 160, 1.0, diag_reg=diag_reg)
+    assert 0 < info <= 100
+    with pytest.raises(FactorError) as err:
+        fit_gp(SPEC, t(x), t(y), diag_reg=diag_reg, pad_to=160)
+    assert (err.value.op, err.value.order, err.value.n) == ("fit", info, 100)
+    assert err.value.diag_reg == diag_reg
+
+
+def test_the_padded_fit_factors_the_real_rows_only(monkeypatch):
+    """pad_to=160, n=100: `cholesky_ex` is handed the (100, 100) ridged
+    Gram, not the padded matrix."""
+    shapes, factor = [], torch.linalg.cholesky_ex
+
+    def recording(a, *args, **kw):
+        shapes.append(tuple(a.shape))
+        return factor(a, *args, **kw)
+
+    monkeypatch.setattr(TP.torch.linalg, "cholesky_ex", recording)
+    x, y, _, _ = _data()
+    pad = fit_gp(SPEC, t(x), t(y), pad_to=160)
+    assert shapes == [(100, 100)] and pad.l.shape == (160, 160)
 
 
 def test_bucketed_extends_write_in_place_and_match_dense_and_jax():
