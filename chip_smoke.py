@@ -234,6 +234,9 @@ import time
 import numpy as np
 import torch
 
+from nngp_tpu_torch.utils.profiling import event_ms, kernel_device_ms
+from nngp_tpu_torch.utils.roofline import gemm_bound, gram_bound
+
 FOREST = "workloads/forest_data"
 # fp64 (median, p95) of the symmetric q-error on the forest 10.8k/3.6k split
 # (tests/test_parity_gate.py:72-90).
@@ -586,26 +589,15 @@ def check_slice(device_name):
     return total
 
 
-def _event_ms(fn, reps):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def paired_ms(kernel_fn, plain_fn, reps=10):
-    """(kernel ms, plain ms) per call from CUDA events, after a warm-up of
-    each, in the order plain, kernel, kernel, plain."""
+    """(kernel ms, plain ms) per call from CUDA events
+    (`utils.profiling.event_ms`), after a warm-up of each, in the order
+    plain, kernel, kernel, plain."""
     kernel_fn(), plain_fn()
-    torch.cuda.synchronize()
-    p1 = _event_ms(plain_fn, reps)
-    k1 = _event_ms(kernel_fn, reps)
-    k2 = _event_ms(kernel_fn, reps)
-    p2 = _event_ms(plain_fn, reps)
+    p1 = event_ms(plain_fn, reps)
+    k1 = event_ms(kernel_fn, reps)
+    k2 = event_ms(kernel_fn, reps)
+    p2 = event_ms(plain_fn, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -615,7 +607,6 @@ def time_kernels(device):
     kernel's own device time (torch.profiler), its roofline bound and
     torch.matmul writing the same output in the same dtype (dot only);
     returns the fp32 figures."""
-    from nngp_tpu_torch.cli.gram_bench import bound
     from nngp_tpu_torch.gp.posterior import solve_ridge
     from nngp_tpu_torch.models.kernel_spec import diag_eval, reference_kernel
     from nngp_tpu_torch.ops.gram_cuda import (gram_cross, gram_cross_plain,
@@ -641,13 +632,13 @@ def time_kernels(device):
         times = {}
         for key, (kernel_fn, plain_fn, matmul_fn, rows) in calls.items():
             k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
-            b_ms, b_by = bound(key, rows, FOREST_N, D, dtype)
+            b_ms, b_by = gram_bound(key, rows, FOREST_N, D, dtype)
             times[key] = {
-                "ms": k_ms, "device_ms": device_ms_of(
+                "ms": k_ms, "device_ms": kernel_device_ms(
                     kernel_fn, GRAM_KERNEL)[0],
                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "share": b_ms / k_ms,
-                "library_ms": _event_ms(matmul_fn, 10)}
+                "library_ms": event_ms(matmul_fn, 10)}
             print(f"time {KERNELS[key][0]} {str(dtype)[6:]} nngp: kernel "
                   f"{k_ms!r} ms per call ({times[key]['device_ms']!r} ms on "
                   f"the device), plain {p_ms!r} ms; bound {b_ms!r} ms "
@@ -683,8 +674,8 @@ def time_slice(device):
     predict_ms = host_ms(lambda: post.predict_mean_std(x_te))
     k = gram_sym(spec, post.x_train, "nngp", diag_add=post.reg)
     y_dev = post.y_train
-    chol_ms = _event_ms(lambda: torch.linalg.cholesky(k), 3)
-    solve_ms = _event_ms(lambda: torch.linalg.solve_triangular(
+    chol_ms = event_ms(lambda: torch.linalg.cholesky(k), 3)
+    solve_ms = event_ms(lambda: torch.linalg.solve_triangular(
         post.l.mT, torch.linalg.solve_triangular(post.l, y_dev, upper=False),
         upper=True), 3)
     print(f"time slice fp32 nngp {x_tr.shape[0]} train / {x_te.shape[0]} "
@@ -1129,7 +1120,7 @@ def time_join_kernels(spec, x_train, x_test):
         k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
         print(f"time {KERNELS[key][0]} fp32 nngp d=61 synth6: kernel "
               f"{k_ms!r} ms per call "
-              f"({device_ms_of(kernel_fn, GRAM_KERNEL)[0]!r} ms on the "
+              f"({kernel_device_ms(kernel_fn, GRAM_KERNEL)[0]!r} ms on the "
               f"device), plain {p_ms!r} ms")
 
 
@@ -1418,7 +1409,7 @@ def time_greedy(post, x_pool):
     for label, c in (("fp64", cov), ("fp32", cov.float())):
         noise = post.reg.to(c.dtype)
         sels[label] = greedy_variance_select(c, GREEDY_K, noise)
-        out[label] = _event_ms(lambda: greedy_variance_select(c, GREEDY_K,
+        out[label] = event_ms(lambda: greedy_variance_select(c, GREEDY_K,
                                                               noise), 3)
     first = sels["fp64"]
     if torch.unique(first).numel() != GREEDY_K:
@@ -1848,18 +1839,6 @@ def nystrom_big(card, total, device, big):
     return panel
 
 
-def pair_bound(m, n, d, dtype, outputs):
-    """(bound ms, 'bytes' or 'operations') of a cross launch writing
-    `outputs` (m, n) Grams: x read once, each output written once; the dot's
-    2 d FLOPs per element (at the rates of cli/gram_bench.py)."""
-    from nngp_tpu_torch.cli.gram_bench import HBM_BYTES_PER_S, PEAK_FLOPS
-
-    size = torch.empty((), dtype=dtype).element_size()
-    t_bytes = ((m + n) * d + outputs * m * n) * size / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * d * m * n / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def check_panel_kernels(spec, device):
     """gram_cross at the Nystrom panel shape (16,384 x 2,048, d = 61): the
     nngp Gram and the (nngp, ntk) pair against the plain twin, fp32 and
@@ -1879,14 +1858,14 @@ def check_panel_kernels(spec, device):
                                    lambda: gram_cross_plain(spec, xp, xm,
                                                             get))
             row = {"ms": k_ms,
-                   "device_ms": device_ms_of(
+                   "device_ms": kernel_device_ms(
                        lambda: gram_cross(spec, xp, xm, get),
                        GRAM_KERNEL)[0],
                    "plain_ms": p_ms,
-                   "library_ms": _event_ms(lambda: torch.matmul(xp, xm.mT),
+                   "library_ms": event_ms(lambda: torch.matmul(xp, xm.mT),
                                            10)}
-            row["bound_ms"], row["bound_by"] = pair_bound(
-                NY_PANEL, NY_M, NY_D, dtype, outputs)
+            row["bound_ms"], row["bound_by"] = gram_bound(
+                "cross", NY_PANEL, NY_M, NY_D, dtype, outputs)
             row["share"] = row["bound_ms"] / row["device_ms"]
             name = "nngp" if outputs == 1 else "nngp+ntk"
             print(f"time gram_cross Nystrom panel {str(dtype)[6:]} {name}: "
@@ -2486,7 +2465,7 @@ def baselines_internal(device):
         torch.cuda.synchronize()
         cg_ms = (time.perf_counter() - t0) * 1e3
         rel = float((got - want).norm() / want.norm())
-        mvm_ms = _event_ms(lambda: mvm(rhs), 20)
+        mvm_ms = event_ms(lambda: mvm(rhs), 20)
         read_ms = host_ms(lambda: float(torch.max(rhs[0])), reps=20)
         print(f"  batched_cg on the SKI operator, n = {n}, 9 columns, fp64: "
               f"{len(calls)} iterations in {cg_ms!r} ms, |x - chol|/|chol| = "
@@ -3925,13 +3904,14 @@ def check_cross_rows(label, spec, x1, x2, get, row_blocks=None):
 
     k_ms, p_ms = paired_ms(lambda: gram_cross(spec, x1, x2, get), plain,
                            reps=3)
-    dev_ms, dev_by = device_ms_of(lambda: gram_cross(spec, x1, x2, get),
+    dev_ms, dev_by = kernel_device_ms(lambda: gram_cross(spec, x1, x2, get),
                                   GRAM_KERNEL, reps=3)
     row = {"ms": k_ms, "device_ms": dev_ms, "device_ms_by": dev_by,
            "plain_ms": p_ms,
-           "library_ms": _event_ms(lambda: torch.matmul(x1, x2.mT), 3),
+           "library_ms": event_ms(lambda: torch.matmul(x1, x2.mT), 3),
            "max_abs_err": err}
-    row["bound_ms"], row["bound_by"] = pair_bound(m, n, d, dtype, outputs)
+    row["bound_ms"], row["bound_by"] = gram_bound("cross", m, n, d, dtype,
+                                                  outputs)
     row["share"] = row["bound_ms"] / row["device_ms"]
     print(f"time gram_cross {label} {m}x{n}x{d}: "
           + json.dumps(dict(row, clocks=clocks())))
@@ -4547,7 +4527,6 @@ def check_sym_rows(label, spec, x, row_blocks):
     exact diagonal and the ridge written in), then timed beside the twin
     (in CHUNK-row blocks over all rows), its bound and torch.matmul (dot
     only). Returns the row."""
-    from nngp_tpu_torch.cli.gram_bench import bound
     from nngp_tpu_torch.gp.posterior import solve_ridge
     from nngp_tpu_torch.models.kernel_spec import diag_eval
     from nngp_tpu_torch.ops.gram_cuda import gram_cross_plain, gram_sym
@@ -4577,12 +4556,12 @@ def check_sym_rows(label, spec, x, row_blocks):
             gram_cross_plain(spec, x[s:s + CHUNK], x, "nngp")
 
     k_ms, p_ms = paired_ms(kernel, plain, reps=3)
-    dev_ms, dev_by = device_ms_of(kernel, GRAM_KERNEL, reps=3)
+    dev_ms, dev_by = kernel_device_ms(kernel, GRAM_KERNEL, reps=3)
     row = {"ms": k_ms, "device_ms": dev_ms, "device_ms_by": dev_by,
            "plain_ms": p_ms,
-           "library_ms": _event_ms(lambda: torch.matmul(x, x.mT), 3),
+           "library_ms": event_ms(lambda: torch.matmul(x, x.mT), 3),
            "max_abs_err": err}
-    row["bound_ms"], row["bound_by"] = bound("sym", n, n, d, dtype)
+    row["bound_ms"], row["bound_by"] = gram_bound("sym", n, n, d, dtype)
     row["share"] = row["bound_ms"] / dev_ms
     print(f"time gram_sym {label} {n}x{n}x{d}: "
           + json.dumps(dict(row, clocks=clocks())))
@@ -5655,7 +5634,7 @@ def panel_trial(spec, xt, yt, width, device, fit_kw, base):
     col = torch.zeros((rows, width), dtype=xt.dtype, device=xt.device)
     a = torch.ones((rows, width), dtype=xt.dtype, device=xt.device)
     b = torch.ones((width, width), dtype=xt.dtype, device=xt.device)
-    ms = _event_ms(lambda: col.addmm_(a, b.mT, alpha=-1), 5)
+    ms = event_ms(lambda: col.addmm_(a, b.mT, alpha=-1), 5)
     del col, a, b
     return post, fit_s, peak, 2.0 * rows * width * width / ms / 1e9
 
@@ -6131,7 +6110,6 @@ GEMM_RAGGED = (1000, 2049)   # M, N, K with stored rows padded or as they lie
 GEMM_AB = ((1.0, 0.0), (1.0, 1.0), (-1.0, 1.0))
 GEMM_LAYOUTS = ((False, False), (True, False), (False, True), (True, True))
 GEMM_FLOOR = 1e-5      # the error bound's floor, relative to |A| @ |B|
-TF32_FLOPS = 495e12    # dense TF32 tensor-core rate of an H100 SXM
 NY_TAIL = BIG_TRAIN - NY_EXT - (panels(BIG_TRAIN - NY_EXT) - 1) * NY_PANEL
 NY_M_ODD = 2050        # an inducing width whose rows TMA cannot take as is
 # (label, m, n, k, A transposed, B transposed): the panel's psi = K_pm W
@@ -6346,32 +6324,9 @@ def check_gemm(device):
     return rows
 
 
-def gemm_bound(m, n, k, beta):
-    """(bound ms, 'bytes' or 'operations') of one 3xTF32 product: the
-    three TF32 products' 2 M N K FLOPs each at TF32_FLOPS, or A and B read
-    once, C written once (and read when beta != 0)."""
-    from nngp_tpu_torch.cli.gram_bench import HBM_BYTES_PER_S
-
-    t_ops = 3 * 2.0 * m * n * k / TF32_FLOPS * 1e3
-    t_bytes = (m * k + k * n + m * n * (2 if beta else 1)) * 4 \
-        / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 GEMM_KERNEL_NAMES = {"wgmma": "gemm_3xtf32_wgmma_kernel",
                      "narrow": "gemm_3xtf32_narrow_kernel"}
 GRAM_KERNEL = ("gram_", "kernel")   # gram_kernel<...>'s record names
-
-
-def device_ms_of(fn, match, reps=10):
-    """(device ms a call, 'profiler' or 'cuda events') of the kernels
-    named by `match` over `reps` calls of fn
-    (`utils.profiling.kernel_device_ms`: an untraced step in each
-    profiler session, and CUDA events after five sessions with no record
-    of the kernel)."""
-    from nngp_tpu_torch.utils.profiling import kernel_device_ms
-
-    return kernel_device_ms(fn, match, reps)
 
 
 def clocks():
@@ -6407,14 +6362,14 @@ def time_gemm(device):
             return torch.matmul(a, b, out=c)
 
         ms, lib_ms = paired_ms(kernel, library, reps=10)
-        device_ms, device_ms_by = device_ms_of(kernel,
+        device_ms, device_ms_by = kernel_device_ms(kernel,
                                                GEMM_KERNEL_NAMES[route])
         # cuBLAS's kernel: a gemm, or a gemv at one output column
-        lib_dev_ms, lib_dev_by = device_ms_of(library, "gem")
+        lib_dev_ms, lib_dev_by = kernel_device_ms(library, "gem")
         bound_ms, bound_by = gemm_bound(m, n, k, 0.0)
         row = {"ms": ms, "device_ms": device_ms,
                "device_ms_by": device_ms_by,
-               "plain_ms": _event_ms(lambda: matmul_3xtf32_plain(a, b), 3),
+               "plain_ms": event_ms(lambda: matmul_3xtf32_plain(a, b), 3),
                "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                "library_device_ms_by": lib_dev_by,
                "retired_device_ms": GEMM_RETIRED_MS[label],

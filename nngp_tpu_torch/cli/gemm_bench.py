@@ -28,9 +28,10 @@ backwards):
              records over --reps calls, `utils.profiling.kernel_device_ms`:
              CUDA events when the profiler keeps no record), one value a
              turn, with `device_ms_by` saying which;
-  bound_ms   3 x 2 M N K at 495 TFLOP/s (the H100 SXM's dense TF32 rate)
-             or the bytes (A, B read once, C written once) at 3.35 TB/s,
-             the larger; share = bound_ms / device_ms;
+  bound_ms   `utils.roofline.gemm_bound`: 3 x 2 M N K at 495 TFLOP/s (the
+             H100 SXM's dense TF32 rate) or the bytes (A, B read once, C
+             written once) at 3.35 TB/s, the larger; share = bound_ms /
+             device_ms;
   err        (variants without GEMM_ABLATE) max |C - exact| / (|A| @ |B|)
              against fp64, beside torch.matmul fp32's.
 
@@ -50,9 +51,8 @@ import torch
 
 from nngp_tpu_torch.ops import _build, matmul
 from nngp_tpu_torch.utils.profiling import kernel_device_ms
+from nngp_tpu_torch.utils.roofline import gemm_bound
 
-TF32_FLOPS = 495e12
-HBM_BYTES_PER_S = 3.35e12
 # (label, m, n, k, A stored transposed, B stored transposed)
 SHAPES = (("panel psi NN", 16384, 2048, 2048, False, False),
           ("panel C TN", 2048, 2048, 16384, True, False),
@@ -64,13 +64,6 @@ ABLATIONS = {"nosplit": ["-DGEMM_ABLATE=1"], "1xtf32": ["-DGEMM_ABLATE=2"],
              "stream": ["-DNARROW_ABLATE=1"], "narrow1x": ["-DNARROW_ABLATE=2"]}
 KERNELS = {"wgmma": "gemm_3xtf32_wgmma_kernel",
            "narrow": "gemm_3xtf32_narrow_kernel"}
-
-
-def bound(m, n, k):
-    """(bound ms, 'operations' or 'bytes') of one product, beta = 0."""
-    t_ops = 3 * 2.0 * m * n * k / TF32_FLOPS * 1e3
-    t_bytes = (m * k + k * n + m * n) * 4 / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def operand(rows, cols, trans, gen):
@@ -200,7 +193,7 @@ def main(argv=None):
     for name, by_shape in rows.items():
         for label, row in by_shape.items():
             _, m, n, k, _, _ = next(s for s in SHAPES if s[0] == label)
-            row["bound_ms"], row["bound_by"] = bound(m, n, k)
+            row["bound_ms"], row["bound_by"] = gemm_bound(m, n, k)
             row["share"] = row["bound_ms"] / min(row["device_ms"])
         print(json.dumps({"variant": name, "flags": variants[name],
                           "shapes": by_shape}))

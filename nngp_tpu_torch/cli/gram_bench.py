@@ -10,15 +10,18 @@ warm-up. The shapes are the main path's: forest (sym n = 10,800, cross
 3,600 x 10,800, d = 20) in fp32 and fp64, and the synth6 width d = 61 in
 fp32. Rows are uniform in [0, 1000) from a fixed seed.
 
-  bound_ms   max(bytes / 3.35 TB/s, dot FLOPs / 67 TFLOP/s): the H100 SXM's
-             fp32 rate outside the tensor cores and its fp64 tensor-core
-             rate, the card's peaks for the two types;
+  bound_ms   `utils.roofline.gram_bound`: max(bytes / 3.35 TB/s, dot
+             FLOPs / 67 TFLOP/s), the H100 SXM's fp32 rate outside the
+             tensor cores and its fp64 tensor-core rate;
              bytes = x read once + the output written once (the full n x n
              for sym); FLOPs = 2 d per distinct output (n (n + 1) / 2 for
              sym). `bound_by` names the larger term;
-  device_ms  the kernel's own device time per call (torch.profiler);
-             ms is the whole call from CUDA events, the wrapper's small
-             torch ops (the input diagonal, the trajectories) included;
+  device_ms  the kernel's own device time per call
+             (`utils.profiling.kernel_device_ms`: torch.profiler's records,
+             CUDA events over the whole call when it keeps none), with
+             `device_ms_by` saying which; ms is the whole call from CUDA
+             events (`utils.profiling.event_ms`), the wrapper's small torch
+             ops (the input diagonal, the trajectories) included;
   share      bound_ms / ms;
   matmul_ms  torch.matmul(x1, x2.mT) in the kernel's dtype, at "highest"
              precision in fp32: cuBLAS writing the same output bytes from a
@@ -28,7 +31,9 @@ fp32. Rows are uniform in [0, 1000) from a fixed seed.
 
 --parent DIR also times the kernels of another checkout (the parent
 commit unpacked with `git archive`), each run in its own process, in the
-order parent, this, this, parent. --ablate also times this checkout's
+order parent, this, this, parent; a worker times and bounds with its own
+checkout's `utils/profiling.py` and `utils/roofline.py`, so DIR must have
+both. --ablate also times this checkout's
 kernels built with `-DGRAM_ABLATE=1` (the recursion skipped), `=2` (the
 global stores skipped) and `=3` (both): what is left of the time when a
 phase is gone shows which phase sets it. --sass writes ptxas's register and
@@ -47,25 +52,12 @@ import sys
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+from nngp_tpu_torch.utils.profiling import event_ms, kernel_device_ms
+from nngp_tpu_torch.utils.roofline import gram_bound
+
 SHAPES = (("forest", 10800, 3600, 20, torch.float32),
           ("forest", 10800, 3600, 20, torch.float64),
           ("synth6", 10800, 3600, 61, torch.float32))
-
-
-def bound(kind, m, n, d, dtype):
-    """(bound ms, 'bytes' or 'operations') of one launch."""
-    size = torch.empty((), dtype=dtype).element_size()
-    if kind == "sym":
-        nbytes = (n * d + n * n) * size
-        flops = 2.0 * d * n * (n + 1) / 2
-    else:
-        nbytes = ((m + n) * d + m * n) * size
-        flops = 2.0 * d * m * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def rows(n, d, seed, dtype):
@@ -74,39 +66,9 @@ def rows(n, d, seed, dtype):
                            device="cuda")
 
 
-def event_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps):
-    """The Gram kernel's own device time per call, from torch.profiler's
-    CUDA activity records (the wrapper's small torch ops and the host's
-    gaps left out)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if "gram_" in e.key and "kernel" in e.key)
-    return total / 1e3 / reps if total else None
-
-
 def time_checkout(label, reps):
     """Time the kernels of the `nngp_tpu_torch` on sys.path; one JSON line
-    each. Uses only the API every slice of the port has."""
+    each."""
     from nngp_tpu_torch.gp.posterior import solve_ridge
     from nngp_tpu_torch.models.kernel_spec import diag_eval, reference_kernel
     from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
@@ -127,16 +89,17 @@ def time_checkout(label, reps):
                            lambda: torch.matmul(x1, x.mT), m),
         }
         for kernel, (kind, fn, mm, rows_out) in runs.items():
+            fn(), mm()   # warm-up: the library's build, cuBLAS's handle
             ms = event_ms(fn, reps)
-            dev_ms = device_ms(fn, reps)
-            b_ms, b_by = bound(kind, rows_out, n, d, dtype)
+            dev_ms, dev_by = kernel_device_ms(fn, ("gram_", "kernel"), reps)
+            b_ms, b_by = gram_bound(kind, rows_out, n, d, dtype)
             mm_ms = event_ms(mm, reps)
             print(json.dumps({
                 "checkout": label, "kernel": kernel, "shape": name,
                 "m": rows_out, "n": n, "d": d, "dtype": str(dtype)[6:],
-                "ms": ms, "device_ms": dev_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "share": b_ms / ms, "matmul_ms": mm_ms,
-                "card": card}),
+                "ms": ms, "device_ms": dev_ms, "device_ms_by": dev_by,
+                "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+                "matmul_ms": mm_ms, "card": card}),
                 flush=True)
         del x, x1, diag
         torch.cuda.empty_cache()

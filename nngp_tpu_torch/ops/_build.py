@@ -17,8 +17,17 @@ beside the library (`ptxas_report`).
 
 There is no fallback: if nvcc is missing or the build fails, `load_library`
 raises with nvcc's stderr.
+
+The launch helpers that every kernel wrapper shares live here too: `ptr`
+(a tensor's address, or NULL for None), `raise_on` (a launch's cudaError_t
+raised) and the launch tally. A wrapper counts each launch with
+`count(kind, launches)` into its own module's dict (`ops.gram_cuda.LAUNCHES`,
+`ops.matmul.LAUNCHES`); inside `counting_into(counts)` this thread's
+launches count into `counts` instead, whichever module made them
+(`serve/graphs.py` captures a bucket's launches into its graph's tally so).
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -91,6 +100,40 @@ GEMM_ENTRY_POINTS = (("gemm_3xtf32_wgmma", _WGMMA_ARGTYPES),
 
 _lock = threading.Lock()
 _lib = None
+_sink = threading.local()
+
+
+def ptr(t):
+    """A tensor's device address, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def raise_on(err: int, kernel: str):
+    """Raise when a launch returned a nonzero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")
+
+
+@contextlib.contextmanager
+def counting_into(counts: dict):
+    """Count this thread's launches into `counts` (the keys of every
+    wrapper's LAUNCHES) instead of the wrappers' own dicts while the block
+    runs."""
+    prev = getattr(_sink, "counts", None)
+    _sink.counts = counts
+    try:
+        yield counts
+    finally:
+        _sink.counts = prev
+
+
+def count(kind: str, launches: dict):
+    """One launch of `kind` into the tally of `counting_into`, else into
+    `launches` (the launching wrapper's LAUNCHES)."""
+    counts = getattr(_sink, "counts", None)
+    if counts is None:
+        counts = launches
+    counts[kind] += 1
 
 
 def _nvcc() -> str:

@@ -15,9 +15,9 @@ twin; a CUDA tensor launches the kernel or raises. There is no fallback.
 `LAUNCHES` counts kernel launches, so a run can show that it went through
 the kernels. A launch made while a CUDA graph is built (`serve/graphs.py`
 warms a bucket up, then captures it) counts into that graph's own tally
-instead (`counting_into`), and every replay of a graph adds the launches
-it captured to `REPLAYS`: a captured launch runs at each replay, never at
-its capture.
+instead (`ops._build.counting_into`), and every replay of a graph adds
+the launches it captured to `REPLAYS`: a captured launch runs at each
+replay, never at its capture.
 
 The kernels run a persistent grid: about one block per SM slot walks the
 output tiles (`TILE_SHAPE`) in a fixed order. Its launch logic stays in
@@ -37,10 +37,8 @@ solve kernel's diagonal: nngp for get='nngp', ntk when ntk is asked for.
 it (the fit takes its ridge from it) passes it in, otherwise it is computed.
 """
 
-import contextlib
 import ctypes
 import functools
-import threading
 
 import numpy as np
 import torch
@@ -48,13 +46,13 @@ import torch
 from nngp_tpu_torch.models.kernel_spec import (Dense, KernelSpec,
                                                apply_diag_recursion,
                                                apply_recursion, kernel_eval)
+from nngp_tpu_torch.ops._build import count, load_library, ptr, raise_on
 from nngp_tpu_torch.ops.dual_activations import DUALS
 from nngp_tpu_torch.ops.gram import input_diag, input_gram
 
 LAUNCHES = {"sym": 0, "cross": 0}
 # kernel runs by replays of captured CUDA graphs (serve/graphs.py)
 REPLAYS = {"sym": 0, "cross": 0}
-_sink = threading.local()
 
 # Output tile (rows, columns) of both kernels per dtype: the fp64 tile is
 # half as wide, so its staging fits the same shared memory.
@@ -230,36 +228,6 @@ def _program_of(layers):
     return kinds, w2, b2, n
 
 
-def _raise_on(err: int, kernel: str):
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-@contextlib.contextmanager
-def counting_into(counts: dict):
-    """Count this thread's launches into `counts` (keys 'sym', 'cross' and
-    `ops.matmul`'s 'gemm') instead of LAUNCHES while the block runs."""
-    prev = getattr(_sink, "counts", None)
-    _sink.counts = counts
-    try:
-        yield counts
-    finally:
-        _sink.counts = prev
-
-
-def _count(kind: str, launches=None):
-    """One launch of `kind` into the tally of `counting_into`, else into
-    `launches` (this module's LAUNCHES when None)."""
-    counts = getattr(_sink, "counts", None)
-    if counts is None:
-        counts = LAUNCHES if launches is None else launches
-    counts[kind] += 1
-
-
 def _check_out(out, n_rows, n_cols, like, name):
     """An (n_rows, n_cols) output of x's dtype and device whose rows are
     contiguous: a whole matrix, or a row block of a wider one."""
@@ -340,8 +308,6 @@ def launch_sym(spec: KernelSpec, x: torch.Tensor, out0: torch.Tensor,
     ldo = _row_stride(out0, out1)
     if x.device.type != "cuda":
         raise ValueError(f"x is on {x.device}; the kernel needs a CUDA tensor")
-    from nngp_tpu_torch.ops._build import load_library
-
     lib = load_library()
     with torch.cuda.device(x.device):
         dx = input_diag(x)
@@ -353,12 +319,12 @@ def launch_sym(spec: KernelSpec, x: torch.Tensor, out0: torch.Tensor,
         kinds, w2, b2, n_layers = _program(spec)
         fn = lib.gram_sym_f32 if x.dtype == torch.float32 else lib.gram_sym_f64
         err = fn(x.data_ptr(), n, d, d, traj.data_ptr(), traj.shape[0],
-                 diag0.data_ptr(), _ptr(diag1), out0.data_ptr(), _ptr(out1), ldo,
+                 diag0.data_ptr(), ptr(diag1), out0.data_ptr(), ptr(out1), ldo,
                  ctypes.addressof(kinds), ctypes.addressof(w2),
                  ctypes.addressof(b2), n_layers, int(want_ntk), int(max_blocks),
                  torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "gram_sym")
-    _count("sym")
+    raise_on(err, "gram_sym")
+    count("sym", LAUNCHES)
 
 
 def gram_cross(spec: KernelSpec, x1: torch.Tensor, x2: torch.Tensor,
@@ -406,8 +372,6 @@ def launch_cross(spec: KernelSpec, x1: torch.Tensor, x2: torch.Tensor,
     if x1.device.type != "cuda":
         raise ValueError(f"x1 is on {x1.device}; the kernel needs a CUDA "
                          "tensor")
-    from nngp_tpu_torch.ops._build import load_library
-
     lib = load_library()
     with torch.cuda.device(x1.device):
         traj1 = diag_trajectories(spec.layers, input_diag(x1)).contiguous()
@@ -417,9 +381,9 @@ def launch_cross(spec: KernelSpec, x1: torch.Tensor, x2: torch.Tensor,
               else lib.gram_cross_f64)
         err = fn(x1.data_ptr(), m, d, x2.data_ptr(), n, d, d,
                  traj1.data_ptr(), traj2.data_ptr(), traj1.shape[0],
-                 out0.data_ptr(), _ptr(out1), ldo,
+                 out0.data_ptr(), ptr(out1), ldo,
                  ctypes.addressof(kinds), ctypes.addressof(w2),
                  ctypes.addressof(b2), n_layers, int(want_ntk), int(max_blocks),
                  torch.cuda.current_stream(x1.device).cuda_stream)
-    _raise_on(err, "gram_cross")
-    _count("cross")
+    raise_on(err, "gram_cross")
+    count("cross", LAUNCHES)

@@ -36,7 +36,7 @@ first. It does not reproduce the kernels' summation order.
 the Gram kernels: every launch under the key 'gemm', and under
 'gemm_wgmma' or 'gemm_narrow' by its route. A launch made while a CUDA
 graph is built counts into the graph's own tally
-(`ops.gram_cuda.counting_into`), and `REPLAYS` counts the launches that
+(`ops._build.counting_into`), and `REPLAYS` counts the launches that
 replays of such graphs ran (`serve/graphs.py`).
 
 The launch logic is plain Python, tested on the CPU: `operand_layout` reads
@@ -51,7 +51,7 @@ from typing import NamedTuple
 
 import torch
 
-from nngp_tpu_torch.ops import gram_cuda
+from nngp_tpu_torch.ops._build import count, load_library, ptr, raise_on
 
 ROUTES = ("wgmma", "narrow")
 LAUNCHES = {"gemm": 0, "gemm_wgmma": 0, "gemm_narrow": 0}
@@ -377,8 +377,6 @@ def _matmul_on_route(a, b, out, alpha, beta, route):
     ldc = output_stride(out, m, n)
     if m == 0 or n == 0:
         return out
-    from nngp_tpu_torch.ops._build import load_library
-
     lib = load_library()
     a, trans_a, lda = _tma_operand(a, m, k)
     if taken == "wgmma":
@@ -408,11 +406,11 @@ def _matmul_on_route(a, b, out, alpha, beta, route):
                 int(trans_a), int(trans_b), int(plan.shape == "wgmma_n64"),
                 m, n, k, float(alpha), a.data_ptr(), lda, b.data_ptr(), ldb,
                 float(beta), out.data_ptr(), ldc, plan.tiles, plan.splits,
-                plan.k_split, plan.blocks, gram_cuda._ptr(work),
-                gram_cuda._ptr(counters), stream)
-    gram_cuda._raise_on(err, f"gemm_3xtf32 ({taken})")
-    gram_cuda._count("gemm", LAUNCHES)
-    gram_cuda._count(f"gemm_{taken}", LAUNCHES)
+                plan.k_split, plan.blocks, ptr(work), ptr(counters),
+                stream)
+    raise_on(err, f"gemm_3xtf32 ({taken})")
+    count("gemm", LAUNCHES)
+    count(f"gemm_{taken}", LAUNCHES)
     return out
 
 

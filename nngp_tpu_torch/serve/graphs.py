@@ -29,10 +29,11 @@ pool (`pool_estimate`) stays within GRAPH_POOL_SHARE of the card's memory:
 the exact tier's memory rule (`gp.posterior.EXACT_MEMORY_SHARE`) leaves
 20% of it free, and the pool takes at most half of that.
 
-Launches recorded into a graph count into its own tally, not
-`ops.gram_cuda.LAUNCHES` or `ops.matmul.LAUNCHES`; each replay adds the
-tally to `ops.gram_cuda.REPLAYS` (the Gram kernels) and `ops.matmul.REPLAYS`
-(the 3xTF32 GEMM of a precision='high' Nystrom posterior).
+Launches recorded into a graph count into its own tally
+(`ops._build.counting_into`), not `ops.gram_cuda.LAUNCHES` or
+`ops.matmul.LAUNCHES`; each replay adds the tally to
+`ops.gram_cuda.REPLAYS` (the Gram kernels) and `ops.matmul.REPLAYS` (the
+3xTF32 GEMM of a precision='high' Nystrom posterior).
 """
 
 import threading
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from nngp_tpu_torch.ops import gram_cuda, matmul
+from nngp_tpu_torch.ops._build import counting_into
 from nngp_tpu_torch.utils.profiling import span
 
 BUCKET_MIN = 64
@@ -215,12 +217,12 @@ class BucketGraphs:
                 self._pool = torch.cuda.graph_pool_handle()
             stream = self._stream
             stream.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(stream), gram_cuda.counting_into(_tally()):
+            with torch.cuda.stream(stream), counting_into(_tally()):
                 self._fn(x)
             torch.cuda.current_stream(device).wait_stream(stream)
             graph = torch.cuda.CUDAGraph()
             counts = _tally()
-            with gram_cuda.counting_into(counts), \
+            with counting_into(counts), \
                     torch.cuda.graph(graph, pool=self._pool, stream=stream,
                                      capture_error_mode="thread_local"):
                 out = self._fn(x)

@@ -9,9 +9,13 @@ on the device timeline (as `gpu_user_annotation`) and spans the gaps in
 it, so it is not device time: `device_kernels` reads a trace's device
 kernels without them, as `cli/profile_slice.py` counts device activity.
 `Metrics` accumulates named scalars and dumps one JSON object.
-`kernel_device_ms` is the reading of a kernel's own device time that
-`chip_smoke.py` and `cli/gemm_bench.py` share; `gpu_clocks` reads the card's SM clock, its maximum
-and the active throttle reasons to print beside a timed row.
+The port's device clock: `event_ms` is the time a call of a function
+takes from CUDA events around a run of calls, and `kernel_device_ms` a
+kernel's own device time from the profiler's records, with `event_ms`
+standing in when they are lost; `chip_smoke.py`, `cli/gram_bench.py` and
+`cli/gemm_bench.py` time kernels with these two. `gpu_clocks` reads the
+card's SM clock, its maximum and the active throttle reasons to print
+beside a timed row.
 
 `span(name, **attrs)` records a span of the program's own host work, from
 any thread, in one process-wide recorder that is off until `enable()`:
@@ -107,6 +111,22 @@ def _matches(key: str, match) -> bool:
                ((match,) if isinstance(match, str) else match))
 
 
+def event_ms(fn, reps: int) -> float:
+    """ms a call of fn: CUDA events on the current stream around `reps`
+    calls in a row, started once the work already queued has run, so the
+    host's gaps between launches count. It does not warm fn up: a caller
+    whose first call builds or allocates calls fn once before."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def kernel_device_ms(fn, match, reps: int = 10,
                      attempts: int = TRACE_ATTEMPTS):
     """(ms a call, source) of the device time of the kernels whose names
@@ -137,14 +157,7 @@ def kernel_device_ms(fn, match, reps: int = 10,
             return total / 1e3 / reps, "profiler"
         print(f"  the profiler recorded no {match} (session {attempt + 1} "
               f"of {attempts})")
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, "cuda events"
+    return event_ms(fn, reps), "cuda events"
 
 
 def gpu_clocks(index: int = 0) -> dict:

@@ -301,26 +301,6 @@ def test_ctypes_signatures_match_the_c_entry_points():
         assert body.count(",") + 1 == len(argtypes), macro
 
 
-def test_bench_bound_is_the_store_or_the_dot():
-    """gram_bench's roofline: bytes (x read once, the output written once)
-    over 3.35 TB/s against dot FLOPs over the fp32 / fp64 peak."""
-    from nngp_tpu_torch.cli.gram_bench import bound
-
-    ms, by = bound("sym", 10800, 10800, 20, torch.float32)
-    assert by == "bytes"
-    assert ms == pytest.approx((10800 * 20 + 10800 ** 2) * 4 / 3.35e9)
-    ms, by = bound("cross", 3600, 10800, 61, torch.float32)
-    assert by == "operations"
-    assert ms == pytest.approx(2 * 61 * 3600 * 10800 / 67e9)
-    assert bound("cross", 3600, 10800, 20, torch.float64)[0] == \
-        pytest.approx((14400 * 20 + 3600 * 10800) * 8 / 3.35e9)
-    # fp64 at the card's tensor-core rate (67 TFLOP/s): the Nystrom panel
-    # shape is bound by its bytes, not by its dot
-    ms, by = bound("cross", 16384, 2048, 61, torch.float64)
-    assert by == "bytes"
-    assert ms == pytest.approx((18432 * 61 + 16384 * 2048) * 8 / 3.35e9)
-
-
 def test_bench_per_element_counts_loop_work():
     """The SASS estimate on a made-up listing: a staging loop of 4
     instructions a cp.async, a dot loop of 2 an FFMA, 6 K0 instructions, a

@@ -38,7 +38,7 @@ from nngp_tpu.serve.estimator import Estimator as JaxEstimator
 from nngp_tpu_torch.gp import fit_nystrom
 from nngp_tpu_torch.gp import nystrom as TN
 from nngp_tpu_torch.models.kernel_spec import reference_kernel
-from nngp_tpu_torch.ops import gram_cuda
+from nngp_tpu_torch.ops import _build, gram_cuda
 from nngp_tpu_torch.ops import matmul as MM
 from nngp_tpu_torch.serve import Estimator
 from nngp_tpu_torch.serve import graphs
@@ -287,13 +287,13 @@ def test_graph_replays_count_the_gemm():
     assert MM.REPLAYS["gemm_wgmma"] == before[0]["gemm_wgmma"] + 3
     assert MM.REPLAYS["gemm_narrow"] == before[0]["gemm_narrow"] + 2
     assert gram_cuda.REPLAYS["cross"] == before[1]["cross"] + 2
-    with gram_cuda.counting_into(tally):
+    with _build.counting_into(tally):
         for route in ("wgmma", "wgmma", "narrow"):  # a bucket's predict
-            gram_cuda._count("gemm", MM.LAUNCHES)
-            gram_cuda._count(f"gemm_{route}", MM.LAUNCHES)
+            _build.count("gemm", MM.LAUNCHES)
+            _build.count(f"gemm_{route}", MM.LAUNCHES)
     assert tally["gemm"] == 3 and tally["gemm_wgmma"] == 2
     assert tally["gemm_narrow"] == 1 and MM.LAUNCHES == before[2]
-    gram_cuda._count("gemm", MM.LAUNCHES)
+    _build.count("gemm", MM.LAUNCHES)
     assert MM.LAUNCHES["gemm"] == before[2]["gemm"] + 1
     MM.REPLAYS.update(before[0])
     gram_cuda.REPLAYS.update(before[1])
@@ -308,8 +308,6 @@ def test_gemm_ctypes_signature_matches_the_c_entry_point():
     `gemm_3xtf32` entry point and kernel are gone."""
     import ctypes
     import re
-
-    from nngp_tpu_torch.ops import _build
 
     with open(_build.GEMM_SOURCE) as f:
         src = f.read()
