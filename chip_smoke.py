@@ -140,7 +140,8 @@ exits nonzero; nothing is caught and retried:
      every serving bucket's CUDA graph (64-8,192) and a ragged 10,000-row
      batch against the eager predict (bit equality, else the first op
      that differs, printed), (b) feedback batches of 1-1,000 lines
-     extended in place (the storage and the captures kept) against a
+     extended in place (the storage kept, the buckets captured again
+     once each time the live order crosses a LIVE_STEP) against a
      dense Estimator, (d) a padded checkpoint, (c) the slots running out,
      (e) the forest active learner with pad_acquisitions against the
      dense one and the JAX anchors, (f) per bucket the eager predict's and
@@ -5001,19 +5002,24 @@ def predict_stages(post, x):
     stage by stage (GPPosterior._predict_scaled's ops in its order), as a
     list of (name, tensor): where a graph's result differs from the eager
     one, the first stage that differs names the op."""
-    from nngp_tpu_torch.gp.posterior import _tri_solve, raw_fp64
+    from nngp_tpu_torch.gp.posterior import _tri_solve, live_rows, raw_fp64
     from nngp_tpu_torch.models.kernel_spec import diag_eval
     from nngp_tpu_torch.ops.gram_cuda import gram_cross
 
-    spec, mask = post.spec, post.row_mask
+    spec, mask, k = post.spec, post.row_mask, live_rows(post)
+    x_train, l, alpha = post.x_train, post.l, post.alpha
+    if k < post.num_padded:                  # the live prefix
+        x_train, l, alpha = x_train[:k], l[:k, :k], alpha[:k]
+    if mask is not None:
+        mask = None if k == post.n_real else mask[:k]
     xs = x * (1.0 / post.input_scale) if post.input_scale != 1.0 else x
-    out = [("gram_cross", gram_cross(spec, xs, post.x_train, "nngp"))]
+    out = [("gram_cross", gram_cross(spec, xs, x_train, "nngp"))]
     cross = out[-1][1] if mask is None else out[-1][1] * mask
     out.append(("mask", cross))
-    out.append(("mean (cross @ alpha)", cross @ post.alpha))
+    out.append(("mean (cross @ alpha)", cross @ alpha))
     if post._raw64:
         cross = raw_fp64(lambda a, b: gram_cross(spec, a, b, "nngp"), x,
-                         post.x_train, post.input_scale)
+                         x_train, post.input_scale)
         if mask is not None:
             cross = cross * mask.to(cross.dtype)
         out.append(("raw fp64 gram_cross", cross))
@@ -5021,7 +5027,7 @@ def predict_stages(post, x):
                       post.x_train, post.input_scale)
     else:
         kd = diag_eval(spec.layers, xs, "nngp")
-    v = _tri_solve(post.l, cross.mT)
+    v = _tri_solve(l, cross.mT)
     out.append(("triangular solve", v))
     out.append(("variance", kd - torch.sum(v * v, dim=0)))
     return out
@@ -5134,15 +5140,20 @@ def hold_padded(label, est, ref, x):
 
 def feedback_extends(est, ref, val, x_test):
     """(b): feedback batches of 1 ... 1,000 lines, bucketed into the slots:
-    each one launch of each kernel, the storage unmoved, no new capture,
-    the memo empty, and the dense Estimator's predictions."""
+    each one launch of each kernel, the storage unmoved, the buckets
+    captured again (`recaptures`) once each time the live order crosses a
+    LIVE_STEP and never otherwise, the memo empty, and the dense
+    Estimator's predictions."""
+    from nngp_tpu_torch.gp.posterior import live_rows
+
     post, graphs = est.posterior, est._graphs
-    ptrs, captures = storage_ptrs(post), graphs.captures
-    n0, off, rows = post.num_train, 0, []
+    ptrs, recaptures = storage_ptrs(post), graphs.recaptures
+    n0, off, crossed, rows = post.num_train, 0, 0, []
     for m in FEEDBACK_BATCHES:
         lines = val[off:off + m]
         off += m
         est.predict([lines[0].rsplit("@", 1)[0]])     # a memo entry
+        live = live_rows(post)
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5154,22 +5165,26 @@ def feedback_extends(est, ref, val, x_test):
         ref.extend_with_lines(lines)
         torch.cuda.synchronize()
         dense_ms = (time.perf_counter() - t0) * 1e3
+        crossed += live_rows(post) != live
         d = hold_padded(f"(b) feedback {m}", est, ref, x_test)
         if (est.posterior is not post or storage_ptrs(post) != ptrs
-                or est._graphs is not graphs or graphs.captures != captures
+                or est._graphs is not graphs
+                or graphs.recaptures != recaptures + crossed
                 or post.num_train != n0 + off or len(est._pred_cache)
                 or launches != {"sym": 1, "cross": 1}):
             raise AssertionError(
                 f"(b) feedback {m}: in place {est.posterior is post}, "
-                f"storage kept {storage_ptrs(post) == ptrs}, captures "
-                f"{graphs.captures} (was {captures}), n_real "
-                f"{post.num_train}, memo {len(est._pred_cache)}, launches "
-                f"{launches}")
+                f"storage kept {storage_ptrs(post) == ptrs}, recaptures "
+                f"{graphs.recaptures} (was {recaptures}, {crossed} "
+                f"crossings), n_real {post.num_train}, memo "
+                f"{len(est._pred_cache)}, launches {launches}")
         rows.append({"lines": m, "inplace_ms": ms, "dense_ms": dense_ms,
-                     "rel_mean": d[0], "rel_std": d[1]})
+                     "live_rows": live_rows(post), "rel_mean": d[0],
+                     "rel_std": d[1]})
     print(f"  (b) feedback extends {FEEDBACK_BATCHES}: in place, storage "
-          f"and {captures} captures kept, n_real {n0} -> {post.num_train}; "
-          + json.dumps(rows))
+          f"kept, {crossed} crossings of the live order and as many "
+          f"recaptures (capture ms {json.dumps(graphs.capture_ms)}), n_real "
+          f"{n0} -> {post.num_train}; " + json.dumps(rows))
     return rows, off
 
 

@@ -10,8 +10,9 @@ print shapes and latency.
 
 Same flags as the JAX demo plus --device (default cuda; no fallback to the
 CPU). --pad_slots N pads the exact posterior with N inert rows that online
-feedback fills in place, so the serving buckets' CUDA graphs stay valid
-(single device; a usage error with --nystrom_m or --mesh_devices).
+feedback fills in place, so the serving buckets' CUDA graphs stay valid,
+each captured again only when n_real crosses a LIVE_STEP (single device;
+a usage error with --nystrom_m or --mesh_devices).
 --mesh_devices N fits and serves the row-sharded distributed
 tier over N ranks: run it under `torchrun --nproc_per_node N` (N must be
 the world size; without a launcher only N = 1), and only rank 0 prints.

@@ -38,12 +38,15 @@ holds pad_to rows, the real ones first, then inert rows (copies of row 0,
 zero label, a unit row of the factor, masked out of every cross Gram). The
 fit builds, factors and solves the n real rows only, as the dense layout
 does, and writes the factor into the padded storage with the pad's unit
-rows beside it, since the padded Gram's factor is block diagonal. `extend`
+rows beside it, since the padded Gram's factor is block diagonal. A
+predict reads the live prefix of the storage only (`live_rows`: the real
+rows rounded up to LIVE_STEP), its factor block in place. `extend`
 writes new rows into the pad slots in place
 (`ops.linalg.padded_append_rows_`), so every tensor a predict reads keeps
-its storage and a CUDA graph captured over them stays valid
-(`serve/graphs.py`). pad_to is capped by `dense_exact_max_n`: padding is
-a dense-layout feature, as in the JAX package.
+its storage, and a CUDA graph captured over them stays valid until
+n_real crosses a LIVE_STEP (`serve/graphs.py` captures it again). pad_to
+is capped by `dense_exact_max_n`: padding is a dense-layout feature, as
+in the JAX package.
 
 Spans (`utils/profiling.py::span`, off until `profiling.enable()`): a fit
 is `exact.fit` (rows, pad_to, layout 'dense' / 'padded' / 'blocks',
@@ -65,6 +68,7 @@ import torch
 
 from nngp_tpu_torch.models.kernel_spec import (KernelSpec, diag_eval,
                                                is_scale_equivariant)
+from nngp_tpu_torch.ops.cublas import trsm_lower
 from nngp_tpu_torch.ops.gram import panel_symm_matmul
 from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
 from nngp_tpu_torch.ops.linalg import (BlockLowerTriangular, FactorError,
@@ -178,10 +182,16 @@ def _tri_solve(l, b, transpose=False):
     dense tensor or a `BlockLowerTriangular`. A right-hand side of a wider
     dtype than L's (fp64 against an fp32 factor) is solved in its own
     dtype by block substitution, L converted a bounded slice at a time:
-    no (n, n) fp64 copy. Column blocks are always solved so, in place."""
+    no (n, n) fp64 copy. Column blocks are always solved so, in place.
+    A dense L may be the leading block of a larger factor (a padded
+    posterior's live prefix, `live_rows`): on the card L^-1 b reads it in
+    place (`ops.cublas.trsm_lower`), where `torch.linalg.solve_triangular`
+    would copy it first."""
     if isinstance(l, torch.Tensor) and b.dtype == l.dtype:
         if transpose:
             return torch.linalg.solve_triangular(l.mT, b, upper=True)
+        if l.is_cuda and not (l.is_contiguous() or l.mT.is_contiguous()):
+            return trsm_lower(l, b)
         return torch.linalg.solve_triangular(l, b, upper=False)
     if isinstance(l, torch.Tensor):
         l = column_blocks(l, _WIDE_BLOCK)
@@ -199,6 +209,28 @@ def _mm_wide(a, b):
     for s in range(0, a.shape[0], _WIDE_BLOCK):
         out[s:s + _WIDE_BLOCK] = a[s:s + _WIDE_BLOCK].to(b.dtype) @ b
     return out
+
+
+# A padded posterior's predict reads its real rows rounded up to this many
+# (`live_rows`). A serving bucket's CUDA graph fixes that order, so an
+# in-place extend captures the buckets again only when n_real crosses a
+# step (`serve/graphs.py`): at 64-row feedback buckets, every fourth
+# extend. The step's own cost is its pad rows in the solve: 208 of the
+# 11,008 that synth6's 10,800 real rows take, (11,008 / 10,800)^2 - 1 =
+# 3.9% of its work.
+LIVE_STEP = 256
+
+
+def live_rows(post) -> int:
+    """The leading storage rows an exact posterior's predict reads: for a
+    padded one its real rows rounded up to LIVE_STEP, at most its storage
+    (the rows beyond are inert, and the real rows' forward solve never
+    reaches the unit factor rows below them); every storage row
+    otherwise."""
+    p = post.num_padded
+    if post.n_real is None:
+        return p
+    return min(p, -(-post.n_real // LIVE_STEP) * LIVE_STEP)
 
 
 @dataclasses.dataclass
@@ -279,18 +311,31 @@ class GPPosterior:
         With an fp32 input prescale the variance runs in fp64: its kernels
         through `raw_fp64`, the solves against the fp32 factor by block
         substitution (`_tri_solve`), the result rounded to fp32. The mean
-        keeps the prescaled fp32 cross Gram."""
+        keeps the prescaled fp32 cross Gram.
+
+        A padded posterior reads the live prefix of its storage
+        (`live_rows`): the cross Gram against x_train[:k], the mean against
+        alpha[:k], the solve against the leading (k, k) block of its
+        factor, read in place. Its rows from n_real to k are inert pad rows,
+        masked out as before. Any other posterior reads all of it."""
         x_raw = self._as_input(x_test)
         x_test = x_raw
         if self.input_scale != 1.0:
             x_test = x_raw * (1.0 / self.input_scale)
         layers, spec, dtype = self.spec.layers, self.spec, self.x_train.dtype
         wide = self._raw64
+        k = live_rows(self)
+        x_train, l, alpha, mask = self.x_train, self.l, self.alpha, \
+            self.row_mask
+        if k < self.num_padded:
+            x_train, l, alpha = x_train[:k], l[:k, :k], alpha[:k]
+        if mask is not None:
+            mask = None if k == self.n_real else mask[:k]
 
         def var_kernels(fn):
             if wide:
-                return raw_fp64(fn, x_raw, self.x_train, self.input_scale)
-            return fn(x_test, self.x_train)
+                return raw_fp64(fn, x_raw, x_train, self.input_scale)
+            return fn(x_test, x_train)
 
         def k_diag(xs, _):
             return diag_eval(layers, xs, "nngp")
@@ -298,38 +343,35 @@ class GPPosterior:
         def k_ss(xs, _):
             return gram_sym(spec, xs, "nngp")           # exact diagonal
 
-        mask = self.row_mask
-
         def masked(cross):
             # inert pad rows give finite kernel values: zeroed, the unit
             # factor rows and zero alpha rows see the dense system
             return cross if mask is None else cross * mask.to(cross.dtype)
 
         if self.get == "nngp":
-            cross = masked(gram_cross(spec, x_test, self.x_train, "nngp"))
-            mean = cross @ self.alpha                    # (m, 1)
+            cross = masked(gram_cross(spec, x_test, x_train, "nngp"))
+            mean = cross @ alpha                         # (m, 1)
             if compute_cov is False:
                 return mean
             if wide:
                 cross = masked(var_kernels(
                     lambda a, b: gram_cross(spec, a, b, "nngp")))
-            v = _tri_solve(self.l, cross.mT)  # (n, m)
+            v = _tri_solve(l, cross.mT)  # (k, m)
             if compute_cov == "diag":
                 var = var_kernels(k_diag) - torch.sum(v * v, dim=0)
                 return mean, torch.clamp_min(var, 0.0).to(dtype)
             return mean, (var_kernels(k_ss) - v.mT @ v).to(dtype)
 
         pair = ("nngp", "ntk")
-        nngp_cross, ntk_cross = gram_cross(spec, x_test, self.x_train, pair)
-        mean = ntk_cross @ self.alpha
+        nngp_cross, ntk_cross = gram_cross(spec, x_test, x_train, pair)
+        mean = ntk_cross @ alpha
         if compute_cov is False:
             return mean
         if wide:
             nngp_cross, ntk_cross = var_kernels(
                 lambda a, b: gram_cross(spec, a, b, pair))
         # w = (T + rI)^-1 T_t* via two triangular solves, shape (n, m)
-        w = _tri_solve(self.l, _tri_solve(self.l, ntk_cross.mT),
-                       transpose=True)
+        w = _tri_solve(l, _tri_solve(l, ntk_cross.mT), transpose=True)
         kw = self._ktt_matmul(w)                     # K_tt T^-1 T_t*, (n, m)
         if compute_cov == "diag":
             var = (var_kernels(k_diag)

@@ -34,9 +34,10 @@ What differs from the JAX Estimator:
     the CPU, the JAX package's switch) and column blocks above it;
   - the serving buckets are CUDA graphs (`serve/graphs.py`): on the card
     each bucket's predict is captured once and replayed, over a padded
-    posterior (pad_slots) through in-place extends too; a new posterior
-    object (fit, refit, relearn, restore, a re-route, slots run out)
-    drops them, and they are captured again at their next use. A batch
+    posterior (pad_slots) through in-place extends too (captured again
+    when one moves its live order, `gp.posterior.live_rows`); a new
+    posterior object (fit, refit, relearn, restore, a re-route, slots run
+    out) drops them, and they are captured again at their next use. A batch
     above the largest bucket (8,192, less for large train sets) runs in
     chunks of it. The distributed tier predicts eagerly (its predict is
     collective over the mesh). `warmup` returns the buckets it captured;
@@ -164,7 +165,9 @@ class Estimator:
         # answers; a new posterior object also drops the serving buckets'
         # graphs, which read the old one's tensors. The one change made in
         # place, a padded posterior's extend, empties the memo itself and
-        # keeps the graphs (`extend_with_lines`).
+        # keeps the BucketGraphs (`extend_with_lines`), which capture their
+        # buckets again when the extend has moved the live order
+        # (`serve/graphs.py`).
         if "_serve_lock" not in self.__dict__:
             # predicts, captures and in-place extends take it
             self._serve_lock = threading.RLock()
@@ -202,8 +205,9 @@ class Estimator:
         storage with this many inert rows (`fit_gp(pad_to=n + pad_slots)`)
         and `extend_with_lines` buckets each feedback batch to a power of
         two written into the slots in place, so the serving buckets'
-        CUDA graphs stay valid across online feedback. When the slots run
-        out the posterior falls back to dense appends (a new posterior,
+        CUDA graphs stay valid across online feedback, each captured again
+        only when n_real crosses a `gp.posterior.LIVE_STEP`. When the slots
+        run out the posterior falls back to dense appends (a new posterior,
         new graphs).
 
         mesh: a `parallel.make_mesh` DeviceMesh on `device`'s type: fit and
@@ -1077,7 +1081,8 @@ class Estimator:
                 cand = post.extend(x, y)
             if cand is post:
                 # in place (validated before it wrote): the graphs read
-                # the same storage, only the memo is stale
+                # the same storage (their next run captures them again if
+                # the live order moved), only the memo is stale
                 self._pred_cache = collections.OrderedDict()
             else:
                 self._install_posterior(cand)

@@ -21,8 +21,13 @@ on the card. On the CPU the same buckets run eagerly.
 A graph reads the posterior's tensors by address, so it stays valid only
 as long as they keep their storage: a padded posterior's in-place extend
 keeps it (`GPPosterior.extend`), while a new posterior object needs new
-graphs (the Estimator drops these when it installs one). The distributed
-tier is not served from here: its predict is collective over the mesh.
+graphs (the Estimator drops these when it installs one). A graph also
+fixes the padded posterior's live order (`gp.posterior.live_rows`, the
+real rows rounded up to LIVE_STEP), which an extend advances a step at a
+time: when it has moved, the next run drops every bucket, and each is
+captured again, into a new pool, at its next use (`recaptures`). The
+distributed tier is not served from here: its predict is collective over
+the mesh.
 
 The largest bucket is BUCKET_MAX, lowered for large train sets so that the
 pool (`pool_estimate`) stays within GRAPH_POOL_SHARE of the card's memory:
@@ -67,7 +72,8 @@ def buckets_upto(max_batch: int, largest: int = BUCKET_MAX):
 
 def pool_estimate(post, rows: int) -> int:
     """The bytes of the graphs' pool when the largest bucket has `rows`
-    rows: per row, six vectors as long as the posterior's stored rows
+    rows: per row, six vectors as long as the posterior's stored rows (a
+    padded posterior's live rows are at most these)
     (the cross Gram, its mask, the triangular solve's copy, result and
     square), four more in fp64 for an fp32 posterior with an input
     prescale (its variance), eight for the NTK's pair; on the Nystrom tier
@@ -107,6 +113,14 @@ def largest_bucket(post) -> int:
     return b
 
 
+def _live_rows(post):
+    """The live order a predict of `post` reads (`gp.posterior.live_rows`),
+    None on the Nystrom tier, which has none."""
+    from nngp_tpu_torch.gp.posterior import live_rows
+
+    return None if hasattr(post, "x_m") else live_rows(post)
+
+
 def _tally():
     """A graph's launch tally: zero for every kernel's key."""
     return dict.fromkeys((*gram_cuda.LAUNCHES, *matmul.LAUNCHES), 0)
@@ -132,14 +146,17 @@ class BucketGraphs:
     `predict(x)` runs a batch through them, replaying each bucket's CUDA
     graph on the card and running the bucket eagerly on the CPU.
 
-    lock: held around each capture and each copy-in, replay and copy-out;
-    the Estimator holds the same lock around an in-place extend. Counters:
-    `captures`, `capture_ms` (per bucket) and `pool_bytes()`; the kernels
-    a replay runs go to `ops.gram_cuda.REPLAYS` and `ops.matmul.REPLAYS`.
-    Spans: `graphs.run` a chunk (attrs rows, bucket) around, on the card,
-    `graphs.capture` (attr bucket), `graphs.copy_in` (the pageable copy
-    and the pad fill), `graphs.replay` and `graphs.copy_out` (which waits
-    for the device)."""
+    lock: held around each run, capture and each copy-in, replay and
+    copy-out; the Estimator holds the same lock around an in-place extend.
+    Counters: `captures`, `capture_ms` (per bucket), `recaptures` (the
+    times a change of the live order dropped the captured buckets) and
+    `pool_bytes()`; the kernels a replay runs go to
+    `ops.gram_cuda.REPLAYS` and `ops.matmul.REPLAYS`. Spans: `graphs.run`
+    a chunk (attrs rows, bucket, live_rows) around, on the card,
+    `graphs.capture` (attrs bucket, live_rows), `graphs.copy_in` (the
+    pageable copy and the pad fill), `graphs.replay` and `graphs.copy_out`
+    (which waits for the device). live_rows: the exact posterior's
+    `live_rows`, None on the Nystrom tier."""
 
     def __init__(self, post, lock=None):
         self.post = post
@@ -151,10 +168,12 @@ class BucketGraphs:
         self.largest = largest_bucket(post)
         self.lock = lock if lock is not None else threading.RLock()
         self._buckets = {}
+        self._live = None            # the live order the buckets fix
         self._pool = None
         self._stream = None
         self.captures = 0
         self.capture_ms = {}
+        self.recaptures = 0
 
     @property
     def captured(self):
@@ -184,36 +203,45 @@ class BucketGraphs:
     def _run(self, x):
         n = x.shape[0]
         b = bucket_of(n)
-        with span("graphs.run", rows=n, bucket=b):
+        with span("graphs.run", rows=n, bucket=b) as run, self.lock:
+            live = _live_rows(self.post)
+            run.set(live_rows=live)
             if self.device.type != "cuda":
                 if n < b:
                     x = np.concatenate([x, np.repeat(x[-1:], b - n, axis=0)])
-                with self.lock:
-                    out = self._fn(torch.as_tensor(x, dtype=self.dtype))
+                out = self._fn(torch.as_tensor(x, dtype=self.dtype))
                 return out[0, :n].numpy(), out[1, :n].numpy()
-            with self.lock:
-                bucket = self._buckets.get(b)
-                if bucket is None:
-                    bucket = self._capture(b)
-                with span("graphs.copy_in"):
-                    bucket.x[:n].copy_(torch.from_numpy(x))
-                    if n < b:
-                        bucket.x[n:] = bucket.x[n - 1]
-                with span("graphs.replay"):
-                    bucket.graph.replay()
-                _add_replays(bucket.counts)
-                with span("graphs.copy_out"):
-                    out = bucket.out[:, :n].cpu().numpy()
+            if self._buckets and live != self._live:
+                # an extend moved the live order the graphs fix; their
+                # pool goes with them (the allocator frees a pool whose
+                # graphs are all gone), and the next capture starts one
+                self._buckets.clear()
+                self._pool = None
+                self.recaptures += 1
+            bucket = self._buckets.get(b)
+            if bucket is None:
+                bucket = self._capture(b, live)
+            with span("graphs.copy_in"):
+                bucket.x[:n].copy_(torch.from_numpy(x))
+                if n < b:
+                    bucket.x[n:] = bucket.x[n - 1]
+            with span("graphs.replay"):
+                bucket.graph.replay()
+            _add_replays(bucket.counts)
+            with span("graphs.copy_out"):
+                out = bucket.out[:, :n].cpu().numpy()
             return out[0], out[1]
 
-    def _capture(self, b: int) -> _Bucket:
-        """Warm bucket b up on the capture stream, then capture it."""
-        with span("graphs.capture", bucket=b):
+    def _capture(self, b: int, live) -> _Bucket:
+        """Warm bucket b up on the capture stream, then capture it at the
+        live order `live`."""
+        with span("graphs.capture", bucket=b, live_rows=live):
             device = self.device
             t0 = time.perf_counter()
             x = torch.ones((b, self.width), dtype=self.dtype, device=device)
             if self._stream is None:
                 self._stream = torch.cuda.Stream(device)
+            if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             stream = self._stream
             stream.wait_stream(torch.cuda.current_stream(device))
@@ -228,13 +256,15 @@ class BucketGraphs:
                 out = self._fn(x)
             torch.cuda.synchronize(device)
             bucket = self._buckets[b] = _Bucket(graph, x, out, counts)
+            self._live = live
             self.captures += 1
             self.capture_ms[b] = (time.perf_counter() - t0) * 1e3
             return bucket
 
     def pool_bytes(self):
         """Bytes of the card's memory held in the graphs' pool (None on
-        the CPU or before a capture)."""
+        the CPU, or before a capture since the buckets were last
+        dropped)."""
         if self._pool is None:
             return None
         total = 0

@@ -169,6 +169,45 @@ def test_the_padded_factor_matches_the_whole_padded_factor(dtype,
     assert not pad.alpha[100:].any() and pad.alpha.shape == (160, 1)
 
 
+@pytest.mark.parametrize("compute_cov", ["diag", True])
+@pytest.mark.parametrize("dtype, input_scale", [(np.float64, 1.0),
+                                                (np.float32, 2.0)])
+def test_the_live_prefix_predicts_as_the_stripped_posterior(
+        dtype, input_scale, compute_cov):
+    """A padded predict reads the live prefix of its storage (`live_rows`:
+    n_real rounded up to LIVE_STEP): at 300 real rows of 1,100 (k = 512)
+    and after in-place extends to 400, 500 and 600 (k = 768), it equals
+    the predict of `strip_padding()`, which reads the n_real rows alone.
+    Relative, 1e-12 in fp64 and 1e-6 in fp32 (whose variance is fp64,
+    `raw_fp64`): the variance to its largest value, the mean to the
+    largest sum |K_*t| |alpha| over its row, the scale of a dot product's
+    rounding, since the mean's product sums k columns instead of n_real
+    and alpha's terms cancel by orders of magnitude."""
+    x, y, xt, _ = _data(seed=53, n_train=600, n_test=13)
+    cast = lambda a: t(np.asarray(a, dtype))  # noqa: E731
+    post = fit_gp(SPEC, cast(x[:300]), cast(y[:300]), pad_to=1100,
+                  input_scale=input_scale)
+    assert post._raw64 == (dtype == np.float32)
+    rtol = 1e-12 if dtype == np.float64 else 1e-6
+    live = []
+    for s in (300, 400, 500, 600):
+        if s > 300:
+            assert post.extend(cast(x[s - 100:s]), cast(y[s - 100:s]),
+                               bucket=128) is post
+        live.append(TP.live_rows(post))
+        stripped = post.strip_padding()
+        got = post.predict(cast(xt), compute_cov)
+        want = stripped.predict(cast(xt), compute_cov)
+        cross = TP.gram_cross(SPEC, cast(xt) / input_scale,
+                              stripped.x_train, "nngp")
+        scales = (n(cross.abs() @ stripped.alpha.abs()), n(want[1]))
+        for g, w, scale in zip(got, want, scales):
+            g, w = n(g).astype(np.float64), n(w).astype(np.float64)
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=rtol * np.max(np.abs(scale)))
+    assert live == [512, 512, 512, 768] and post.num_train == 600
+
+
 def test_pad_to_n_is_the_dense_fit_bit_for_bit():
     """pad_to == n: a padded posterior with no pad rows, whose factor,
     alpha and rows are the dense fit's bit for bit."""
