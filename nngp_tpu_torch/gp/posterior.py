@@ -56,7 +56,10 @@ the device, the exact diagonal and the ridge; probe 'given', 'skipped',
 the padding, the row mask), `exact.factor` (the Cholesky up to its info
 sync, of factor_rows = n rows in every layout; the whole column-block
 factor) and `exact.solve` (alpha's two triangular solves; padded: the
-factor and alpha written into their padded storage).
+factor and alpha written into their padded storage). A column-block fit
+adds the counts blocks and factor_bytes (the blocks' storage) to
+`exact.fit` and one `exact.block` a block, with its gram, update and
+factor steps, under `exact.factor` (`ops.linalg.fused_panel_cholesky`).
 """
 
 import dataclasses
@@ -744,6 +747,8 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
                 except FactorError as err:
                     err.diag_reg = diag_reg
                     raise
+            fit_span.set(blocks=len(l.blocks), factor_bytes=sum(
+                b.numel() * b.element_size() for b in l.blocks))
         else:
             # padded or not, the Gram, the factor and the solves cover the
             # n real rows: the inert-padded Gram is [K + rI, 0; 0, I], whose

@@ -15,9 +15,19 @@ and `blocked_tri_solve_lower(_t)`, the dense blocked forms, are the same
 loops over column-block views of a dense matrix.
 
 A factor that fails raises `FactorError` (the JAX functions return NaN).
+
+Spans (`utils/profiling.py::span`, off until `profiling.enable()`): the
+'blocks' layout of `fused_panel_cholesky`, the exact tier's column-block
+fit, records one `exact.block` a block (block k, rows n - s, width e - s,
+updates: the k finished blocks applied, solves: the row chunks solved
+below the square) around `exact.block.gram` (the caller's `panel_fn`),
+`exact.block.update` (the `addmm_` loop) and `exact.block.factor` (the
+square's `cholesky_ex` through its info read, then the row solves).
 """
 
 import torch
+
+from nngp_tpu_torch.utils.profiling import span
 
 
 class FactorError(FloatingPointError):
@@ -268,15 +278,21 @@ def fused_panel_cholesky(panel_fn, n: int, dtype, block_size: int = 512,
                 raise FactorError("fit", s + info, n, dtype)
         return l
     blocks = []
-    for s, e in zip(starts, starts[1:]):
-        col = torch.empty((n - s, e - s), dtype=dtype, device=device)
-        panel_fn(s, e, col)
-        for js, blk in zip(starts, blocks):
-            col.addmm_(blk[s - js:], blk[s - js:e - js].mT, alpha=-1)
-        info = _factor_panel(col)
-        if info:
-            blocks = col = None
-            raise FactorError("fit", s + info, n, dtype)
+    for k, (s, e) in enumerate(zip(starts, starts[1:])):
+        with span("exact.block", block=k, rows=n - s, width=e - s,
+                  updates=k, solves=len(range(e - s, n - s, _PANEL_ROWS))):
+            col = torch.empty((n - s, e - s), dtype=dtype, device=device)
+            with span("exact.block.gram"):
+                panel_fn(s, e, col)
+            with span("exact.block.update"):
+                for js, blk in zip(starts, blocks):
+                    col.addmm_(blk[s - js:], blk[s - js:e - js].mT,
+                               alpha=-1)
+            with span("exact.block.factor"):
+                info = _factor_panel(col)
+            if info:
+                blocks = col = None
+                raise FactorError("fit", s + info, n, dtype)
         blocks.append(col)
     bf = BlockLowerTriangular(blocks, starts, n)
     return bf if layout == "blocks" else bf.to_dense()

@@ -59,13 +59,18 @@ def test_a_fit_spans_its_stages(layout, monkeypatch):
     assert post.num_train == 100
     (fit,) = [s for s in spans if s.name == "exact.fit"]
     assert fit.parent == 0
+    # a column-block fit counts its blocks (100 rows in blocks of 32) and
+    # their storage, and spans each block and its steps under exact.factor
+    counts = ({"blocks": 4, "factor_bytes": 8 * sum(
+        (100 - s) * (min(s + 32, 100) - s) for s in range(0, 100, 32))}
+        if layout == "blocks" else {})
     assert fit.attrs == {"rows": 100, "pad_to": kw.get("pad_to"),
                          "layout": layout, "dtype": "float64",
-                         "get": "nngp"}
+                         "get": "nngp", **counts}
     children = sorted((s for s in spans if s.parent == fit.id),
                       key=lambda s: s.t0)
     assert [s.name for s in children] == STAGES[layout]
-    assert len(spans) == len(children) + 1
+    assert len(spans) == len(children) + 1 + 4 * counts.get("blocks", 0)
     assert all(fit.t0 <= s.t0 <= s.t1 <= fit.t1 for s in children)
     assert all(a.t1 <= b.t0 for a, b in zip(children, children[1:]))
     storage = kw.get("pad_to", 100)
