@@ -13,13 +13,16 @@ exact tier).
 K is the NNGP kernel, T (Theta) the NTK, and T^-1 abbreviates
 (T_tt + r I)^-1.
 
-Fit, dense layout (n up to `dense_exact_max_n`): `gram_sym` builds the
-ridged solve Gram (exact diagonal + r fused in, both triangles written),
-`torch.linalg.cholesky` factors it (cuSOLVER on CUDA) and two
-`torch.linalg.solve_triangular` calls give alpha. Predict: `gram_cross`
-gives K_*t; the solves are cuBLAS trsm. Extend: `gram_cross` gives K21 and
-`gram_sym` K22, and `ops.linalg.cholesky_append_rows` appends them to the
-factor. A factor that fails (fit or extend) raises `ops.linalg.FactorError`.
+Fit, dense layout (n up to `dense_exact_max_n`): `gram_sym` writes the
+ridged solve Gram (exact diagonal + r fused in, both triangles written)
+into the factor's own (n, n) storage, column-major, which is factored
+there in place (`_factor_block_`: cuSOLVER's potrf on the card,
+`ops.cusolver.potrf_lower_`; `torch.linalg.cholesky_ex` and a copy back on
+the CPU), and two triangular solves on it give alpha. Predict:
+`gram_cross` gives K_*t; the solves are cuBLAS trsm. Extend: `gram_cross`
+gives K21 and `gram_sym` K22, and `ops.linalg.cholesky_append_rows`
+appends them to the factor. A factor that fails (fit or extend) raises
+`ops.linalg.FactorError`.
 
 Fit, column-block layout (above the dense cap; the JAX package's large-n
 path): the factor is an `ops.linalg.BlockLowerTriangular` of panels
@@ -36,9 +39,9 @@ checkpoints read the blocks.
 Padded posteriors (`fit_gp(pad_to=)`, as in the JAX package): the storage
 holds pad_to rows, the real ones first, then inert rows (copies of row 0,
 zero label, a unit row of the factor, masked out of every cross Gram). The
-fit builds, factors and solves the n real rows only, as the dense layout
-does, and writes the factor into the padded storage with the pad's unit
-rows beside it, since the padded Gram's factor is block diagonal. A
+fit writes the pad's unit rows into the (pad_to, pad_to) storage, then
+builds, factors and solves the n real rows in its leading block, as the
+dense layout does (the padded Gram's factor is block diagonal). A
 predict reads the live prefix of the storage only (`live_rows`: the real
 rows rounded up to LIVE_STEP), its factor block in place. `extend`
 writes new rows into the pad slots in place
@@ -53,10 +56,11 @@ is `exact.fit` (rows, pad_to, layout 'dense' / 'padded' / 'blocks',
 dtype, get) around `exact.prepare` (the input-scale probe, the copy to
 the device, the exact diagonal and the ridge; probe 'given', 'skipped',
 'host' or 'device'), `exact.gram` (dense and padded layouts: the Gram,
-the padding, the row mask), `exact.factor` (the Cholesky up to its info
-sync, of factor_rows = n rows in every layout; the whole column-block
-factor) and `exact.solve` (alpha's two triangular solves; padded: the
-factor and alpha written into their padded storage). A column-block fit
+the factor's storage and its pad rows, the padding, the row mask),
+`exact.factor` (the Cholesky up to its info sync, of factor_rows = n rows
+in every layout, in_place True where cuSOLVER factored the storage itself;
+the whole column-block factor) and `exact.solve` (alpha's two triangular
+solves; padded: alpha written into its padded storage). A column-block fit
 adds the counts blocks and factor_bytes (the blocks' storage) to
 `exact.fit` and one `exact.block` a block, with its gram, update and
 factor steps, under `exact.factor` (`ops.linalg.fused_panel_cholesky`).
@@ -71,7 +75,8 @@ import torch
 
 from nngp_tpu_torch.models.kernel_spec import (KernelSpec, diag_eval,
                                                is_scale_equivariant)
-from nngp_tpu_torch.ops.cublas import trsm_lower
+from nngp_tpu_torch.ops.cublas import trsm_lower, trsm_lower_t
+from nngp_tpu_torch.ops.cusolver import potrf_lower_
 from nngp_tpu_torch.ops.gram import panel_symm_matmul
 from nngp_tpu_torch.ops.gram_cuda import gram_cross, gram_sym
 from nngp_tpu_torch.ops.linalg import (BlockLowerTriangular, FactorError,
@@ -187,14 +192,14 @@ def _tri_solve(l, b, transpose=False):
     dtype by block substitution, L converted a bounded slice at a time:
     no (n, n) fp64 copy. Column blocks are always solved so, in place.
     A dense L may be the leading block of a larger factor (a padded
-    posterior's live prefix, `live_rows`): on the card L^-1 b reads it in
-    place (`ops.cublas.trsm_lower`), where `torch.linalg.solve_triangular`
-    would copy it first."""
+    posterior's live prefix, `live_rows`, or its fit's real rows): on the
+    card both solves read it in place (`ops.cublas.trsm_lower(_t)`), where
+    `torch.linalg.solve_triangular` would copy it first."""
     if isinstance(l, torch.Tensor) and b.dtype == l.dtype:
+        if l.is_cuda and not (l.is_contiguous() or l.mT.is_contiguous()):
+            return (trsm_lower_t if transpose else trsm_lower)(l, b)
         if transpose:
             return torch.linalg.solve_triangular(l.mT, b, upper=True)
-        if l.is_cuda and not (l.is_contiguous() or l.mT.is_contiguous()):
-            return trsm_lower(l, b)
         return torch.linalg.solve_triangular(l, b, upper=False)
     if isinstance(l, torch.Tensor):
         l = column_blocks(l, _WIDE_BLOCK)
@@ -675,9 +680,10 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
     n real and pad_to - n inert (copies of row 0, zero labels, unit factor
     rows, masked out of every cross Gram), that `extend` fills in place.
     The ridge is relative to the real rows' diagonal; the Gram, the
-    factor and alpha's solves cover the n real rows, and the pad's unit
-    factor rows and zero alpha rows are written beside them. At most
-    `dense_exact_max_n` of the device, dtype and kernel.
+    factor and alpha's solves cover the n real rows, in the leading block
+    of the factor's storage, and the pad's unit factor rows and zero
+    alpha rows are written beside them. At most `dense_exact_max_n` of
+    the device, dtype and kernel.
 
     Above `dense_exact_max_n` (unpadded) the factor is column blocks, and
     an NTK posterior keeps no train NNGP Gram (module docstring).
@@ -751,24 +757,29 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
                 b.numel() * b.element_size() for b in l.blocks))
         else:
             # padded or not, the Gram, the factor and the solves cover the
-            # n real rows: the inert-padded Gram is [K + rI, 0; 0, I], whose
-            # factor [L, 0; 0, I] is written into its storage afterwards
+            # n real rows, in the leading block of the factor's storage:
+            # the inert-padded Gram is [K + rI, 0; 0, I], whose factor
+            # [L, 0; 0, I] keeps the pad's exact zeros and unit diagonal.
+            # The Gram is symmetric: its rows, written p apart into the
+            # column-major storage's transpose, are the storage's columns.
             with span("exact.gram", rows=n, storage_rows=storage):
+                l = _factor_storage(x, n, storage)
                 if get == "nngp":
-                    solve_k = gram_sym(spec, x, "nngp", diag_add=reg,
-                                       diag=diag)
+                    gram_sym(spec, x, "nngp", diag_add=reg, diag=diag,
+                             out=l.mT[:n, :n])
                 else:
-                    k_tt_nngp, solve_k = gram_sym(spec, x, ("nngp", "ntk"),
-                                                  diag_add=reg, diag=diag)
+                    k_tt_nngp = x.new_empty((n, n))
+                    gram_sym(spec, x, ("nngp", "ntk"), diag_add=reg,
+                             diag=diag, out=(k_tt_nngp, l.mT[:n, :n]))
                 if layout == "padded":
                     x = torch.cat([x, x[:1].expand(pad_to - n, -1)])
                     y = torch.cat([y, y.new_zeros((pad_to - n, y.shape[1]))])
                     row_mask = x.new_zeros(pad_to)
                     row_mask[:n] = 1.0
             with span("exact.factor", rows=n, storage_rows=storage,
-                      factor_rows=n, layout=layout):
-                l, info = torch.linalg.cholesky_ex(solve_k)
-                del solve_k
+                      factor_rows=n, layout=layout) as factor_span:
+                info, in_place = _factor_block_(l[:n, :n])
+                factor_span.set(in_place=in_place)
                 if int(info):
                     # the traceback keeps this frame alive: drop the n x n
                     # tensors first, so that a caller's fallback fit has
@@ -776,9 +787,9 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
                     del l, k_tt_nngp
                     raise FactorError("fit", int(info), n, x.dtype, diag_reg)
         with span("exact.solve", rows=n):
-            alpha = _tri_solve(l, _tri_solve(l, y[:n]), transpose=True)
+            real = l if layout == "blocks" else l[:n, :n]
+            alpha = _tri_solve(real, _tri_solve(real, y[:n]), transpose=True)
             if layout == "padded":
-                l = _padded_factor(l, pad_to)
                 alpha = torch.cat(
                     [alpha, alpha.new_zeros((pad_to - n, alpha.shape[1]))])
         return GPPosterior(
@@ -788,17 +799,32 @@ def fit_gp(spec: KernelSpec, x_train, y_train, diag_reg: float = 1e-3,
             n_real=None if pad_to is None else n, row_mask=row_mask)
 
 
-def _padded_factor(l: torch.Tensor, pad_to: int) -> torch.Tensor:
-    """[L, 0; 0, I] of order pad_to, for the factor L of the n real rows:
-    the factor of the inert-padded Gram [K + rI, 0; 0, I], written (exact
-    zeros, a unit diagonal), not computed."""
-    n = l.shape[0]
-    out = l.new_empty((pad_to, pad_to))
-    out[:n, :n] = l
+def _factor_storage(x: torch.Tensor, n: int, p: int) -> torch.Tensor:
+    """The (p, p) storage of the factor [L, 0; 0, I] of n real rows, in
+    x's dtype and on its device, column-major (cuSOLVER's order, in which
+    `potrf_lower_` factors in place): the pad's exact zeros and unit
+    diagonal written, the leading (n, n) block left for the Gram and its
+    factor."""
+    out = x.new_empty((p, p)).mT
     out[:n, n:] = 0.0
     out[n:] = 0.0
     out.diagonal()[n:] = 1.0
     return out
+
+
+def _factor_block_(a: torch.Tensor):
+    """Factor the ridged Gram `a`, the leading block of the factor's
+    storage, in place into its lower Cholesky factor, the strict upper
+    triangle zeroed: (info, in_place). info: 0, or the 1-based order of
+    the leading minor that is not positive definite, a tensor not read
+    here. in_place: True on the card, where cuSOLVER factors the storage
+    itself (`ops.cusolver.potrf_lower_`); False on the CPU, where
+    `torch.linalg.cholesky_ex` factors a copy that is written back."""
+    if a.is_cuda:
+        return potrf_lower_(a), True
+    l, info = torch.linalg.cholesky_ex(a)
+    a.copy_(l)
+    return info, False
 
 
 def _block_factor(spec: KernelSpec, x, reg, diag, get: str

@@ -1,6 +1,7 @@
 """cuBLAS's triangular solve on PyTorch's own handle, for a factor read in
-place: the leading (k, k) block of a row-major (p, p) factor, a view whose
-rows lie p elements apart.
+place: the leading (k, k) block of a (p, p) factor, a view whose columns
+(the exact fit's column-major storage) or rows lie p elements apart,
+solved with L (`trsm_lower`) or L^T (`trsm_lower_t`).
 
 `torch.linalg.solve_triangular` takes a matrix whose rows or columns are
 contiguous, and copies any other view into a new (k, k) tensor before it
@@ -8,11 +9,12 @@ calls cuBLAS; cuBLAS itself takes any leading dimension. At the padded
 exact predict's live order (`gp.posterior.live_rows`: 11,008 of 14,896
 rows in fp64 on synth6) that copy would be ~1 GB a predict, and a k^2
 buffer in every serving bucket's CUDA graph pool. `trsm_lower` hands
-cuBLAS the view's own rows instead (lda = p).
+cuBLAS the view's own memory instead (lda = p).
 
 The library is the libcublas that PyTorch has loaded, found in the
-process's mappings and opened with RTLD_NOLOAD, so that no second copy is
-ever loaded; the handle is PyTorch's current one
+process's mappings and opened with RTLD_NOLOAD (`mapped_library`, which
+`ops/cusolver.py` shares), so that no second copy is ever loaded; the
+handle is PyTorch's current one
 (`torch.cuda.current_blas_handle()`), which carries the current stream, a
 graph capture's included, and PyTorch's capture-safe workspace. Nothing
 here runs until the first call on a CUDA tensor.
@@ -45,27 +47,29 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _loaded_cublas() -> str:
-    """The path of the libcublas mapped into this process (PyTorch's)."""
+def mapped_library(stem: str) -> ctypes.CDLL:
+    """The library `stem` ('libcublas', 'libcusolver') that PyTorch has
+    mapped into this process, found in the process's mappings and opened
+    with RTLD_NOLOAD: never a second copy. RuntimeError where none is
+    mapped."""
     with open("/proc/self/maps") as f:
         paths = {parts[5].strip() for parts in
                  (line.split(maxsplit=5) for line in f) if len(parts) == 6}
     found = sorted(p for p in paths
-                   if os.path.basename(p).startswith("libcublas.so"))
+                   if os.path.basename(p).startswith(stem + ".so"))
     if not found:
         raise RuntimeError(
-            "no libcublas is mapped into this process: PyTorch's CUDA "
-            "build links cuBLAS statically or has not loaded it, and "
-            "trsm_lower calls the copy PyTorch uses, never a second one")
-    return found[0]
+            f"no {stem} is mapped into this process: PyTorch's CUDA build "
+            "links it statically or has not loaded it, and this module "
+            "calls the copy PyTorch uses, never a second one")
+    return ctypes.CDLL(found[0], mode=os.RTLD_NOLOAD | os.RTLD_LAZY)
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(_loaded_cublas(),
-                              mode=os.RTLD_NOLOAD | os.RTLD_LAZY)
+            lib = mapped_library("libcublas")
             for name, _ in _TRSM.values():
                 fn = getattr(lib, name)
                 fn.argtypes = _TRSM_ARGTYPES
@@ -89,6 +93,15 @@ def trsm_lower(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     or fp64: a new (k, m) tensor, column-major, as
     `torch.linalg.solve_triangular` returns it. Only L's lower triangle is
     read. Enqueued on the current stream; b is not modified."""
+    return _trsm(l, b, transpose=False)
+
+
+def trsm_lower_t(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """L^-T b, as `trsm_lower` solves L^-1 b: the same L, read in place."""
+    return _trsm(l, b, transpose=True)
+
+
+def _trsm(l, b, transpose):
     k = l.shape[0]
     if l.dim() != 2 or l.shape[1] != k or l.device.type != "cuda" \
             or l.dtype not in _TRSM:
@@ -103,6 +116,8 @@ def trsm_lower(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(f"trsm_lower reads L in place: its rows or columns "
                          f"must be contiguous, got strides {l.stride()}")
+    if transpose:                   # op(A) = L^T
+        trans = _OP_T if trans == _OP_N else _OP_N
     if b.dim() != 2 or b.shape[0] != k or b.dtype != l.dtype \
             or b.device != l.device:
         raise ValueError(f"b must be ({k}, m) {l.dtype} on {l.device}, got "

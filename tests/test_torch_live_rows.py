@@ -71,7 +71,7 @@ def test_live_rows_of_a_column_block_posterior(monkeypatch):
 def test_the_predict_reads_the_live_prefix_and_no_copy(layout, monkeypatch):
     """Dense and column-block posteriors hand the kernels and the solve
     their own tensors; a padded one views the leading k = live_rows rows
-    of its storage (the same memory, the factor's rows p apart)."""
+    of its storage (the same memory, the factor's columns p apart)."""
     if layout == "blocks":
         monkeypatch.setattr(TP, "_BLOCK_LAYOUT_MIN_N", 100)
     x, y, xt = _data(300)
@@ -96,7 +96,7 @@ def test_the_predict_reads_the_live_prefix_and_no_copy(layout, monkeypatch):
     k, p = 512, 1100
     assert seen["x_train"].shape == (k, 5)
     assert seen["x_train"].data_ptr() == post.x_train.data_ptr()
-    assert seen["l"].shape == (k, k) and seen["l"].stride() == (p, 1)
+    assert seen["l"].shape == (k, k) and seen["l"].stride() == (1, p)
     assert seen["l"].data_ptr() == post.l.data_ptr()
 
 
